@@ -1,0 +1,185 @@
+"""L0 — configuration and CLI of the port's solo run.
+
+The reference CLI (ref: G2Vec.py:505-518): four positional arguments plus
+``-p/-r/-s/-e/-l/-n`` with the same defaults, and the framework flags the
+full-batch solo run reads. Defaults and validation are those of
+``g2vec_tpu/config.py``; ``--device`` is the port's own (``cuda`` unless
+the caller asks for ``cpu``).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class G2VecConfig:
+    """Configuration of one solo run of the port.
+
+    Reference-compatible options keep the reference's camelCase names.
+    """
+
+    # ---- positional (ref: G2Vec.py:508-511) ----
+    expression_file: str = ""
+    clinical_file: str = ""
+    network_file: str = ""
+    result_name: str = "result"
+
+    # ---- reference options (ref: G2Vec.py:512-517) ----
+    lenPath: int = 80                # max random-walk length
+    numRepetition: int = 10          # walks started from every gene, per group
+    sizeHiddenlayer: int = 128       # embedding width
+    epoch: int = 500                 # max epochs (honored, unlike the reference)
+    learningRate: float = 0.005      # Adam lr
+    numBiomarker: int = 50           # top-N per L-group
+
+    # ---- silent constants promoted to config ----
+    pcc_threshold: float = 0.5       # edge kept iff |PCC| > threshold (ref: G2Vec.py:389)
+    val_fraction: float = 0.2        # hold-out fraction (ref: G2Vec.py:220)
+    display_step: int = 5            # epoch log cadence (ref: G2Vec.py:254)
+    n_lgroups: int = 3               # k-means k (ref: G2Vec.py:169)
+    kmeans_seed: int = 0             # ref: random_state=0 (G2Vec.py:169)
+    kmeans_iters: int = 300          # Lloyd iterations (sklearn's cap)
+    decision_threshold: float = 0.5  # sigmoid(O) > t (ref: G2Vec.py:249)
+    score_mix: float = 0.5           # gene score = mix*d + (1-mix)*t (ref: G2Vec.py:102)
+
+    # ---- framework flags ----
+    seed: int = 0                    # walk seed (the reference is unseeded)
+    train_seed: Optional[int] = None  # split/init seed; None = seed
+    compat_lgroup_tiebreak: bool = False
+    compute_dtype: str = "bfloat16"  # bf16 runs the packed kernels; float32
+                                     # runs the dense torch.matmul path
+    param_dtype: str = "float32"
+    sampler_threads: int = 0         # host threads of the C++ sampler
+                                     # (0 = all cores; walks are identical
+                                     # at any count)
+    device: str = "cuda"             # cuda unless the caller asks for cpu
+
+    def validate(self) -> None:
+        if self.lenPath < 1:
+            raise ValueError(f"lenPath must be >= 1, got {self.lenPath}")
+        if self.numRepetition < 1:
+            raise ValueError(f"numRepetition must be >= 1, got {self.numRepetition}")
+        if self.sizeHiddenlayer < 1:
+            raise ValueError(f"sizeHiddenlayer must be >= 1, got {self.sizeHiddenlayer}")
+        if self.epoch < 1:
+            raise ValueError(f"epoch must be >= 1, got {self.epoch}")
+        if self.learningRate <= 0.0:
+            raise ValueError(f"learningRate must be > 0, got {self.learningRate}")
+        if self.numBiomarker < 1:
+            raise ValueError(f"numBiomarker must be >= 1, got {self.numBiomarker}")
+        if self.n_lgroups < 3:
+            raise ValueError(
+                f"n_lgroups must be >= 3 (good/poor/other), got {self.n_lgroups}")
+        if self.display_step < 1:
+            raise ValueError(f"display_step must be >= 1, got {self.display_step}")
+        if not (0.0 < self.decision_threshold < 1.0):
+            raise ValueError(
+                f"decision_threshold must be in (0,1), got {self.decision_threshold}")
+        if not (0.0 < self.val_fraction < 1.0):
+            raise ValueError(f"val_fraction must be in (0,1), got {self.val_fraction}")
+        if not (0.0 <= self.pcc_threshold < 1.0):
+            raise ValueError(f"pcc_threshold must be in [0,1), got {self.pcc_threshold}")
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"compute_dtype must be bfloat16|float32, got {self.compute_dtype}")
+        if self.param_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"param_dtype must be bfloat16|float32, got {self.param_dtype}")
+        if self.sampler_threads < 0:
+            raise ValueError(
+                f"sampler_threads must be >= 0 (0 = all cores), "
+                f"got {self.sampler_threads}")
+        if self.device.split(":")[0] not in ("cuda", "cpu"):
+            raise ValueError(f"device must be cuda[:N] or cpu, got {self.device}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """CLI mirroring the reference parser (ref: G2Vec.py:505-518)."""
+    from g2vec_tpu_torch import __version__
+
+    parser = argparse.ArgumentParser(
+        prog="g2vec-tpu-torch",
+        description=(
+            "g2vec_tpu_torch: the PyTorch/CUDA port of g2vec_tpu, a "
+            "network-based deep learning framework for identifying "
+            "prognostic gene signatures (biomarkers). Reference "
+            "capabilities: mathcom/G2Vec (Sci. Reports 8.1, 2018)."),
+    )
+    parser.add_argument("EXPRESSION_FILE", type=str,
+                        help="Tab-delimited file for gene expression profiles.")
+    parser.add_argument("CLINICAL_FILE", type=str,
+                        help="Tab-delimited file for patient's clinical data. "
+                             "LABEL=0:good prognosis and 1:poor prognosis.")
+    parser.add_argument("NETWORK_FILE", type=str,
+                        help="Tab-delimited file for gene interaction network.")
+    parser.add_argument("RESULT_NAME", type=str,
+                        help="Results are saved as 1) *_biomarkers.txt, "
+                             "2) *_lgroups.txt, and 3) *_vectors.txt")
+    parser.add_argument("-p", "--lenPath", type=int, default=80)
+    parser.add_argument("-r", "--numRepetition", type=int, default=10)
+    parser.add_argument("-s", "--sizeHiddenlayer", type=int, default=128)
+    parser.add_argument("-e", "--epoch", type=int, default=500)
+    parser.add_argument("-l", "--learningRate", type=float, default=0.005)
+    parser.add_argument("-n", "--numBiomarker", type=int, default=50)
+    parser.add_argument("--version", action="version",
+                        version=f"%(prog)s {__version__}")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="Walk seed (the reference is unseeded).")
+    parser.add_argument("--train-seed", type=int, default=None,
+                        help="Trainer split/init seed (default: --seed).")
+    parser.add_argument("--kmeans-seed", type=int, default=0,
+                        help="Stage-5 k-means seed (ref: random_state=0).")
+    parser.add_argument("--kmeans-iters", type=int, default=300,
+                        help="Lloyd iterations per k-means restart.")
+    parser.add_argument("--pcc-threshold", type=float, default=0.5)
+    parser.add_argument("--val-fraction", type=float, default=0.2)
+    parser.add_argument("--decision-threshold", type=float, default=0.5)
+    parser.add_argument("--display-step", type=int, default=5)
+    parser.add_argument("--n-lgroups", type=int, default=3)
+    parser.add_argument("--compat-lgroup-tiebreak", action="store_true",
+                        help="Reproduce the reference's degenerate L-group vote.")
+    parser.add_argument("--score-mix", type=float, default=0.5)
+    parser.add_argument("--compute-dtype", type=str, default="bfloat16",
+                        choices=["bfloat16", "float32"])
+    parser.add_argument("--param-dtype", type=str, default="float32",
+                        choices=["bfloat16", "float32"])
+    parser.add_argument("--sampler-threads", type=int, default=0,
+                        help="Host threads of the C++ walk sampler (0 = all "
+                             "cores); walks are bit-identical at any count.")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu. Without a card, a cuda "
+                             "run raises instead of falling back.")
+    return parser
+
+
+def config_from_args(argv=None) -> G2VecConfig:
+    args = build_parser().parse_args(argv)
+    cfg = G2VecConfig(
+        expression_file=args.EXPRESSION_FILE,
+        clinical_file=args.CLINICAL_FILE,
+        network_file=args.NETWORK_FILE,
+        result_name=args.RESULT_NAME,
+        lenPath=args.lenPath,
+        numRepetition=args.numRepetition,
+        sizeHiddenlayer=args.sizeHiddenlayer,
+        epoch=args.epoch,
+        learningRate=args.learningRate,
+        numBiomarker=args.numBiomarker,
+        pcc_threshold=args.pcc_threshold,
+        val_fraction=args.val_fraction,
+        display_step=args.display_step,
+        n_lgroups=args.n_lgroups,
+        kmeans_seed=args.kmeans_seed,
+        kmeans_iters=args.kmeans_iters,
+        decision_threshold=args.decision_threshold,
+        score_mix=args.score_mix,
+        seed=args.seed,
+        train_seed=args.train_seed,
+        compat_lgroup_tiebreak=args.compat_lgroup_tiebreak,
+        compute_dtype=args.compute_dtype,
+        param_dtype=args.param_dtype,
+        sampler_threads=args.sampler_threads,
+        device=args.device,
+    )
+    cfg.validate()
+    return cfg

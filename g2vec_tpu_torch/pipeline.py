@@ -1,0 +1,224 @@
+"""The seven-stage solo run of the port.
+
+Drives L0-L6 in the reference's order (ref: main, G2Vec.py:11-120) with
+the reference's console transcript (README.md:21-49) — the same lines as
+``g2vec_tpu/pipeline.py``'s full-batch branch: stage banners ``>>> N.
+...``, the indented preprocessing counts, the epoch log cadence and the
+saved-file listing. Stages 3 (edge weights), 4 (trainer, on the packed
+Hopper kernels in bf16) and 5-6 (k-means, scores) run on ``cfg.device``;
+the walks run on the host's C++ sampler; the embedding stays on the device
+from the trainer through stage 6.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from g2vec_tpu_torch.config import G2VecConfig
+from g2vec_tpu_torch.device import resolve_device
+from g2vec_tpu_torch.io.readers import (load_clinical, load_expression,
+                                        load_network)
+from g2vec_tpu_torch.preprocess import (edges_to_indices, find_common_genes,
+                                        make_gene2idx, match_labels,
+                                        restrict_data, restrict_network)
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    genes: np.ndarray            # [G] str — global sorted-intersection order
+    embeddings: np.ndarray       # [G, hidden] float32
+    lgroup_idx: np.ndarray       # [G] int32 in {0 good, 1 poor, 2 other}
+    biomarkers: List[str]
+    output_files: List[str]
+    n_samples: int = 0
+    n_genes: int = 0
+    n_edges: int = 0
+    n_paths: int = 0
+    n_path_genes: int = 0
+    train_history: List[dict] = dataclasses.field(default_factory=list)
+    stop_epoch: int = 0
+    acc_val: float = 0.0
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    device: str = ""
+    paths: Optional[np.ndarray] = None   # [n_paths, ceil(G/8)] uint8 stage-3 rows
+    labels: Optional[np.ndarray] = None  # [n_paths] 0 good / 1 poor
+
+
+class _EpochReporter:
+    """The reference's epoch log cadence (ref: G2Vec.py:269-278): a line
+    whenever ``step % display_step == 0`` with the wall time since the
+    previous printed line; on early stop ``Epoch(stop)`` reports the
+    PREVIOUS epoch's accuracies."""
+
+    def __init__(self, console: Callable[[str], None], display_step: int):
+        self.console = console
+        self.display_step = display_step
+        self.block_secs = 0.0
+
+    def on_epoch(self, step: int, acc_val: float, acc_tr: float, secs: float) -> None:
+        self.block_secs += secs
+        if step % self.display_step == 0:
+            self.console("    - Epoch: %03d\tACC[val]=%.4f\tACC[tr]=%.4f (%.3f sec)"
+                         % (step, acc_val, acc_tr, self.block_secs))
+            self.block_secs = 0.0
+
+    def on_stop(self, stop_epoch: int, acc_val: float, acc_tr: float) -> None:
+        self.console("    - Epoch(stop): %03d\tACC[val]=%.4f\tACC[tr]=%.4f (%.3f sec)"
+                     % (stop_epoch, acc_val, acc_tr, self.block_secs))
+
+
+def read_inputs(cfg: G2VecConfig):
+    """Stage 1: the expression, clinical and network files."""
+    return (load_expression(cfg.expression_file),
+            load_clinical(cfg.clinical_file), load_network(cfg.network_file))
+
+
+def preprocess_inputs(data, clinical, network):
+    """Stage 2: labels matched to samples, both inputs restricted to the
+    common genes; returns ``(data, src, dst)`` with the edges as indices
+    into ``data.gene``."""
+    data.label = match_labels(clinical, data.sample)
+    common = find_common_genes(network.genes, data.gene)
+    network = restrict_network(network, common)
+    data = restrict_data(data, common)
+    src, dst = edges_to_indices(network, make_gene2idx(data.gene))
+    return data, src, dst
+
+
+def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
+        init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+        kmeans_centers0: Optional[np.ndarray] = None) -> PipelineResult:
+    """Execute the full pipeline; returns all artifacts plus run stats.
+
+    ``init = (w_ih [G, H], w_ho [H, 1])`` replaces the trainer's seeded
+    draw and ``kmeans_centers0 [10, k, H]`` the k-means++ draws; the tests
+    inject the same values into the JAX package's stage functions.
+    """
+    from g2vec_tpu_torch.analysis import (biomarker_scores, find_lgroups,
+                                          freq_index, top_biomarkers)
+    from g2vec_tpu_torch.io.writers import (write_biomarkers, write_lgroups,
+                                            write_vectors)
+    from g2vec_tpu_torch.ops.graph import thresholded_edges
+    from g2vec_tpu_torch.ops.host_walker import (generate_path_set_native,
+                                                 resolve_sampler_threads)
+    from g2vec_tpu_torch.ops.paths import count_gene_freq, integrate_path_sets
+    from g2vec_tpu_torch.train.trainer import train_cbow
+    from g2vec_tpu_torch.weights import params_from_jax
+
+    cfg.validate()
+    dev = resolve_device(cfg.device)
+    stage_seconds: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def stage(name: str):
+        t0 = time.perf_counter()
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stage_seconds[name] = time.perf_counter() - t0
+
+    console(">>> 0. Arguments")
+    console(str(cfg))
+
+    console(">>> 1. Load data")
+    with stage("load"):
+        inputs = read_inputs(cfg)
+
+    console(">>> 2. Preprocess data")
+    with stage("preprocess"):
+        data, src, dst = preprocess_inputs(*inputs)
+    n_samples, n_genes = data.expr.shape
+    n_edges = len(src)
+    console("    n_samples: %d" % n_samples)
+    console("    n_genes  : %d\t(common genes in both EXPRESSION and NETWORK)" % n_genes)
+    console("    n_edges  : %d\t(edges with the common genes)" % n_edges)
+
+    console(">>> 3. Generate random paths from each group")
+    console("    *** most time consuming step ***")
+    sampler_threads = resolve_sampler_threads(cfg.sampler_threads)
+    console(f"    [sampler] native C++ CSR sampler, "
+            f"{sampler_threads} host thread(s)")
+    with stage("paths"):
+        path_sets = []
+        for i in range(2):
+            s_k, d_k, w_k = thresholded_edges(
+                data.expr[data.label == i], src, dst,
+                threshold=cfg.pcc_threshold, device=dev)
+            path_sets.append(generate_path_set_native(
+                s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
+                reps=cfg.numRepetition, seed=(cfg.seed << 1) | i,
+                n_threads=sampler_threads))
+        paths, labels = integrate_path_sets(path_sets[0], path_sets[1],
+                                            n_genes)
+        gene_freq = count_gene_freq(paths, labels, data.gene)
+    n_paths = paths.shape[0]
+    if n_paths < 2:
+        raise ValueError(
+            "fewer than 2 distinct group-specific paths were generated — "
+            "the |PCC| > %.2f graphs are too sparse for this dataset; try "
+            "lowering --pcc-threshold or raising -r/--numRepetition"
+            % cfg.pcc_threshold)
+    console("    n_paths : %d" % n_paths)
+    console("    n_genes : %d\t(genes in good or poor random paths)" % len(gene_freq))
+
+    console(">>> 4. Compute distributed representations using modified CBOW")
+    console("     Start training the modified CBOW with early stopping")
+    reporter = _EpochReporter(console, cfg.display_step)
+    with stage("train"):
+        result = train_cbow(
+            paths, labels, n_genes=n_genes, hidden=cfg.sizeHiddenlayer,
+            learning_rate=cfg.learningRate, max_epochs=cfg.epoch,
+            val_fraction=cfg.val_fraction,
+            decision_threshold=cfg.decision_threshold,
+            compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
+            seed=(cfg.seed if cfg.train_seed is None else cfg.train_seed),
+            device=dev, on_epoch=reporter.on_epoch,
+            init=None if init is None else params_from_jax(*init))
+    if result.stopped_early:
+        reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)
+    console("    Optimization Finish")
+
+    console(">>> 5. Find L-groups")
+    emb = result.model.w_ih.detach().float()
+    with stage("lgroups"):
+        lgroup_dev, _ = find_lgroups(
+            emb, freq_index(data.gene, gene_freq),
+            generator=torch.Generator().manual_seed(cfg.kmeans_seed),
+            k=cfg.n_lgroups, compat_tiebreak=cfg.compat_lgroup_tiebreak,
+            iters=cfg.kmeans_iters, centers0=kmeans_centers0)
+
+    console(">>> 6. Select biomarkers with gene scores")
+    with stage("biomarkers"):
+        label = np.asarray(data.label)
+        scores2 = biomarker_scores(
+            emb,
+            torch.as_tensor(data.expr[label == 0], device=dev),
+            torch.as_tensor(data.expr[label == 1], device=dev),
+            lgroup_dev, cfg.score_mix).cpu().numpy()
+        lgroup_idx = lgroup_dev.cpu().numpy()
+        biomarkers, _ = top_biomarkers(scores2, lgroup_idx, data.gene,
+                                       cfg.numBiomarker)
+
+    console(">>> 7. Save results")
+    with stage("save"):
+        outputs = [
+            write_biomarkers(cfg.result_name, biomarkers),
+            write_lgroups(cfg.result_name, lgroup_idx, data.gene),
+            write_vectors(cfg.result_name, result.w_ih, data.gene),
+        ]
+    for path in outputs:
+        console("    %s" % path)
+
+    return PipelineResult(
+        genes=data.gene, embeddings=result.w_ih, lgroup_idx=lgroup_idx,
+        biomarkers=biomarkers, output_files=outputs, n_samples=n_samples,
+        n_genes=n_genes, n_edges=n_edges, n_paths=n_paths,
+        n_path_genes=len(gene_freq), train_history=result.history,
+        stop_epoch=result.stop_epoch, acc_val=result.acc_val,
+        stage_seconds=stage_seconds, device=str(dev), paths=paths,
+        labels=labels)

@@ -1,0 +1,134 @@
+"""The port's packed matmul (plain CPU path) against the JAX Pallas kernels.
+
+The JAX side runs ``g2vec_tpu.ops.packed_matmul.packed_matmul`` in
+interpret mode on ``pack_blockwise`` of the same dense 0/1 matrix; the
+port gets ``np.packbits`` of it. Tolerances:
+
+- forward: rtol 1e-5, atol 1e-5 — f32 sums of the same bf16 values, taken
+  in a different order;
+- gradient with W in f32: rtol 1e-5, no atol (same reason);
+- gradient with W in bf16 (as the trainer passes it): both sides round dW
+  to bf16, so one bf16 ulp of difference is allowed per element.
+
+The card-side comparison of the CUDA kernels with these plain versions is
+in tests/test_torch_cuda.py and chip_smoke.py.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from g2vec_tpu.ops import packed_matmul as jpm
+from g2vec_tpu_torch.ops import packed_matmul as tpm
+
+pytestmark = pytest.mark.torch
+
+M, G, H = 512, 1024, 128
+
+
+def _inputs(rng, m, g, h, density=0.05):
+    x = (rng.random((m, g)) < density).astype(np.uint8)
+    w = (rng.standard_normal((g, h)) * 0.1).astype(np.float32)
+    return x, w
+
+
+def _bf16_ulp(a):
+    """One bf16 ulp at each element of ``a`` (8 significant bits)."""
+    a = np.abs(a.astype(np.float64))
+    exp = np.floor(np.log2(np.where(a > 0, a, 1.0)))
+    return np.where(a > 0, 2.0 ** (exp - 7), 0.0)
+
+
+def test_forward_matches_jax_pallas(rng):
+    x, w = _inputs(rng, M, G, H)
+    ref = np.asarray(jpm.packed_matmul(jnp.asarray(jpm.pack_blockwise(x)),
+                                       jnp.asarray(w), True))
+    out = tpm.packed_matmul(torch.from_numpy(np.packbits(x, axis=1)),
+                            torch.from_numpy(w))
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_gradient_matches_jax_pallas(rng, w_dtype):
+    x, w = _inputs(rng, M, G, H)
+    cot = rng.standard_normal((M, H)).astype(np.float32)
+    p = jnp.asarray(jpm.pack_blockwise(x))
+    jw = jnp.asarray(w).astype(jnp.dtype(w_dtype))
+    ref = jax.grad(lambda ww: jnp.sum(jpm.packed_matmul(p, ww, True)
+                                      * jnp.asarray(cot)))(jw)
+    tw = torch.from_numpy(w).to(getattr(torch, w_dtype)).requires_grad_()
+    out = tpm.packed_matmul(torch.from_numpy(np.packbits(x, axis=1)), tw)
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert tw.grad.dtype == tw.dtype
+    got = tw.grad.float().numpy()
+    want = np.asarray(ref.astype(jnp.float32))
+    if w_dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    else:
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want))
+
+
+def test_gradient_reaches_w_only_and_grad_rows(rng):
+    x, w = _inputs(rng, 96, 200, 16)
+    packed = torch.from_numpy(np.packbits(x, axis=1))
+    tw = torch.from_numpy(w).requires_grad_()
+    cot = torch.from_numpy(rng.standard_normal((96, 16)).astype(np.float32))
+    out = tpm.packed_matmul(packed, tw, grad_rows=40)
+    live = [f for f, _ in out.grad_fn.next_functions if f is not None]
+    assert len(live) == 1 and type(live[0]).__name__ == "AccumulateGrad"
+    (out * cot).sum().backward()
+    assert not packed.requires_grad and packed.grad is None
+    # Rows past grad_rows carry a cotangent but contribute nothing.
+    want = tpm.packed_matmul_bwd_plain(packed[:40], cot[:40], 200)
+    assert torch.equal(tw.grad, want)
+
+
+def test_ragged_shape_against_dense(rng):
+    m, g, h = 300, 1003, 20
+    x, w = _inputs(rng, m, g, h, density=0.03)
+    packed = torch.from_numpy(np.packbits(x, axis=1))
+    w16 = torch.from_numpy(w).bfloat16().float().numpy().astype(np.float64)
+    out = tpm.packed_matmul_fwd(packed, torch.from_numpy(w))
+    np.testing.assert_allclose(out.numpy(), x.astype(np.float64) @ w16,
+                               rtol=1e-5, atol=1e-5)
+    cot = rng.standard_normal((m, h)).astype(np.float32)
+    c16 = torch.from_numpy(cot).bfloat16().float().numpy().astype(np.float64)
+    dw = tpm.packed_matmul_bwd(packed, torch.from_numpy(cot), g)
+    np.testing.assert_allclose(dw.numpy(), x.T.astype(np.float64) @ c16,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_unpack_bits_is_packbits_order(rng):
+    x = (rng.random((7, 45)) < 0.3).astype(np.uint8)
+    got = tpm.unpack_bits(torch.from_numpy(np.packbits(x, axis=1)), 45,
+                          torch.uint8)
+    assert np.array_equal(got.numpy(), x)
+
+
+def test_wrappers_reject_what_no_kernel_takes(rng):
+    x, w = _inputs(rng, 8, 64, 8)
+    packed = torch.from_numpy(np.packbits(x, axis=1))
+    with pytest.raises(ValueError, match="uint8"):
+        tpm.packed_matmul_fwd(packed.int(), torch.from_numpy(w))
+    with pytest.raises(ValueError, match="width"):
+        tpm.packed_matmul_fwd(packed[:, :4], torch.from_numpy(w))
+    with pytest.raises(ValueError, match="g_out"):
+        tpm.packed_matmul_bwd(packed, torch.zeros(9, 8), 64)
+    # A tensor that is neither on the CPU nor on a card reaches no plain
+    # version: the wrapper raises instead.
+    with pytest.raises(ValueError, match="no kernel"):
+        tpm.packed_matmul_fwd(packed.to("meta"), torch.from_numpy(w).to("meta"))
+    with pytest.raises(ValueError, match="grad_rows"):
+        tpm.packed_matmul(packed, torch.from_numpy(w), grad_rows=9)
+
+
+def test_cpu_calls_do_not_count_as_kernel_launches(rng):
+    x, w = _inputs(rng, 8, 64, 8)
+    fwd0, bwd0 = tpm.packed_matmul_fwd.launches, tpm.packed_matmul_bwd.launches
+    packed = torch.from_numpy(np.packbits(x, axis=1))
+    tpm.packed_matmul_bwd(packed, tpm.packed_matmul_fwd(packed,
+                                                        torch.from_numpy(w)), 64)
+    assert (tpm.packed_matmul_fwd.launches,
+            tpm.packed_matmul_bwd.launches) == (fwd0, bwd0)

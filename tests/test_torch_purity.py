@@ -1,0 +1,117 @@
+"""The port stands alone: no JAX, nothing of g2vec_tpu, no CPU fallback.
+
+- By AST: no module of g2vec_tpu_torch/, and not chip_smoke.py, imports
+  jax, jaxlib, optax or g2vec_tpu.
+- At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
+  cpu``) runs a tiny spec end to end in a fresh interpreter, after which
+  neither jax nor any g2vec_tpu module is in ``sys.modules``.
+- Without ``--device cpu`` on a machine with no card, the entry points
+  raise instead of running on the CPU.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "optax", "g2vec_tpu"}
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirnames, filenames in os.walk(
+            os.path.join(ROOT, "g2vec_tpu_torch")):
+        dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
+        out += [os.path.join(dirpath, f) for f in sorted(filenames)
+                if f.endswith(".py")]
+    return out
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_jax_or_reference(path):
+    bad = [(ln, name) for ln, name in _imports(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+_CLI_SCRIPT = r"""
+import json, runpy, sys
+from g2vec_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_tsv
+out_dir = sys.argv[1]
+files = write_synthetic_tsv(SyntheticSpec(
+    n_good=12, n_poor=10, module_size=8, n_background=10, n_expr_only=2,
+    n_net_only=2, module_chords=2, background_edges=15, seed=3), out_dir)
+sys.argv = ["g2vec_tpu_torch", files["expression"], files["clinical"],
+            files["network"], out_dir + "/tiny", "-p", "10", "-r", "3",
+            "-s", "8", "-e", "4", "-n", "5", "--kmeans-iters", "20",
+            "--device", "cpu"]
+rc = None
+try:
+    runpy.run_module("g2vec_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "g2vec_tpu"))
+print(json.dumps({"rc": rc, "bad": bad}))
+"""
+
+
+def test_cli_runs_without_jax_in_sys_modules(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT, str(tmp_path)],
+                          capture_output=True, text=True, env=env,
+                          timeout=300, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.strip().splitlines()
+    assert ">>> 7. Save results" in lines
+    report = json.loads(lines[-1])
+    assert report == {"rc": 0, "bad": []}
+    for suffix in ("biomarkers", "lgroups", "vectors"):
+        assert (tmp_path / f"tiny_{suffix}.txt").exists()
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal path needs none")
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
+    import numpy as np
+
+    from g2vec_tpu_torch.__main__ import main
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.ops.graph import edge_weights
+    from g2vec_tpu_torch.train.trainer import train_cbow
+
+    files = write_synthetic_tsv(SyntheticSpec(seed=1), str(tmp_path))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main([files["expression"], files["clinical"], files["network"],
+              str(tmp_path / "out")])
+    assert not list(tmp_path.glob("out_*"))
+    paths = np.packbits(np.eye(4, 16, dtype=bool), axis=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cbow(paths, np.array([0, 1, 0, 1]), n_genes=16, hidden=4,
+                   learning_rate=0.01, max_epochs=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        edge_weights(np.ones((3, 4), np.float32), np.array([0]),
+                     np.array([1]))
