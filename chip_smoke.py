@@ -9,8 +9,9 @@ It builds the port's kernels from the sources in this checkout, drives the
 port's seven-stage solo run (``g2vec_tpu_torch.pipeline.run``) on the
 example-scale synthetic dataset on ``cuda`` and checks what comes out,
 then holds each kernel against its plain PyTorch version on the card on
-the ``[train | val]`` rows that run produced and at one ragged shape, and
-runs a small input on ``cuda`` and on the CPU. Any failure raises and the
+the ``[train | val]`` rows that run produced, at one ragged shape and (the
+backward) at its ragged edges, and runs a small input at hidden width 10
+on ``cuda`` and on the CPU. Any failure raises and the
 script exits nonzero without printing a result. The last three lines of
 standard output are: one JSON object with a record per kernel, the card's
 name and power limit as ``nvidia-smi`` reports them, and the result line
@@ -34,6 +35,9 @@ import numpy as np
 # half that rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_ADDS_PER_S = 33.5e12
+# Dense bf16 on the tensor cores (same sheet): the ceiling of a backward
+# that does the dense 2*M*G*H operations, as pm_bwd_kernel does.
+BF16_TC_OPS_PER_S = 989e12
 # Tolerance of a kernel against its plain version: both take f32 sums of
 # the same bf16 values in different orders, so an element may differ by a
 # few f32 rounding steps of its sum of absolute terms S (the sum of |term|
@@ -171,6 +175,36 @@ def _compare_kernels(torch, pm, packed_all, n_tr, g, h, gen, flush, timed):
     return records
 
 
+def _backward_edges(torch, pm, gen, n_genes):
+    """The backward's ragged cases against its plain version: odd hidden
+    widths, G not a multiple of 8, M of one row and below one ring stage,
+    M one row over the first slice boundary the plan makes, and a forced
+    split whose last slice holds one row."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_at = next(m for m in range(2, 1 << 16)
+                    if pm._bwd_slices(m, n_genes, 128, n_sms).n_slices > 1)
+    cases = [(3000, 1003, 10, None), (3000, 1003, 130, None),
+             (1, n_genes, 128, None), (40, n_genes, 128, None),
+             (split_at + 1, n_genes, 128, None), (2000, 999, 128, None),
+             (129, 1003, 136, pm.BwdSlices(3, 64, 0))]
+    for m, g, h, forced in cases:
+        packed = _random_packed(torch, m, g, 80 / g, gen)
+        g_out = torch.randn((m, h), device="cuda", generator=gen
+                            ).to(torch.bfloat16)
+        x = pm.unpack_bits(packed, g).float()
+        if forced is None:
+            plan = pm._bwd_slices(m, g, h, n_sms)
+            dw = pm.packed_matmul_bwd(packed, g_out, g)
+        else:
+            plan = forced
+            dw = pm._bwd_on_card(packed, g_out, g, forced)
+        _check_close(torch, f"packed_matmul_bwd M={m} G={g} H={h} "
+                     f"S={plan.n_slices} rows/slice={plan.rows}"
+                     + (" (forced split)" if forced else ""), dw,
+                     pm.packed_matmul_bwd_plain(packed, g_out, g),
+                     x.T @ g_out.float().abs())
+
+
 def _config(files, out_dir, device, **overrides):
     from g2vec_tpu_torch.config import G2VecConfig
 
@@ -241,9 +275,14 @@ def main() -> int:
     _, walker_secs = _timed(build_walker)
     print(f"[2] kernels built in {secs:.1f} s ({so}); walker built in "
           f"{walker_secs:.1f} s")
+    kernel = "?"
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = next((w for w in ("pm_fwd_kernel", "pm_bwd_kernel",
+                                       "pm_bwd_sum_kernel") if w in line),
+                          line.split("'")[1] if "'" in line else "?")
+        elif "registers" in line or "spill" in line:
+            print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
 
     with tempfile.TemporaryDirectory() as tmp:
         print("[3] example-scale solo run on cuda (hidden 128, -p 80 -r 10, "
@@ -289,21 +328,30 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
                             device="cuda")
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = pm._bwd_slices(n_tr, n_genes, 128, n_sms)
+        print(f"    backward split: S={plan.n_slices} slices of "
+              f"{plan.rows} rows on {n_sms} SMs, workspace "
+              f"{plan.workspace_bytes} bytes; dense tensor-core ceiling "
+              f"{2 * n_tr * n_genes * 128 / BF16_TC_OPS_PER_S * 1e3:.4f} ms "
+              f"(2*M*G*H = {2 * n_tr * n_genes * 128:.3e} bf16 operations)")
         records = _compare_kernels(torch, pm, packed_all, n_tr, n_genes, 128,
                                    gen, flush, timed=True)
         ragged = _random_packed(torch, 1001, 1003, 0.02, gen)
         print("    ragged shape:")
         _compare_kernels(torch, pm, ragged, 777, 1003, 132, gen, flush,
                          timed=False)
+        print("    backward edges:")
+        _backward_edges(torch, pm, gen, n_genes)
         del flush, packed_all, ragged
 
-        print("[5] small input: the same solo run on cuda (kernels) and on "
-              "cpu (plain versions)")
+        print("[5] small input at hidden 10: the same solo run on cuda "
+              "(kernels) and on cpu (plain versions)")
         small = write_synthetic_tsv(SyntheticSpec(
             n_good=24, n_poor=20, module_size=12, n_background=24,
             n_expr_only=4, n_net_only=4, module_chords=2,
             background_edges=40, seed=7), tmp, prefix="small")
-        args = dict(lenPath=20, numRepetition=3, sizeHiddenlayer=16,
+        args = dict(lenPath=20, numRepetition=3, sizeHiddenlayer=10,
                     epoch=30, numBiomarker=10, seed=11)
         r_gpu, _ = _run_pipeline(_config(small, tmp, "cuda", **args))
         r_cpu, _ = _run_pipeline(_config(small, tmp, "cpu", **args))

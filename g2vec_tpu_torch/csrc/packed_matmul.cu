@@ -1,45 +1,74 @@
 // Hopper kernels for the trainer's product over a bit-packed 0/1 matrix.
 //
 // The CBOW's hot op is h = X @ W_ih (ref: G2Vec.py:238-239), with X the
-// 0/1 path matrix held bit-packed: P [M, NB] uint8, NB = ceil(G/8), gene g
-// in bit 7-(g&7) of byte g>>3 (np.packbits order, as the walker writes it).
+// 0/1 path matrix held bit-packed: P [M, NB] uint8, gene g in bit 7-(g&7)
+// of byte g>>3 (np.packbits order, as the walker writes it).
 //
 //   pm_fwd_kernel: out[M, H] f32 = unpack(P) @ bf16(W)[G, H]
 //     replaces g2vec_tpu/ops/packed_matmul.py _fwd_call -> _fwd_kernel
 //     (pallas_call at :302).
-//   pm_bwd_kernel: dW[G, H] f32 = unpack(P)^T @ bf16(g_out)[M, H]
+//   pm_bwd_kernel + pm_bwd_sum_kernel:
+//                  dW[G, H] f32 = unpack(P)^T @ bf16(g_out)[M, H]
 //     replaces g2vec_tpu/ops/packed_matmul.py _bwd_call -> _bwd_kernel
 //     (pallas_call at :323).
 //
-// What bounds them on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the
-// tensor cores): X is a path matrix, ~lenPath of G bits set per row (about
-// 1% at the reference's example scale). The work the data needs is one
-// f32 add per set bit per hidden column, nnz*H adds (~3e8 for the forward
-// at M = 45k), against P's bytes read once (M*NB, 43 MB at that shape):
-// both kernels are bound by bytes, ~0.02 ms for the forward and ~0.014 ms
-// for the backward at the example-scale shapes. A dense bf16 product of
-// the same shapes would need 2*M*G*H = 8.7e10 operations (0.09 ms on the
-// tensor cores).
+// What bounds them on an H100 SXM (3.35 TB/s; 989 TFLOP/s dense bf16 on
+// the tensor cores, 67 TFLOP/s f32 outside them): X is a path matrix,
+// ~lenPath of G bits set per row (about 1% at the example scale). The
+// work the data needs is one f32 add per set bit per hidden column, against
+// P and the dense operand read once and the output written once: both
+// functions are bound by bytes, 0.0154 ms for the forward (M 40,399 x
+// G 5,850 x H 128) and 0.0104 ms for the backward (M 32,319) at the
+// example-scale shapes.
 //
-// Design. The kernels read packbits order directly, so the TPU package's
-// blockwise bit layout (an artefact of pltpu.repeat) and its host re-pack
-// are gone, and they mask ragged M, G and H themselves: no row or gene
-// padding is needed. Each block stages the packed bytes and a bf16 tile of
-// the dense operand in shared memory, with the next tile's global loads
-// issued into registers while the current tile is consumed. Lanes map to
-// 4 consecutive hidden columns each (a warp covers 128 columns), so every
-// lane of a warp works on the same packed byte: the bit loop is
-// warp-uniform, zero bytes are skipped, and each set bit costs one 8-byte
-// shared load and four f32 adds per lane. No tensor cores: with 1% of the
-// bits set, a dense MMA would do ~100x the useful work. Sums are taken in
-// a fixed order with no atomics and no split of the reduction, so
-//   - the forward is M-invariant: a row's result is its own bits' W rows
-//     added in ascending gene order, whatever else is in the launch (the
-//     trainer's fused [train | val] launch relies on it);
-//   - the backward is bitwise reproducible: each dW element adds its rows
-//     in ascending row order. Its grid is one block per 64 genes (118 at
-//     G = 7,528), which under-fills the 132 SMs; a split-M pass is later
-//     work.
+// Forward. Each block stages the packed bytes and a bf16 tile of W in
+// shared memory, with the next tile's global loads issued into registers
+// while the current tile is consumed. Lanes map to 4 consecutive hidden
+// columns each (a warp covers 128 columns), so every lane of a warp works
+// on the same packed byte: the bit loop is warp-uniform, zero bytes are
+// skipped, and each set bit costs one 8-byte shared load and four f32 adds
+// per lane on the CUDA cores. A row's result is its own bits' W rows added
+// in ascending gene order, whatever else is in the launch: the forward is
+// M-invariant, which the trainer's fused [train | val] launch relies on.
+//
+// Backward. A bit loop on the CUDA cores leaves the backward latency-bound
+// (a dependent chain of one-byte branches and adds per row), so it runs on
+// the tensor cores instead: mma.sync m16n8k16 bf16 -> f32 with A = X^T
+// (16 genes x 16 path rows) built in registers straight from the packed
+// bits and B = the g_out tile (16 rows x 8 columns) from shared memory.
+// No unpacked 0/1 matrix exists anywhere, in device or shared memory.
+// This design does the dense 2*M*G*H operations, 4.84e10 at the example
+// shape: its own ceiling is 0.049 ms at the dense bf16 rate, about 5x the
+// byte bound, which it trades for a short pipeline with no branches.
+//   - A block owns 128 genes x 128 hidden columns of one slice of rows;
+//     its 8 warps are 4 (genes) x 2 (columns) tiles of 32 genes x 64
+//     columns (2 x 8 MMA tiles, 64 f32 accumulators a thread), two blocks
+//     to an SM. 64 columns, not the 128 of a 16-gene warp tile, halve the
+//     ldmatrix traffic per MMA; 64 genes x 32 columns would halve it again
+//     but doubles the integer work that builds A, and measured slower.
+//   - The rows stream through a 4-stage cp.async ring of 64 rows each:
+//     the g_out tile in 16-byte copies into rows padded from 256 to 272
+//     bytes, so ldmatrix.trans's 8 rows fall on 8 distinct bank groups,
+//     and the block's 16 packed bytes per row in 4-byte copies (the
+//     wrapper pads P's rows to a multiple of 4 bytes when G needs it).
+//     Rows past the slice and columns past H are zero-filled by the copy.
+//   - A lane's four A registers hold rows 2t, 2t+1, 2t+8, 2t+9 of the
+//     k-step for genes groupID and groupID+8. Each packed word is shifted
+//     once by groupID, then each register is one prmt (sign mode: a byte's
+//     bit 7 copied over a half) and one mask to bf16 1.0 (0x3F80).
+//     1.0 x bf16 is exact; the tensor cores add the 16 products of a
+//     k-step before rounding to f32, well inside the tolerance.
+//   - The grid is (gene tiles, H tiles, S slices of M). Slice s writes its
+//     partial dW to a workspace [S, G, H] and pm_bwd_sum_kernel adds the
+//     partials in the order s = 0..S-1; with S = 1 the first pass writes
+//     dW itself. S comes from (M, G, H) and the SM count alone: as many
+//     slices as fill the resident blocks in one wave (_bwd_slices in
+//     ops/packed_matmul.py). Nothing here uses atomics, so dW is bitwise
+//     the same from run to run.
+//   - What still bounds it: the copy ring and the MMAs each take well over
+//     half of the kernel's time on their own and overlap only in part,
+//     since every warp both waits on copies and issues MMAs. A producer
+//     warp feeding wgmma consumers through TMA is the next step.
 // The plain PyTorch versions of both functions live in
 // g2vec_tpu_torch/ops/packed_matmul.py; the wrapper there checks shapes,
 // dtypes, devices and contiguity before any pointer reaches this file.
@@ -63,12 +92,37 @@ constexpr int kFwdBytes = kFwdGenes / 8;                        // 8
 constexpr int kFwdPBytesPerThread = kFwdRows * kFwdBytes / kThreads;   // 4
 constexpr int kFwdWQuadsPerThread = kFwdGenes * (kTileH / 4) / kThreads;  // 8
 
-// Backward: a block owns 64 genes (one packed byte per warp) x 128 columns
-// and walks all M rows in chunks of 64.
-constexpr int kBwdGenes = 8 * kWarps;                           // 64
+// Backward: kBwdWarpsM x kBwdWarpsN warps (genes x columns) of
+// kBwdWarpGenes x kBwdWarpCols each; a block owns one tile of genes x
+// columns for one slice of rows, and streams the slice through a ring of
+// kBwdStages stages of kBwdRows rows.
+constexpr int kBwdWarpsM = 4;
+constexpr int kBwdWarpsN = 2;
+constexpr int kBwdThreads = 32 * kBwdWarpsM * kBwdWarpsN;
+constexpr int kBwdBlocksPerSM = 2;       // _bwd_slices plans for this
+constexpr int kBwdWarpGenes = 32;
+constexpr int kBwdWarpCols = 64;
+constexpr int kBwdMTiles = kBwdWarpGenes / 16;                  // MMA tiles
+constexpr int kBwdNTiles = kBwdWarpCols / 8;
+constexpr int kBwdGenes = kBwdWarpsM * kBwdWarpGenes;
+constexpr int kBwdCols = kBwdWarpsN * kBwdWarpCols;
+constexpr int kBwdBytes = kBwdGenes / 8;       // packed bytes per row
+constexpr int kBwdWords = kBwdBytes / 4;       // ... in 4-byte words
+constexpr int kBwdWarpWords = kBwdWarpGenes / 32;
 constexpr int kBwdRows = 64;
-constexpr int kBwdPBytesPerThread = kBwdRows * kWarps / kThreads;      // 2
-constexpr int kBwdGQuadsPerThread = kBwdRows * (kTileH / 4) / kThreads;  // 8
+constexpr int kBwdStages = 4;
+constexpr int kBwdGStride = kBwdCols + 8;      // bf16 per staged g_out row
+constexpr int kBwdGBytes = kBwdRows * kBwdGStride * 2;
+constexpr int kBwdStageBytes = kBwdGBytes + kBwdRows * kBwdBytes;
+constexpr int kBwdSmem = kBwdStages * kBwdStageBytes;
+constexpr int kBwdGChunks = kBwdRows * kBwdCols / 8 / kBwdThreads;  // per thread
+constexpr int kBwdPWords = kBwdRows * kBwdWords / kBwdThreads;       // per thread
+constexpr int kSumThreads = 256;
+static_assert(kBwdGChunks * 8 * kBwdThreads == kBwdRows * kBwdCols &&
+              kBwdPWords * kBwdThreads == kBwdRows * kBwdWords &&
+              kBwdPWords > 0, "every thread copies whole chunks and words");
+static_assert(kBwdWarpGenes % 32 == 0 && kBwdNTiles % 2 == 0 &&
+              kBwdRows % 16 == 0, "whole packed words, n-tile pairs, k-steps");
 
 // Four packed bf16 (element 0 in the low half of v.x) -> four f32, exactly:
 // a bf16 is the upper 16 bits of the f32 with the same value.
@@ -175,88 +229,206 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// cp.async copies of 16 and 4 bytes; bytes past src_bytes are zero-filled.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
+}
+
+// Four 8x8 bf16 matrices, transposed: the B fragments of two n-tiles.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// d += a @ b on one 16x8x16 tile, bf16 inputs, f32 sums.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One A register: bf16 0/1 of one gene on two path rows. lo and hi are
+// the rows' packed words shifted so that the gene's bit of every byte sits
+// at the byte's bit 7; prmt's sign mode copies bit 7 of byte `byte` of lo
+// over the low half and that of hi over the high half (0xFFFF or 0), and
+// the mask leaves bf16 1.0 (0x3F80) or 0 in each half.
+__device__ __forceinline__ uint32_t bits_to_bf16x2(uint32_t lo, uint32_t hi,
+                                                   int byte) {
+    uint32_t r;
+    asm("prmt.b32 %0, %1, %2, %3;\n"
+        : "=r"(r) : "r"(lo), "r"(hi), "r"(0xCC88u + 0x1111u * byte));
+    return r & 0x3F803F80u;
+}
+
+__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
 pm_bwd_kernel(const uint8_t* __restrict__ packed,
-              const __nv_bfloat16* __restrict__ gout, float* __restrict__ dw,
-              int m, int g, int nb, int h) {
-    __shared__ uint8_t p_s[kBwdRows][kWarps];
-    __shared__ __align__(16) __nv_bfloat16 g_s[kBwdRows][kTileH];
+              const __nv_bfloat16* __restrict__ gout, float* __restrict__ part,
+              int m, int g, int nb, int h, int rows_per_slice) {
+    extern __shared__ __align__(16) uint8_t smem[];
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
-    const int byte0 = blockIdx.x * (kBwdGenes / 8);
-    const int col0 = blockIdx.y * kTileH;
+    const int wm = warp % kBwdWarpsM, wn = warp / kBwdWarpsM;   // warp tile
+    const int gid = lane >> 2, tig = lane & 3;     // MMA groupID, thread in group
+    const int byte0 = blockIdx.x * kBwdBytes;
+    const int col0 = blockIdx.y * kBwdCols;
+    const int row_begin = blockIdx.z * rows_per_slice;
+    const int row_end = min(m, row_begin + rows_per_slice);
+    const int n_steps = max(0, row_end - row_begin + kBwdRows - 1) / kBwdRows;
+    const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
-    // Staging map. Packed tile: thread -> row tid/4, bytes (tid%4)*2..+1.
-    // g_out tile: quad q = i*256 + tid -> row q/32, columns (q%32)*4..+3.
-    const int p_row = tid >> 2;
-    const int p_byte = (tid & 3) * kBwdPBytesPerThread;
-    uint8_t p_reg[kBwdPBytesPerThread];
-    uint2 g_reg[kBwdGQuadsPerThread];
-
-    auto fetch = [&](int r0) {
-        const int grow = r0 + p_row;
+    // Staging map of one stage, q = i * kBwdThreads + tid. g_out tile:
+    // 16-byte chunk q -> row q / (kBwdCols/8), columns (q % (kBwdCols/8))*8
+    // ..+7. Packed tile: word q -> row q / kBwdWords, bytes
+    // (q % kBwdWords)*4..+3, kept row-major at byte q*4.
+    auto load_stage = [&](int step, int stage) {
+        const int r0 = row_begin + step * kBwdRows;
+        const uint32_t base = smem0 + stage * kBwdStageBytes;
 #pragma unroll
-        for (int j = 0; j < kBwdPBytesPerThread; ++j) {
-            const int byte = byte0 + p_byte + j;
-            p_reg[j] = (grow < m && byte < nb)
-                ? packed[static_cast<size_t>(grow) * nb + byte] : 0;
+        for (int i = 0; i < kBwdGChunks; ++i) {
+            const int q = i * kBwdThreads + tid;
+            const int r = q / (kBwdCols / 8), c = q % (kBwdCols / 8) * 8;
+            const bool ok = r0 + r < row_end && col0 + c < h;
+            cp_async_16(base + (r * kBwdGStride + c) * 2,
+                        ok ? gout + static_cast<size_t>(r0 + r) * h + col0 + c
+                           : gout,
+                        ok ? 16 : 0);
         }
 #pragma unroll
-        for (int i = 0; i < kBwdGQuadsPerThread; ++i) {
-            const int q = i * kThreads + tid;
-            const int row = r0 + (q >> 5);
-            const int col = col0 + (q & 31) * 4;
-            g_reg[i] = (row < m && col < h)
-                ? *reinterpret_cast<const uint2*>(
-                      gout + static_cast<size_t>(row) * h + col)
-                : make_uint2(0u, 0u);
+        for (int i = 0; i < kBwdPWords; ++i) {
+            const int q = i * kBwdThreads + tid;
+            const int row = r0 + q / kBwdWords;
+            const int byte = byte0 + q % kBwdWords * 4;
+            const bool ok = row < row_end && byte < nb;
+            cp_async_4(base + kBwdGBytes + q * 4,
+                       ok ? packed + static_cast<size_t>(row) * nb + byte
+                          : packed,
+                       ok ? 4 : 0);
         }
     };
-    auto stash = [&]() {
-#pragma unroll
-        for (int j = 0; j < kBwdPBytesPerThread; ++j)
-            p_s[p_row][p_byte + j] = p_reg[j];
-#pragma unroll
-        for (int i = 0; i < kBwdGQuadsPerThread; ++i) {
-            const int q = i * kThreads + tid;
-            *reinterpret_cast<uint2*>(&g_s[q >> 5][(q & 31) * 4]) = g_reg[i];
-        }
-    };
 
-    float acc[8][4];
+    float acc[kBwdMTiles][kBwdNTiles][4];          // [m-tile][n-tile][frag]
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    for (int j = 0; j < kBwdMTiles; ++j)
+#pragma unroll
+        for (int n = 0; n < kBwdNTiles; ++n)
+            acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.0f;
 
-    fetch(0);
-    for (int r0 = 0; r0 < m; r0 += kBwdRows) {
-        __syncthreads();
-        stash();
-        __syncthreads();
-        if (r0 + kBwdRows < m) fetch(r0 + kBwdRows);
-#pragma unroll 4
-        for (int r = 0; r < kBwdRows; ++r) {
-            const unsigned bits = p_s[r][warp];           // warp-uniform
-            if (bits == 0u) continue;
-            const float4 v = bf16x4_to_float4(
-                *reinterpret_cast<const uint2*>(&g_s[r][lane * 4]));
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-                if (bits & (0x80u >> j)) add4(acc[j], v);
+    for (int s = 0; s < kBwdStages - 1; ++s) {
+        if (s < n_steps) load_stage(s, s);
+        cp_async_commit();                         // one group per stage, even if empty
+    }
+
+    // ldmatrix.x4.trans: lanes 0-15 address rows 0-15 of the k-step at the
+    // n-tile's column, lanes 16-31 the same rows 8 columns on.
+    const int ld_row = lane & 15;
+    const int ld_col = wn * kBwdWarpCols + (lane >> 4) * 8;
+
+    for (int step = 0; step < n_steps; ++step) {
+        cp_async_wait<kBwdStages - 2>();           // this step's stage landed
+        __syncthreads();                           // ... for every thread, and
+                                                   // the step before is consumed
+        const int next = step + kBwdStages - 1;
+        if (next < n_steps) load_stage(next, next % kBwdStages);
+        cp_async_commit();
+
+        const int stage = step % kBwdStages;
+        const uint32_t g_s = smem0 + stage * kBwdStageBytes;
+        const uint32_t* p_s = reinterpret_cast<const uint32_t*>(
+            smem + stage * kBwdStageBytes + kBwdGBytes) + wm * kBwdWarpWords;
+#pragma unroll
+        for (int k0 = 0; k0 < kBwdRows; k0 += 16) {
+            // The warp's packed words on this lane's rows k0 + 2t + {0, 1,
+            // 8, 9}, shifted to put gene groupID's bit of each byte at bit 7.
+            uint32_t v[4][kBwdWarpWords];
+#pragma unroll
+            for (int w = 0; w < kBwdWarpWords; ++w) {
+                v[0][w] = p_s[(k0 + 2 * tig) * kBwdWords + w] << gid;
+                v[1][w] = p_s[(k0 + 2 * tig + 1) * kBwdWords + w] << gid;
+                v[2][w] = p_s[(k0 + 2 * tig + 8) * kBwdWords + w] << gid;
+                v[3][w] = p_s[(k0 + 2 * tig + 9) * kBwdWords + w] << gid;
+            }
+            uint32_t a[kBwdMTiles][4];
+#pragma unroll
+            for (int j = 0; j < kBwdMTiles; ++j) {
+                // m-tile j: bytes 2j (genes +groupID) and 2j+1 (+8+groupID).
+                const int w = j / 2, byte = j % 2 * 2;
+                a[j][0] = bits_to_bf16x2(v[0][w], v[1][w], byte);
+                a[j][1] = bits_to_bf16x2(v[0][w], v[1][w], byte + 1);
+                a[j][2] = bits_to_bf16x2(v[2][w], v[3][w], byte);
+                a[j][3] = bits_to_bf16x2(v[2][w], v[3][w], byte + 1);
+            }
+#pragma unroll
+            for (int n = 0; n < kBwdNTiles; n += 2) {
+                uint32_t b[4];
+                ldmatrix_x4_trans(
+                    b, g_s + ((k0 + ld_row) * kBwdGStride + ld_col + n * 8) * 2);
+#pragma unroll
+                for (int j = 0; j < kBwdMTiles; ++j) {
+                    mma_16816(acc[j][n], a[j], b[0], b[1]);
+                    mma_16816(acc[j][n + 1], a[j], b[2], b[3]);
+                }
+            }
         }
     }
 
-    const int col = col0 + lane * 4;
-    if (col < h) {
+    // C fragment: rows (genes) gid and gid + 8, columns 2t and 2t + 1.
+    float* out = part + static_cast<size_t>(blockIdx.z) * g * h;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            const int gene = (byte0 + warp) * 8 + j;
+    for (int j = 0; j < kBwdMTiles; ++j) {
+        const int gene = byte0 * 8 + wm * kBwdWarpGenes + j * 16 + gid;
+#pragma unroll
+        for (int n = 0; n < kBwdNTiles; ++n) {
+            const int col = col0 + wn * kBwdWarpCols + n * 8 + 2 * tig;
+            if (col >= h) continue;
             if (gene < g)
-                *reinterpret_cast<float4*>(dw + static_cast<size_t>(gene) * h + col) =
-                    make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+                *reinterpret_cast<float2*>(out + static_cast<size_t>(gene) * h + col) =
+                    make_float2(acc[j][n][0], acc[j][n][1]);
+            if (gene + 8 < g)
+                *reinterpret_cast<float2*>(out + static_cast<size_t>(gene + 8) * h + col) =
+                    make_float2(acc[j][n][2], acc[j][n][3]);
         }
     }
+}
+
+// dW = part[0] + part[1] + ... + part[S-1], added in that order.
+__global__ void __launch_bounds__(kSumThreads)
+pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
+                  int64_t n4, int n_slices) {
+    const int64_t i = static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x;
+    if (i >= n4) return;
+    float4 acc = part[i];
+    for (int s = 1; s < n_slices; ++s) {
+        const float4 v = part[s * n4 + i];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+    }
+    dw[i] = acc;
 }
 
 }  // namespace
@@ -265,8 +437,11 @@ extern "C" {
 
 // Both entry points launch on `stream` and return cudaGetLastError() (0 on
 // success). Preconditions, checked by the Python wrapper: P [m, nb] uint8
-// contiguous with nb == ceil(g/8), W / g_out bf16 contiguous, out / dW f32
-// contiguous, h % 4 == 0, m >= 1 for the forward.
+// contiguous, W / g_out bf16 contiguous, out / dW f32 contiguous, g, h >= 1.
+//   forward: nb == ceil(g/8), h % 4 == 0, W 8-byte aligned, m >= 1.
+//   backward: nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, h % 8 == 0,
+//     g_out 16-byte aligned; rows_per_slice * n_slices >= m, n_slices >= 1,
+//     and with n_slices > 1 a workspace `work` of n_slices * g * h f32.
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
                int64_t g, int64_t nb, int64_t h, void* stream) {
@@ -280,15 +455,29 @@ int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
     return static_cast<int>(cudaGetLastError());
 }
 
-int g2v_pm_bwd(const void* packed, const void* gout, void* dw, int64_t m,
-               int64_t g, int64_t nb, int64_t h, void* stream) {
+int g2v_pm_bwd(const void* packed, const void* gout, void* dw, void* work,
+               int64_t m, int64_t g, int64_t nb, int64_t h,
+               int64_t rows_per_slice, int64_t n_slices, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaFuncSetAttribute(
+        pm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float* part = static_cast<float*>(n_slices > 1 ? work : dw);
     const dim3 grid(static_cast<unsigned>((g + kBwdGenes - 1) / kBwdGenes),
-                    static_cast<unsigned>((h + kTileH - 1) / kTileH));
-    pm_bwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                    static_cast<unsigned>((h + kBwdCols - 1) / kBwdCols),
+                    static_cast<unsigned>(n_slices));
+    pm_bwd_kernel<<<grid, kBwdThreads, kBwdSmem, s>>>(
         static_cast<const uint8_t*>(packed),
-        static_cast<const __nv_bfloat16*>(gout), static_cast<float*>(dw),
+        static_cast<const __nv_bfloat16*>(gout), part,
         static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
-        static_cast<int>(h));
+        static_cast<int>(h), static_cast<int>(rows_per_slice));
+    err = cudaGetLastError();
+    if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
+    const int64_t n4 = g * h / 4;
+    pm_bwd_sum_kernel<<<static_cast<unsigned>((n4 + kSumThreads - 1) / kSumThreads),
+                        kSumThreads, 0, s>>>(
+        static_cast<const float4*>(work), static_cast<float4*>(dw), n4,
+        static_cast<int>(n_slices));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,13 @@ version below, which unpacks the bits to a dense bf16 matrix and computes
 ``x.float() @ w.bfloat16().float()``. There is no fallback from one to the
 other. Each wrapper counts its kernel launches in ``.launches``.
 
+On the card any hidden width H is taken: the wrapper zero-pads the bf16
+operand's columns to the width its kernel reads (a multiple of 4 for the
+forward, of 8 for the backward) and slices the padding off the result;
+zero columns add nothing, so this is exact. The backward splits M into
+the slices that :func:`_bwd_slices` plans and adds their partials in a
+fixed order on the card.
+
 The :class:`PackedMatmul` autograd function glues the two together: the
 gradient reaches W only (the paths are data, ref: G2Vec.py:264), the
 cotangent is cast to bf16 before the backward, dW is cast back to W's
@@ -30,9 +37,10 @@ import ctypes
 import functools
 import os
 import shutil
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from g2vec_tpu_torch.native._build import build, load
 
@@ -55,11 +63,12 @@ def nvcc_command() -> list:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    lib.g2v_pm_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
+                               i64, i64, ptr]
     for fn in (lib.g2v_pm_fwd, lib.g2v_pm_bwd):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p]
 
 
 def build_kernels():
@@ -97,6 +106,57 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The backward's split of M.
+# ---------------------------------------------------------------------------
+
+#: The backward kernel's block tile, ring stage and residency (kBwdGenes,
+#: kBwdCols, kBwdRows and kBwdBlocksPerSM in csrc/packed_matmul.cu).
+BWD_BLOCK_GENES, BWD_BLOCK_COLS, BWD_STAGE_ROWS = 128, 128, 64
+BWD_BLOCKS_PER_SM = 2
+#: A slice is never planned below this many rows.
+BWD_MIN_SLICE_ROWS = 1024
+#: The planned workspace ([S, G, H8] f32) stays at or under this many bytes.
+BWD_WORKSPACE_CAP = 256 * 2 ** 20
+
+
+class BwdSlices(NamedTuple):
+    """Slice ``s`` covers rows ``[s * rows, min(m, (s + 1) * rows))``."""
+
+    n_slices: int
+    rows: int
+    workspace_bytes: int
+
+    def bounds(self, m: int) -> list:
+        return [(s * self.rows, min(m, (s + 1) * self.rows))
+                for s in range(self.n_slices)]
+
+
+def _bwd_slices(m: int, g: int, h: int, n_sms: int) -> BwdSlices:
+    """How the backward splits its M rows: as many slices as fill the
+    card's resident blocks in one wave (a second, partial wave would cost
+    as much as the first), none planned below ``BWD_MIN_SLICE_ROWS`` rows,
+    the workspace within ``BWD_WORKSPACE_CAP``. Slices are a whole number
+    of ring stages long, ascending and contiguous, and none is empty. The
+    plan depends on its arguments alone, so dW is the same bits from run
+    to run. With one slice the kernel writes dW directly and needs no
+    workspace."""
+    h8 = -(-h // 8) * 8
+    tiles = -(-g // BWD_BLOCK_GENES) * -(-h8 // BWD_BLOCK_COLS)
+    slice_bytes = g * h8 * 4
+    n = max(1, min(BWD_BLOCKS_PER_SM * n_sms // max(tiles, 1),
+                   m // BWD_MIN_SLICE_ROWS,
+                   BWD_WORKSPACE_CAP // max(slice_bytes, 1)))
+    rows = -(-max(-(-m // n), 1) // BWD_STAGE_ROWS) * BWD_STAGE_ROWS
+    n = max(-(-m // rows), 1)
+    return BwdSlices(n, rows, n * slice_bytes if n > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: CPU tensors -> plain version; CUDA tensors -> the kernel.
 # ---------------------------------------------------------------------------
 
@@ -117,32 +177,40 @@ def _check(packed: torch.Tensor, dense: torch.Tensor, n_genes: int,
         raise ValueError(f"{what} must be floating point, got {dense.dtype}")
 
 
+def _pad_cols(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``t`` with zero columns appended up to a multiple of ``multiple``
+    (``t`` itself when its width is one already)."""
+    extra = -t.shape[1] % multiple
+    return F.pad(t, (0, extra)) if extra else t
+
+
 def _check_kernel_args(packed: torch.Tensor, dense_bf16: torch.Tensor,
-                       what: str) -> None:
+                       what: str, align: int) -> None:
     """What the kernels take beyond :func:`_check`: CUDA tensors, both
-    contiguous, and the bf16 operand in 8-byte rows (four columns per
-    load) that start 8-byte aligned."""
+    contiguous, and the bf16 operand starting ``align``-byte aligned (the
+    width of the kernel's loads)."""
     if packed.device.type != "cuda":
         raise ValueError(f"no kernel for device {packed.device}")
     if not packed.is_contiguous() or not dense_bf16.is_contiguous():
         raise ValueError(f"the kernel needs contiguous packed and {what}")
-    if dense_bf16.shape[1] % 4:
-        raise ValueError(f"the kernel needs H % 4 == 0 (8-byte bf16 loads), "
-                         f"got H={dense_bf16.shape[1]}")
-    if dense_bf16.data_ptr() % 8:
-        raise ValueError(f"the kernel needs {what} 8-byte aligned, got "
-                         f"address {dense_bf16.data_ptr():#x}")
+    if dense_bf16.data_ptr() % align:
+        raise ValueError(f"the kernel needs {what} {align}-byte aligned, "
+                         f"got address {dense_bf16.data_ptr():#x}")
     if max(*packed.shape, *dense_bf16.shape) * 8 >= 2 ** 31:
         raise ValueError(f"the kernel indexes rows, genes and columns as "
                          f"int32; got packed {tuple(packed.shape)}, {what} "
                          f"{tuple(dense_bf16.shape)}")
 
 
-def _launch(fn, packed, dense_bf16, out, m, g, h) -> None:
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        rc = fn(packed.data_ptr(), dense_bf16.data_ptr(), out.data_ptr(),
-                m, g, packed.shape[1], h, stream)
+def _launch(fn, *args) -> None:
+    """``fn(*args, stream)`` on torch's current stream of the device that
+    ``args[0]`` lies on; tensors pass as their data pointers, None as
+    NULL."""
+    device = args[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
@@ -152,15 +220,15 @@ def packed_matmul_fwd(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(packed, w, w.shape[0], w.shape[0], "w")
     if packed.device.type == "cpu":
         return packed_matmul_fwd_plain(packed, w)
-    w16 = w.to(torch.bfloat16)
-    _check_kernel_args(packed, w16, "w")
-    m, (g, h) = packed.shape[0], w.shape
-    out = torch.empty((m, h), dtype=torch.float32, device=packed.device)
+    w16 = _pad_cols(w.to(torch.bfloat16), 4)
+    _check_kernel_args(packed, w16, "w", 8)
+    m, (g, h), h4 = packed.shape[0], w.shape, w16.shape[1]
     if m == 0:
-        return out
-    _launch(_lib().g2v_pm_fwd, packed, w16, out, m, g, h)
+        return torch.empty((0, h), dtype=torch.float32, device=packed.device)
+    out = torch.empty((m, h4), dtype=torch.float32, device=packed.device)
+    _launch(_lib().g2v_pm_fwd, packed, w16, out, m, g, packed.shape[1], h4)
     packed_matmul_fwd.launches += 1
-    return out
+    return out if h4 == h else out[:, :h].contiguous()
 
 
 packed_matmul_fwd.launches = 0
@@ -172,16 +240,32 @@ def packed_matmul_bwd(packed: torch.Tensor, g_out: torch.Tensor,
     _check(packed, g_out, n_genes, packed.shape[0], "g_out")
     if packed.device.type == "cpu":
         return packed_matmul_bwd_plain(packed, g_out, n_genes)
-    g16 = g_out.to(torch.bfloat16)
-    _check_kernel_args(packed, g16, "g_out")
-    h = g_out.shape[1]
-    out = torch.empty((n_genes, h), dtype=torch.float32, device=packed.device)
-    _launch(_lib().g2v_pm_bwd, packed, g16, out, packed.shape[0], n_genes, h)
+    g16 = _pad_cols(g_out.to(torch.bfloat16), 8)
+    _check_kernel_args(packed, g16, "g_out", 16)
+    m, h = packed.shape[0], g_out.shape[1]
+    plan = _bwd_slices(m, n_genes, h, _sm_count(packed.device.index))
+    out = _bwd_on_card(packed, g16, n_genes, plan)
     packed_matmul_bwd.launches += 1
-    return out
+    return out if g16.shape[1] == h else out[:, :h].contiguous()
 
 
 packed_matmul_bwd.launches = 0
+
+
+def _bwd_on_card(packed: torch.Tensor, g16: torch.Tensor, n_genes: int,
+                 plan: BwdSlices) -> torch.Tensor:
+    """The backward kernels on checked card tensors (``g16`` padded to a
+    multiple of 8 columns) under the split ``plan``: dW [n_genes, g16
+    width]. P's rows are padded to a multiple of 4 bytes for the kernel's
+    4-byte copies when G needs it. Counts nothing: the wrapper counts."""
+    m, h8 = packed.shape[0], g16.shape[1]
+    p4 = _pad_cols(packed, 4)
+    out = torch.empty((n_genes, h8), dtype=torch.float32, device=packed.device)
+    work = (torch.empty((plan.n_slices, n_genes, h8), dtype=torch.float32,
+                        device=packed.device) if plan.n_slices > 1 else None)
+    _launch(_lib().g2v_pm_bwd, p4, g16, out, work, m, n_genes, p4.shape[1],
+            h8, plan.rows, plan.n_slices)
+    return out
 
 
 def reset_launch_counts() -> None:

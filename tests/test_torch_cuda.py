@@ -73,6 +73,91 @@ def test_forward_is_m_invariant_and_backward_reproducible(cuda):
     assert torch.equal(pm.packed_matmul_bwd(packed, g_out, 700), dw)
 
 
+@pytest.mark.parametrize("h", [1, 6, 10, 130])
+def test_any_hidden_width_on_the_card(cuda, h):
+    x, packed, w, g_out = _inputs(700, 301, h, 0.05, seed=h)
+    w16, g16 = w.bfloat16().float(), g_out.bfloat16().float()
+    out = pm.packed_matmul_fwd(packed, w)
+    assert out.shape == (700, h) and out.is_contiguous()
+    _assert_close(out, pm.packed_matmul_fwd_plain(packed, w), x @ w16.abs())
+    dw = pm.packed_matmul_bwd(packed, g_out, 301)
+    assert dw.shape == (301, h) and dw.is_contiguous()
+    _assert_close(dw, pm.packed_matmul_bwd_plain(packed, g_out, 301),
+                  x.T @ g16.abs())
+    tw = w.clone().requires_grad_()
+    (pm.packed_matmul(packed, tw, grad_rows=500) * g_out).sum().backward()
+    _assert_close(tw.grad, pm.packed_matmul_bwd_plain(
+        packed[:500], g_out[:500], 301), x[:500].T @ g16[:500].abs())
+
+
+def _slice_edges(g, h):
+    """M one below, at and one above each of the first two row counts at
+    which the backward's planned slice count changes."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges, prev = [], pm._bwd_slices(1, g, h, n_sms).n_slices
+    for m in range(2, 5000):
+        n = pm._bwd_slices(m, g, h, n_sms).n_slices
+        if n != prev:
+            edges += [m - 1, m, m + 1]
+            prev = n
+        if len(edges) == 6:
+            return edges
+    raise AssertionError("the plan never splits below 5000 rows")
+
+
+def test_backward_at_k_step_and_slice_edges(cuda):
+    g, h = 700, 128
+    rows = [16 * k + d for k in (1, 2, 4, 5) for d in (-1, 1)]
+    for m in rows + _slice_edges(g, h):
+        x, packed, _, g_out = _inputs(m, g, h, 0.05, seed=m)
+        _assert_close(pm.packed_matmul_bwd(packed, g_out, g),
+                      pm.packed_matmul_bwd_plain(packed, g_out, g),
+                      x.T @ g_out.bfloat16().float().abs())
+
+
+@pytest.mark.parametrize("m,n_slices,rows", [
+    (129, 3, 64), (400, 7, 64), (1000, 2, 960), (64, 1, 64)])
+def test_backward_under_forced_splits(cuda, m, n_slices, rows):
+    """Slices of one stage, a last slice of one row, many slices: each
+    plan the kernel may be handed gives the plain version's dW."""
+    g, h = 1003, 136
+    x, packed, _, g_out = _inputs(m, g, h, 0.04, seed=m + n_slices)
+    g16 = g_out.bfloat16()
+    plan = pm.BwdSlices(n_slices, rows, n_slices * g * h * 4)
+    assert plan.bounds(m)[-1][0] < m <= plan.bounds(m)[-1][1]
+    _assert_close(pm._bwd_on_card(packed, g16, g, plan),
+                  pm.packed_matmul_bwd_plain(packed, g_out, g),
+                  x.T @ g16.float().abs())
+
+
+def test_backward_is_bitwise_the_same_across_calls_and_streams(cuda):
+    _, packed, _, g_out = _inputs(5000, 1500, 128, 0.02, seed=9)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert pm._bwd_slices(5000, 1500, 128, n_sms).n_slices > 1
+    first = pm.packed_matmul_bwd(packed, g_out, 1500)
+    assert torch.equal(pm.packed_matmul_bwd(packed, g_out, 1500), first)
+    results = []
+    for _ in range(2):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            results.append(pm.packed_matmul_bwd(packed, g_out, 1500))
+        torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, first) for r in results)
+
+
+def test_kernel_source_has_no_atomics():
+    """dW's reproducibility rests on fixed-order sums: no atomic add and
+    no reduction instruction anywhere in the kernels' source."""
+    import re
+
+    with open(pm.SRC) as f:
+        src = f.read()
+    assert not re.search(r"\batomic[A-Z]\w*\s*\(", src)
+    assert not re.search(r"\b(red|atom)\.", src)
+
+
 def test_autograd_on_the_card_matches_the_cpu(cuda):
     _, packed, w, g_out = _inputs(300, 260, 16, 0.05, seed=2)
     grads = []
@@ -102,13 +187,14 @@ def test_counters_count_card_launches_only(cuda):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     _, packed, w, g_out = _inputs(32, 64, 8, 0.1, seed=4)
-    with pytest.raises(ValueError, match="H % 4"):
-        pm.packed_matmul_fwd(packed, w[:, :6].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         pm.packed_matmul_fwd(packed.t().contiguous().t(), w)
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.empty(64 * 8 + 1, dtype=torch.bfloat16, device="cuda")
         pm.packed_matmul_fwd(packed, flat[1:].view(64, 8))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.empty(32 * 8 + 4, dtype=torch.bfloat16, device="cuda")
+        pm.packed_matmul_bwd(packed, flat[4:].view(32, 8), 64)
     with pytest.raises(ValueError, match="packed on"):
         pm.packed_matmul_fwd(packed, w.cpu())
 

@@ -132,3 +132,44 @@ def test_cpu_calls_do_not_count_as_kernel_launches(rng):
                                                         torch.from_numpy(w)), 64)
     assert (tpm.packed_matmul_fwd.launches,
             tpm.packed_matmul_bwd.launches) == (fwd0, bwd0)
+
+
+@pytest.mark.parametrize("g,h", [(5850, 128), (1003, 10), (60000, 1024)])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 32319, 10 ** 6])
+def test_backward_split_plan(m, g, h):
+    n_sms = 132
+    plan = tpm._bwd_slices(m, g, h, n_sms)
+    assert plan == tpm._bwd_slices(m, g, h, n_sms)
+    assert plan.n_slices >= 1 and plan.rows % tpm.BWD_STAGE_ROWS == 0
+    bounds = plan.bounds(m)
+    assert bounds[0][0] == 0 and bounds[-1][1] == m
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    if m < 2 * tpm.BWD_MIN_SLICE_ROWS:
+        assert plan.n_slices == 1
+    h8 = -(-h // 8) * 8
+    assert plan.workspace_bytes <= tpm.BWD_WORKSPACE_CAP
+    assert plan.workspace_bytes == (
+        plan.n_slices * g * h8 * 4 if plan.n_slices > 1 else 0)
+    # One wave: every block of the first pass is resident at once.
+    tiles = -(-g // tpm.BWD_BLOCK_GENES) * -(-h8 // tpm.BWD_BLOCK_COLS)
+    assert (plan.n_slices == 1
+            or plan.n_slices * tiles <= tpm.BWD_BLOCKS_PER_SM * n_sms)
+
+
+def test_backward_split_plan_at_the_example_shape():
+    # 46 gene tiles fill 264 resident blocks in 5 slices of 6,464 rows.
+    plan = tpm._bwd_slices(32319, 5850, 128, 132)
+    assert (plan.n_slices, plan.rows) == (5, 6464)
+    assert plan.workspace_bytes == 5 * 5850 * 128 * 4
+
+
+@pytest.mark.parametrize("width,multiple,want", [
+    (6, 4, 8), (8, 4, 8), (1, 8, 8), (10, 8, 16), (130, 8, 136)])
+def test_pad_cols_appends_zero_columns(rng, width, multiple, want):
+    t = torch.from_numpy(rng.standard_normal((3, width)).astype(np.float32))
+    padded = tpm._pad_cols(t, multiple)
+    assert padded.shape == (3, want) and padded.is_contiguous()
+    assert torch.equal(padded[:, :width], t)
+    assert not padded[:, width:].any()
+    assert (padded is t) == (want == width)

@@ -82,6 +82,22 @@ def test_bf16_kernel_path_matches_jax_pallas(rng):
     np.testing.assert_allclose(rt.w_ih, rj.w_ih, rtol=0, atol=1e-4)
 
 
+def test_odd_hidden_width_matches_jax(rng):
+    """hidden 10, as ``-s 10`` asks: the JAX trainer takes its dense path
+    at that width (Pallas needs hidden % 128 == 0), and the port the same
+    bf16 product it runs on the card."""
+    packed, labels, wi, wo = _problem(rng, 640, 700, 10)
+    common = dict(hidden=10, compute_dtype="bfloat16", seed=3,
+                  learning_rate=0.002, max_epochs=30)
+    rj = jax_train(packed, labels, packed_genes=700, use_pallas=False,
+                   warm_start=(wi, wo), **common)
+    rt = ttrainer.train_cbow(packed, labels, n_genes=700, device="cpu",
+                             init=params_from_jax(wi, wo), **common)
+    assert rt.w_ih.shape == (700, 10)
+    _assert_same_trajectory(rj, rt, loss_rtol=1e-4)
+    np.testing.assert_allclose(rt.w_ih, rj.w_ih, rtol=0, atol=1e-4)
+
+
 def test_pack_split_matches_jax(rng):
     from g2vec_tpu.train.trainer import _pack_split as jpack
 
