@@ -10,7 +10,8 @@ port's seven-stage solo run (``g2vec_tpu_torch.pipeline.run``) on the
 example-scale synthetic dataset on ``cuda`` and checks what comes out,
 then holds each kernel against its plain PyTorch version on the card on
 the ``[train | val]`` rows that run produced, at one ragged shape and (the
-backward) at its ragged edges, and runs a small input at hidden width 10
+backward) under several splits of its rows and at its ragged edges, and
+runs a small input at hidden width 10
 on ``cuda`` and on the CPU. Any failure raises and the
 script exits nonzero without printing a result. The last three lines of
 standard output are: one JSON object with a record per kernel, the card's
@@ -205,6 +206,43 @@ def _backward_edges(torch, pm, gen, n_genes):
                      x.T @ g_out.float().abs())
 
 
+def _backward_splits(torch, pm, packed, g, h, gen, flush):
+    """The backward at the main path's shape under the slice counts that
+    fill one, two and three waves of resident blocks, one slice past a
+    wave, and no split, each held against the plain version and timed:
+    the evidence for the planned count. Also the cost of padding P's rows
+    to a multiple of 4 bytes at the reference's 7,523 genes."""
+    m = packed.shape[0]
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g16 = torch.randn((m, h), device="cuda", generator=gen).to(torch.bfloat16)
+    want = pm.packed_matmul_bwd_plain(packed, g16, g)
+    abs_sum = pm.unpack_bits(packed, g).float().T @ g16.float().abs()
+    planned = pm._bwd_slices(m, g, h, n_sms)
+    tiles = -(-g // pm.BWD_BLOCK_GENES) * -(-h // pm.BWD_BLOCK_COLS)
+    per_wave = pm.BWD_BLOCKS_PER_SM * n_sms // tiles
+    for n in sorted({1, per_wave, per_wave + 1, 2 * per_wave + 1,
+                     3 * per_wave + 2, planned.n_slices}):
+        plan = pm._bwd_split(m, n, g, h)
+        _check_close(torch, f"packed_matmul_bwd S={plan.n_slices}",
+                     pm._bwd_on_card(packed, g16, g, plan), want, abs_sum)
+        ms, lo, hi = _time_ms(torch, lambda: pm._bwd_on_card(
+            packed, g16, g, plan), flush)
+        waves = plan.n_slices * tiles / (pm.BWD_BLOCKS_PER_SM * n_sms)
+        print(f"    split S={plan.n_slices} ({waves:.2f} waves, "
+              f"{plan.rows} rows a slice{', planned' if plan == planned else ''}"
+              f"): {ms:.4f} ms [{lo:.4f}, {hi:.4f}]")
+    g_ref = 7523
+    wide = _random_packed(torch, m, g_ref, 80 / g_ref, gen)
+    ms, lo, hi = _time_ms(
+        torch, lambda: pm.packed_matmul_bwd(wide, g16, g_ref), flush)
+    pad_ms, pad_lo, pad_hi = _time_ms(
+        torch, lambda: pm._pad_cols(wide, 4), flush)
+    print(f"    G={g_ref} (P rows {wide.shape[1]} bytes, padded to "
+          f"{-(-wide.shape[1] // 4) * 4}): backward {ms:.4f} ms "
+          f"[{lo:.4f}, {hi:.4f}], of which the padding copy alone "
+          f"{pad_ms:.4f} ms [{pad_lo:.4f}, {pad_hi:.4f}]")
+
+
 def _config(files, out_dir, device, **overrides):
     from g2vec_tpu_torch.config import G2VecConfig
 
@@ -337,6 +375,8 @@ def main() -> int:
               f"(2*M*G*H = {2 * n_tr * n_genes * 128:.3e} bf16 operations)")
         records = _compare_kernels(torch, pm, packed_all, n_tr, n_genes, 128,
                                    gen, flush, timed=True)
+        _backward_splits(torch, pm, packed_all[:n_tr], n_genes, 128, gen,
+                         flush)
         ragged = _random_packed(torch, 1001, 1003, 0.02, gen)
         print("    ragged shape:")
         _compare_kernels(torch, pm, ragged, 777, 1003, 132, gen, flush,

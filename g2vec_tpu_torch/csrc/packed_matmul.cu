@@ -62,13 +62,13 @@
 //     partial dW to a workspace [S, G, H] and pm_bwd_sum_kernel adds the
 //     partials in the order s = 0..S-1; with S = 1 the first pass writes
 //     dW itself. S comes from (M, G, H) and the SM count alone: as many
-//     slices as fill the resident blocks in one wave (_bwd_slices in
-//     ops/packed_matmul.py). Nothing here uses atomics, so dW is bitwise
-//     the same from run to run.
-//   - What still bounds it: the copy ring and the MMAs each take well over
-//     half of the kernel's time on their own and overlap only in part,
-//     since every warp both waits on copies and issues MMAs. A producer
-//     warp feeding wgmma consumers through TMA is the next step.
+//     slices as fill the resident blocks in two waves (_bwd_slices in
+//     ops/packed_matmul.py, which plans from this file's kBwd* tile).
+//     Nothing here uses atomics, so dW is bitwise the same from run to run.
+//   - What still bounds it: every warp both waits on its own copies and
+//     issues MMAs, so the two overlap only as far as the other resident
+//     block hides them. A producer warp feeding wgmma consumers through TMA
+//     is the next step.
 // The plain PyTorch versions of both functions live in
 // g2vec_tpu_torch/ops/packed_matmul.py; the wrapper there checks shapes,
 // dtypes, devices and contiguity before any pointer reaches this file.
@@ -439,8 +439,9 @@ extern "C" {
 // success). Preconditions, checked by the Python wrapper: P [m, nb] uint8
 // contiguous, W / g_out bf16 contiguous, out / dW f32 contiguous, g, h >= 1.
 //   forward: nb == ceil(g/8), h % 4 == 0, W 8-byte aligned, m >= 1.
-//   backward: nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, h % 8 == 0,
-//     g_out 16-byte aligned; rows_per_slice * n_slices >= m, n_slices >= 1,
+//   backward: nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, P 4-byte
+//     aligned, h % 8 == 0, g_out 16-byte aligned;
+//     rows_per_slice * n_slices >= m, n_slices >= 1,
 //     and with n_slices > 1 a workspace `work` of n_slices * g * h f32.
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,

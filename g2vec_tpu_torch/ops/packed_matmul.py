@@ -110,9 +110,13 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 #: The backward kernel's block tile, ring stage and residency (kBwdGenes,
-#: kBwdCols, kBwdRows and kBwdBlocksPerSM in csrc/packed_matmul.cu).
+#: kBwdCols, kBwdRows and kBwdBlocksPerSM in csrc/packed_matmul.cu, which
+#: tests/test_torch_packed_matmul.py holds these equal to).
 BWD_BLOCK_GENES, BWD_BLOCK_COLS, BWD_STAGE_ROWS = 128, 128, 64
 BWD_BLOCKS_PER_SM = 2
+#: The first pass is planned to fill at most this many waves of resident
+#: blocks.
+BWD_WAVES = 2
 #: A slice is never planned below this many rows.
 BWD_MIN_SLICE_ROWS = 1024
 #: The planned workspace ([S, G, H8] f32) stays at or under this many bytes.
@@ -131,24 +135,30 @@ class BwdSlices(NamedTuple):
                 for s in range(self.n_slices)]
 
 
+def _bwd_split(m: int, n: int, g: int, h8: int) -> BwdSlices:
+    """M rows in at most ``n`` slices of whole ring stages, ascending and
+    contiguous, none empty; the workspace for ``g`` genes and ``h8``
+    columns."""
+    rows = -(-max(-(-m // max(n, 1)), 1) // BWD_STAGE_ROWS) * BWD_STAGE_ROWS
+    n = max(-(-m // rows), 1)
+    return BwdSlices(n, rows, n * g * h8 * 4 if n > 1 else 0)
+
+
 def _bwd_slices(m: int, g: int, h: int, n_sms: int) -> BwdSlices:
     """How the backward splits its M rows: as many slices as fill the
-    card's resident blocks in one wave (a second, partial wave would cost
-    as much as the first), none planned below ``BWD_MIN_SLICE_ROWS`` rows,
-    the workspace within ``BWD_WORKSPACE_CAP``. Slices are a whole number
-    of ring stages long, ascending and contiguous, and none is empty. The
-    plan depends on its arguments alone, so dW is the same bits from run
-    to run. With one slice the kernel writes dW directly and needs no
-    workspace."""
+    card's resident blocks in ``BWD_WAVES`` waves, none planned below
+    ``BWD_MIN_SLICE_ROWS`` rows, the workspace within
+    ``BWD_WORKSPACE_CAP``. Two waves leave fewer block slots idle than one
+    (at the example shape 506 of 528 slots against 230 of 264), and a
+    third adds more slices to sum than it fills. The plan depends on its
+    arguments alone, so dW is the same bits from run to run. With one
+    slice the kernel writes dW directly and needs no workspace."""
     h8 = -(-h // 8) * 8
     tiles = -(-g // BWD_BLOCK_GENES) * -(-h8 // BWD_BLOCK_COLS)
-    slice_bytes = g * h8 * 4
-    n = max(1, min(BWD_BLOCKS_PER_SM * n_sms // max(tiles, 1),
+    n = max(1, min(BWD_WAVES * BWD_BLOCKS_PER_SM * n_sms // max(tiles, 1),
                    m // BWD_MIN_SLICE_ROWS,
-                   BWD_WORKSPACE_CAP // max(slice_bytes, 1)))
-    rows = -(-max(-(-m // n), 1) // BWD_STAGE_ROWS) * BWD_STAGE_ROWS
-    n = max(-(-m // rows), 1)
-    return BwdSlices(n, rows, n * slice_bytes if n > 1 else 0)
+                   BWD_WORKSPACE_CAP // max(g * h8 * 4, 1)))
+    return _bwd_split(m, n, g, h8)
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,9 +267,15 @@ def _bwd_on_card(packed: torch.Tensor, g16: torch.Tensor, n_genes: int,
     """The backward kernels on checked card tensors (``g16`` padded to a
     multiple of 8 columns) under the split ``plan``: dW [n_genes, g16
     width]. P's rows are padded to a multiple of 4 bytes for the kernel's
-    4-byte copies when G needs it. Counts nothing: the wrapper counts."""
+    4-byte copies when G needs it, and P must start 4-byte aligned. Counts
+    nothing: the wrapper counts."""
     m, h8 = packed.shape[0], g16.shape[1]
+    if plan.n_slices < 1 or plan.rows * plan.n_slices < m:
+        raise ValueError(f"the split {plan} does not cover {m} rows")
     p4 = _pad_cols(packed, 4)
+    if p4.data_ptr() % 4:
+        raise ValueError(f"the backward kernel needs packed 4-byte aligned, "
+                         f"got address {p4.data_ptr():#x}")
     out = torch.empty((n_genes, h8), dtype=torch.float32, device=packed.device)
     work = (torch.empty((plan.n_slices, n_genes, h8), dtype=torch.float32,
                         device=packed.device) if plan.n_slices > 1 else None)

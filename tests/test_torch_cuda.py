@@ -130,6 +130,24 @@ def test_backward_under_forced_splits(cuda, m, n_slices, rows):
                   x.T @ g16.float().abs())
 
 
+def test_backward_refuses_misaligned_packed_and_short_splits(cuda):
+    """P reaches 4-byte cp.async copies, and a split must cover every row:
+    the wrapper raises before a launch could fault or drop rows."""
+    _, packed, _, g_out = _inputs(200, 64, 8, 0.1, seed=6)
+    flat = torch.empty(200 * 8 + 1, dtype=torch.uint8, device="cuda")
+    shifted = flat[1:].view(200, 8)
+    shifted.copy_(packed)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        pm.packed_matmul_bwd(shifted, g_out, 64)
+    with pytest.raises(ValueError, match="does not cover"):
+        pm._bwd_on_card(packed, g_out.bfloat16(), 64, pm.BwdSlices(3, 64, 0))
+    _assert_close(pm._bwd_on_card(packed, g_out.bfloat16(), 64,
+                                  pm.BwdSlices(4, 64, 0)),
+                  pm.packed_matmul_bwd_plain(packed, g_out, 64),
+                  pm.unpack_bits(packed, 64).float().T
+                  @ g_out.bfloat16().float().abs())
+
+
 def test_backward_is_bitwise_the_same_across_calls_and_streams(cuda):
     _, packed, _, g_out = _inputs(5000, 1500, 128, 0.02, seed=9)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -151,17 +151,42 @@ def test_backward_split_plan(m, g, h):
     assert plan.workspace_bytes <= tpm.BWD_WORKSPACE_CAP
     assert plan.workspace_bytes == (
         plan.n_slices * g * h8 * 4 if plan.n_slices > 1 else 0)
-    # One wave: every block of the first pass is resident at once.
+    # The first pass fits in BWD_WAVES waves of resident blocks.
     tiles = -(-g // tpm.BWD_BLOCK_GENES) * -(-h8 // tpm.BWD_BLOCK_COLS)
-    assert (plan.n_slices == 1
-            or plan.n_slices * tiles <= tpm.BWD_BLOCKS_PER_SM * n_sms)
+    assert (plan.n_slices == 1 or plan.n_slices * tiles
+            <= tpm.BWD_WAVES * tpm.BWD_BLOCKS_PER_SM * n_sms)
 
 
 def test_backward_split_plan_at_the_example_shape():
-    # 46 gene tiles fill 264 resident blocks in 5 slices of 6,464 rows.
+    # 46 gene tiles fill 506 of two waves' 528 resident blocks in 11
+    # slices of 2,944 rows.
     plan = tpm._bwd_slices(32319, 5850, 128, 132)
-    assert (plan.n_slices, plan.rows) == (5, 6464)
-    assert plan.workspace_bytes == 5 * 5850 * 128 * 4
+    assert (plan.n_slices, plan.rows) == (11, 2944)
+    assert plan.workspace_bytes == 11 * 5850 * 128 * 4
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (64, 3), (32319, 5), (32319, 6),
+                                 (32319, 17), (10 ** 6, 1000)])
+def test_backward_split_of_a_given_count(m, n):
+    plan = tpm._bwd_split(m, n, 5850, 128)
+    assert 1 <= plan.n_slices <= n and plan.rows % tpm.BWD_STAGE_ROWS == 0
+    assert plan.rows * (plan.n_slices - 1) < m <= plan.rows * plan.n_slices
+
+
+def test_backward_plan_constants_match_the_kernel_source():
+    """_bwd_slices plans from the kernel's tile; the .cu's constexprs are
+    its one source, and the Python copy must equal them."""
+    import re
+
+    with open(tpm.SRC) as f:
+        src = f.read()
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    assert (env["kBwdGenes"], env["kBwdCols"], env["kBwdRows"],
+            env["kBwdBlocksPerSM"]) == (
+        tpm.BWD_BLOCK_GENES, tpm.BWD_BLOCK_COLS, tpm.BWD_STAGE_ROWS,
+        tpm.BWD_BLOCKS_PER_SM)
 
 
 @pytest.mark.parametrize("width,multiple,want", [
