@@ -9,10 +9,17 @@ It builds the port's kernels from the sources in this checkout, drives the
 port's seven-stage solo run (``g2vec_tpu_torch.pipeline.run``) on the
 example-scale synthetic dataset on ``cuda`` and checks what comes out,
 then holds each kernel against its plain PyTorch version on the card on
-the ``[train | val]`` rows that run produced, at one ragged shape and (the
-backward) under several splits of its rows and at its ragged edges, and
-runs a small input at hidden width 10
-on ``cuda`` and on the CPU. Any failure raises and the
+the ``[train | val]`` rows that run produced (built by the trainer's own
+helper, rows padded once to a multiple of 4 bytes) and times both. Phase
+4 goes on with: the forward's planned block height, its waves, the bytes
+of W it streams from L2 and its tensor-core ceiling beside the
+backward's split; the forward under each block height the kernel is
+built for and the backward under several splits of its rows, each held
+against the plain version and timed; both kernels at the reference's
+7,523 genes; one ragged shape; the ragged edges of both kernels; and the
+forward's M-invariance, bitwise, where its plan changes the block
+height. Phase 5 runs a small input at hidden width 10 on ``cuda`` and on
+the CPU. Any failure raises and the
 script exits nonzero without printing a result. The last three lines of
 standard output are: one JSON object with a record per kernel, the card's
 name and power limit as ``nvidia-smi`` reports them, and the result line
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -83,6 +91,10 @@ def _time_ms(torch, fn, flush):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2], times[0], times[-1]
+
+
+def _spread(t) -> str:
+    return f"{t[0]:.4f} ms [{t[1]:.4f}, {t[2]:.4f}]"
 
 
 def _check_close(torch, name, got, want, abs_sum) -> float:
@@ -210,8 +222,7 @@ def _backward_splits(torch, pm, packed, g, h, gen, flush):
     """The backward at the main path's shape under the slice counts that
     fill one, two and three waves of resident blocks, one slice past a
     wave, and no split, each held against the plain version and timed:
-    the evidence for the planned count. Also the cost of padding P's rows
-    to a multiple of 4 bytes at the reference's 7,523 genes."""
+    the evidence for the planned count."""
     m = packed.shape[0]
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     g16 = torch.randn((m, h), device="cuda", generator=gen).to(torch.bfloat16)
@@ -231,16 +242,128 @@ def _backward_splits(torch, pm, packed, g, h, gen, flush):
         print(f"    split S={plan.n_slices} ({waves:.2f} waves, "
               f"{plan.rows} rows a slice{', planned' if plan == planned else ''}"
               f"): {ms:.4f} ms [{lo:.4f}, {hi:.4f}]")
+
+
+def _forward_plan_line(pm, m, g, h, n_sms) -> str:
+    tile = pm._fwd_tile(m, h, n_sms)
+    w_bytes = -(-m // tile.rows) * g * (-(-h // 8) * 8) * 2
+    return (f"forward tile: {tile.rows} rows x {pm.FWD_BLOCK_COLS} columns "
+            f"({tile.warps_n} warps along the columns), {tile.blocks} "
+            f"blocks = {tile.waves:.2f} waves of {pm.FWD_BLOCKS_PER_SM} "
+            f"blocks on {n_sms} SMs; W streamed from L2 {w_bytes} bytes; "
+            f"dense tensor-core ceiling "
+            f"{2 * m * g * h / BF16_TC_OPS_PER_S * 1e3:.4f} ms (2*M*G*H = "
+            f"{2 * m * g * h:.3e} bf16 operations)")
+
+
+def _forward_tiles(torch, pm, packed, n_rows, g, h, gen, flush):
+    """The forward at the main path's shape, on all its rows and on the
+    first ``n_rows`` (the train rows), under every block height the
+    kernel is built for, each held against the plain version and timed:
+    the evidence for the planned height."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w16 = (torch.randn((g, h), device="cuda", generator=gen) * 0.09
+           ).to(torch.bfloat16)
+    for m in (packed.shape[0], n_rows):
+        p = packed[:m]
+        want = pm.packed_matmul_fwd_plain(p, w16)
+        abs_sum = pm.unpack_bits(p, g).float() @ w16.float().abs()
+        planned = pm._fwd_tile(m, h, n_sms)
+        for rows, warps_n in pm.FWD_TILES:
+            tile = pm._fwd_launch(m, h, n_sms, rows, warps_n)
+            _check_close(torch, f"packed_matmul_fwd M={m} tile {rows}x"
+                         f"{warps_n}", pm._fwd_on_card(p, w16, tile), want,
+                         abs_sum)
+            t = _time_ms(torch, lambda: pm._fwd_on_card(p, w16, tile), flush)
+            mark = ", planned" if tile == planned else ""
+            print(f"    M={m} tile {rows} rows, {warps_n} warps along the "
+                  f"columns ({tile.blocks} blocks, {tile.waves:.2f} waves"
+                  f"{mark}): {_spread(t)}")
+
+
+def _forward_edges(torch, pm, gen, n_genes):
+    """The forward's ragged cases against its plain version (M of 1, 15
+    and 17 rows and one row past a block of the plan; G 999 and 1,003;
+    H 1, 10 and 130), and its M-invariance, bitwise, on both sides of
+    every row count below 60,000 where the plan changes the block
+    height."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    past = next(m for m in range(2, 4096)
+                if (m - 1) % pm._fwd_tile(m, 128, n_sms).rows == 0)
+    cases = [(1, n_genes, 128), (15, n_genes, 128), (17, n_genes, 128),
+             (past, n_genes, 128), (3000, 999, 128), (3000, 1003, 128),
+             (700, 1003, 1), (700, 1003, 10), (700, 1003, 130)]
+    for m, g, h in cases:
+        packed = _random_packed(torch, m, g, 80 / g, gen)
+        w = torch.randn((g, h), device="cuda", generator=gen) * 0.09
+        x = pm.unpack_bits(packed, g).float()
+        _check_close(torch, f"packed_matmul_fwd M={m} G={g} H={h} tile "
+                     f"{pm._fwd_tile(m, h, n_sms).rows}",
+                     pm.packed_matmul_fwd(packed, w),
+                     pm.packed_matmul_fwd_plain(packed, w),
+                     x @ w.bfloat16().float().abs())
+    changes, prev = [], None
+    for m in range(1, 60000):
+        rows = pm._fwd_tile(m, 128, n_sms).rows
+        if prev is not None and rows != prev:
+            changes.append(m)
+        prev = rows
+    packed = _random_packed(torch, changes[-1] + 1, n_genes, 80 / n_genes,
+                            gen)
+    w = torch.randn((n_genes, 128), device="cuda", generator=gen) * 0.09
+    full = pm.packed_matmul_fwd(packed, w)
+    for m in changes:
+        for rows in (m - 1, m):
+            if not torch.equal(pm.packed_matmul_fwd(packed[:rows], w),
+                               full[:rows]):
+                raise RuntimeError(f"packed_matmul_fwd is not M-invariant "
+                                   f"at M={rows}")
+    print(f"    forward M-invariant, bitwise, at M = m-1 and m for the "
+          f"plan's changes m = {changes} (against M={packed.shape[0]}, "
+          f"tile {pm._fwd_tile(packed.shape[0], 128, n_sms).rows})")
+
+
+def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
+    """Both kernels at the reference's 7,523 genes (941-byte P rows): on
+    the trainer's layout (rows padded once to 944 bytes by its own
+    helper), each held against the plain version and timed; and the
+    backward on unpadded rows, which it pads on every launch, with that
+    copy timed alone."""
+    from g2vec_tpu_torch.train.trainer import _fused_rows
+
     g_ref = 7523
-    wide = _random_packed(torch, m, g_ref, 80 / g_ref, gen)
-    ms, lo, hi = _time_ms(
-        torch, lambda: pm.packed_matmul_bwd(wide, g16, g_ref), flush)
-    pad_ms, pad_lo, pad_hi = _time_ms(
-        torch, lambda: pm._pad_cols(wide, 4), flush)
-    print(f"    G={g_ref} (P rows {wide.shape[1]} bytes, padded to "
-          f"{-(-wide.shape[1] // 4) * 4}): backward {ms:.4f} ms "
-          f"[{lo:.4f}, {hi:.4f}], of which the padding copy alone "
-          f"{pad_ms:.4f} ms [{pad_lo:.4f}, {pad_hi:.4f}]")
+    wide = _random_packed(torch, n_all, g_ref, 80 / g_ref, gen)
+    host = wide.cpu().numpy()
+    padded = torch.from_numpy(_fused_rows(host[:n_tr], host[n_tr:], g_ref)
+                              ).cuda()
+    w16 = (torch.randn((g_ref, h), device="cuda", generator=gen) * 0.09
+           ).to(torch.bfloat16)
+    g16 = torch.randn((n_tr, h), device="cuda", generator=gen
+                      ).to(torch.bfloat16)
+    x = pm.unpack_bits(wide, g_ref).float()
+    _check_close(torch, f"packed_matmul_fwd M={n_all} G={g_ref} (rows "
+                 f"{padded.shape[1]} bytes)", pm.packed_matmul_fwd(padded, w16),
+                 pm.packed_matmul_fwd_plain(wide, w16), x @ w16.float().abs())
+    _check_close(torch, f"packed_matmul_bwd M={n_tr} G={g_ref} (rows "
+                 f"{padded.shape[1]} bytes)",
+                 pm.packed_matmul_bwd(padded[:n_tr], g16, g_ref),
+                 pm.packed_matmul_bwd_plain(wide[:n_tr], g16, g_ref),
+                 x[:n_tr].T @ g16.float().abs())
+    fwd = _time_ms(torch, lambda: pm.packed_matmul_fwd(padded, w16), flush)
+    bwd = _time_ms(torch, lambda: pm.packed_matmul_bwd(padded[:n_tr], g16,
+                                                       g_ref), flush)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"    G={g_ref}, P rows padded once to {padded.shape[1]} bytes: "
+          f"forward M={n_all} {_spread(fwd)} (tile "
+          f"{pm._fwd_tile(n_all, h, n_sms).rows}), backward M={n_tr} "
+          f"{_spread(bwd)}")
+    narrow = wide[:n_tr]
+    bwd = _time_ms(torch, lambda: pm.packed_matmul_bwd(narrow, g16, g_ref),
+                   flush)
+    pad = _time_ms(torch, lambda: pm._pad_cols(narrow, 4), flush)
+    print(f"    G={g_ref}, P rows unpadded ({narrow.shape[1]} bytes): "
+          f"backward M={n_tr} {_spread(bwd)}, of which the padding copy "
+          f"alone {_spread(pad)}")
 
 
 def _config(files, out_dir, device, **overrides):
@@ -279,15 +402,18 @@ def _edge_flips(cfg) -> int:
 
 
 def _train_val_rows(torch, cfg, result):
-    """The trainer's ``[train | val]`` packed matrix for this run, from
-    the rows and labels its stage 3 returned; and the train row count."""
-    from g2vec_tpu_torch.train.trainer import _pack_split, _split_indices
+    """The trainer's ``[train | val]`` packed matrix for this run, built
+    by the trainer's own helper from the rows and labels its stage 3
+    returned; and the train row count."""
+    from g2vec_tpu_torch.train.trainer import (_fused_rows, _pack_split,
+                                               _split_indices)
 
     seed = cfg.seed if cfg.train_seed is None else cfg.train_seed
     tr_idx, vl_idx = _split_indices(result.n_paths, seed, cfg.val_fraction)
     p_tr = _pack_split(result.paths, result.labels, tr_idx)[0]
     p_val = _pack_split(result.paths, result.labels, vl_idx)[0]
-    return torch.from_numpy(np.concatenate([p_tr, p_val])).cuda(), len(p_tr)
+    rows = _fused_rows(p_tr, p_val, result.n_genes)
+    return torch.from_numpy(rows).cuda(), len(p_tr)
 
 
 def main() -> int:
@@ -319,6 +445,10 @@ def main() -> int:
             kernel = next((w for w in ("pm_fwd_kernel", "pm_bwd_kernel",
                                        "pm_bwd_sum_kernel") if w in line),
                           line.split("'")[1] if "'" in line else "?")
+            # A forward instance's mangled name carries <warps_m, warps_n>.
+            args = re.findall(r"ILi(\d+)ELi(\d+)E", line)
+            if args:
+                kernel += "<{}, {}>".format(*args[0])
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
 
@@ -373,14 +503,21 @@ def main() -> int:
               f"{plan.workspace_bytes} bytes; dense tensor-core ceiling "
               f"{2 * n_tr * n_genes * 128 / BF16_TC_OPS_PER_S * 1e3:.4f} ms "
               f"(2*M*G*H = {2 * n_tr * n_genes * 128:.3e} bf16 operations)")
+        print("    " + _forward_plan_line(pm, packed_all.shape[0], n_genes,
+                                          128, n_sms))
         records = _compare_kernels(torch, pm, packed_all, n_tr, n_genes, 128,
                                    gen, flush, timed=True)
+        _forward_tiles(torch, pm, packed_all, n_tr, n_genes, 128, gen, flush)
         _backward_splits(torch, pm, packed_all[:n_tr], n_genes, 128, gen,
                          flush)
+        _at_reference_genes(torch, pm, packed_all.shape[0], n_tr, 128, gen,
+                            flush)
         ragged = _random_packed(torch, 1001, 1003, 0.02, gen)
         print("    ragged shape:")
         _compare_kernels(torch, pm, ragged, 777, 1003, 132, gen, flush,
                          timed=False)
+        print("    forward edges:")
+        _forward_edges(torch, pm, gen, n_genes)
         print("    backward edges:")
         _backward_edges(torch, pm, gen, n_genes)
         del flush, packed_all, ragged

@@ -21,25 +21,48 @@
 // G 5,850 x H 128) and 0.0104 ms for the backward (M 32,319) at the
 // example-scale shapes.
 //
-// Forward. Each block stages the packed bytes and a bf16 tile of W in
-// shared memory, with the next tile's global loads issued into registers
-// while the current tile is consumed. Lanes map to 4 consecutive hidden
-// columns each (a warp covers 128 columns), so every lane of a warp works
-// on the same packed byte: the bit loop is warp-uniform, zero bytes are
-// skipped, and each set bit costs one 8-byte shared load and four f32 adds
-// per lane on the CUDA cores. A row's result is its own bits' W rows added
-// in ascending gene order, whatever else is in the launch: the forward is
-// M-invariant, which the trainer's fused [train | val] launch relies on.
+// Both run on the tensor cores all the same: mma.sync m16n8k16 bf16 -> f32
+// with the 0/1 operand built in registers straight from the packed bits
+// and the dense operand streamed through a cp.async ring in shared memory.
+// No unpacked 0/1 matrix exists anywhere, in device or shared memory. They
+// do the dense 2*M*G*H operations, which they trade for a short pipeline
+// with no branches on the bits: 6.05e10 for the forward and 4.84e10 for
+// the backward at the example shapes, whose ceilings at the dense bf16 rate
+// are 0.061 and 0.049 ms, about 4x and 5x the byte bounds.
+//
+// Forward. A = X (16 path rows x 16 genes), B = the W tile (16 genes x 8
+// columns).
+//   - A block owns kFwdWarpRows * warps_m rows x 128 columns; its warps
+//     are warps_m (rows) x warps_n (columns) tiles of 32 rows x 128 /
+//     warps_n columns, two blocks to an SM. The block height is a launch
+//     choice among the instances built below (_fwd_tile in
+//     ops/packed_matmul.py plans it from M and the SM count).
+//   - The genes stream through a 4-stage cp.async ring of 64 genes each:
+//     the W rows in 16-byte copies into rows padded from 256 to 272 bytes
+//     (ldmatrix.trans's 8 rows fall on 8 distinct bank groups), and the
+//     block's 8 packed bytes per row in 4-byte copies (P's row stride is a
+//     multiple of 4 bytes: the trainer pads its rows once per run). Genes
+//     past G, columns past H and rows past M are zero-filled by the copy.
+//   - A lane's four A registers hold rows groupID and groupID+8 of an
+//     m-tile at genes k0+2t, k0+2t+1 (byte k0/8) and k0+8+2t, k0+9+2t (the
+//     next byte): two adjacent bits of one byte of one row. Each packed
+//     word is shifted by 2t and by 2t+1, which puts gene 2t's and gene
+//     2t+1's bit of every byte at the byte's bit 7; each register is then
+//     one prmt in sign mode and one mask to bf16 1.0 (bits_to_bf16x2).
+//   - Every block walks all genes in ascending k-steps in one accumulator
+//     chain per element: no split along genes, no second pass, no atomics.
+//     A row's result depends on its own bits and W alone, whatever else is
+//     in the launch and whatever block height the plan picks: the forward
+//     is M-invariant, which the trainer's fused [train | val] launch
+//     relies on.
+//   - Every row block streams all of W from L2 (1.50 MB at G 5,850 x
+//     H 128, so 379 MB at 160-row blocks of the example shape).
 //
 // Backward. A bit loop on the CUDA cores leaves the backward latency-bound
 // (a dependent chain of one-byte branches and adds per row), so it runs on
-// the tensor cores instead: mma.sync m16n8k16 bf16 -> f32 with A = X^T
-// (16 genes x 16 path rows) built in registers straight from the packed
-// bits and B = the g_out tile (16 rows x 8 columns) from shared memory.
-// No unpacked 0/1 matrix exists anywhere, in device or shared memory.
-// This design does the dense 2*M*G*H operations, 4.84e10 at the example
-// shape: its own ceiling is 0.049 ms at the dense bf16 rate, about 5x the
-// byte bound, which it trades for a short pipeline with no branches.
+// the tensor cores instead, with A = X^T (16 genes x 16 path rows) built in
+// registers straight from the packed bits and B = the g_out tile (16 rows
+// x 8 columns) from shared memory.
 //   - A block owns 128 genes x 128 hidden columns of one slice of rows;
 //     its 8 warps are 4 (genes) x 2 (columns) tiles of 32 genes x 64
 //     columns (2 x 8 MMA tiles, 64 f32 accumulators a thread), two blocks
@@ -48,9 +71,7 @@
 //     but doubles the integer work that builds A, and measured slower.
 //   - The rows stream through a 4-stage cp.async ring of 64 rows each:
 //     the g_out tile in 16-byte copies into rows padded from 256 to 272
-//     bytes, so ldmatrix.trans's 8 rows fall on 8 distinct bank groups,
-//     and the block's 16 packed bytes per row in 4-byte copies (the
-//     wrapper pads P's rows to a multiple of 4 bytes when G needs it).
+//     bytes, and the block's 16 packed bytes per row in 4-byte copies.
 //     Rows past the slice and columns past H are zero-filled by the copy.
 //   - A lane's four A registers hold rows 2t, 2t+1, 2t+8, 2t+9 of the
 //     k-step for genes groupID and groupID+8. Each packed word is shifted
@@ -79,18 +100,21 @@
 
 namespace {
 
-constexpr int kThreads = 256;                  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileH = 128;                    // hidden columns per block
-
-// Forward: a block owns 128 rows x 128 columns and walks the genes in
-// chunks of 64 (8 packed bytes per row).
-constexpr int kFwdRows = 128;
-constexpr int kFwdRowsPerWarp = kFwdRows / kWarps;              // 16
+// Forward: warps_m x warps_n warps of kFwdWarpRows rows x kFwdCols /
+// warps_n columns; the genes stream through kFwdStages stages of kFwdGenes.
+constexpr int kFwdWarpRows = 32;
+constexpr int kFwdMTiles = kFwdWarpRows / 16;                   // MMA tiles
+constexpr int kFwdCols = 128;                  // hidden columns per block
+constexpr int kFwdBlocksPerSM = 2;             // _fwd_tile plans for this
 constexpr int kFwdGenes = 64;
-constexpr int kFwdBytes = kFwdGenes / 8;                        // 8
-constexpr int kFwdPBytesPerThread = kFwdRows * kFwdBytes / kThreads;   // 4
-constexpr int kFwdWQuadsPerThread = kFwdGenes * (kTileH / 4) / kThreads;  // 8
+constexpr int kFwdBytes = kFwdGenes / 8;       // packed bytes per row
+constexpr int kFwdWords = kFwdBytes / 4;       // ... in 4-byte words
+constexpr int kFwdStages = 4;
+constexpr int kFwdWStride = kFwdCols + 8;      // bf16 per staged W row
+constexpr int kFwdWBytes = kFwdGenes * kFwdWStride * 2;
+constexpr int kFwdWChunks = kFwdGenes * kFwdCols / 8;   // 16-byte copies
+static_assert(kFwdGenes % 32 == 0 && kFwdWarpRows % 16 == 0,
+              "whole packed words, whole m-tiles");
 
 // Backward: kBwdWarpsM x kBwdWarpsN warps (genes x columns) of
 // kBwdWarpGenes x kBwdWarpCols each; a block owns one tile of genes x
@@ -123,111 +147,6 @@ static_assert(kBwdGChunks * 8 * kBwdThreads == kBwdRows * kBwdCols &&
               kBwdPWords > 0, "every thread copies whole chunks and words");
 static_assert(kBwdWarpGenes % 32 == 0 && kBwdNTiles % 2 == 0 &&
               kBwdRows % 16 == 0, "whole packed words, n-tile pairs, k-steps");
-
-// Four packed bf16 (element 0 in the low half of v.x) -> four f32, exactly:
-// a bf16 is the upper 16 bits of the f32 with the same value.
-__device__ __forceinline__ float4 bf16x4_to_float4(const uint2 v) {
-    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ void add4(float (&acc)[4], const float4 v) {
-    acc[0] += v.x;
-    acc[1] += v.y;
-    acc[2] += v.z;
-    acc[3] += v.w;
-}
-
-__global__ void __launch_bounds__(kThreads)
-pm_fwd_kernel(const uint8_t* __restrict__ packed,
-              const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
-              int m, int g, int nb, int h) {
-    __shared__ __align__(8) uint8_t p_s[kFwdRows][kFwdBytes];
-    __shared__ __align__(16) __nv_bfloat16 w_s[kFwdGenes][kTileH];
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int row0 = blockIdx.x * kFwdRows;
-    const int col0 = blockIdx.y * kTileH;
-
-    // Staging map. Packed tile: thread -> row tid/2, bytes (tid%2)*4..+3.
-    // W tile: quad q = i*256 + tid -> gene q/32, columns (q%32)*4..+3.
-    const int p_row = tid >> 1;
-    const int p_byte = (tid & 1) * kFwdPBytesPerThread;
-    uint8_t p_reg[kFwdPBytesPerThread];
-    uint2 w_reg[kFwdWQuadsPerThread];
-
-    auto fetch = [&](int g0) {
-        const int grow = row0 + p_row;
-#pragma unroll
-        for (int j = 0; j < kFwdPBytesPerThread; ++j) {
-            const int byte = (g0 >> 3) + p_byte + j;
-            p_reg[j] = (grow < m && byte < nb)
-                ? packed[static_cast<size_t>(grow) * nb + byte] : 0;
-        }
-#pragma unroll
-        for (int i = 0; i < kFwdWQuadsPerThread; ++i) {
-            const int q = i * kThreads + tid;
-            const int gene = g0 + (q >> 5);
-            const int col = col0 + (q & 31) * 4;
-            w_reg[i] = (gene < g && col < h)
-                ? *reinterpret_cast<const uint2*>(
-                      w + static_cast<size_t>(gene) * h + col)
-                : make_uint2(0u, 0u);
-        }
-    };
-    auto stash = [&]() {
-#pragma unroll
-        for (int j = 0; j < kFwdPBytesPerThread; ++j)
-            p_s[p_row][p_byte + j] = p_reg[j];
-#pragma unroll
-        for (int i = 0; i < kFwdWQuadsPerThread; ++i) {
-            const int q = i * kThreads + tid;
-            *reinterpret_cast<uint2*>(&w_s[q >> 5][(q & 31) * 4]) = w_reg[i];
-        }
-    };
-
-    float acc[kFwdRowsPerWarp][4];
-#pragma unroll
-    for (int r = 0; r < kFwdRowsPerWarp; ++r)
-        acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
-
-    fetch(0);
-    for (int g0 = 0; g0 < g; g0 += kFwdGenes) {
-        __syncthreads();                    // previous chunk fully consumed
-        stash();
-        __syncthreads();
-        if (g0 + kFwdGenes < g) fetch(g0 + kFwdGenes);   // in flight below
-#pragma unroll
-        for (int r = 0; r < kFwdRowsPerWarp; ++r) {
-            const uint2 bytes = *reinterpret_cast<const uint2*>(
-                p_s[warp * kFwdRowsPerWarp + r]);
-            if ((bytes.x | bytes.y) == 0u) continue;       // warp-uniform
-#pragma unroll
-            for (int b = 0; b < kFwdBytes; ++b) {
-                unsigned bits = ((b < 4 ? bytes.x : bytes.y) >> (8 * (b & 3))) & 0xffu;
-                while (bits) {
-                    // MSB first = ascending gene order within the byte.
-                    const int j = __clz(bits) - 24;
-                    bits &= ~(0x80u >> j);
-                    add4(acc[r], bf16x4_to_float4(*reinterpret_cast<const uint2*>(
-                        &w_s[b * 8 + j][lane * 4])));
-                }
-            }
-        }
-    }
-
-    const int col = col0 + lane * 4;
-    if (col < h) {
-#pragma unroll
-        for (int r = 0; r < kFwdRowsPerWarp; ++r) {
-            const int row = row0 + warp * kFwdRowsPerWarp + r;
-            if (row < m)
-                *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * h + col) =
-                    make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-        }
-    }
-}
 
 // cp.async copies of 16 and 4 bytes; bytes past src_bytes are zero-filled.
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
@@ -269,17 +188,170 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One A register: bf16 0/1 of one gene on two path rows. lo and hi are
-// the rows' packed words shifted so that the gene's bit of every byte sits
-// at the byte's bit 7; prmt's sign mode copies bit 7 of byte `byte` of lo
-// over the low half and that of hi over the high half (0xFFFF or 0), and
-// the mask leaves bf16 1.0 (0x3F80) or 0 in each half.
+// One A register: two bf16 0/1 values. lo and hi are packed words shifted
+// so that the wanted bit of every byte sits at the byte's bit 7; prmt's
+// sign mode copies bit 7 of byte `byte` of lo over the low half and that
+// of hi over the high half (0xFFFF or 0), and the mask leaves bf16 1.0
+// (0x3F80) or 0 in each half. The backward passes two rows' words shifted
+// alike (one gene, two rows), the forward one row's word shifted by 2t and
+// by 2t+1 (one row, two genes).
 __device__ __forceinline__ uint32_t bits_to_bf16x2(uint32_t lo, uint32_t hi,
                                                    int byte) {
     uint32_t r;
     asm("prmt.b32 %0, %1, %2, %3;\n"
         : "=r"(r) : "r"(lo), "r"(hi), "r"(0xCC88u + 0x1111u * byte));
     return r & 0x3F803F80u;
+}
+
+template <int kWarpsM, int kWarpsN>
+struct FwdTile {
+    static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+    static constexpr int kRows = kFwdWarpRows * kWarpsM;
+    static constexpr int kWarpCols = kFwdCols / kWarpsN;
+    static constexpr int kNTiles = kWarpCols / 8;
+    static constexpr int kStageBytes = kFwdWBytes + kRows * kFwdBytes;
+    static constexpr int kSmem = kFwdStages * kStageBytes;
+    static constexpr int kPWords = kRows * kFwdWords;      // 4-byte copies
+    static_assert(kNTiles % 2 == 0, "n-tile pairs");
+};
+
+template <int kWarpsM, int kWarpsN>
+__global__ void __launch_bounds__(FwdTile<kWarpsM, kWarpsN>::kThreads,
+                                  kFwdBlocksPerSM)
+pm_fwd_kernel(const uint8_t* __restrict__ packed,
+              const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
+              int m, int g, int nb, int h) {
+    using T = FwdTile<kWarpsM, kWarpsN>;
+    extern __shared__ __align__(16) uint8_t smem[];
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int wm = warp % kWarpsM, wn = warp / kWarpsM;     // warp tile
+    const int gid = lane >> 2, tig = lane & 3;     // MMA groupID, thread in group
+    const int row0 = blockIdx.x * T::kRows;
+    const int col0 = blockIdx.y * kFwdCols;
+    const int n_steps = (g + kFwdGenes - 1) / kFwdGenes;
+    const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+    // Staging map of one stage, q = i * kThreads + tid. W tile: 16-byte
+    // chunk q -> gene q / (kFwdCols/8), columns (q % (kFwdCols/8))*8..+7.
+    // Packed tile: word q -> row q / kFwdWords, bytes (q % kFwdWords)*4..+3,
+    // kept row-major at byte q*4.
+    auto load_stage = [&](int step, int stage) {
+        const int g0 = step * kFwdGenes;
+        const uint32_t base = smem0 + stage * T::kStageBytes;
+#pragma unroll
+        for (int i = 0; i < (kFwdWChunks + T::kThreads - 1) / T::kThreads; ++i) {
+            const int q = i * T::kThreads + tid;
+            if (kFwdWChunks % T::kThreads != 0 && q >= kFwdWChunks) break;
+            const int r = q / (kFwdCols / 8), c = q % (kFwdCols / 8) * 8;
+            const bool ok = g0 + r < g && col0 + c < h;
+            cp_async_16(base + (r * kFwdWStride + c) * 2,
+                        ok ? w + static_cast<size_t>(g0 + r) * h + col0 + c : w,
+                        ok ? 16 : 0);
+        }
+#pragma unroll
+        for (int i = 0; i < (T::kPWords + T::kThreads - 1) / T::kThreads; ++i) {
+            const int q = i * T::kThreads + tid;
+            if (T::kPWords % T::kThreads != 0 && q >= T::kPWords) break;
+            const int row = row0 + q / kFwdWords;
+            const int byte = g0 / 8 + q % kFwdWords * 4;
+            const bool ok = row < m && byte < nb;
+            cp_async_4(base + kFwdWBytes + q * 4,
+                       ok ? packed + static_cast<size_t>(row) * nb + byte
+                          : packed,
+                       ok ? 4 : 0);
+        }
+    };
+
+    float acc[kFwdMTiles][T::kNTiles][4];          // [m-tile][n-tile][frag]
+#pragma unroll
+    for (int j = 0; j < kFwdMTiles; ++j)
+#pragma unroll
+        for (int n = 0; n < T::kNTiles; ++n)
+            acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.0f;
+
+#pragma unroll
+    for (int s = 0; s < kFwdStages - 1; ++s) {
+        if (s < n_steps) load_stage(s, s);
+        cp_async_commit();                         // one group per stage, even if empty
+    }
+
+    // ldmatrix.x4.trans: lanes 0-15 address genes 0-15 of the k-step at the
+    // n-tile's column, lanes 16-31 the same genes 8 columns on.
+    const int ld_row = lane & 15;
+    const int ld_col = wn * T::kWarpCols + (lane >> 4) * 8;
+
+    for (int step = 0; step < n_steps; ++step) {
+        cp_async_wait<kFwdStages - 2>();           // this step's stage landed
+        __syncthreads();                           // ... for every thread, and
+                                                   // the step before is consumed
+        const int next = step + kFwdStages - 1;
+        if (next < n_steps) load_stage(next, next % kFwdStages);
+        cp_async_commit();
+
+        const int stage = step % kFwdStages;
+        const uint32_t w_s = smem0 + stage * T::kStageBytes;
+        const uint32_t* p_s = reinterpret_cast<const uint32_t*>(
+            smem + stage * T::kStageBytes + kFwdWBytes) +
+            wm * kFwdWarpRows * kFwdWords;
+#pragma unroll
+        for (int wd = 0; wd < kFwdWords; ++wd) {
+            // Word wd (32 genes, two k-steps) of the lane's rows gid + 8i,
+            // shifted to put gene 2t's (lo) and gene 2t+1's (hi) bit of
+            // every byte at bit 7.
+            uint32_t lo[2 * kFwdMTiles], hi[2 * kFwdMTiles];
+#pragma unroll
+            for (int i = 0; i < 2 * kFwdMTiles; ++i) {
+                const uint32_t v = p_s[(gid + 8 * i) * kFwdWords + wd];
+                lo[i] = v << (2 * tig);
+                hi[i] = v << (2 * tig + 1);
+            }
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                // k-step k0: genes k0..k0+7 in byte 2*half, k0+8.. in the next.
+                const int k0 = wd * 32 + half * 16;
+                uint32_t a[kFwdMTiles][4];
+#pragma unroll
+                for (int j = 0; j < kFwdMTiles; ++j) {
+                    // m-tile j: rows gid + 16j (i = 2j) and gid + 16j + 8.
+                    a[j][0] = bits_to_bf16x2(lo[2 * j], hi[2 * j], 2 * half);
+                    a[j][1] = bits_to_bf16x2(lo[2 * j + 1], hi[2 * j + 1], 2 * half);
+                    a[j][2] = bits_to_bf16x2(lo[2 * j], hi[2 * j], 2 * half + 1);
+                    a[j][3] = bits_to_bf16x2(lo[2 * j + 1], hi[2 * j + 1],
+                                             2 * half + 1);
+                }
+#pragma unroll
+                for (int n = 0; n < T::kNTiles; n += 2) {
+                    uint32_t b[4];
+                    ldmatrix_x4_trans(
+                        b, w_s + ((k0 + ld_row) * kFwdWStride + ld_col + n * 8) * 2);
+#pragma unroll
+                    for (int j = 0; j < kFwdMTiles; ++j) {
+                        mma_16816(acc[j][n], a[j], b[0], b[1]);
+                        mma_16816(acc[j][n + 1], a[j], b[2], b[3]);
+                    }
+                }
+            }
+        }
+    }
+
+    // C fragment: rows gid and gid + 8, columns 2t and 2t + 1.
+#pragma unroll
+    for (int j = 0; j < kFwdMTiles; ++j) {
+        const int row = row0 + wm * kFwdWarpRows + j * 16 + gid;
+#pragma unroll
+        for (int n = 0; n < T::kNTiles; ++n) {
+            const int col = col0 + wn * T::kWarpCols + n * 8 + 2 * tig;
+            if (col >= h) continue;
+            if (row < m)
+                *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * h + col) =
+                    make_float2(acc[j][n][0], acc[j][n][1]);
+            if (row + 8 < m)
+                *reinterpret_cast<float2*>(out + static_cast<size_t>(row + 8) * h + col) =
+                    make_float2(acc[j][n][2], acc[j][n][3]);
+        }
+    }
 }
 
 __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
@@ -431,29 +503,58 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
     dw[i] = acc;
 }
 
+template <int kWarpsM, int kWarpsN>
+cudaError_t launch_fwd(const void* packed, const void* w, void* out,
+                       int64_t m, int64_t g, int64_t nb, int64_t h,
+                       cudaStream_t s) {
+    using T = FwdTile<kWarpsM, kWarpsN>;
+    auto kernel = pm_fwd_kernel<kWarpsM, kWarpsN>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>((m + T::kRows - 1) / T::kRows),
+                    static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols));
+    kernel<<<grid, T::kThreads, T::kSmem, s>>>(
+        static_cast<const uint8_t*>(packed),
+        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
+        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
+        static_cast<int>(h));
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Both entry points launch on `stream` and return cudaGetLastError() (0 on
 // success). Preconditions, checked by the Python wrapper: P [m, nb] uint8
-// contiguous, W / g_out bf16 contiguous, out / dW f32 contiguous, g, h >= 1.
-//   forward: nb == ceil(g/8), h % 4 == 0, W 8-byte aligned, m >= 1.
-//   backward: nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, P 4-byte
-//     aligned, h % 8 == 0, g_out 16-byte aligned;
-//     rows_per_slice * n_slices >= m, n_slices >= 1,
+// contiguous with nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, P
+// 4-byte aligned, W / g_out bf16 contiguous, 16-byte aligned, with
+// h % 8 == 0, out / dW f32 contiguous, g, h >= 1.
+//   forward: m >= 1; (rows_per_block, warps_n) one of the instances below
+//     (anything else returns cudaErrorInvalidValue).
+//   backward: rows_per_slice * n_slices >= m, n_slices >= 1,
 //     and with n_slices > 1 a workspace `work` of n_slices * g * h f32.
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
-               int64_t g, int64_t nb, int64_t h, void* stream) {
-    const dim3 grid(static_cast<unsigned>((m + kFwdRows - 1) / kFwdRows),
-                    static_cast<unsigned>((h + kTileH - 1) / kTileH));
-    pm_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(packed),
-        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
-        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
-        static_cast<int>(h));
-    return static_cast<int>(cudaGetLastError());
+               int64_t g, int64_t nb, int64_t h, int64_t rows_per_block,
+               int64_t warps_n, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int64_t warps_m = rows_per_block / kFwdWarpRows;
+    if (warps_m * kFwdWarpRows != rows_per_block)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (warps_n == 2 && warps_m == 3)
+        err = launch_fwd<3, 2>(packed, w, out, m, g, nb, h, s);
+    else if (warps_n == 2 && warps_m == 4)
+        err = launch_fwd<4, 2>(packed, w, out, m, g, nb, h, s);
+    else if (warps_n == 2 && warps_m == 5)
+        err = launch_fwd<5, 2>(packed, w, out, m, g, nb, h, s);
+    else if (warps_n == 1 && warps_m == 4)
+        err = launch_fwd<4, 1>(packed, w, out, m, g, nb, h, s);
+    else if (warps_n == 1 && warps_m == 5)
+        err = launch_fwd<5, 1>(packed, w, out, m, g, nb, h, s);
+    return static_cast<int>(err);
 }
 
 int g2v_pm_bwd(const void* packed, const void* gout, void* dw, void* work,

@@ -18,12 +18,19 @@ version below, which unpacks the bits to a dense bf16 matrix and computes
 ``x.float() @ w.bfloat16().float()``. There is no fallback from one to the
 other. Each wrapper counts its kernel launches in ``.launches``.
 
+P may come with each row padded by zero bytes to a multiple of
+``P_ROW_ALIGN`` (4) bytes, as the trainer builds it once per run: the
+kernels copy P in 4-byte words, and take such a P as it is. An unpadded
+P of a gene count that needs padding is copied to the padded width on
+every launch. The plain versions read the first ``ceil(G/8)`` bytes of a
+row either way.
+
 On the card any hidden width H is taken: the wrapper zero-pads the bf16
-operand's columns to the width its kernel reads (a multiple of 4 for the
-forward, of 8 for the backward) and slices the padding off the result;
-zero columns add nothing, so this is exact. The backward splits M into
-the slices that :func:`_bwd_slices` plans and adds their partials in a
-fixed order on the card.
+operand's columns to a multiple of 8 (the kernels' 16-byte copies) and
+slices the padding off the result; zero columns add nothing, so this is
+exact. The forward's block height comes from :func:`_fwd_tile`. The
+backward splits M into the slices that :func:`_bwd_slices` plans and adds
+their partials in a fixed order on the card.
 
 The :class:`PackedMatmul` autograd function glues the two together: the
 gradient reaches W only (the paths are data, ref: G2Vec.py:264), the
@@ -64,7 +71,8 @@ def nvcc_command() -> list:
 
 def _configure(lib: ctypes.CDLL) -> None:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, i64,
+                               ptr]
     lib.g2v_pm_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                i64, i64, ptr]
     for fn in (lib.g2v_pm_fwd, lib.g2v_pm_bwd):
@@ -86,6 +94,17 @@ def _lib() -> ctypes.CDLL:
 # Plain PyTorch versions (the CPU path, and the card-side reference).
 # ---------------------------------------------------------------------------
 
+#: The kernels copy P in words of this many bytes: its row stride must be
+#: a multiple of it.
+P_ROW_ALIGN = 4
+
+
+def padded_row_bytes(n_genes: int) -> int:
+    """A packed row of ``n_genes`` bits padded to the kernels' row
+    stride: ``ceil(G/8)`` rounded up to a multiple of ``P_ROW_ALIGN``."""
+    return -(-((n_genes + 7) // 8) // P_ROW_ALIGN) * P_ROW_ALIGN
+
+
 def unpack_bits(packed: torch.Tensor, n_genes: int,
                 dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """[M, ceil(G/8)] uint8 np.packbits rows -> [M, G] 0/1 in ``dtype``."""
@@ -103,6 +122,58 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
                             n_genes: int) -> torch.Tensor:
     x = unpack_bits(packed, n_genes)
     return x.float().T @ g_out.bfloat16().float()
+
+
+# ---------------------------------------------------------------------------
+# The forward's block height.
+# ---------------------------------------------------------------------------
+
+#: The forward kernel's warp tile height, block width and residency
+#: (kFwdWarpRows, kFwdCols and kFwdBlocksPerSM in csrc/packed_matmul.cu,
+#: which tests/test_torch_packed_matmul.py holds these equal to).
+FWD_WARP_ROWS, FWD_BLOCK_COLS, FWD_BLOCKS_PER_SM = 32, 128, 2
+#: The (rows per block, warps along the block's columns) instances the
+#: kernel is built for (g2v_pm_fwd's dispatch); _fwd_tile plans among the
+#: heights at FWD_WARPS_N.
+FWD_TILES = ((96, 2), (128, 2), (160, 2), (128, 1), (160, 1))
+FWD_WARPS_N = 2
+
+
+class FwdTile(NamedTuple):
+    """A forward launch: blocks of ``rows`` path rows x FWD_BLOCK_COLS
+    columns with ``warps_n`` warps along the columns; ``blocks`` of them,
+    ``waves`` times the card's resident block slots."""
+
+    rows: int
+    warps_n: int
+    blocks: int
+    waves: float
+
+
+def _fwd_launch(m: int, h: int, n_sms: int, rows: int,
+                warps_n: int = FWD_WARPS_N) -> FwdTile:
+    """The forward's launch of ``m`` rows and ``h`` columns at ``rows``
+    rows a block on ``n_sms`` SMs."""
+    blocks = -(-m // rows) * -(-h // FWD_BLOCK_COLS)
+    return FwdTile(rows, warps_n, blocks,
+                   blocks / (FWD_BLOCKS_PER_SM * n_sms))
+
+
+def _fwd_tile(m: int, h: int, n_sms: int) -> FwdTile:
+    """The forward's block height for ``m`` rows and ``h`` columns on
+    ``n_sms`` SMs: of the heights built at ``FWD_WARPS_N``, the one that
+    leaves the fewest rows on the busiest SM, ``ceil(blocks / n_sms) *
+    rows`` (blocks spread evenly over the SMs, and an SM streams rows at
+    about the same rate with one resident block as with two: PERF.md, PR
+    4). Ties go to the taller block, which streams W from L2 fewer times.
+    At the example shape this is 160 rows for the fused ``[train | val]``
+    launch (253 blocks, 0.96 of a wave) where 128 rows would leave a
+    second wave of 52 blocks. The plan depends on its arguments alone,
+    and a row's result does not depend on the plan (the kernel walks
+    every gene in one order for every row)."""
+    heights = sorted(r for r, n in FWD_TILES if n == FWD_WARPS_N)
+    return min((_fwd_launch(m, h, n_sms, r) for r in heights),
+               key=lambda t: (-(-t.blocks // n_sms) * t.rows, -t.rows))
 
 
 # ---------------------------------------------------------------------------
@@ -178,9 +249,12 @@ def _check(packed: torch.Tensor, dense: torch.Tensor, n_genes: int,
     if dense.dim() != 2 or dense.shape[0] != dense_rows:
         raise ValueError(f"{what} must be [{dense_rows}, H], got "
                          f"{tuple(dense.shape)}")
-    if packed.shape[1] != (n_genes + 7) // 8:
+    nb = (n_genes + 7) // 8
+    if packed.shape[1] not in (nb, padded_row_bytes(n_genes)):
         raise ValueError(f"packed width {packed.shape[1]} does not hold "
-                         f"{n_genes} genes (want {(n_genes + 7) // 8})")
+                         f"{n_genes} genes (want {nb}, or "
+                         f"{padded_row_bytes(n_genes)} with its rows padded "
+                         f"to a multiple of {P_ROW_ALIGN} bytes)")
     if packed.device != dense.device:
         raise ValueError(f"packed on {packed.device}, {what} on {dense.device}")
     if not dense.dtype.is_floating_point:
@@ -225,23 +299,49 @@ def _launch(fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
+def _padded_packed(packed: torch.Tensor) -> torch.Tensor:
+    """P for the kernels' 4-byte copies: its rows padded to a multiple of
+    ``P_ROW_ALIGN`` bytes (a copy only when they are not: the trainer
+    pads once per run), starting 4-byte aligned or refused."""
+    p4 = _pad_cols(packed, P_ROW_ALIGN)
+    if p4.data_ptr() % P_ROW_ALIGN:
+        raise ValueError(f"the kernels need packed {P_ROW_ALIGN}-byte "
+                         f"aligned, got address {p4.data_ptr():#x}")
+    return p4
+
+
 def packed_matmul_fwd(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``unpack(packed) @ bf16(w)`` -> [M, H] float32."""
     _check(packed, w, w.shape[0], w.shape[0], "w")
     if packed.device.type == "cpu":
         return packed_matmul_fwd_plain(packed, w)
-    w16 = _pad_cols(w.to(torch.bfloat16), 4)
-    _check_kernel_args(packed, w16, "w", 8)
-    m, (g, h), h4 = packed.shape[0], w.shape, w16.shape[1]
+    w16 = _pad_cols(w.to(torch.bfloat16), 8)
+    _check_kernel_args(packed, w16, "w", 16)
+    m, h = packed.shape[0], w.shape[1]
     if m == 0:
         return torch.empty((0, h), dtype=torch.float32, device=packed.device)
-    out = torch.empty((m, h4), dtype=torch.float32, device=packed.device)
-    _launch(_lib().g2v_pm_fwd, packed, w16, out, m, g, packed.shape[1], h4)
+    tile = _fwd_tile(m, w16.shape[1], _sm_count(packed.device.index))
+    out = _fwd_on_card(packed, w16, tile)
     packed_matmul_fwd.launches += 1
-    return out if h4 == h else out[:, :h].contiguous()
+    return out if w16.shape[1] == h else out[:, :h].contiguous()
 
 
 packed_matmul_fwd.launches = 0
+
+
+def _fwd_on_card(packed: torch.Tensor, w16: torch.Tensor,
+                 tile: FwdTile) -> torch.Tensor:
+    """The forward kernel on checked card tensors (``w16`` padded to a
+    multiple of 8 columns, at least one row) at the block height ``tile``:
+    out [M, w16 width]. Counts nothing: the wrapper counts."""
+    if (tile.rows, tile.warps_n) not in FWD_TILES:
+        raise ValueError(f"no forward kernel is built for {tile}")
+    p4 = _padded_packed(packed)
+    m, (g, h8) = packed.shape[0], w16.shape
+    out = torch.empty((m, h8), dtype=torch.float32, device=packed.device)
+    _launch(_lib().g2v_pm_fwd, p4, w16, out, m, g, p4.shape[1], h8,
+            tile.rows, tile.warps_n)
+    return out
 
 
 def packed_matmul_bwd(packed: torch.Tensor, g_out: torch.Tensor,
@@ -266,16 +366,11 @@ def _bwd_on_card(packed: torch.Tensor, g16: torch.Tensor, n_genes: int,
                  plan: BwdSlices) -> torch.Tensor:
     """The backward kernels on checked card tensors (``g16`` padded to a
     multiple of 8 columns) under the split ``plan``: dW [n_genes, g16
-    width]. P's rows are padded to a multiple of 4 bytes for the kernel's
-    4-byte copies when G needs it, and P must start 4-byte aligned. Counts
-    nothing: the wrapper counts."""
+    width]. Counts nothing: the wrapper counts."""
     m, h8 = packed.shape[0], g16.shape[1]
     if plan.n_slices < 1 or plan.rows * plan.n_slices < m:
         raise ValueError(f"the split {plan} does not cover {m} rows")
-    p4 = _pad_cols(packed, 4)
-    if p4.data_ptr() % 4:
-        raise ValueError(f"the backward kernel needs packed 4-byte aligned, "
-                         f"got address {p4.data_ptr():#x}")
+    p4 = _padded_packed(packed)
     out = torch.empty((n_genes, h8), dtype=torch.float32, device=packed.device)
     work = (torch.empty((plan.n_slices, n_genes, h8), dtype=torch.float32,
                         device=packed.device) if plan.n_slices > 1 else None)

@@ -37,7 +37,8 @@ from g2vec_tpu_torch.device import resolve_device
 from g2vec_tpu_torch.models.cbow import (CBOW, accuracy_from_logits,
                                          init_params, masked_bce_loss,
                                          output_logits, torch_dtype)
-from g2vec_tpu_torch.ops.packed_matmul import packed_matmul, unpack_bits
+from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
+                                               padded_row_bytes, unpack_bits)
 
 #: Adam hyperparameters, TF1 defaults (ref: G2Vec.py:246).
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -73,6 +74,20 @@ def _pack_split(paths: np.ndarray, labels: np.ndarray, idx: np.ndarray):
     ones: the kernels take any row count, so no row is padding)."""
     y = labels[idx].astype(np.float32)[:, None]
     return paths[idx], y, np.ones_like(y)
+
+
+def _fused_rows(p_tr: np.ndarray, p_val: np.ndarray,
+                n_genes: int) -> np.ndarray:
+    """The ``[train | val]`` packed matrix of one run: train rows keep
+    their offsets and the val rows follow, each row padded with zero bytes
+    to the kernels' row stride (a multiple of 4 bytes), so that no launch
+    of the run copies P to pad it."""
+    n_tr, nb = p_tr.shape
+    rows = np.zeros((n_tr + p_val.shape[0], padded_row_bytes(n_genes)),
+                    np.uint8)
+    rows[:n_tr, :nb] = p_tr
+    rows[n_tr:, :nb] = p_val
+    return rows
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -141,9 +156,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     p_tr, y_tr, w_tr = _pack_split(paths, labels, tr_idx)
     p_val, y_val, w_val = _pack_split(paths, labels, vl_idx)
     n_tr = p_tr.shape[0]
-    # One [train | val] matrix: train rows keep their offsets, the val rows
-    # ride the same forward launch.
-    x_all = torch.from_numpy(np.concatenate([p_tr, p_val])).to(dev)
+    # The val rows ride the train rows' forward launch.
+    x_all = torch.from_numpy(_fused_rows(p_tr, p_val, n_genes)).to(dev)
     y_tr, w_tr, y_val, w_val = (torch.from_numpy(a).to(dev)
                                 for a in (y_tr, w_tr, y_val, w_val))
     if compute_dtype == "float32":

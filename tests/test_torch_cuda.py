@@ -165,6 +165,91 @@ def test_backward_is_bitwise_the_same_across_calls_and_streams(cuda):
     assert all(torch.equal(r, first) for r in results)
 
 
+def test_forward_at_k_step_and_block_edges(cuda):
+    """M one row off a k-step and off each built block height, and G one
+    gene off a k-step, at 999 and at 1,003 (rows not a multiple of 4
+    bytes, which the wrapper pads on the launch)."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {16 * k + d for k in (1, 2, 4, 5) for d in (-1, 1)}
+    rows |= {r + d for r, _ in pm.FWD_TILES for d in (-1, 1)}
+    for m in sorted(rows):
+        x, packed, w, _ = _inputs(m, 700, 128, 0.05, seed=m)
+        _assert_close(pm.packed_matmul_fwd(packed, w),
+                      pm.packed_matmul_fwd_plain(packed, w),
+                      x @ w.bfloat16().float().abs())
+    for g in (15, 17, 31, 33, 63, 65, 127, 129, 999, 1003):
+        x, packed, w, _ = _inputs(300, g, 136, 0.05, seed=g)
+        assert pm._fwd_tile(300, 136, n_sms).blocks >= 2
+        _assert_close(pm.packed_matmul_fwd(packed, w),
+                      pm.packed_matmul_fwd_plain(packed, w),
+                      x @ w.bfloat16().float().abs())
+
+
+@pytest.mark.parametrize("rows,warps_n", pm.FWD_TILES)
+def test_forward_under_each_tile(cuda, rows, warps_n):
+    """Every instance the kernel is built for gives the plain version's
+    result: one row, a block less and more one row, a ragged last block,
+    and two column tiles."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for m in (1, rows - 1, rows + 1, 3 * rows + 5):
+        x, packed, w, _ = _inputs(m, 1003, 136, 0.04, seed=m + rows)
+        w16 = pm._pad_cols(w.bfloat16(), 8)
+        tile = pm._fwd_launch(m, w16.shape[1], n_sms, rows, warps_n)
+        _assert_close(pm._fwd_on_card(packed, w16, tile)[:, :136],
+                      pm.packed_matmul_fwd_plain(packed, w),
+                      x @ w.bfloat16().float().abs())
+
+
+def test_forward_single_bits_hit_every_lane_of_the_a_fragment(cuda):
+    """Row r holds gene r alone, for every gene of four k-steps (two
+    packed words): each output row is that gene's W row, exactly. This
+    reaches every thread-in-group t, both bytes of a k-step and both
+    words of a ring stage, in both m-tiles of both row halves."""
+    g = 64
+    x = np.eye(g, dtype=bool)
+    packed = torch.from_numpy(np.packbits(x, axis=1)).cuda()
+    w = torch.randn((g, 128), device="cuda")
+    out = pm.packed_matmul_fwd(packed, w)
+    assert torch.equal(out, w.bfloat16().float())
+    # The same rows shifted by one row, so row r sits at another position
+    # of its m-tile.
+    out = pm.packed_matmul_fwd(torch.cat([packed[-1:], packed]), w)
+    assert torch.equal(out[1:], w.bfloat16().float())
+
+
+def _fwd_plan_changes(h):
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    changes, prev = [], pm._fwd_tile(1, h, n_sms).rows
+    for m in range(2, 60000):
+        rows = pm._fwd_tile(m, h, n_sms).rows
+        if rows != prev:
+            changes.append(m)
+        prev = rows
+    assert changes
+    return changes
+
+
+def test_forward_is_m_invariant_where_the_plan_changes(cuda):
+    changes = _fwd_plan_changes(128)
+    _, packed, w, _ = _inputs(changes[-1] + 1, 700, 128, 0.03, seed=7)
+    full = pm.packed_matmul_fwd(packed, w)
+    for m in changes:
+        for rows in (m - 1, m):
+            assert torch.equal(pm.packed_matmul_fwd(packed[:rows], w),
+                               full[:rows])
+
+
+def test_forward_refuses_misaligned_packed_and_unbuilt_tiles(cuda):
+    _, packed, w, _ = _inputs(200, 64, 8, 0.1, seed=8)
+    flat = torch.empty(200 * 8 + 1, dtype=torch.uint8, device="cuda")
+    shifted = flat[1:].view(200, 8)
+    shifted.copy_(packed)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        pm.packed_matmul_fwd(shifted, w)
+    with pytest.raises(ValueError, match="no forward kernel"):
+        pm._fwd_on_card(packed, w.bfloat16(), pm.FwdTile(64, 2, 4, 0.0))
+
+
 def test_kernel_source_has_no_atomics():
     """dW's reproducibility rests on fixed-order sums: no atomic add and
     no reduction instruction anywhere in the kernels' source."""

@@ -173,20 +173,102 @@ def test_backward_split_of_a_given_count(m, n):
     assert plan.rows * (plan.n_slices - 1) < m <= plan.rows * plan.n_slices
 
 
-def test_backward_plan_constants_match_the_kernel_source():
-    """_bwd_slices plans from the kernel's tile; the .cu's constexprs are
-    its one source, and the Python copy must equal them."""
+def _kernel_constants():
+    """The .cu's namespace-scope ``constexpr int`` constants, evaluated."""
     import re
 
     with open(tpm.SRC) as f:
         src = f.read()
     env = {}
-    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
+                                 re.M):
         env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return src, env
+
+
+def test_backward_plan_constants_match_the_kernel_source():
+    """_bwd_slices plans from the kernel's tile; the .cu's constexprs are
+    its one source, and the Python copy must equal them."""
+    _, env = _kernel_constants()
     assert (env["kBwdGenes"], env["kBwdCols"], env["kBwdRows"],
             env["kBwdBlocksPerSM"]) == (
         tpm.BWD_BLOCK_GENES, tpm.BWD_BLOCK_COLS, tpm.BWD_STAGE_ROWS,
         tpm.BWD_BLOCKS_PER_SM)
+
+
+def test_forward_plan_constants_match_the_kernel_source():
+    """_fwd_tile plans from the kernel's warp tile, block width and
+    residency, among the instances g2v_pm_fwd dispatches to."""
+    import re
+
+    src, env = _kernel_constants()
+    assert (env["kFwdWarpRows"], env["kFwdCols"], env["kFwdBlocksPerSM"]) == (
+        tpm.FWD_WARP_ROWS, tpm.FWD_BLOCK_COLS, tpm.FWD_BLOCKS_PER_SM)
+    built = {(int(wm) * env["kFwdWarpRows"], int(wn)) for wm, wn in
+             re.findall(r"launch_fwd<(\d+), (\d+)>\(", src)}
+    assert built == set(tpm.FWD_TILES)
+    assert env["kFwdWords"] * 4 % tpm.P_ROW_ALIGN == 0
+
+
+@pytest.mark.parametrize("h", [1, 128, 130, 1024])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 12673, 32319, 40399, 10 ** 6])
+def test_forward_tile_plan(m, h):
+    n_sms = 132
+    tile = tpm._fwd_tile(m, h, n_sms)
+    assert tile == tpm._fwd_tile(m, h, n_sms)
+    assert (tile.rows, tile.warps_n) in tpm.FWD_TILES
+    # Every row and column lies in exactly one block.
+    row_blocks = -(-m // tile.rows)
+    assert (row_blocks - 1) * tile.rows < m <= row_blocks * tile.rows
+    assert tile.blocks == row_blocks * -(-h // tpm.FWD_BLOCK_COLS)
+    assert tile.waves == tile.blocks / (tpm.FWD_BLOCKS_PER_SM * n_sms)
+    # No other height built leaves fewer rows on the busiest SM.
+    def busiest(t):
+        return -(-t.blocks // n_sms) * t.rows
+    for rows, warps_n in tpm.FWD_TILES:
+        other = tpm._fwd_launch(m, h, n_sms, rows, warps_n)
+        assert busiest(tile) <= busiest(other)
+
+
+def test_forward_tile_plan_at_the_example_shape():
+    # [train | val]: 160-row blocks fill 253 of one wave's 264 slots,
+    # where 128 rows would leave a second wave of 52 blocks; the train
+    # rows alone: 128 rows, 253 blocks.
+    assert tpm._fwd_tile(40399, 128, 132)[:3] == (160, 2, 253)
+    assert tpm._fwd_tile(32319, 128, 132)[:3] == (128, 2, 253)
+
+
+def test_padded_rows_give_bitwise_equal_plain_outputs(rng):
+    from g2vec_tpu_torch.train.trainer import _fused_rows
+
+    for g in (1003, 999, 1024):
+        x, w = _inputs(rng, 90, g, 16, density=0.03)
+        narrow = np.packbits(x, axis=1)
+        padded = _fused_rows(narrow[:60], narrow[60:], g)
+        assert padded.shape == (90, tpm.padded_row_bytes(g))
+        assert padded.shape[1] % tpm.P_ROW_ALIGN == 0
+        p, q = torch.from_numpy(narrow), torch.from_numpy(padded)
+        tw = torch.from_numpy(w)
+        assert torch.equal(tpm.packed_matmul_fwd(q, tw),
+                           tpm.packed_matmul_fwd(p, tw))
+        cot = torch.from_numpy(rng.standard_normal((90, 16)).astype(np.float32))
+        assert torch.equal(tpm.packed_matmul_bwd(q, cot, g),
+                           tpm.packed_matmul_bwd(p, cot, g))
+
+
+def test_packed_width_is_the_genes_bytes_or_their_padding(rng):
+    x, w = _inputs(rng, 8, 1003, 8)
+    packed = torch.from_numpy(np.packbits(x, axis=1))       # 126 bytes
+    tw = torch.from_numpy(w)
+    wide = torch.nn.functional.pad(packed, (0, 2))           # padded: 128
+    assert torch.equal(tpm.packed_matmul_fwd(wide, tw),
+                       tpm.packed_matmul_fwd(packed, tw))
+    for width in (125, 127, 129, 132):
+        bad = torch.nn.functional.pad(packed, (0, width - 126))
+        with pytest.raises(ValueError, match="width"):
+            tpm.packed_matmul_fwd(bad, tw)
+        with pytest.raises(ValueError, match="width"):
+            tpm.packed_matmul_bwd(bad, torch.zeros(8, 8), 1003)
 
 
 @pytest.mark.parametrize("width,multiple,want", [

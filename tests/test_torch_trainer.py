@@ -82,6 +82,27 @@ def test_bf16_kernel_path_matches_jax_pallas(rng):
     np.testing.assert_allclose(rt.w_ih, rj.w_ih, rtol=0, atol=1e-4)
 
 
+def test_bf16_kernel_path_with_padded_rows_matches_jax_pallas(rng):
+    """1,003 genes: 126-byte rows, which the trainer pads once to 128 for
+    the kernels' 4-byte copies; the trajectory is the JAX trainer's."""
+    rj, rt = _both(rng, 640, 1003, 128, "bfloat16", learning_rate=0.002,
+                   max_epochs=30)
+    assert len(rj.history) >= 3
+    _assert_same_trajectory(rj, rt, loss_rtol=1e-4)
+    np.testing.assert_allclose(rt.w_ih, rj.w_ih, rtol=0, atol=1e-4)
+
+
+def test_fused_rows_pad_each_row_once(rng):
+    for n_genes, width in ((1003, 128), (1024, 128), (700, 88), (5, 4)):
+        packed, _, _, _ = _problem(rng, 30, n_genes, 4)
+        tr, val = packed[:21], packed[21:]
+        rows = ttrainer._fused_rows(tr, val, n_genes)
+        assert rows.dtype == np.uint8 and rows.shape == (30, width)
+        nb = packed.shape[1]
+        assert np.array_equal(rows[:, :nb], packed)
+        assert not rows[:, nb:].any()
+
+
 def test_odd_hidden_width_matches_jax(rng):
     """hidden 10, as ``-s 10`` asks: the JAX trainer takes its dense path
     at that width (Pallas needs hidden % 128 == 0), and the port the same
