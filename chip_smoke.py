@@ -247,9 +247,13 @@ def _backward_splits(torch, pm, packed, g, h, gen, flush):
 def _forward_plan_line(pm, m, g, h, n_sms) -> str:
     tile = pm._fwd_tile(m, h, n_sms)
     w_bytes = -(-m // tile.rows) * g * (-(-h // 8) * 8) * 2
+    resident = pm.fwd_occupancy(tile.instance)
+    if resident != tile.blocks_per_sm:
+        raise RuntimeError(f"the planned forward tile {tile.instance} keeps "
+                           f"{resident} blocks resident on an SM")
     return (f"forward tile: {tile.rows} rows x {pm.FWD_BLOCK_COLS} columns "
             f"({tile.warps_n} warps along the columns), {tile.blocks} "
-            f"blocks = {tile.waves:.2f} waves of {pm.FWD_BLOCKS_PER_SM} "
+            f"blocks = {tile.waves:.2f} waves of {tile.blocks_per_sm} "
             f"blocks on {n_sms} SMs; W streamed from L2 {w_bytes} bytes; "
             f"dense tensor-core ceiling "
             f"{2 * m * g * h / BF16_TC_OPS_PER_S * 1e3:.4f} ms (2*M*G*H = "
@@ -258,9 +262,9 @@ def _forward_plan_line(pm, m, g, h, n_sms) -> str:
 
 def _forward_tiles(torch, pm, packed, n_rows, g, h, gen, flush):
     """The forward at the main path's shape, on all its rows and on the
-    first ``n_rows`` (the train rows), under every block height the
-    kernel is built for, each held against the plain version and timed:
-    the evidence for the planned height."""
+    first ``n_rows`` (the train rows), under every instance the kernel is
+    built for, each held against the plain version and timed: the
+    evidence for the plan."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     w16 = (torch.randn((g, h), device="cuda", generator=gen) * 0.09
            ).to(torch.bfloat16)
@@ -269,16 +273,17 @@ def _forward_tiles(torch, pm, packed, n_rows, g, h, gen, flush):
         want = pm.packed_matmul_fwd_plain(p, w16)
         abs_sum = pm.unpack_bits(p, g).float() @ w16.float().abs()
         planned = pm._fwd_tile(m, h, n_sms)
-        for rows, warps_n in pm.FWD_TILES:
-            tile = pm._fwd_launch(m, h, n_sms, rows, warps_n)
-            _check_close(torch, f"packed_matmul_fwd M={m} tile {rows}x"
-                         f"{warps_n}", pm._fwd_on_card(p, w16, tile), want,
-                         abs_sum)
+        for instance in pm.FWD_TILES:
+            tile = pm._fwd_launch(m, h, n_sms, instance)
+            rows, warps_n, per_sm = instance
+            _check_close(torch, f"packed_matmul_fwd M={m} tile {instance}",
+                         pm._fwd_on_card(p, w16, tile), want, abs_sum)
             t = _time_ms(torch, lambda: pm._fwd_on_card(p, w16, tile), flush)
             mark = ", planned" if tile == planned else ""
             print(f"    M={m} tile {rows} rows, {warps_n} warps along the "
-                  f"columns ({tile.blocks} blocks, {tile.waves:.2f} waves"
-                  f"{mark}): {_spread(t)}")
+                  f"columns, built for {per_sm} blocks an SM, "
+                  f"{pm.fwd_occupancy(instance)} resident ({tile.blocks} "
+                  f"blocks, {tile.waves:.2f} waves{mark}): {_spread(t)}")
 
 
 def _forward_edges(torch, pm, gen, n_genes):
@@ -446,9 +451,9 @@ def main() -> int:
                                        "pm_bwd_sum_kernel") if w in line),
                           line.split("'")[1] if "'" in line else "?")
             # A forward instance's mangled name carries <warps_m, warps_n>.
-            args = re.findall(r"ILi(\d+)ELi(\d+)E", line)
+            args = re.findall(r"ILi(\d+)ELi(\d+)ELi(\d+)E", line)
             if args:
-                kernel += "<{}, {}>".format(*args[0])
+                kernel += "<{}, {}, {}>".format(*args[0])
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
 

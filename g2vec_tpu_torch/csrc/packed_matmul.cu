@@ -105,7 +105,6 @@ namespace {
 constexpr int kFwdWarpRows = 32;
 constexpr int kFwdMTiles = kFwdWarpRows / 16;                   // MMA tiles
 constexpr int kFwdCols = 128;                  // hidden columns per block
-constexpr int kFwdBlocksPerSM = 2;             // _fwd_tile plans for this
 constexpr int kFwdGenes = 64;
 constexpr int kFwdBytes = kFwdGenes / 8;       // packed bytes per row
 constexpr int kFwdWords = kFwdBytes / 4;       // ... in 4-byte words
@@ -203,7 +202,7 @@ __device__ __forceinline__ uint32_t bits_to_bf16x2(uint32_t lo, uint32_t hi,
     return r & 0x3F803F80u;
 }
 
-template <int kWarpsM, int kWarpsN>
+template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
 struct FwdTile {
     static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
     static constexpr int kRows = kFwdWarpRows * kWarpsM;
@@ -215,13 +214,13 @@ struct FwdTile {
     static_assert(kNTiles % 2 == 0, "n-tile pairs");
 };
 
-template <int kWarpsM, int kWarpsN>
-__global__ void __launch_bounds__(FwdTile<kWarpsM, kWarpsN>::kThreads,
-                                  kFwdBlocksPerSM)
+template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
+__global__ void __launch_bounds__(
+    FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>::kThreads, kBlocksPerSM)
 pm_fwd_kernel(const uint8_t* __restrict__ packed,
               const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
               int m, int g, int nb, int h) {
-    using T = FwdTile<kWarpsM, kWarpsN>;
+    using T = FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>;
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int tid = threadIdx.x;
@@ -503,23 +502,49 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
     dw[i] = acc;
 }
 
-template <int kWarpsM, int kWarpsN>
+// The forward instances built, as (warps_m, warps_n, blocks per SM):
+// g2v_pm_fwd and g2v_pm_fwd_occupancy dispatch on them, and FWD_TILES in
+// ops/packed_matmul.py lists the same.
+#define G2V_FWD_INSTANCES(X) \
+    X(3, 2, 2) X(4, 2, 2) X(5, 2, 2) X(4, 1, 2) X(4, 1, 3) X(5, 1, 2) \
+    X(6, 1, 2) X(8, 1, 1)
+
+template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
+cudaError_t set_fwd_smem() {
+    return cudaFuncSetAttribute(
+        pm_fwd_kernel<kWarpsM, kWarpsN, kBlocksPerSM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>::kSmem);
+}
+
+template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
 cudaError_t launch_fwd(const void* packed, const void* w, void* out,
                        int64_t m, int64_t g, int64_t nb, int64_t h,
                        cudaStream_t s) {
-    using T = FwdTile<kWarpsM, kWarpsN>;
-    auto kernel = pm_fwd_kernel<kWarpsM, kWarpsN>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+    using T = FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>;
+    cudaError_t err = set_fwd_smem<kWarpsM, kWarpsN, kBlocksPerSM>();
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>((m + T::kRows - 1) / T::kRows),
                     static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols));
-    kernel<<<grid, T::kThreads, T::kSmem, s>>>(
-        static_cast<const uint8_t*>(packed),
-        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
-        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
-        static_cast<int>(h));
+    pm_fwd_kernel<kWarpsM, kWarpsN, kBlocksPerSM>
+        <<<grid, T::kThreads, T::kSmem, s>>>(
+            static_cast<const uint8_t*>(packed),
+            static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
+            static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
+            static_cast<int>(h));
     return cudaGetLastError();
+}
+
+template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
+int fwd_occupancy() {
+    using T = FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>;
+    int n = 0;
+    if (set_fwd_smem<kWarpsM, kWarpsN, kBlocksPerSM>() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, pm_fwd_kernel<kWarpsM, kWarpsN, kBlocksPerSM>, T::kThreads,
+            T::kSmem) != cudaSuccess)
+        return -1;
+    return n;
 }
 
 }  // namespace
@@ -531,30 +556,37 @@ extern "C" {
 // contiguous with nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, P
 // 4-byte aligned, W / g_out bf16 contiguous, 16-byte aligned, with
 // h % 8 == 0, out / dW f32 contiguous, g, h >= 1.
-//   forward: m >= 1; (rows_per_block, warps_n) one of the instances below
-//     (anything else returns cudaErrorInvalidValue).
+//   forward: m >= 1; (rows_per_block, warps_n, blocks_per_sm) one of
+//     G2V_FWD_INSTANCES (anything else returns cudaErrorInvalidValue).
 //   backward: rows_per_slice * n_slices >= m, n_slices >= 1,
 //     and with n_slices > 1 a workspace `work` of n_slices * g * h f32.
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
                int64_t g, int64_t nb, int64_t h, int64_t rows_per_block,
-               int64_t warps_n, void* stream) {
+               int64_t warps_n, int64_t blocks_per_sm, void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int64_t warps_m = rows_per_block / kFwdWarpRows;
-    if (warps_m * kFwdWarpRows != rows_per_block)
-        return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaErrorInvalidValue;
-    if (warps_n == 2 && warps_m == 3)
-        err = launch_fwd<3, 2>(packed, w, out, m, g, nb, h, s);
-    else if (warps_n == 2 && warps_m == 4)
-        err = launch_fwd<4, 2>(packed, w, out, m, g, nb, h, s);
-    else if (warps_n == 2 && warps_m == 5)
-        err = launch_fwd<5, 2>(packed, w, out, m, g, nb, h, s);
-    else if (warps_n == 1 && warps_m == 4)
-        err = launch_fwd<4, 1>(packed, w, out, m, g, nb, h, s);
-    else if (warps_n == 1 && warps_m == 5)
-        err = launch_fwd<5, 1>(packed, w, out, m, g, nb, h, s);
-    return static_cast<int>(err);
+#define G2V_FWD_LAUNCH(WM, WN, BPS)                                         \
+    if (rows_per_block == WM * kFwdWarpRows && warps_n == WN &&             \
+        blocks_per_sm == BPS)                                               \
+        return static_cast<int>(                                            \
+            launch_fwd<WM, WN, BPS>(packed, w, out, m, g, nb, h, s));
+    G2V_FWD_INSTANCES(G2V_FWD_LAUNCH)
+#undef G2V_FWD_LAUNCH
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many blocks of a forward instance the card keeps resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error or for
+// an instance not built.
+int g2v_pm_fwd_occupancy(int64_t rows_per_block, int64_t warps_n,
+                         int64_t blocks_per_sm) {
+#define G2V_FWD_OCCUPANCY(WM, WN, BPS)                                      \
+    if (rows_per_block == WM * kFwdWarpRows && warps_n == WN &&             \
+        blocks_per_sm == BPS)                                               \
+        return fwd_occupancy<WM, WN, BPS>();
+    G2V_FWD_INSTANCES(G2V_FWD_OCCUPANCY)
+#undef G2V_FWD_OCCUPANCY
+    return -1;
 }
 
 int g2v_pm_bwd(const void* packed, const void* gout, void* dw, void* work,

@@ -72,7 +72,9 @@ def nvcc_command() -> list:
 def _configure(lib: ctypes.CDLL) -> None:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, i64,
-                               ptr]
+                               i64, ptr]
+    lib.g2v_pm_fwd_occupancy.argtypes = [i64, i64, i64]
+    lib.g2v_pm_fwd_occupancy.restype = ctypes.c_int
     lib.g2v_pm_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                i64, i64, ptr]
     for fn in (lib.g2v_pm_fwd, lib.g2v_pm_bwd):
@@ -128,52 +130,63 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 # The forward's block height.
 # ---------------------------------------------------------------------------
 
-#: The forward kernel's warp tile height, block width and residency
-#: (kFwdWarpRows, kFwdCols and kFwdBlocksPerSM in csrc/packed_matmul.cu,
-#: which tests/test_torch_packed_matmul.py holds these equal to).
-FWD_WARP_ROWS, FWD_BLOCK_COLS, FWD_BLOCKS_PER_SM = 32, 128, 2
-#: The (rows per block, warps along the block's columns) instances the
-#: kernel is built for (g2v_pm_fwd's dispatch); _fwd_tile plans among the
-#: heights at FWD_WARPS_N.
-FWD_TILES = ((96, 2), (128, 2), (160, 2), (128, 1), (160, 1))
-FWD_WARPS_N = 2
+#: The forward kernel's warp tile height and block width (kFwdWarpRows and
+#: kFwdCols in csrc/packed_matmul.cu, which tests/test_torch_packed_matmul.py
+#: holds these equal to).
+FWD_WARP_ROWS, FWD_BLOCK_COLS = 32, 128
+#: The (rows per block, warps along the block's columns, blocks per SM)
+#: instances the kernel is built for (G2V_FWD_INSTANCES in the .cu).
+FWD_TILES = ((96, 2, 2), (128, 2, 2), (160, 2, 2), (128, 1, 2), (128, 1, 3),
+             (160, 1, 2), (192, 1, 2), (256, 1, 1))
+#: The instances _fwd_tile plans among.
+FWD_PLANNED = ((96, 2, 2), (128, 2, 2))
 
 
 class FwdTile(NamedTuple):
     """A forward launch: blocks of ``rows`` path rows x FWD_BLOCK_COLS
-    columns with ``warps_n`` warps along the columns; ``blocks`` of them,
-    ``waves`` times the card's resident block slots."""
+    columns with ``warps_n`` warps along the columns, built for
+    ``blocks_per_sm`` resident blocks an SM; ``blocks`` of them, ``waves``
+    times the card's resident block slots."""
 
     rows: int
     warps_n: int
+    blocks_per_sm: int
     blocks: int
     waves: float
 
+    @property
+    def instance(self) -> tuple:
+        return self.rows, self.warps_n, self.blocks_per_sm
 
-def _fwd_launch(m: int, h: int, n_sms: int, rows: int,
-                warps_n: int = FWD_WARPS_N) -> FwdTile:
-    """The forward's launch of ``m`` rows and ``h`` columns at ``rows``
-    rows a block on ``n_sms`` SMs."""
+
+def _fwd_launch(m: int, h: int, n_sms: int, instance: tuple) -> FwdTile:
+    """The forward's launch of ``m`` rows and ``h`` columns on ``n_sms``
+    SMs as ``instance`` (rows, warps_n, blocks_per_sm)."""
+    rows, warps_n, per_sm = instance
     blocks = -(-m // rows) * -(-h // FWD_BLOCK_COLS)
-    return FwdTile(rows, warps_n, blocks,
-                   blocks / (FWD_BLOCKS_PER_SM * n_sms))
+    return FwdTile(rows, warps_n, per_sm, blocks, blocks / (per_sm * n_sms))
 
 
 def _fwd_tile(m: int, h: int, n_sms: int) -> FwdTile:
     """The forward's block height for ``m`` rows and ``h`` columns on
-    ``n_sms`` SMs: of the heights built at ``FWD_WARPS_N``, the one that
+    ``n_sms`` SMs: of the instances in ``FWD_PLANNED``, the one that
     leaves the fewest rows on the busiest SM, ``ceil(blocks / n_sms) *
     rows`` (blocks spread evenly over the SMs, and an SM streams rows at
     about the same rate with one resident block as with two: PERF.md, PR
     4). Ties go to the taller block, which streams W from L2 fewer times.
-    At the example shape this is 160 rows for the fused ``[train | val]``
-    launch (253 blocks, 0.96 of a wave) where 128 rows would leave a
-    second wave of 52 blocks. The plan depends on its arguments alone,
-    and a row's result does not depend on the plan (the kernel walks
-    every gene in one order for every row)."""
-    heights = sorted(r for r, n in FWD_TILES if n == FWD_WARPS_N)
-    return min((_fwd_launch(m, h, n_sms, r) for r in heights),
+    The plan depends on its arguments alone, and a row's result does not
+    depend on the plan (the kernel walks every gene in one order for
+    every row)."""
+    return min((_fwd_launch(m, h, n_sms, i) for i in FWD_PLANNED),
                key=lambda t: (-(-t.blocks // n_sms) * t.rows, -t.rows))
+
+
+def fwd_occupancy(instance: tuple) -> int:
+    """Blocks of a forward instance the card keeps resident on one SM."""
+    n = _lib().g2v_pm_fwd_occupancy(*instance)
+    if n < 0:
+        raise ValueError(f"no forward kernel is built for {instance}")
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -334,13 +347,13 @@ def _fwd_on_card(packed: torch.Tensor, w16: torch.Tensor,
     """The forward kernel on checked card tensors (``w16`` padded to a
     multiple of 8 columns, at least one row) at the block height ``tile``:
     out [M, w16 width]. Counts nothing: the wrapper counts."""
-    if (tile.rows, tile.warps_n) not in FWD_TILES:
+    if tile.instance not in FWD_TILES:
         raise ValueError(f"no forward kernel is built for {tile}")
     p4 = _padded_packed(packed)
     m, (g, h8) = packed.shape[0], w16.shape
     out = torch.empty((m, h8), dtype=torch.float32, device=packed.device)
     _launch(_lib().g2v_pm_fwd, p4, w16, out, m, g, p4.shape[1], h8,
-            tile.rows, tile.warps_n)
+            *tile.instance)
     return out
 
 

@@ -171,7 +171,7 @@ def test_forward_at_k_step_and_block_edges(cuda):
     bytes, which the wrapper pads on the launch)."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {16 * k + d for k in (1, 2, 4, 5) for d in (-1, 1)}
-    rows |= {r + d for r, _ in pm.FWD_TILES for d in (-1, 1)}
+    rows |= {t[0] + d for t in pm.FWD_TILES for d in (-1, 1)}
     for m in sorted(rows):
         x, packed, w, _ = _inputs(m, 700, 128, 0.05, seed=m)
         _assert_close(pm.packed_matmul_fwd(packed, w),
@@ -185,16 +185,18 @@ def test_forward_at_k_step_and_block_edges(cuda):
                       x @ w.bfloat16().float().abs())
 
 
-@pytest.mark.parametrize("rows,warps_n", pm.FWD_TILES)
-def test_forward_under_each_tile(cuda, rows, warps_n):
+@pytest.mark.parametrize("instance", pm.FWD_TILES)
+def test_forward_under_each_tile(cuda, instance):
     """Every instance the kernel is built for gives the plain version's
     result: one row, a block less and more one row, a ragged last block,
     and two column tiles."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = instance[0]
+    assert pm.fwd_occupancy(instance) >= 1
     for m in (1, rows - 1, rows + 1, 3 * rows + 5):
         x, packed, w, _ = _inputs(m, 1003, 136, 0.04, seed=m + rows)
         w16 = pm._pad_cols(w.bfloat16(), 8)
-        tile = pm._fwd_launch(m, w16.shape[1], n_sms, rows, warps_n)
+        tile = pm._fwd_launch(m, w16.shape[1], n_sms, instance)
         _assert_close(pm._fwd_on_card(packed, w16, tile)[:, :136],
                       pm.packed_matmul_fwd_plain(packed, w),
                       x @ w.bfloat16().float().abs())
@@ -247,7 +249,7 @@ def test_forward_refuses_misaligned_packed_and_unbuilt_tiles(cuda):
     with pytest.raises(ValueError, match="4-byte aligned"):
         pm.packed_matmul_fwd(shifted, w)
     with pytest.raises(ValueError, match="no forward kernel"):
-        pm._fwd_on_card(packed, w.bfloat16(), pm.FwdTile(64, 2, 4, 0.0))
+        pm._fwd_on_card(packed, w.bfloat16(), pm.FwdTile(64, 2, 2, 4, 0.0))
 
 
 def test_kernel_source_has_no_atomics():

@@ -202,11 +202,14 @@ def test_forward_plan_constants_match_the_kernel_source():
     import re
 
     src, env = _kernel_constants()
-    assert (env["kFwdWarpRows"], env["kFwdCols"], env["kFwdBlocksPerSM"]) == (
-        tpm.FWD_WARP_ROWS, tpm.FWD_BLOCK_COLS, tpm.FWD_BLOCKS_PER_SM)
-    built = {(int(wm) * env["kFwdWarpRows"], int(wn)) for wm, wn in
-             re.findall(r"launch_fwd<(\d+), (\d+)>\(", src)}
-    assert built == set(tpm.FWD_TILES)
+    assert (env["kFwdWarpRows"], env["kFwdCols"]) == (
+        tpm.FWD_WARP_ROWS, tpm.FWD_BLOCK_COLS)
+    listed = re.search(r"#define G2V_FWD_INSTANCES\(X\)((?:.*\\\n)*.*)",
+                       src).group(1)
+    built = [(int(wm) * env["kFwdWarpRows"], int(wn), int(bps)) for
+             wm, wn, bps in re.findall(r"X\((\d+), (\d+), (\d+)\)", listed)]
+    assert built == list(tpm.FWD_TILES)
+    assert set(tpm.FWD_PLANNED) <= set(tpm.FWD_TILES)
     assert env["kFwdWords"] * 4 % tpm.P_ROW_ALIGN == 0
 
 
@@ -216,17 +219,17 @@ def test_forward_tile_plan(m, h):
     n_sms = 132
     tile = tpm._fwd_tile(m, h, n_sms)
     assert tile == tpm._fwd_tile(m, h, n_sms)
-    assert (tile.rows, tile.warps_n) in tpm.FWD_TILES
+    assert tile.instance in tpm.FWD_PLANNED
     # Every row and column lies in exactly one block.
     row_blocks = -(-m // tile.rows)
     assert (row_blocks - 1) * tile.rows < m <= row_blocks * tile.rows
     assert tile.blocks == row_blocks * -(-h // tpm.FWD_BLOCK_COLS)
-    assert tile.waves == tile.blocks / (tpm.FWD_BLOCKS_PER_SM * n_sms)
-    # No other height built leaves fewer rows on the busiest SM.
+    assert tile.waves == tile.blocks / (tile.blocks_per_sm * n_sms)
+    # No other height planned leaves fewer rows on the busiest SM.
     def busiest(t):
         return -(-t.blocks // n_sms) * t.rows
-    for rows, warps_n in tpm.FWD_TILES:
-        other = tpm._fwd_launch(m, h, n_sms, rows, warps_n)
+    for instance in tpm.FWD_PLANNED:
+        other = tpm._fwd_launch(m, h, n_sms, instance)
         assert busiest(tile) <= busiest(other)
 
 
@@ -234,8 +237,8 @@ def test_forward_tile_plan_at_the_example_shape():
     # [train | val]: 160-row blocks fill 253 of one wave's 264 slots,
     # where 128 rows would leave a second wave of 52 blocks; the train
     # rows alone: 128 rows, 253 blocks.
-    assert tpm._fwd_tile(40399, 128, 132)[:3] == (160, 2, 253)
-    assert tpm._fwd_tile(32319, 128, 132)[:3] == (128, 2, 253)
+    assert tpm._fwd_tile(40399, 128, 132)[:4] == (160, 2, 2, 253)
+    assert tpm._fwd_tile(32319, 128, 132)[:4] == (128, 2, 2, 253)
 
 
 def test_padded_rows_give_bitwise_equal_plain_outputs(rng):
