@@ -506,8 +506,8 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
 // g2v_pm_fwd and g2v_pm_fwd_occupancy dispatch on them, and FWD_TILES in
 // ops/packed_matmul.py lists the same.
 #define G2V_FWD_INSTANCES(X) \
-    X(3, 2, 2) X(4, 2, 2) X(5, 2, 2) X(4, 1, 2) X(4, 1, 3) X(5, 1, 2) \
-    X(6, 1, 2) X(8, 1, 1)
+    X(4, 2, 2) X(4, 1, 2) X(6, 1, 1) X(7, 1, 1) X(8, 1, 1) X(9, 1, 1) \
+    X(10, 1, 1)
 
 template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
 cudaError_t set_fwd_smem() {

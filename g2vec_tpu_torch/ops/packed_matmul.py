@@ -136,10 +136,11 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 FWD_WARP_ROWS, FWD_BLOCK_COLS = 32, 128
 #: The (rows per block, warps along the block's columns, blocks per SM)
 #: instances the kernel is built for (G2V_FWD_INSTANCES in the .cu).
-FWD_TILES = ((96, 2, 2), (128, 2, 2), (160, 2, 2), (128, 1, 2), (128, 1, 3),
-             (160, 1, 2), (192, 1, 2), (256, 1, 1))
+FWD_TILES = ((128, 2, 2), (128, 1, 2), (192, 1, 1), (224, 1, 1), (256, 1, 1),
+             (288, 1, 1), (320, 1, 1))
 #: The instances _fwd_tile plans among.
-FWD_PLANNED = ((96, 2, 2), (128, 2, 2))
+FWD_PLANNED = ((128, 1, 2), (192, 1, 1), (224, 1, 1), (256, 1, 1),
+               (288, 1, 1), (320, 1, 1))
 
 
 class FwdTile(NamedTuple):
@@ -178,7 +179,8 @@ def _fwd_tile(m: int, h: int, n_sms: int) -> FwdTile:
     depend on the plan (the kernel walks every gene in one order for
     every row)."""
     return min((_fwd_launch(m, h, n_sms, i) for i in FWD_PLANNED),
-               key=lambda t: (-(-t.blocks // n_sms) * t.rows, -t.rows))
+               key=lambda t: (-(-t.blocks // n_sms) * t.rows,
+                              -t.blocks_per_sm, -t.rows))
 
 
 def fwd_occupancy(instance: tuple) -> int:
