@@ -108,7 +108,8 @@ constexpr int kFwdCols = 128;                  // hidden columns per block
 constexpr int kFwdGenes = 64;
 constexpr int kFwdBytes = kFwdGenes / 8;       // packed bytes per row
 constexpr int kFwdWords = kFwdBytes / 4;       // ... in 4-byte words
-constexpr int kFwdStages = 4;
+constexpr int kFwdStages = 4;                  // at most; see FwdTile::kStages
+constexpr int kSmemPerSM = 228 * 1024;
 constexpr int kFwdWStride = kFwdCols + 8;      // bf16 per staged W row
 constexpr int kFwdWBytes = kFwdGenes * kFwdWStride * 2;
 constexpr int kFwdWChunks = kFwdGenes * kFwdCols / 8;   // 16-byte copies
@@ -209,7 +210,12 @@ struct FwdTile {
     static constexpr int kWarpCols = kFwdCols / kWarpsN;
     static constexpr int kNTiles = kWarpCols / 8;
     static constexpr int kStageBytes = kFwdWBytes + kRows * kFwdBytes;
-    static constexpr int kSmem = kFwdStages * kStageBytes;
+    // As many stages as kFwdStages, or as fit kBlocksPerSM blocks' shared
+    // memory (and the 1 KB each block reserves) on one SM.
+    static constexpr int kFit = (kSmemPerSM / kBlocksPerSM - 1024) / kStageBytes;
+    static constexpr int kStages = kFit < kFwdStages ? kFit : kFwdStages;
+    static constexpr int kSmem = kStages * kStageBytes;
+    static_assert(kStages >= 2, "a ring of two stages at least");
     static constexpr int kPWords = kRows * kFwdWords;      // 4-byte copies
     static_assert(kNTiles % 2 == 0, "n-tile pairs");
 };
@@ -271,7 +277,7 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
             acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.0f;
 
 #pragma unroll
-    for (int s = 0; s < kFwdStages - 1; ++s) {
+    for (int s = 0; s < T::kStages - 1; ++s) {
         if (s < n_steps) load_stage(s, s);
         cp_async_commit();                         // one group per stage, even if empty
     }
@@ -282,14 +288,14 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
     const int ld_col = wn * T::kWarpCols + (lane >> 4) * 8;
 
     for (int step = 0; step < n_steps; ++step) {
-        cp_async_wait<kFwdStages - 2>();           // this step's stage landed
+        cp_async_wait<T::kStages - 2>();           // this step's stage landed
         __syncthreads();                           // ... for every thread, and
                                                    // the step before is consumed
-        const int next = step + kFwdStages - 1;
-        if (next < n_steps) load_stage(next, next % kFwdStages);
+        const int next = step + T::kStages - 1;
+        if (next < n_steps) load_stage(next, next % T::kStages);
         cp_async_commit();
 
-        const int stage = step % kFwdStages;
+        const int stage = step % T::kStages;
         const uint32_t w_s = smem0 + stage * T::kStageBytes;
         const uint32_t* p_s = reinterpret_cast<const uint32_t*>(
             smem + stage * T::kStageBytes + kFwdWBytes) +
@@ -309,7 +315,14 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 // k-step k0: genes k0..k0+7 in byte 2*half, k0+8.. in the next.
+                // Its B fragments are all requested first, so that building
+                // A runs under their latency.
                 const int k0 = wd * 32 + half * 16;
+                uint32_t b[T::kNTiles / 2][4];
+#pragma unroll
+                for (int n = 0; n < T::kNTiles / 2; ++n)
+                    ldmatrix_x4_trans(b[n], w_s + ((k0 + ld_row) * kFwdWStride +
+                                                   ld_col + n * 16) * 2);
                 uint32_t a[kFwdMTiles][4];
 #pragma unroll
                 for (int j = 0; j < kFwdMTiles; ++j) {
@@ -321,16 +334,12 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
                                              2 * half + 1);
                 }
 #pragma unroll
-                for (int n = 0; n < T::kNTiles; n += 2) {
-                    uint32_t b[4];
-                    ldmatrix_x4_trans(
-                        b, w_s + ((k0 + ld_row) * kFwdWStride + ld_col + n * 8) * 2);
+                for (int n = 0; n < T::kNTiles / 2; ++n)
 #pragma unroll
                     for (int j = 0; j < kFwdMTiles; ++j) {
-                        mma_16816(acc[j][n], a[j], b[0], b[1]);
-                        mma_16816(acc[j][n + 1], a[j], b[2], b[3]);
+                        mma_16816(acc[j][2 * n], a[j], b[n][0], b[n][1]);
+                        mma_16816(acc[j][2 * n + 1], a[j], b[n][2], b[n][3]);
                     }
-                }
             }
         }
     }
@@ -506,8 +515,7 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
 // g2v_pm_fwd and g2v_pm_fwd_occupancy dispatch on them, and FWD_TILES in
 // ops/packed_matmul.py lists the same.
 #define G2V_FWD_INSTANCES(X) \
-    X(4, 2, 2) X(4, 1, 2) X(6, 1, 1) X(7, 1, 1) X(8, 1, 1) X(9, 1, 1) \
-    X(10, 1, 1)
+    X(2, 2, 4) X(2, 1, 4) X(4, 2, 2) X(4, 1, 2) X(8, 1, 1)
 
 template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
 cudaError_t set_fwd_smem() {

@@ -136,11 +136,9 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 FWD_WARP_ROWS, FWD_BLOCK_COLS = 32, 128
 #: The (rows per block, warps along the block's columns, blocks per SM)
 #: instances the kernel is built for (G2V_FWD_INSTANCES in the .cu).
-FWD_TILES = ((128, 2, 2), (128, 1, 2), (192, 1, 1), (224, 1, 1), (256, 1, 1),
-             (288, 1, 1), (320, 1, 1))
+FWD_TILES = ((64, 2, 4), (64, 1, 4), (128, 2, 2), (128, 1, 2), (256, 1, 1))
 #: The instances _fwd_tile plans among.
-FWD_PLANNED = ((128, 1, 2), (192, 1, 1), (224, 1, 1), (256, 1, 1),
-               (288, 1, 1), (320, 1, 1))
+FWD_PLANNED = ((128, 1, 2), (256, 1, 1))
 
 
 class FwdTile(NamedTuple):
