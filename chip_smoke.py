@@ -11,14 +11,14 @@ example-scale synthetic dataset on ``cuda`` and checks what comes out,
 then holds each kernel against its plain PyTorch version on the card on
 the ``[train | val]`` rows that run produced (built by the trainer's own
 helper, rows padded once to a multiple of 4 bytes) and times both. Phase
-4 goes on with: the forward's planned block height, its waves, the bytes
+4 goes on with: the forward's planned warp layout, its waves, the bytes
 of W it streams from L2 and its tensor-core ceiling beside the
-backward's split; the forward under each block height the kernel is
+backward's split; the forward under each warp layout the kernel is
 built for and the backward under several splits of its rows, each held
 against the plain version and timed; both kernels at the reference's
 7,523 genes; one ragged shape; the ragged edges of both kernels; and the
-forward's M-invariance, bitwise, where its plan changes the block
-height. Phase 5 runs a small input at hidden width 10 on ``cuda`` and on
+forward's M-invariance, bitwise, where its plan changes the warp
+layout. Phase 5 runs a small input at hidden width 10 on ``cuda`` and on
 the CPU. Any failure raises and the
 script exits nonzero without printing a result. The last three lines of
 standard output are: one JSON object with a record per kernel, the card's
@@ -246,25 +246,24 @@ def _backward_splits(torch, pm, packed, g, h, gen, flush):
 
 def _forward_plan_line(pm, m, g, h, n_sms) -> str:
     tile = pm._fwd_tile(m, h, n_sms)
-    w_bytes = -(-m // tile.rows) * g * (-(-h // 8) * 8) * 2
-    resident = pm.fwd_occupancy(tile.instance)
-    if resident != tile.blocks_per_sm:
-        raise RuntimeError(f"the planned forward tile {tile.instance} keeps "
+    resident = pm.fwd_occupancy(tile.warps_n)
+    if resident != pm.FWD_BLOCKS_PER_SM:
+        raise RuntimeError(f"the planned forward layout {tile} keeps "
                            f"{resident} blocks resident on an SM")
-    return (f"forward tile: {tile.rows} rows x {pm.FWD_BLOCK_COLS} columns "
-            f"({tile.warps_n} warps along the columns), {tile.blocks} "
-            f"blocks = {tile.waves:.2f} waves of {tile.blocks_per_sm} "
-            f"blocks on {n_sms} SMs; W streamed from L2 {w_bytes} bytes; "
-            f"dense tensor-core ceiling "
-            f"{2 * m * g * h / BF16_TC_OPS_PER_S * 1e3:.4f} ms (2*M*G*H = "
-            f"{2 * m * g * h:.3e} bf16 operations)")
+    w_bytes = -(-m // pm.FWD_BLOCK_ROWS) * g * (-(-h // 8) * 8) * 2
+    return (f"forward tile: {pm.FWD_BLOCK_ROWS} rows x {pm.FWD_BLOCK_COLS} "
+            f"columns, {tile.warps_n} warps along the columns; {tile.blocks} "
+            f"blocks = {tile.waves:.2f} waves of {resident} resident blocks "
+            f"on {n_sms} SMs; W streamed from L2 {w_bytes} bytes; dense "
+            f"tensor-core ceiling {2 * m * g * h / BF16_TC_OPS_PER_S * 1e3:.4f}"
+            f" ms (2*M*G*H = {2 * m * g * h:.3e} bf16 operations)")
 
 
 def _forward_tiles(torch, pm, packed, n_rows, g, h, gen, flush):
-    """The forward at the main path's shape, on all its rows and on the
-    first ``n_rows`` (the train rows), under every instance the kernel is
-    built for, each held against the plain version and timed: the
-    evidence for the plan."""
+    """The forward at the main path's shape, on all its rows (1.20 waves)
+    and on the first ``n_rows`` (the train rows, 0.96 waves), under each
+    warp layout the kernel is built for, each held against the plain
+    version and timed: the evidence for the plan."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     w16 = (torch.randn((g, h), device="cuda", generator=gen) * 0.09
            ).to(torch.bfloat16)
@@ -273,28 +272,25 @@ def _forward_tiles(torch, pm, packed, n_rows, g, h, gen, flush):
         want = pm.packed_matmul_fwd_plain(p, w16)
         abs_sum = pm.unpack_bits(p, g).float() @ w16.float().abs()
         planned = pm._fwd_tile(m, h, n_sms)
-        for instance in pm.FWD_TILES:
-            tile = pm._fwd_launch(m, h, n_sms, instance)
-            rows, warps_n, per_sm = instance
-            _check_close(torch, f"packed_matmul_fwd M={m} tile {instance}",
+        for warps_n in pm.FWD_WARPS_N:
+            tile = pm._fwd_launch(m, h, n_sms, warps_n)
+            _check_close(torch, f"packed_matmul_fwd M={m} warps_n={warps_n}",
                          pm._fwd_on_card(p, w16, tile), want, abs_sum)
             t = _time_ms(torch, lambda: pm._fwd_on_card(p, w16, tile), flush)
             mark = ", planned" if tile == planned else ""
-            print(f"    M={m} tile {rows} rows, {warps_n} warps along the "
-                  f"columns, built for {per_sm} blocks an SM, "
-                  f"{pm.fwd_occupancy(instance)} resident ({tile.blocks} "
-                  f"blocks, {tile.waves:.2f} waves{mark}): {_spread(t)}")
+            print(f"    M={m}, {warps_n} warps along the columns "
+                  f"({pm.fwd_occupancy(warps_n)} resident blocks an SM, "
+                  f"{tile.blocks} blocks, {tile.waves:.2f} waves{mark}): "
+                  f"{_spread(t)}")
 
 
 def _forward_edges(torch, pm, gen, n_genes):
     """The forward's ragged cases against its plain version (M of 1, 15
-    and 17 rows and one row past a block of the plan; G 999 and 1,003;
-    H 1, 10 and 130), and its M-invariance, bitwise, on both sides of
-    every row count below 60,000 where the plan changes the block
-    height."""
+    and 17 rows and one row past a block; G 999 and 1,003; H 1, 10 and
+    130), and its M-invariance, bitwise, on both sides of every row count
+    below 60,000 where the plan changes the warp layout."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    past = next(m for m in range(2, 4096)
-                if (m - 1) % pm._fwd_tile(m, 128, n_sms).rows == 0)
+    past = pm.FWD_BLOCK_ROWS + 1
     cases = [(1, n_genes, 128), (15, n_genes, 128), (17, n_genes, 128),
              (past, n_genes, 128), (3000, 999, 128), (3000, 1003, 128),
              (700, 1003, 1), (700, 1003, 10), (700, 1003, 130)]
@@ -302,17 +298,17 @@ def _forward_edges(torch, pm, gen, n_genes):
         packed = _random_packed(torch, m, g, 80 / g, gen)
         w = torch.randn((g, h), device="cuda", generator=gen) * 0.09
         x = pm.unpack_bits(packed, g).float()
-        _check_close(torch, f"packed_matmul_fwd M={m} G={g} H={h} tile "
-                     f"{pm._fwd_tile(m, h, n_sms).rows}",
+        _check_close(torch, f"packed_matmul_fwd M={m} G={g} H={h} warps_n="
+                     f"{pm._fwd_tile(m, h, n_sms).warps_n}",
                      pm.packed_matmul_fwd(packed, w),
                      pm.packed_matmul_fwd_plain(packed, w),
                      x @ w.bfloat16().float().abs())
     changes, prev = [], None
     for m in range(1, 60000):
-        rows = pm._fwd_tile(m, 128, n_sms).rows
-        if prev is not None and rows != prev:
+        warps_n = pm._fwd_tile(m, 128, n_sms).warps_n
+        if prev is not None and warps_n != prev:
             changes.append(m)
-        prev = rows
+        prev = warps_n
     packed = _random_packed(torch, changes[-1] + 1, n_genes, 80 / n_genes,
                             gen)
     w = torch.randn((n_genes, 128), device="cuda", generator=gen) * 0.09
@@ -325,7 +321,7 @@ def _forward_edges(torch, pm, gen, n_genes):
                                    f"at M={rows}")
     print(f"    forward M-invariant, bitwise, at M = m-1 and m for the "
           f"plan's changes m = {changes} (against M={packed.shape[0]}, "
-          f"tile {pm._fwd_tile(packed.shape[0], 128, n_sms).rows})")
+          f"warps_n={pm._fwd_tile(packed.shape[0], 128, n_sms).warps_n})")
 
 
 def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
@@ -359,8 +355,8 @@ def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
                                                        g_ref), flush)
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"    G={g_ref}, P rows padded once to {padded.shape[1]} bytes: "
-          f"forward M={n_all} {_spread(fwd)} (tile "
-          f"{pm._fwd_tile(n_all, h, n_sms).rows}), backward M={n_tr} "
+          f"forward M={n_all} {_spread(fwd)} (warps_n="
+          f"{pm._fwd_tile(n_all, h, n_sms).warps_n}), backward M={n_tr} "
           f"{_spread(bwd)}")
     narrow = wide[:n_tr]
     bwd = _time_ms(torch, lambda: pm.packed_matmul_bwd(narrow, g16, g_ref),
@@ -450,10 +446,10 @@ def main() -> int:
             kernel = next((w for w in ("pm_fwd_kernel", "pm_bwd_kernel",
                                        "pm_bwd_sum_kernel") if w in line),
                           line.split("'")[1] if "'" in line else "?")
-            # A forward instance's mangled name carries <warps_m, warps_n>.
-            args = re.findall(r"ILi(\d+)ELi(\d+)ELi(\d+)E", line)
+            # A forward instance's mangled name carries <warps_n>.
+            args = re.findall(r"pm_fwd_kernelILi(\d+)E", line)
             if args:
-                kernel += "<{}, {}, {}>".format(*args[0])
+                kernel += f"<{args[0]}>"
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
 

@@ -32,11 +32,16 @@
 //
 // Forward. A = X (16 path rows x 16 genes), B = the W tile (16 genes x 8
 // columns).
-//   - A block owns kFwdWarpRows * warps_m rows x 128 columns; its warps
-//     are warps_m (rows) x warps_n (columns) tiles of 32 rows x 128 /
-//     warps_n columns, two blocks to an SM. The block height is a launch
-//     choice among the instances built below (_fwd_tile in
-//     ops/packed_matmul.py plans it from M and the SM count).
+//   - A block owns 128 rows x 128 columns, two blocks to an SM. Its warps
+//     are 4 (rows) x warps_n (columns) tiles of 32 rows x 128 / warps_n
+//     columns: 2 x 16 MMA tiles and 128 f32 accumulators a thread at
+//     warps_n = 1, 2 x 8 and 64 at warps_n = 2. One warp along the columns
+//     builds each A fragment once for twice the MMAs, and is the faster
+//     when the launch fits one wave of resident blocks; two put 8 warps in
+//     a block, whose last, partial wave finishes sooner (_fwd_tile in
+//     ops/packed_matmul.py plans warps_n from M and the SM count). Taller
+//     blocks, at two or at one to an SM, either spill registers or leave
+//     an SM fewer warps, and measured slower.
 //   - The genes stream through a 4-stage cp.async ring of 64 genes each:
 //     the W rows in 16-byte copies into rows padded from 256 to 272 bytes
 //     (ldmatrix.trans's 8 rows fall on 8 distinct bank groups), and the
@@ -52,11 +57,11 @@
 //   - Every block walks all genes in ascending k-steps in one accumulator
 //     chain per element: no split along genes, no second pass, no atomics.
 //     A row's result depends on its own bits and W alone, whatever else is
-//     in the launch and whatever block height the plan picks: the forward
+//     in the launch and whichever warp layout the plan picks: the forward
 //     is M-invariant, which the trainer's fused [train | val] launch
 //     relies on.
-//   - Every row block streams all of W from L2 (1.50 MB at G 5,850 x
-//     H 128, so 379 MB at 160-row blocks of the example shape).
+//   - Every row block streams all of W from L2: 1.50 MB at G 5,850 x
+//     H 128, 473 MB over the 316 blocks of the example shape.
 //
 // Backward. A bit loop on the CUDA cores leaves the backward latency-bound
 // (a dependent chain of one-byte branches and adds per row), so it runs on
@@ -100,16 +105,19 @@
 
 namespace {
 
-// Forward: warps_m x warps_n warps of kFwdWarpRows rows x kFwdCols /
-// warps_n columns; the genes stream through kFwdStages stages of kFwdGenes.
+// Forward: kFwdWarpsM x warps_n warps of kFwdWarpRows rows x kFwdCols /
+// warps_n columns, kFwdBlocksPerSM blocks to an SM; the genes stream
+// through kFwdStages stages of kFwdGenes.
 constexpr int kFwdWarpRows = 32;
 constexpr int kFwdMTiles = kFwdWarpRows / 16;                   // MMA tiles
+constexpr int kFwdWarpsM = 4;
+constexpr int kFwdRows = kFwdWarpsM * kFwdWarpRows;   // path rows per block
 constexpr int kFwdCols = 128;                  // hidden columns per block
+constexpr int kFwdBlocksPerSM = 2;             // _fwd_tile plans for this
 constexpr int kFwdGenes = 64;
 constexpr int kFwdBytes = kFwdGenes / 8;       // packed bytes per row
 constexpr int kFwdWords = kFwdBytes / 4;       // ... in 4-byte words
-constexpr int kFwdStages = 4;                  // at most; see FwdTile::kStages
-constexpr int kSmemPerSM = 228 * 1024;
+constexpr int kFwdStages = 4;
 constexpr int kFwdWStride = kFwdCols + 8;      // bf16 per staged W row
 constexpr int kFwdWBytes = kFwdGenes * kFwdWStride * 2;
 constexpr int kFwdWChunks = kFwdGenes * kFwdCols / 8;   // 16-byte copies
@@ -203,37 +211,34 @@ __device__ __forceinline__ uint32_t bits_to_bf16x2(uint32_t lo, uint32_t hi,
     return r & 0x3F803F80u;
 }
 
-template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
+template <int kWarpsN>
 struct FwdTile {
-    static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
-    static constexpr int kRows = kFwdWarpRows * kWarpsM;
+    static constexpr int kThreads = 32 * kFwdWarpsM * kWarpsN;
     static constexpr int kWarpCols = kFwdCols / kWarpsN;
     static constexpr int kNTiles = kWarpCols / 8;
-    static constexpr int kStageBytes = kFwdWBytes + kRows * kFwdBytes;
-    // As many stages as kFwdStages, or as fit kBlocksPerSM blocks' shared
-    // memory (and the 1 KB each block reserves) on one SM.
-    static constexpr int kFit = (kSmemPerSM / kBlocksPerSM - 1024) / kStageBytes;
-    static constexpr int kStages = kFit < kFwdStages ? kFit : kFwdStages;
-    static constexpr int kSmem = kStages * kStageBytes;
-    static_assert(kStages >= 2, "a ring of two stages at least");
-    static constexpr int kPWords = kRows * kFwdWords;      // 4-byte copies
+    static constexpr int kStageBytes = kFwdWBytes + kFwdRows * kFwdBytes;
+    static constexpr int kSmem = kFwdStages * kStageBytes;
+    static constexpr int kWChunks = kFwdWChunks / kThreads;   // per thread
+    static constexpr int kPWords = kFwdRows * kFwdWords / kThreads;
+    static_assert(kWChunks * kThreads == kFwdWChunks &&
+                  kPWords * kThreads == kFwdRows * kFwdWords && kPWords > 0,
+                  "every thread copies whole chunks and words");
     static_assert(kNTiles % 2 == 0, "n-tile pairs");
 };
 
-template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
-__global__ void __launch_bounds__(
-    FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>::kThreads, kBlocksPerSM)
+template <int kWarpsN>
+__global__ void __launch_bounds__(FwdTile<kWarpsN>::kThreads, kFwdBlocksPerSM)
 pm_fwd_kernel(const uint8_t* __restrict__ packed,
               const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
               int m, int g, int nb, int h) {
-    using T = FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>;
+    using T = FwdTile<kWarpsN>;
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
-    const int wm = warp % kWarpsM, wn = warp / kWarpsM;     // warp tile
+    const int wm = warp % kFwdWarpsM, wn = warp / kFwdWarpsM;   // warp tile
     const int gid = lane >> 2, tig = lane & 3;     // MMA groupID, thread in group
-    const int row0 = blockIdx.x * T::kRows;
+    const int row0 = blockIdx.x * kFwdRows;
     const int col0 = blockIdx.y * kFwdCols;
     const int n_steps = (g + kFwdGenes - 1) / kFwdGenes;
     const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -246,9 +251,8 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
         const int g0 = step * kFwdGenes;
         const uint32_t base = smem0 + stage * T::kStageBytes;
 #pragma unroll
-        for (int i = 0; i < (kFwdWChunks + T::kThreads - 1) / T::kThreads; ++i) {
+        for (int i = 0; i < T::kWChunks; ++i) {
             const int q = i * T::kThreads + tid;
-            if (kFwdWChunks % T::kThreads != 0 && q >= kFwdWChunks) break;
             const int r = q / (kFwdCols / 8), c = q % (kFwdCols / 8) * 8;
             const bool ok = g0 + r < g && col0 + c < h;
             cp_async_16(base + (r * kFwdWStride + c) * 2,
@@ -256,9 +260,8 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
                         ok ? 16 : 0);
         }
 #pragma unroll
-        for (int i = 0; i < (T::kPWords + T::kThreads - 1) / T::kThreads; ++i) {
+        for (int i = 0; i < T::kPWords; ++i) {
             const int q = i * T::kThreads + tid;
-            if (T::kPWords % T::kThreads != 0 && q >= T::kPWords) break;
             const int row = row0 + q / kFwdWords;
             const int byte = g0 / 8 + q % kFwdWords * 4;
             const bool ok = row < m && byte < nb;
@@ -277,7 +280,7 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
             acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.0f;
 
 #pragma unroll
-    for (int s = 0; s < T::kStages - 1; ++s) {
+    for (int s = 0; s < kFwdStages - 1; ++s) {
         if (s < n_steps) load_stage(s, s);
         cp_async_commit();                         // one group per stage, even if empty
     }
@@ -288,14 +291,14 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
     const int ld_col = wn * T::kWarpCols + (lane >> 4) * 8;
 
     for (int step = 0; step < n_steps; ++step) {
-        cp_async_wait<T::kStages - 2>();           // this step's stage landed
+        cp_async_wait<kFwdStages - 2>();           // this step's stage landed
         __syncthreads();                           // ... for every thread, and
                                                    // the step before is consumed
-        const int next = step + T::kStages - 1;
-        if (next < n_steps) load_stage(next, next % T::kStages);
+        const int next = step + kFwdStages - 1;
+        if (next < n_steps) load_stage(next, next % kFwdStages);
         cp_async_commit();
 
-        const int stage = step % T::kStages;
+        const int stage = step % kFwdStages;
         const uint32_t w_s = smem0 + stage * T::kStageBytes;
         const uint32_t* p_s = reinterpret_cast<const uint32_t*>(
             smem + stage * T::kStageBytes + kFwdWBytes) +
@@ -315,14 +318,7 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 // k-step k0: genes k0..k0+7 in byte 2*half, k0+8.. in the next.
-                // Its B fragments are all requested first, so that building
-                // A runs under their latency.
                 const int k0 = wd * 32 + half * 16;
-                uint32_t b[T::kNTiles / 2][4];
-#pragma unroll
-                for (int n = 0; n < T::kNTiles / 2; ++n)
-                    ldmatrix_x4_trans(b[n], w_s + ((k0 + ld_row) * kFwdWStride +
-                                                   ld_col + n * 16) * 2);
                 uint32_t a[kFwdMTiles][4];
 #pragma unroll
                 for (int j = 0; j < kFwdMTiles; ++j) {
@@ -334,12 +330,16 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
                                              2 * half + 1);
                 }
 #pragma unroll
-                for (int n = 0; n < T::kNTiles / 2; ++n)
+                for (int n = 0; n < T::kNTiles; n += 2) {
+                    uint32_t b[4];
+                    ldmatrix_x4_trans(
+                        b, w_s + ((k0 + ld_row) * kFwdWStride + ld_col + n * 8) * 2);
 #pragma unroll
                     for (int j = 0; j < kFwdMTiles; ++j) {
-                        mma_16816(acc[j][2 * n], a[j], b[n][0], b[n][1]);
-                        mma_16816(acc[j][2 * n + 1], a[j], b[n][2], b[n][3]);
+                        mma_16816(acc[j][n], a[j], b[0], b[1]);
+                        mma_16816(acc[j][n + 1], a[j], b[2], b[3]);
                     }
+                }
             }
         }
     }
@@ -511,46 +511,37 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
     dw[i] = acc;
 }
 
-// The forward instances built, as (warps_m, warps_n, blocks per SM):
-// g2v_pm_fwd and g2v_pm_fwd_occupancy dispatch on them, and FWD_TILES in
-// ops/packed_matmul.py lists the same.
-#define G2V_FWD_INSTANCES(X) \
-    X(2, 2, 4) X(2, 1, 4) X(4, 2, 2) X(4, 1, 2) X(8, 1, 1)
-
-template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
+template <int kWarpsN>
 cudaError_t set_fwd_smem() {
-    return cudaFuncSetAttribute(
-        pm_fwd_kernel<kWarpsM, kWarpsN, kBlocksPerSM>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>::kSmem);
+    return cudaFuncSetAttribute(pm_fwd_kernel<kWarpsN>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                FwdTile<kWarpsN>::kSmem);
 }
 
-template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
+template <int kWarpsN>
 cudaError_t launch_fwd(const void* packed, const void* w, void* out,
                        int64_t m, int64_t g, int64_t nb, int64_t h,
                        cudaStream_t s) {
-    using T = FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>;
-    cudaError_t err = set_fwd_smem<kWarpsM, kWarpsN, kBlocksPerSM>();
+    using T = FwdTile<kWarpsN>;
+    cudaError_t err = set_fwd_smem<kWarpsN>();
     if (err != cudaSuccess) return err;
-    const dim3 grid(static_cast<unsigned>((m + T::kRows - 1) / T::kRows),
+    const dim3 grid(static_cast<unsigned>((m + kFwdRows - 1) / kFwdRows),
                     static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols));
-    pm_fwd_kernel<kWarpsM, kWarpsN, kBlocksPerSM>
-        <<<grid, T::kThreads, T::kSmem, s>>>(
-            static_cast<const uint8_t*>(packed),
-            static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
-            static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
-            static_cast<int>(h));
+    pm_fwd_kernel<kWarpsN><<<grid, T::kThreads, T::kSmem, s>>>(
+        static_cast<const uint8_t*>(packed),
+        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
+        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
+        static_cast<int>(h));
     return cudaGetLastError();
 }
 
-template <int kWarpsM, int kWarpsN, int kBlocksPerSM>
+template <int kWarpsN>
 int fwd_occupancy() {
-    using T = FwdTile<kWarpsM, kWarpsN, kBlocksPerSM>;
     int n = 0;
-    if (set_fwd_smem<kWarpsM, kWarpsN, kBlocksPerSM>() != cudaSuccess ||
+    if (set_fwd_smem<kWarpsN>() != cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, pm_fwd_kernel<kWarpsM, kWarpsN, kBlocksPerSM>, T::kThreads,
-            T::kSmem) != cudaSuccess)
+            &n, pm_fwd_kernel<kWarpsN>, FwdTile<kWarpsN>::kThreads,
+            FwdTile<kWarpsN>::kSmem) != cudaSuccess)
         return -1;
     return n;
 }
@@ -564,36 +555,28 @@ extern "C" {
 // contiguous with nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, P
 // 4-byte aligned, W / g_out bf16 contiguous, 16-byte aligned, with
 // h % 8 == 0, out / dW f32 contiguous, g, h >= 1.
-//   forward: m >= 1; (rows_per_block, warps_n, blocks_per_sm) one of
-//     G2V_FWD_INSTANCES (anything else returns cudaErrorInvalidValue).
+//   forward: m >= 1, warps_n 1 or 2 (anything else returns
+//     cudaErrorInvalidValue).
 //   backward: rows_per_slice * n_slices >= m, n_slices >= 1,
 //     and with n_slices > 1 a workspace `work` of n_slices * g * h f32.
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
-               int64_t g, int64_t nb, int64_t h, int64_t rows_per_block,
-               int64_t warps_n, int64_t blocks_per_sm, void* stream) {
+               int64_t g, int64_t nb, int64_t h, int64_t warps_n,
+               void* stream) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define G2V_FWD_LAUNCH(WM, WN, BPS)                                         \
-    if (rows_per_block == WM * kFwdWarpRows && warps_n == WN &&             \
-        blocks_per_sm == BPS)                                               \
-        return static_cast<int>(                                            \
-            launch_fwd<WM, WN, BPS>(packed, w, out, m, g, nb, h, s));
-    G2V_FWD_INSTANCES(G2V_FWD_LAUNCH)
-#undef G2V_FWD_LAUNCH
+    if (warps_n == 1)
+        return static_cast<int>(launch_fwd<1>(packed, w, out, m, g, nb, h, s));
+    if (warps_n == 2)
+        return static_cast<int>(launch_fwd<2>(packed, w, out, m, g, nb, h, s));
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// How many blocks of a forward instance the card keeps resident on one SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error or for
-// an instance not built.
-int g2v_pm_fwd_occupancy(int64_t rows_per_block, int64_t warps_n,
-                         int64_t blocks_per_sm) {
-#define G2V_FWD_OCCUPANCY(WM, WN, BPS)                                      \
-    if (rows_per_block == WM * kFwdWarpRows && warps_n == WN &&             \
-        blocks_per_sm == BPS)                                               \
-        return fwd_occupancy<WM, WN, BPS>();
-    G2V_FWD_INSTANCES(G2V_FWD_OCCUPANCY)
-#undef G2V_FWD_OCCUPANCY
+// How many blocks of the forward with warps_n warps along the columns the
+// card keeps resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+// -1 on an error or for a warps_n not built.
+int g2v_pm_fwd_occupancy(int64_t warps_n) {
+    if (warps_n == 1) return fwd_occupancy<1>();
+    if (warps_n == 2) return fwd_occupancy<2>();
     return -1;
 }
 

@@ -28,7 +28,7 @@ row either way.
 On the card any hidden width H is taken: the wrapper zero-pads the bf16
 operand's columns to a multiple of 8 (the kernels' 16-byte copies) and
 slices the padding off the result; zero columns add nothing, so this is
-exact. The forward's block height comes from :func:`_fwd_tile`. The
+exact. The forward's warp layout comes from :func:`_fwd_tile`. The
 backward splits M into the slices that :func:`_bwd_slices` plans and adds
 their partials in a fixed order on the card.
 
@@ -71,9 +71,8 @@ def nvcc_command() -> list:
 
 def _configure(lib: ctypes.CDLL) -> None:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, i64,
-                               i64, ptr]
-    lib.g2v_pm_fwd_occupancy.argtypes = [i64, i64, i64]
+    lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
+    lib.g2v_pm_fwd_occupancy.argtypes = [i64]
     lib.g2v_pm_fwd_occupancy.restype = ctypes.c_int
     lib.g2v_pm_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                i64, i64, ptr]
@@ -130,62 +129,52 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 # The forward's block height.
 # ---------------------------------------------------------------------------
 
-#: The forward kernel's warp tile height and block width (kFwdWarpRows and
-#: kFwdCols in csrc/packed_matmul.cu, which tests/test_torch_packed_matmul.py
-#: holds these equal to).
-FWD_WARP_ROWS, FWD_BLOCK_COLS = 32, 128
-#: The (rows per block, warps along the block's columns, blocks per SM)
-#: instances the kernel is built for (G2V_FWD_INSTANCES in the .cu).
-FWD_TILES = ((64, 2, 4), (64, 1, 4), (128, 2, 2), (128, 1, 2), (256, 1, 1))
-#: The instances _fwd_tile plans among.
-FWD_PLANNED = ((128, 1, 2), (256, 1, 1))
+#: The forward kernel's block tile and residency (kFwdRows, kFwdCols and
+#: kFwdBlocksPerSM in csrc/packed_matmul.cu, which
+#: tests/test_torch_packed_matmul.py holds these equal to).
+FWD_BLOCK_ROWS, FWD_BLOCK_COLS, FWD_BLOCKS_PER_SM = 128, 128, 2
+#: The warp layouts the kernel is built for: 4 x warps_n warps of 32 rows x
+#: 128 / warps_n columns.
+FWD_WARPS_N = (1, 2)
 
 
 class FwdTile(NamedTuple):
-    """A forward launch: blocks of ``rows`` path rows x FWD_BLOCK_COLS
-    columns with ``warps_n`` warps along the columns, built for
-    ``blocks_per_sm`` resident blocks an SM; ``blocks`` of them, ``waves``
-    times the card's resident block slots."""
+    """A forward launch: ``blocks`` blocks of FWD_BLOCK_ROWS rows x
+    FWD_BLOCK_COLS columns with ``warps_n`` warps along the columns,
+    ``waves`` times the card's resident block slots."""
 
-    rows: int
     warps_n: int
-    blocks_per_sm: int
     blocks: int
     waves: float
 
-    @property
-    def instance(self) -> tuple:
-        return self.rows, self.warps_n, self.blocks_per_sm
 
-
-def _fwd_launch(m: int, h: int, n_sms: int, instance: tuple) -> FwdTile:
+def _fwd_launch(m: int, h: int, n_sms: int, warps_n: int) -> FwdTile:
     """The forward's launch of ``m`` rows and ``h`` columns on ``n_sms``
-    SMs as ``instance`` (rows, warps_n, blocks_per_sm)."""
-    rows, warps_n, per_sm = instance
-    blocks = -(-m // rows) * -(-h // FWD_BLOCK_COLS)
-    return FwdTile(rows, warps_n, per_sm, blocks, blocks / (per_sm * n_sms))
+    SMs with ``warps_n`` warps along the columns."""
+    blocks = -(-m // FWD_BLOCK_ROWS) * -(-h // FWD_BLOCK_COLS)
+    return FwdTile(warps_n, blocks, blocks / (FWD_BLOCKS_PER_SM * n_sms))
 
 
 def _fwd_tile(m: int, h: int, n_sms: int) -> FwdTile:
-    """The forward's block height for ``m`` rows and ``h`` columns on
-    ``n_sms`` SMs: of the instances in ``FWD_PLANNED``, the one that
-    leaves the fewest rows on the busiest SM, ``ceil(blocks / n_sms) *
-    rows`` (blocks spread evenly over the SMs, and an SM streams rows at
-    about the same rate with one resident block as with two: PERF.md, PR
-    4). Ties go to the taller block, which streams W from L2 fewer times.
-    The plan depends on its arguments alone, and a row's result does not
-    depend on the plan (the kernel walks every gene in one order for
-    every row)."""
-    return min((_fwd_launch(m, h, n_sms, i) for i in FWD_PLANNED),
-               key=lambda t: (-(-t.blocks // n_sms) * t.rows,
-                              -t.blocks_per_sm, -t.rows))
+    """The forward's warp layout for ``m`` rows and ``h`` columns on
+    ``n_sms`` SMs. A launch that fits one wave of resident blocks takes
+    one warp along the columns (32 x 128 warp tiles: the least A-building
+    and ldmatrix work per MMA); a longer one takes two (32 x 64 warp
+    tiles, 8 warps a block), whose last, partial wave finishes sooner
+    (PERF.md, PR 5: 0.1323 against 0.1500 ms at one wave, 0.2210 against
+    0.2495 ms at 1.2 waves). The plan depends on its arguments alone, and
+    a row's result does not depend on it: both layouts walk every gene in
+    one order for every row."""
+    one = _fwd_launch(m, h, n_sms, 1)
+    return one if one.waves <= 1 else _fwd_launch(m, h, n_sms, 2)
 
 
-def fwd_occupancy(instance: tuple) -> int:
-    """Blocks of a forward instance the card keeps resident on one SM."""
-    n = _lib().g2v_pm_fwd_occupancy(*instance)
+def fwd_occupancy(warps_n: int) -> int:
+    """Blocks of the forward with ``warps_n`` warps along the columns that
+    the card keeps resident on one SM."""
+    n = _lib().g2v_pm_fwd_occupancy(warps_n)
     if n < 0:
-        raise ValueError(f"no forward kernel is built for {instance}")
+        raise ValueError(f"no forward kernel is built for warps_n={warps_n}")
     return n
 
 
@@ -345,15 +334,15 @@ packed_matmul_fwd.launches = 0
 def _fwd_on_card(packed: torch.Tensor, w16: torch.Tensor,
                  tile: FwdTile) -> torch.Tensor:
     """The forward kernel on checked card tensors (``w16`` padded to a
-    multiple of 8 columns, at least one row) at the block height ``tile``:
-    out [M, w16 width]. Counts nothing: the wrapper counts."""
-    if tile.instance not in FWD_TILES:
+    multiple of 8 columns, at least one row) with the warp layout of
+    ``tile``: out [M, w16 width]. Counts nothing: the wrapper counts."""
+    if tile.warps_n not in FWD_WARPS_N:
         raise ValueError(f"no forward kernel is built for {tile}")
     p4 = _padded_packed(packed)
     m, (g, h8) = packed.shape[0], w16.shape
     out = torch.empty((m, h8), dtype=torch.float32, device=packed.device)
     _launch(_lib().g2v_pm_fwd, p4, w16, out, m, g, p4.shape[1], h8,
-            *tile.instance)
+            tile.warps_n)
     return out
 
 

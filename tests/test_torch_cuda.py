@@ -166,12 +166,12 @@ def test_backward_is_bitwise_the_same_across_calls_and_streams(cuda):
 
 
 def test_forward_at_k_step_and_block_edges(cuda):
-    """M one row off a k-step and off each built block height, and G one
-    gene off a k-step, at 999 and at 1,003 (rows not a multiple of 4
-    bytes, which the wrapper pads on the launch)."""
+    """M one row off a k-step and off a block, and G one gene off a
+    k-step, at 999 and at 1,003 (rows not a multiple of 4 bytes, which
+    the wrapper pads on the launch)."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {16 * k + d for k in (1, 2, 4, 5) for d in (-1, 1)}
-    rows |= {t[0] + d for t in pm.FWD_TILES for d in (-1, 1)}
+    rows |= {k * pm.FWD_BLOCK_ROWS + d for k in (1, 2) for d in (-1, 1)}
     for m in sorted(rows):
         x, packed, w, _ = _inputs(m, 700, 128, 0.05, seed=m)
         _assert_close(pm.packed_matmul_fwd(packed, w),
@@ -185,18 +185,18 @@ def test_forward_at_k_step_and_block_edges(cuda):
                       x @ w.bfloat16().float().abs())
 
 
-@pytest.mark.parametrize("instance", pm.FWD_TILES)
-def test_forward_under_each_tile(cuda, instance):
-    """Every instance the kernel is built for gives the plain version's
-    result: one row, a block less and more one row, a ragged last block,
-    and two column tiles."""
+@pytest.mark.parametrize("warps_n", pm.FWD_WARPS_N)
+def test_forward_under_each_warp_layout(cuda, warps_n):
+    """Each warp layout the kernel is built for keeps the residency the
+    plan counts on and gives the plain version's result: one row, a block
+    less and more one row, a ragged last block, and two column tiles."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = instance[0]
-    assert pm.fwd_occupancy(instance) >= 1
+    rows = pm.FWD_BLOCK_ROWS
+    assert pm.fwd_occupancy(warps_n) == pm.FWD_BLOCKS_PER_SM
     for m in (1, rows - 1, rows + 1, 3 * rows + 5):
-        x, packed, w, _ = _inputs(m, 1003, 136, 0.04, seed=m + rows)
+        x, packed, w, _ = _inputs(m, 1003, 136, 0.04, seed=m + warps_n)
         w16 = pm._pad_cols(w.bfloat16(), 8)
-        tile = pm._fwd_launch(m, w16.shape[1], n_sms, instance)
+        tile = pm._fwd_launch(m, w16.shape[1], n_sms, warps_n)
         _assert_close(pm._fwd_on_card(packed, w16, tile)[:, :136],
                       pm.packed_matmul_fwd_plain(packed, w),
                       x @ w.bfloat16().float().abs())
@@ -219,20 +219,11 @@ def test_forward_single_bits_hit_every_lane_of_the_a_fragment(cuda):
     assert torch.equal(out[1:], w.bfloat16().float())
 
 
-def _fwd_plan_changes(h):
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    changes, prev = [], pm._fwd_tile(1, h, n_sms).rows
-    for m in range(2, 60000):
-        rows = pm._fwd_tile(m, h, n_sms).rows
-        if rows != prev:
-            changes.append(m)
-        prev = rows
-    assert changes
-    return changes
-
-
 def test_forward_is_m_invariant_where_the_plan_changes(cuda):
-    changes = _fwd_plan_changes(128)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    changes = [m for m in range(2, 60000) if pm._fwd_tile(m, 128, n_sms)
+               .warps_n != pm._fwd_tile(m - 1, 128, n_sms).warps_n]
+    assert changes
     _, packed, w, _ = _inputs(changes[-1] + 1, 700, 128, 0.03, seed=7)
     full = pm.packed_matmul_fwd(packed, w)
     for m in changes:
@@ -241,7 +232,7 @@ def test_forward_is_m_invariant_where_the_plan_changes(cuda):
                                full[:rows])
 
 
-def test_forward_refuses_misaligned_packed_and_unbuilt_tiles(cuda):
+def test_forward_refuses_misaligned_packed_and_unbuilt_layouts(cuda):
     _, packed, w, _ = _inputs(200, 64, 8, 0.1, seed=8)
     flat = torch.empty(200 * 8 + 1, dtype=torch.uint8, device="cuda")
     shifted = flat[1:].view(200, 8)
@@ -249,7 +240,7 @@ def test_forward_refuses_misaligned_packed_and_unbuilt_tiles(cuda):
     with pytest.raises(ValueError, match="4-byte aligned"):
         pm.packed_matmul_fwd(shifted, w)
     with pytest.raises(ValueError, match="no forward kernel"):
-        pm._fwd_on_card(packed, w.bfloat16(), pm.FwdTile(64, 2, 2, 4, 0.0))
+        pm._fwd_on_card(packed, w.bfloat16(), pm.FwdTile(4, 1, 0.0))
 
 
 def test_kernel_source_has_no_atomics():

@@ -197,48 +197,42 @@ def test_backward_plan_constants_match_the_kernel_source():
 
 
 def test_forward_plan_constants_match_the_kernel_source():
-    """_fwd_tile plans from the kernel's warp tile, block width and
-    residency, among the instances g2v_pm_fwd dispatches to."""
+    """_fwd_tile plans from the kernel's block tile and residency, among
+    the warp layouts g2v_pm_fwd dispatches to."""
     import re
 
     src, env = _kernel_constants()
-    assert (env["kFwdWarpRows"], env["kFwdCols"]) == (
-        tpm.FWD_WARP_ROWS, tpm.FWD_BLOCK_COLS)
-    listed = re.search(r"#define G2V_FWD_INSTANCES\(X\)((?:.*\\\n)*.*)",
-                       src).group(1)
-    built = [(int(wm) * env["kFwdWarpRows"], int(wn), int(bps)) for
-             wm, wn, bps in re.findall(r"X\((\d+), (\d+), (\d+)\)", listed)]
-    assert built == list(tpm.FWD_TILES)
-    assert set(tpm.FWD_PLANNED) <= set(tpm.FWD_TILES)
+    assert (env["kFwdRows"], env["kFwdCols"], env["kFwdBlocksPerSM"]) == (
+        tpm.FWD_BLOCK_ROWS, tpm.FWD_BLOCK_COLS, tpm.FWD_BLOCKS_PER_SM)
+    built = re.findall(r"if \(warps_n == (\d+)\)\s+return static_cast<int>\("
+                       r"launch_fwd<(\d+)>", src)
+    assert [(int(a), int(b)) for a, b in built] == [
+        (n, n) for n in tpm.FWD_WARPS_N]
     assert env["kFwdWords"] * 4 % tpm.P_ROW_ALIGN == 0
 
 
 @pytest.mark.parametrize("h", [1, 128, 130, 1024])
-@pytest.mark.parametrize("m", [1, 15, 16, 17, 12673, 32319, 40399, 10 ** 6])
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 33792, 33793, 32319, 40399,
+                               10 ** 6])
 def test_forward_tile_plan(m, h):
     n_sms = 132
     tile = tpm._fwd_tile(m, h, n_sms)
     assert tile == tpm._fwd_tile(m, h, n_sms)
-    assert tile.instance in tpm.FWD_PLANNED
+    assert tile.warps_n in tpm.FWD_WARPS_N
     # Every row and column lies in exactly one block.
-    row_blocks = -(-m // tile.rows)
-    assert (row_blocks - 1) * tile.rows < m <= row_blocks * tile.rows
-    assert tile.blocks == row_blocks * -(-h // tpm.FWD_BLOCK_COLS)
-    assert tile.waves == tile.blocks / (tile.blocks_per_sm * n_sms)
-    # No other height planned leaves fewer rows on the busiest SM.
-    def busiest(t):
-        return -(-t.blocks // n_sms) * t.rows
-    for instance in tpm.FWD_PLANNED:
-        other = tpm._fwd_launch(m, h, n_sms, instance)
-        assert busiest(tile) <= busiest(other)
+    assert tile.blocks == -(-m // tpm.FWD_BLOCK_ROWS) * -(-h // 128)
+    assert tile.blocks * tpm.FWD_BLOCK_ROWS >= m
+    slots = tpm.FWD_BLOCKS_PER_SM * n_sms
+    assert tile.waves == tile.blocks / slots
+    # One warp along the columns exactly when the launch fits one wave.
+    assert (tile.warps_n == 1) == (tile.blocks <= slots)
 
 
 def test_forward_tile_plan_at_the_example_shape():
-    # [train | val]: 160-row blocks fill 253 of one wave's 264 slots,
-    # where 128 rows would leave a second wave of 52 blocks; the train
-    # rows alone: 128 rows, 253 blocks.
-    assert tpm._fwd_tile(40399, 128, 132)[:4] == (160, 2, 2, 253)
-    assert tpm._fwd_tile(32319, 128, 132)[:4] == (128, 2, 2, 253)
+    # [train | val]: 316 blocks of 128 rows, 1.20 waves of 264 slots, two
+    # warps along the columns; the train rows alone: 253 blocks, one.
+    assert tpm._fwd_tile(40399, 128, 132) == (2, 316, 316 / 264)
+    assert tpm._fwd_tile(32319, 128, 132) == (1, 253, 253 / 264)
 
 
 def test_padded_rows_give_bitwise_equal_plain_outputs(rng):
