@@ -18,7 +18,9 @@ built for and the backward under several splits of its rows, each held
 against the plain version and timed; both kernels at the reference's
 7,523 genes; one ragged shape; the ragged edges of both kernels; and the
 forward's M-invariance, bitwise, where its plan changes the warp
-layout. Phase 5 runs a small input at hidden width 10 on ``cuda`` and on
+layout; and the forward beside stripped copies of itself (no bit
+unpacking, no ring refills, no ldmatrix, no MMAs), which show what
+bounds it. Phase 5 runs a small input at hidden width 10 on ``cuda`` and on
 the CPU. Any failure raises and the
 script exits nonzero without printing a result. The last three lines of
 standard output are: one JSON object with a record per kernel, the card's
@@ -324,6 +326,73 @@ def _forward_edges(torch, pm, gen, n_genes):
           f"warps_n={pm._fwd_tile(packed.shape[0], 128, n_sms).warps_n})")
 
 
+#: Stripped copies of the forward, each without one part of its work: the
+#: (pattern, replacement) edits of csrc/packed_matmul.cu's forward body.
+#: Their outputs are meaningless; their times show what bounds the kernel.
+FORWARD_PROBES = {
+    "A constant (no bit unpacking)": [
+        (r"(a\[j\]\[\d\]) = bits_to_bf16x2\([^;]*\);", r"\1 = 0x3F803F80u;")],
+    "no ring refills (stages stay stale)": [
+        (r"if \(next < n_steps\) load_stage\(next, next % kFwdStages\);", "")],
+    "B constant (no ldmatrix)": [
+        (r"ldmatrix_x4_trans\(\s*b, w_s[^;]*\);",
+         "b[0] = b[1] = b[2] = b[3] = 0x3F803F80u;")],
+    "no MMAs (A and B still consumed)": [
+        (r"mma_16816\(acc\[j\]\[(n(?: \+ 1)?)\], a\[j\], b\[(\d)\], b\[(\d)\]\);",
+         r"acc[j][\1][0] += __uint_as_float(a[j][0] ^ a[j][1] ^ a[j][2] ^ "
+         r"a[j][3] ^ b[\2] ^ b[\3]);")],
+}
+
+
+def _forward_probe(torch, pm, packed, n_rows, g, h, flush):
+    """The forward at the main path's shape, on all its rows and on the
+    first ``n_rows``, beside stripped copies of itself (FORWARD_PROBES),
+    built in parallel from edited copies of the source and timed in turn
+    with it under the planned warp layout."""
+    from concurrent.futures import ThreadPoolExecutor
+    import ctypes
+
+    from g2vec_tpu_torch.native._build import build
+
+    with open(pm.SRC) as f:
+        src = f.read()
+    start, end = src.index("pm_fwd_kernel(const"), src.index("pm_bwd_kernel(const")
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, edits) in enumerate(FORWARD_PROBES.items()):
+            body = src[start:end]
+            for pattern, repl in edits:
+                body, n = re.subn(pattern, repl, body)
+                if n == 0:
+                    raise RuntimeError(f"probe {name!r}: {pattern} matches "
+                                       f"nothing in the forward")
+            paths[name] = os.path.join(tmp, f"probe{i}.cu")
+            with open(paths[name], "w") as f:
+                f.write(src[:start] + body + src[end:])
+        with ThreadPoolExecutor(len(paths)) as pool:
+            built = dict(zip(paths, pool.map(
+                lambda p: build(p, pm.nvcc_command())[0], paths.values())))
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w16 = torch.randn((g, h), device="cuda").to(torch.bfloat16)
+    libs = {}
+    for name, so in built.items():
+        libs[name] = ctypes.CDLL(so)
+        pm._configure(libs[name])
+    for m in (packed.shape[0], n_rows):
+        p = packed[:m]
+        tile = pm._fwd_tile(m, h, n_sms)
+        p4 = pm._padded_packed(p)
+        out = torch.empty((m, h), device="cuda")
+        full = _time_ms(torch, lambda: pm._fwd_on_card(p, w16, tile), flush)
+        print(f"    forward probe at M={m}, warps_n={tile.warps_n}: full "
+              f"kernel {_spread(full)}")
+        for name, lib in libs.items():
+            t = _time_ms(torch, lambda: pm._launch(
+                lib.g2v_pm_fwd, p4, w16, out, m, g, p4.shape[1], h,
+                tile.warps_n), flush)
+            print(f"      {name}: {_spread(t)}")
+
+
 def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
     """Both kernels at the reference's 7,523 genes (941-byte P rows): on
     the trainer's layout (rows padded once to 944 bytes by its own
@@ -509,6 +578,7 @@ def main() -> int:
         records = _compare_kernels(torch, pm, packed_all, n_tr, n_genes, 128,
                                    gen, flush, timed=True)
         _forward_tiles(torch, pm, packed_all, n_tr, n_genes, 128, gen, flush)
+        _forward_probe(torch, pm, packed_all, n_tr, n_genes, 128, flush)
         _backward_splits(torch, pm, packed_all[:n_tr], n_genes, 128, gen,
                          flush)
         _at_reference_genes(torch, pm, packed_all.shape[0], n_tr, 128, gen,
