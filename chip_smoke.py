@@ -15,18 +15,18 @@ helper, rows padded once to a multiple of 4 bytes) and times both. Phase
 of W it streams from L2 and its tensor-core ceiling beside the
 backward's split; the forward under each warp layout the kernel is
 built for and the backward under several splits of its rows, each held
-against the plain version and timed; both kernels at the reference's
-7,523 genes; one ragged shape; the ragged edges of both kernels; and the
-forward's M-invariance, bitwise, where its plan changes the warp
-layout; and the forward beside stripped copies of itself (no bit
-unpacking, no ring refills, no ldmatrix, no MMAs), which show what
-bounds it. Phase 5 runs a small input at hidden width 10 on ``cuda`` and on
-the CPU. Any failure raises and the
-script exits nonzero without printing a result. The last three lines of
-standard output are: one JSON object with a record per kernel, the card's
-name and power limit as ``nvidia-smi`` reports them, and the result line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
-checkout of the repository, it exits nonzero at once.
+against the plain version and timed; the forward beside stripped copies
+of itself (no bit unpacking, no ring refills, no ldmatrix, no MMAs),
+which show what bounds it; both kernels at the reference's 7,523 genes;
+one ragged shape; the ragged edges of both kernels; and the forward's
+M-invariance, bitwise, where its plan changes the warp layout. Phase 5
+runs a small input at hidden width 10 on ``cuda`` and on the CPU. Any
+failure raises and the script exits nonzero without printing a result.
+The last three lines of standard output are: one JSON object with a
+record per kernel, the card's name and power limit as ``nvidia-smi``
+reports them, and the result line ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout of the repository, it exits
+nonzero at once.
 """
 from __future__ import annotations
 
@@ -253,12 +253,13 @@ def _forward_plan_line(pm, m, g, h, n_sms) -> str:
         raise RuntimeError(f"the planned forward layout {tile} keeps "
                            f"{resident} blocks resident on an SM")
     w_bytes = -(-m // pm.FWD_BLOCK_ROWS) * g * (-(-h // 8) * 8) * 2
+    ops = 2 * m * g * h
     return (f"forward tile: {pm.FWD_BLOCK_ROWS} rows x {pm.FWD_BLOCK_COLS} "
             f"columns, {tile.warps_n} warps along the columns; {tile.blocks} "
             f"blocks = {tile.waves:.2f} waves of {resident} resident blocks "
             f"on {n_sms} SMs; W streamed from L2 {w_bytes} bytes; dense "
-            f"tensor-core ceiling {2 * m * g * h / BF16_TC_OPS_PER_S * 1e3:.4f}"
-            f" ms (2*M*G*H = {2 * m * g * h:.3e} bf16 operations)")
+            f"tensor-core ceiling {ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms "
+            f"(2*M*G*H = {ops:.3e} bf16 operations)")
 
 
 def _forward_tiles(torch, pm, packed, n_rows, g, h, gen, flush):
@@ -305,12 +306,8 @@ def _forward_edges(torch, pm, gen, n_genes):
                      pm.packed_matmul_fwd(packed, w),
                      pm.packed_matmul_fwd_plain(packed, w),
                      x @ w.bfloat16().float().abs())
-    changes, prev = [], None
-    for m in range(1, 60000):
-        warps_n = pm._fwd_tile(m, 128, n_sms).warps_n
-        if prev is not None and warps_n != prev:
-            changes.append(m)
-        prev = warps_n
+    changes = [m for m in range(2, 60000) if pm._fwd_tile(m, 128, n_sms)
+               .warps_n != pm._fwd_tile(m - 1, 128, n_sms).warps_n]
     packed = _random_packed(torch, changes[-1] + 1, n_genes, 80 / n_genes,
                             gen)
     w = torch.randn((n_genes, 128), device="cuda", generator=gen) * 0.09
@@ -338,7 +335,8 @@ FORWARD_PROBES = {
         (r"ldmatrix_x4_trans\(\s*b, w_s[^;]*\);",
          "b[0] = b[1] = b[2] = b[3] = 0x3F803F80u;")],
     "no MMAs (A and B still consumed)": [
-        (r"mma_16816\(acc\[j\]\[(n(?: \+ 1)?)\], a\[j\], b\[(\d)\], b\[(\d)\]\);",
+        (r"mma_16816\(acc\[j\]\[(n(?: \+ 1)?)\], a\[j\], "
+         r"b\[(\d)\], b\[(\d)\]\);",
          r"acc[j][\1][0] += __uint_as_float(a[j][0] ^ a[j][1] ^ a[j][2] ^ "
          r"a[j][3] ^ b[\2] ^ b[\3]);")],
 }
@@ -356,7 +354,8 @@ def _forward_probe(torch, pm, packed, n_rows, g, h, flush):
 
     with open(pm.SRC) as f:
         src = f.read()
-    start, end = src.index("pm_fwd_kernel(const"), src.index("pm_bwd_kernel(const")
+    start = src.index("pm_fwd_kernel(const")
+    end = src.index("pm_bwd_kernel(const")
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, (name, edits) in enumerate(FORWARD_PROBES.items()):
@@ -412,7 +411,8 @@ def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
                       ).to(torch.bfloat16)
     x = pm.unpack_bits(wide, g_ref).float()
     _check_close(torch, f"packed_matmul_fwd M={n_all} G={g_ref} (rows "
-                 f"{padded.shape[1]} bytes)", pm.packed_matmul_fwd(padded, w16),
+                 f"{padded.shape[1]} bytes)",
+                 pm.packed_matmul_fwd(padded, w16),
                  pm.packed_matmul_fwd_plain(wide, w16), x @ w16.float().abs())
     _check_close(torch, f"packed_matmul_bwd M={n_tr} G={g_ref} (rows "
                  f"{padded.shape[1]} bytes)",

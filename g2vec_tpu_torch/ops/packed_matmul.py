@@ -126,7 +126,7 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The forward's block height.
+# The forward's warp layout.
 # ---------------------------------------------------------------------------
 
 #: The forward kernel's block tile and residency (kFwdRows, kFwdCols and
@@ -161,10 +161,10 @@ def _fwd_tile(m: int, h: int, n_sms: int) -> FwdTile:
     one warp along the columns (32 x 128 warp tiles: the least A-building
     and ldmatrix work per MMA); a longer one takes two (32 x 64 warp
     tiles, 8 warps a block), whose last, partial wave finishes sooner
-    (PERF.md, PR 5: 0.1323 against 0.1500 ms at one wave, 0.2210 against
-    0.2495 ms at 1.2 waves). The plan depends on its arguments alone, and
-    a row's result does not depend on it: both layouts walk every gene in
-    one order for every row."""
+    (on an H100, 0.1323 against 0.1500 ms at one wave and 0.2210 against
+    0.2495 ms at 1.2 waves of the example shape: PERF.md). The plan
+    depends on its arguments alone, and a row's result does not depend on
+    it: both layouts walk every gene in one order for every row."""
     one = _fwd_launch(m, h, n_sms, 1)
     return one if one.waves <= 1 else _fwd_launch(m, h, n_sms, 2)
 

@@ -248,7 +248,8 @@ def test_padded_rows_give_bitwise_equal_plain_outputs(rng):
         tw = torch.from_numpy(w)
         assert torch.equal(tpm.packed_matmul_fwd(q, tw),
                            tpm.packed_matmul_fwd(p, tw))
-        cot = torch.from_numpy(rng.standard_normal((90, 16)).astype(np.float32))
+        cot = torch.from_numpy(
+            rng.standard_normal((90, 16)).astype(np.float32))
         assert torch.equal(tpm.packed_matmul_bwd(q, cot, g),
                            tpm.packed_matmul_bwd(p, cot, g))
 
