@@ -11,15 +11,14 @@ example-scale synthetic dataset on ``cuda`` and checks what comes out,
 then holds each kernel against its plain PyTorch version on the card on
 the ``[train | val]`` rows that run produced (built by the trainer's own
 helper, rows padded once to a multiple of 4 bytes) and times both. Phase
-4 goes on with: the forward's planned warp layout, its waves, the bytes
-of W it streams from L2 and its tensor-core ceiling beside the
-backward's split; the forward under each warp layout the kernel is
-built for and the backward under several splits of its rows, each held
-against the plain version and timed; the forward beside stripped copies
-of itself (no bit unpacking, no ring refills, no ldmatrix, no MMAs),
-which show what bounds it; both kernels at the reference's 7,523 genes;
-one ragged shape; the ragged edges of both kernels; and the forward's
-M-invariance, bitwise, where its plan changes the warp layout. Phase 5
+4 goes on with: the forward's grid, its waves, the bytes of W it streams
+from L2 and its tensor-core ceiling beside the backward's split; the
+forward beside the other layouts it was chosen from (built from copies of
+its source with other constexprs) and the backward under several splits
+of its rows, each held against the plain version and timed; both kernels
+at the reference's 7,523 genes; one ragged shape; the ragged edges of
+both kernels; and the forward's M-invariance, bitwise, across the edges
+of a wave. Phase 5
 runs a small input at hidden width 10 on ``cuda`` and on the CPU. Any
 failure raises and the script exits nonzero without printing a result.
 The last three lines of standard output are: one JSON object with a
@@ -32,7 +31,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -247,51 +245,56 @@ def _backward_splits(torch, pm, packed, g, h, gen, flush):
 
 
 def _forward_plan_line(pm, m, g, h, n_sms) -> str:
-    tile = pm._fwd_tile(m, h, n_sms)
-    resident = pm.fwd_occupancy(tile.warps_n)
+    grid = pm._fwd_grid(m, h, n_sms)
+    resident = pm.fwd_occupancy()
     if resident != pm.FWD_BLOCKS_PER_SM:
-        raise RuntimeError(f"the planned forward layout {tile} keeps "
-                           f"{resident} blocks resident on an SM")
+        raise RuntimeError(f"the forward keeps {resident} blocks resident on "
+                           f"an SM, not the {pm.FWD_BLOCKS_PER_SM} its waves "
+                           f"are counted in")
     w_bytes = -(-m // pm.FWD_BLOCK_ROWS) * g * (-(-h // 8) * 8) * 2
     ops = 2 * m * g * h
     return (f"forward tile: {pm.FWD_BLOCK_ROWS} rows x {pm.FWD_BLOCK_COLS} "
-            f"columns, {tile.warps_n} warps along the columns; {tile.blocks} "
-            f"blocks = {tile.waves:.2f} waves of {resident} resident blocks "
-            f"on {n_sms} SMs; W streamed from L2 {w_bytes} bytes; dense "
-            f"tensor-core ceiling {ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms "
-            f"(2*M*G*H = {ops:.3e} bf16 operations)")
+            f"columns; {grid.blocks} blocks = {grid.waves:.2f} waves of "
+            f"{resident} resident blocks on {n_sms} SMs; W streamed from L2 "
+            f"{w_bytes} bytes; dense tensor-core ceiling "
+            f"{ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms (2*M*G*H = {ops:.3e} "
+            f"bf16 operations)")
 
 
-def _forward_tiles(torch, pm, packed, n_rows, g, h, gen, flush):
-    """The forward at the main path's shape, on all its rows (1.20 waves)
-    and on the first ``n_rows`` (the train rows, 0.96 waves), under each
-    warp layout the kernel is built for, each held against the plain
-    version and timed: the evidence for the plan."""
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+def _forward_layouts(torch, pm, packed, g, h, gen, flush):
+    """The forward at the main path's shape beside the other layouts it
+    was chosen from (``packed_matmul_probe.LAYOUTS``: warps along the
+    columns and the ring, each built from a copy of the source with those
+    constexprs changed), each held against the plain version and timed:
+    the evidence for the shipped layout."""
+    from g2vec_tpu_torch.ops import packed_matmul_probe as probe
+
+    src = probe.source()
+    shipped = probe.layout_of(src)
+    libs = probe.build_all({layout: probe.with_layout(src, layout)
+                            for layout in probe.LAYOUTS if layout != shipped})
+    libs[shipped] = (None, "as built in [2]")
+    m = packed.shape[0]
     w16 = (torch.randn((g, h), device="cuda", generator=gen) * 0.09
            ).to(torch.bfloat16)
-    for m in (packed.shape[0], n_rows):
-        p = packed[:m]
-        want = pm.packed_matmul_fwd_plain(p, w16)
-        abs_sum = pm.unpack_bits(p, g).float() @ w16.float().abs()
-        planned = pm._fwd_tile(m, h, n_sms)
-        for warps_n in pm.FWD_WARPS_N:
-            tile = pm._fwd_launch(m, h, n_sms, warps_n)
-            _check_close(torch, f"packed_matmul_fwd M={m} warps_n={warps_n}",
-                         pm._fwd_on_card(p, w16, tile), want, abs_sum)
-            t = _time_ms(torch, lambda: pm._fwd_on_card(p, w16, tile), flush)
-            mark = ", planned" if tile == planned else ""
-            print(f"    M={m}, {warps_n} warps along the columns "
-                  f"({pm.fwd_occupancy(warps_n)} resident blocks an SM, "
-                  f"{tile.blocks} blocks, {tile.waves:.2f} waves{mark}): "
-                  f"{_spread(t)}")
+    want = pm.packed_matmul_fwd_plain(packed, w16)
+    abs_sum = pm.unpack_bits(packed, g).float() @ w16.float().abs()
+    for layout in probe.LAYOUTS:
+        lib, report = libs[layout]
+        name = probe.layout_name(layout)
+        _check_close(torch, f"packed_matmul_fwd M={m}, {name}",
+                     pm._fwd_on_card(packed, w16, lib), want, abs_sum)
+        t = _time_ms(torch, lambda: pm._fwd_on_card(packed, w16, lib), flush)
+        print(f"    M={m}, {name}{', shipped' if layout == shipped else ''} "
+              f"({pm.fwd_occupancy(lib)} resident blocks an SM; ptxas "
+              f"{report}): {_spread(t)}")
 
 
 def _forward_edges(torch, pm, gen, n_genes):
     """The forward's ragged cases against its plain version (M of 1, 15
     and 17 rows and one row past a block; G 999 and 1,003; H 1, 10 and
-    130), and its M-invariance, bitwise, on both sides of every row count
-    below 60,000 where the plan changes the warp layout."""
+    130), and its M-invariance, bitwise, at one full wave of blocks and
+    one row either side of it, against a launch of two waves."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     past = pm.FWD_BLOCK_ROWS + 1
     cases = [(1, n_genes, 128), (15, n_genes, 128), (17, n_genes, 128),
@@ -301,95 +304,22 @@ def _forward_edges(torch, pm, gen, n_genes):
         packed = _random_packed(torch, m, g, 80 / g, gen)
         w = torch.randn((g, h), device="cuda", generator=gen) * 0.09
         x = pm.unpack_bits(packed, g).float()
-        _check_close(torch, f"packed_matmul_fwd M={m} G={g} H={h} warps_n="
-                     f"{pm._fwd_tile(m, h, n_sms).warps_n}",
+        _check_close(torch, f"packed_matmul_fwd M={m} G={g} H={h}",
                      pm.packed_matmul_fwd(packed, w),
                      pm.packed_matmul_fwd_plain(packed, w),
                      x @ w.bfloat16().float().abs())
-    changes = [m for m in range(2, 60000) if pm._fwd_tile(m, 128, n_sms)
-               .warps_n != pm._fwd_tile(m - 1, 128, n_sms).warps_n]
-    packed = _random_packed(torch, changes[-1] + 1, n_genes, 80 / n_genes,
-                            gen)
+    wave = pm.FWD_BLOCKS_PER_SM * n_sms * pm.FWD_BLOCK_ROWS
+    packed = _random_packed(torch, 2 * wave, n_genes, 80 / n_genes, gen)
     w = torch.randn((n_genes, 128), device="cuda", generator=gen) * 0.09
     full = pm.packed_matmul_fwd(packed, w)
-    for m in changes:
-        for rows in (m - 1, m):
-            if not torch.equal(pm.packed_matmul_fwd(packed[:rows], w),
-                               full[:rows]):
-                raise RuntimeError(f"packed_matmul_fwd is not M-invariant "
-                                   f"at M={rows}")
-    print(f"    forward M-invariant, bitwise, at M = m-1 and m for the "
-          f"plan's changes m = {changes} (against M={packed.shape[0]}, "
-          f"warps_n={pm._fwd_tile(packed.shape[0], 128, n_sms).warps_n})")
-
-
-#: Stripped copies of the forward, each without one part of its work: the
-#: (pattern, replacement) edits of csrc/packed_matmul.cu's forward body.
-#: Their outputs are meaningless; their times show what bounds the kernel.
-FORWARD_PROBES = {
-    "A constant (no bit unpacking)": [
-        (r"(a\[j\]\[\d\]) = bits_to_bf16x2\([^;]*\);", r"\1 = 0x3F803F80u;")],
-    "no ring refills (stages stay stale)": [
-        (r"if \(next < n_steps\) load_stage\(next, next % kFwdStages\);", "")],
-    "B constant (no ldmatrix)": [
-        (r"ldmatrix_x4_trans\(\s*b, w_s[^;]*\);",
-         "b[0] = b[1] = b[2] = b[3] = 0x3F803F80u;")],
-    "no MMAs (A and B still consumed)": [
-        (r"mma_16816\(acc\[j\]\[(n(?: \+ 1)?)\], a\[j\], "
-         r"b\[(\d)\], b\[(\d)\]\);",
-         r"acc[j][\1][0] += __uint_as_float(a[j][0] ^ a[j][1] ^ a[j][2] ^ "
-         r"a[j][3] ^ b[\2] ^ b[\3]);")],
-}
-
-
-def _forward_probe(torch, pm, packed, n_rows, g, h, flush):
-    """The forward at the main path's shape, on all its rows and on the
-    first ``n_rows``, beside stripped copies of itself (FORWARD_PROBES),
-    built in parallel from edited copies of the source and timed in turn
-    with it under the planned warp layout."""
-    from concurrent.futures import ThreadPoolExecutor
-    import ctypes
-
-    from g2vec_tpu_torch.native._build import build
-
-    with open(pm.SRC) as f:
-        src = f.read()
-    start = src.index("pm_fwd_kernel(const")
-    end = src.index("pm_bwd_kernel(const")
-    paths = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, edits) in enumerate(FORWARD_PROBES.items()):
-            body = src[start:end]
-            for pattern, repl in edits:
-                body, n = re.subn(pattern, repl, body)
-                if n == 0:
-                    raise RuntimeError(f"probe {name!r}: {pattern} matches "
-                                       f"nothing in the forward")
-            paths[name] = os.path.join(tmp, f"probe{i}.cu")
-            with open(paths[name], "w") as f:
-                f.write(src[:start] + body + src[end:])
-        with ThreadPoolExecutor(len(paths)) as pool:
-            built = dict(zip(paths, pool.map(
-                lambda p: build(p, pm.nvcc_command())[0], paths.values())))
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    w16 = torch.randn((g, h), device="cuda").to(torch.bfloat16)
-    libs = {}
-    for name, so in built.items():
-        libs[name] = ctypes.CDLL(so)
-        pm._configure(libs[name])
-    for m in (packed.shape[0], n_rows):
-        p = packed[:m]
-        tile = pm._fwd_tile(m, h, n_sms)
-        p4 = pm._padded_packed(p)
-        out = torch.empty((m, h), device="cuda")
-        full = _time_ms(torch, lambda: pm._fwd_on_card(p, w16, tile), flush)
-        print(f"    forward probe at M={m}, warps_n={tile.warps_n}: full "
-              f"kernel {_spread(full)}")
-        for name, lib in libs.items():
-            t = _time_ms(torch, lambda: pm._launch(
-                lib.g2v_pm_fwd, p4, w16, out, m, g, p4.shape[1], h,
-                tile.warps_n), flush)
-            print(f"      {name}: {_spread(t)}")
+    for rows in (wave - 1, wave, wave + 1):
+        if not torch.equal(pm.packed_matmul_fwd(packed[:rows], w),
+                           full[:rows]):
+            raise RuntimeError(f"packed_matmul_fwd is not M-invariant at "
+                               f"M={rows}")
+    print(f"    forward M-invariant, bitwise, at M = {wave - 1}, {wave} and "
+          f"{wave + 1} (one wave of blocks and a row either side) against "
+          f"M={2 * wave}")
 
 
 def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
@@ -422,10 +352,8 @@ def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
     fwd = _time_ms(torch, lambda: pm.packed_matmul_fwd(padded, w16), flush)
     bwd = _time_ms(torch, lambda: pm.packed_matmul_bwd(padded[:n_tr], g16,
                                                        g_ref), flush)
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"    G={g_ref}, P rows padded once to {padded.shape[1]} bytes: "
-          f"forward M={n_all} {_spread(fwd)} (warps_n="
-          f"{pm._fwd_tile(n_all, h, n_sms).warps_n}), backward M={n_tr} "
+          f"forward M={n_all} {_spread(fwd)}, backward M={n_tr} "
           f"{_spread(bwd)}")
     narrow = wide[:n_tr]
     bwd = _time_ms(torch, lambda: pm.packed_matmul_bwd(narrow, g16, g_ref),
@@ -515,10 +443,6 @@ def main() -> int:
             kernel = next((w for w in ("pm_fwd_kernel", "pm_bwd_kernel",
                                        "pm_bwd_sum_kernel") if w in line),
                           line.split("'")[1] if "'" in line else "?")
-            # A forward instance's mangled name carries <warps_n>.
-            args = re.findall(r"pm_fwd_kernelILi(\d+)E", line)
-            if args:
-                kernel += f"<{args[0]}>"
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
 
@@ -577,8 +501,7 @@ def main() -> int:
                                           128, n_sms))
         records = _compare_kernels(torch, pm, packed_all, n_tr, n_genes, 128,
                                    gen, flush, timed=True)
-        _forward_tiles(torch, pm, packed_all, n_tr, n_genes, 128, gen, flush)
-        _forward_probe(torch, pm, packed_all, n_tr, n_genes, 128, flush)
+        _forward_layouts(torch, pm, packed_all, n_genes, 128, gen, flush)
         _backward_splits(torch, pm, packed_all[:n_tr], n_genes, 128, gen,
                          flush)
         _at_reference_genes(torch, pm, packed_all.shape[0], n_tr, 128, gen,

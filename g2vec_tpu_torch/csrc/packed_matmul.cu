@@ -32,22 +32,23 @@
 //
 // Forward. A = X (16 path rows x 16 genes), B = the W tile (16 genes x 8
 // columns).
-//   - A block owns 128 rows x 128 columns, two blocks to an SM. Its warps
-//     are 4 (rows) x warps_n (columns) tiles of 32 rows x 128 / warps_n
-//     columns: 2 x 16 MMA tiles and 128 f32 accumulators a thread at
-//     warps_n = 1, 2 x 8 and 64 at warps_n = 2. One warp along the columns
-//     builds each A fragment once for twice the MMAs, and is the faster
-//     when the launch fits one wave of resident blocks; two put 8 warps in
-//     a block, whose last, partial wave finishes sooner (_fwd_tile in
-//     ops/packed_matmul.py plans warps_n from M and the SM count). Taller
-//     blocks, at two or at one to an SM, either spill registers or leave
+//   - A block owns 128 rows x 128 columns, two blocks to an SM. Its 4
+//     warps are tiles of 32 rows x all 128 columns: 2 x 16 MMA tiles and
+//     128 f32 accumulators a thread (255 registers; ptxas spills 20 bytes).
+//     One warp along the columns builds each A fragment once for all of
+//     them. Of the layouts ops/packed_matmul_probe.py times (LAYOUTS: one
+//     or two warps along the columns, rings of 2-4 stages of 64 or 128
+//     genes), this one is the fastest at the example's [train | val]
+//     launch (M 40,399), the only shape the trainer launches (PERF.md).
+//     Taller blocks, at two or at one to an SM, spill registers or leave
 //     an SM fewer warps, and measured slower.
-//   - The genes stream through a 4-stage cp.async ring of 64 genes each:
+//   - The genes stream through a 2-stage cp.async ring of 128 genes each:
 //     the W rows in 16-byte copies into rows padded from 256 to 272 bytes
 //     (ldmatrix.trans's 8 rows fall on 8 distinct bank groups), and the
-//     block's 8 packed bytes per row in 4-byte copies (P's row stride is a
-//     multiple of 4 bytes: the trainer pads its rows once per run). Genes
-//     past G, columns past H and rows past M are zero-filled by the copy.
+//     block's 16 packed bytes per row in 4-byte copies (P's row stride is
+//     a multiple of 4 bytes: the trainer pads its rows once per run). A
+//     stage is refilled while the other is read. Genes past G, columns
+//     past H and rows past M are zero-filled by the copy.
 //   - A lane's four A registers hold rows groupID and groupID+8 of an
 //     m-tile at genes k0+2t, k0+2t+1 (byte k0/8) and k0+8+2t, k0+9+2t (the
 //     next byte): two adjacent bits of one byte of one row. Each packed
@@ -57,9 +58,8 @@
 //   - Every block walks all genes in ascending k-steps in one accumulator
 //     chain per element: no split along genes, no second pass, no atomics.
 //     A row's result depends on its own bits and W alone, whatever else is
-//     in the launch and whichever warp layout the plan picks: the forward
-//     is M-invariant, which the trainer's fused [train | val] launch
-//     relies on.
+//     in the launch: the forward is M-invariant, which the trainer's fused
+//     [train | val] launch relies on.
 //   - Every row block streams all of W from L2: 1.50 MB at G 5,850 x
 //     H 128, 473 MB over the 316 blocks of the example shape.
 //
@@ -105,24 +105,35 @@
 
 namespace {
 
-// Forward: kFwdWarpsM x warps_n warps of kFwdWarpRows rows x kFwdCols /
-// warps_n columns, kFwdBlocksPerSM blocks to an SM; the genes stream
+// Forward: kFwdWarpsM x kFwdWarpsN warps of kFwdWarpRows rows x
+// kFwdWarpCols columns, kFwdBlocksPerSM blocks to an SM; the genes stream
 // through kFwdStages stages of kFwdGenes.
 constexpr int kFwdWarpRows = 32;
 constexpr int kFwdMTiles = kFwdWarpRows / 16;                   // MMA tiles
 constexpr int kFwdWarpsM = 4;
+constexpr int kFwdWarpsN = 1;
+constexpr int kFwdThreads = 32 * kFwdWarpsM * kFwdWarpsN;
 constexpr int kFwdRows = kFwdWarpsM * kFwdWarpRows;   // path rows per block
 constexpr int kFwdCols = 128;                  // hidden columns per block
-constexpr int kFwdBlocksPerSM = 2;             // _fwd_tile plans for this
-constexpr int kFwdGenes = 64;
+constexpr int kFwdWarpCols = kFwdCols / kFwdWarpsN;
+constexpr int kFwdNTiles = kFwdWarpCols / 8;
+constexpr int kFwdBlocksPerSM = 2;             // _fwd_grid counts waves of this
+constexpr int kFwdGenes = 128;
 constexpr int kFwdBytes = kFwdGenes / 8;       // packed bytes per row
 constexpr int kFwdWords = kFwdBytes / 4;       // ... in 4-byte words
-constexpr int kFwdStages = 4;
+constexpr int kFwdStages = 2;
 constexpr int kFwdWStride = kFwdCols + 8;      // bf16 per staged W row
 constexpr int kFwdWBytes = kFwdGenes * kFwdWStride * 2;
-constexpr int kFwdWChunks = kFwdGenes * kFwdCols / 8;   // 16-byte copies
-static_assert(kFwdGenes % 32 == 0 && kFwdWarpRows % 16 == 0,
-              "whole packed words, whole m-tiles");
+constexpr int kFwdStageBytes = kFwdWBytes + kFwdRows * kFwdBytes;
+constexpr int kFwdSmem = kFwdStages * kFwdStageBytes;
+constexpr int kFwdWChunks = kFwdGenes * kFwdCols / 8 / kFwdThreads;  // per thread
+constexpr int kFwdPWords = kFwdRows * kFwdWords / kFwdThreads;       // per thread
+static_assert(kFwdWChunks * 8 * kFwdThreads == kFwdGenes * kFwdCols &&
+              kFwdPWords * kFwdThreads == kFwdRows * kFwdWords &&
+              kFwdPWords > 0, "every thread copies whole chunks and words");
+static_assert(kFwdGenes % 32 == 0 && kFwdWarpRows % 16 == 0 &&
+              kFwdNTiles % 2 == 0,
+              "whole packed words, whole m-tiles, n-tile pairs");
 
 // Backward: kBwdWarpsM x kBwdWarpsN warps (genes x columns) of
 // kBwdWarpGenes x kBwdWarpCols each; a block owns one tile of genes x
@@ -211,27 +222,10 @@ __device__ __forceinline__ uint32_t bits_to_bf16x2(uint32_t lo, uint32_t hi,
     return r & 0x3F803F80u;
 }
 
-template <int kWarpsN>
-struct FwdTile {
-    static constexpr int kThreads = 32 * kFwdWarpsM * kWarpsN;
-    static constexpr int kWarpCols = kFwdCols / kWarpsN;
-    static constexpr int kNTiles = kWarpCols / 8;
-    static constexpr int kStageBytes = kFwdWBytes + kFwdRows * kFwdBytes;
-    static constexpr int kSmem = kFwdStages * kStageBytes;
-    static constexpr int kWChunks = kFwdWChunks / kThreads;   // per thread
-    static constexpr int kPWords = kFwdRows * kFwdWords / kThreads;
-    static_assert(kWChunks * kThreads == kFwdWChunks &&
-                  kPWords * kThreads == kFwdRows * kFwdWords && kPWords > 0,
-                  "every thread copies whole chunks and words");
-    static_assert(kNTiles % 2 == 0, "n-tile pairs");
-};
-
-template <int kWarpsN>
-__global__ void __launch_bounds__(FwdTile<kWarpsN>::kThreads, kFwdBlocksPerSM)
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
 pm_fwd_kernel(const uint8_t* __restrict__ packed,
               const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
               int m, int g, int nb, int h) {
-    using T = FwdTile<kWarpsN>;
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int tid = threadIdx.x;
@@ -243,16 +237,16 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
     const int n_steps = (g + kFwdGenes - 1) / kFwdGenes;
     const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
 
-    // Staging map of one stage, q = i * kThreads + tid. W tile: 16-byte
+    // Staging map of one stage, q = i * kFwdThreads + tid. W tile: 16-byte
     // chunk q -> gene q / (kFwdCols/8), columns (q % (kFwdCols/8))*8..+7.
     // Packed tile: word q -> row q / kFwdWords, bytes (q % kFwdWords)*4..+3,
     // kept row-major at byte q*4.
     auto load_stage = [&](int step, int stage) {
         const int g0 = step * kFwdGenes;
-        const uint32_t base = smem0 + stage * T::kStageBytes;
+        const uint32_t base = smem0 + stage * kFwdStageBytes;
 #pragma unroll
-        for (int i = 0; i < T::kWChunks; ++i) {
-            const int q = i * T::kThreads + tid;
+        for (int i = 0; i < kFwdWChunks; ++i) {
+            const int q = i * kFwdThreads + tid;
             const int r = q / (kFwdCols / 8), c = q % (kFwdCols / 8) * 8;
             const bool ok = g0 + r < g && col0 + c < h;
             cp_async_16(base + (r * kFwdWStride + c) * 2,
@@ -260,8 +254,8 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
                         ok ? 16 : 0);
         }
 #pragma unroll
-        for (int i = 0; i < T::kPWords; ++i) {
-            const int q = i * T::kThreads + tid;
+        for (int i = 0; i < kFwdPWords; ++i) {
+            const int q = i * kFwdThreads + tid;
             const int row = row0 + q / kFwdWords;
             const int byte = g0 / 8 + q % kFwdWords * 4;
             const bool ok = row < m && byte < nb;
@@ -272,11 +266,11 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
         }
     };
 
-    float acc[kFwdMTiles][T::kNTiles][4];          // [m-tile][n-tile][frag]
+    float acc[kFwdMTiles][kFwdNTiles][4];          // [m-tile][n-tile][frag]
 #pragma unroll
     for (int j = 0; j < kFwdMTiles; ++j)
 #pragma unroll
-        for (int n = 0; n < T::kNTiles; ++n)
+        for (int n = 0; n < kFwdNTiles; ++n)
             acc[j][n][0] = acc[j][n][1] = acc[j][n][2] = acc[j][n][3] = 0.0f;
 
 #pragma unroll
@@ -288,7 +282,7 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
     // ldmatrix.x4.trans: lanes 0-15 address genes 0-15 of the k-step at the
     // n-tile's column, lanes 16-31 the same genes 8 columns on.
     const int ld_row = lane & 15;
-    const int ld_col = wn * T::kWarpCols + (lane >> 4) * 8;
+    const int ld_col = wn * kFwdWarpCols + (lane >> 4) * 8;
 
     for (int step = 0; step < n_steps; ++step) {
         cp_async_wait<kFwdStages - 2>();           // this step's stage landed
@@ -299,9 +293,9 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
         cp_async_commit();
 
         const int stage = step % kFwdStages;
-        const uint32_t w_s = smem0 + stage * T::kStageBytes;
+        const uint32_t w_s = smem0 + stage * kFwdStageBytes;
         const uint32_t* p_s = reinterpret_cast<const uint32_t*>(
-            smem + stage * T::kStageBytes + kFwdWBytes) +
+            smem + stage * kFwdStageBytes + kFwdWBytes) +
             wm * kFwdWarpRows * kFwdWords;
 #pragma unroll
         for (int wd = 0; wd < kFwdWords; ++wd) {
@@ -330,7 +324,7 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
                                              2 * half + 1);
                 }
 #pragma unroll
-                for (int n = 0; n < T::kNTiles; n += 2) {
+                for (int n = 0; n < kFwdNTiles; n += 2) {
                     uint32_t b[4];
                     ldmatrix_x4_trans(
                         b, w_s + ((k0 + ld_row) * kFwdWStride + ld_col + n * 8) * 2);
@@ -349,8 +343,8 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
     for (int j = 0; j < kFwdMTiles; ++j) {
         const int row = row0 + wm * kFwdWarpRows + j * 16 + gid;
 #pragma unroll
-        for (int n = 0; n < T::kNTiles; ++n) {
-            const int col = col0 + wn * T::kWarpCols + n * 8 + 2 * tig;
+        for (int n = 0; n < kFwdNTiles; ++n) {
+            const int col = col0 + wn * kFwdWarpCols + n * 8 + 2 * tig;
             if (col >= h) continue;
             if (row < m)
                 *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * h + col) =
@@ -511,39 +505,10 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
     dw[i] = acc;
 }
 
-template <int kWarpsN>
 cudaError_t set_fwd_smem() {
-    return cudaFuncSetAttribute(pm_fwd_kernel<kWarpsN>,
+    return cudaFuncSetAttribute(pm_fwd_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                FwdTile<kWarpsN>::kSmem);
-}
-
-template <int kWarpsN>
-cudaError_t launch_fwd(const void* packed, const void* w, void* out,
-                       int64_t m, int64_t g, int64_t nb, int64_t h,
-                       cudaStream_t s) {
-    using T = FwdTile<kWarpsN>;
-    cudaError_t err = set_fwd_smem<kWarpsN>();
-    if (err != cudaSuccess) return err;
-    const dim3 grid(static_cast<unsigned>((m + kFwdRows - 1) / kFwdRows),
-                    static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols));
-    pm_fwd_kernel<kWarpsN><<<grid, T::kThreads, T::kSmem, s>>>(
-        static_cast<const uint8_t*>(packed),
-        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
-        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
-        static_cast<int>(h));
-    return cudaGetLastError();
-}
-
-template <int kWarpsN>
-int fwd_occupancy() {
-    int n = 0;
-    if (set_fwd_smem<kWarpsN>() != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, pm_fwd_kernel<kWarpsN>, FwdTile<kWarpsN>::kThreads,
-            FwdTile<kWarpsN>::kSmem) != cudaSuccess)
-        return -1;
-    return n;
+                                kFwdSmem);
 }
 
 }  // namespace
@@ -555,29 +520,34 @@ extern "C" {
 // contiguous with nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, P
 // 4-byte aligned, W / g_out bf16 contiguous, 16-byte aligned, with
 // h % 8 == 0, out / dW f32 contiguous, g, h >= 1.
-//   forward: m >= 1, warps_n 1 or 2 (anything else returns
-//     cudaErrorInvalidValue).
+//   forward: m >= 1.
 //   backward: rows_per_slice * n_slices >= m, n_slices >= 1,
 //     and with n_slices > 1 a workspace `work` of n_slices * g * h f32.
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
-               int64_t g, int64_t nb, int64_t h, int64_t warps_n,
-               void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (warps_n == 1)
-        return static_cast<int>(launch_fwd<1>(packed, w, out, m, g, nb, h, s));
-    if (warps_n == 2)
-        return static_cast<int>(launch_fwd<2>(packed, w, out, m, g, nb, h, s));
-    return static_cast<int>(cudaErrorInvalidValue);
+               int64_t g, int64_t nb, int64_t h, void* stream) {
+    cudaError_t err = set_fwd_smem();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>((m + kFwdRows - 1) / kFwdRows),
+                    static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols));
+    pm_fwd_kernel<<<grid, kFwdThreads, kFwdSmem,
+                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(packed),
+        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
+        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
+        static_cast<int>(h));
+    return static_cast<int>(cudaGetLastError());
 }
 
-// How many blocks of the forward with warps_n warps along the columns the
-// card keeps resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
-// -1 on an error or for a warps_n not built.
-int g2v_pm_fwd_occupancy(int64_t warps_n) {
-    if (warps_n == 1) return fwd_occupancy<1>();
-    if (warps_n == 2) return fwd_occupancy<2>();
-    return -1;
+// How many blocks of the forward the card keeps resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error.
+int g2v_pm_fwd_occupancy() {
+    int n = 0;
+    if (set_fwd_smem() != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, pm_fwd_kernel, kFwdThreads, kFwdSmem) != cudaSuccess)
+        return -1;
+    return n;
 }
 
 int g2v_pm_bwd(const void* packed, const void* gout, void* dw, void* work,

@@ -28,9 +28,10 @@ row either way.
 On the card any hidden width H is taken: the wrapper zero-pads the bf16
 operand's columns to a multiple of 8 (the kernels' 16-byte copies) and
 slices the padding off the result; zero columns add nothing, so this is
-exact. The forward's warp layout comes from :func:`_fwd_tile`. The
-backward splits M into the slices that :func:`_bwd_slices` plans and adds
-their partials in a fixed order on the card.
+exact. The forward launches one block per tile of rows and columns
+(:func:`_fwd_grid` counts them and their waves). The backward splits M
+into the slices that :func:`_bwd_slices` plans and adds their partials in
+a fixed order on the card.
 
 The :class:`PackedMatmul` autograd function glues the two together: the
 gradient reaches W only (the paths are data, ref: G2Vec.py:264), the
@@ -71,8 +72,8 @@ def nvcc_command() -> list:
 
 def _configure(lib: ctypes.CDLL) -> None:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, ptr]
-    lib.g2v_pm_fwd_occupancy.argtypes = [i64]
+    lib.g2v_pm_fwd.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, ptr]
+    lib.g2v_pm_fwd_occupancy.argtypes = []
     lib.g2v_pm_fwd_occupancy.restype = ctypes.c_int
     lib.g2v_pm_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                i64, i64, ptr]
@@ -126,55 +127,38 @@ def packed_matmul_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The forward's warp layout.
+# The forward's grid.
 # ---------------------------------------------------------------------------
 
 #: The forward kernel's block tile and residency (kFwdRows, kFwdCols and
 #: kFwdBlocksPerSM in csrc/packed_matmul.cu, which
 #: tests/test_torch_packed_matmul.py holds these equal to).
 FWD_BLOCK_ROWS, FWD_BLOCK_COLS, FWD_BLOCKS_PER_SM = 128, 128, 2
-#: The warp layouts the kernel is built for: 4 x warps_n warps of 32 rows x
-#: 128 / warps_n columns.
-FWD_WARPS_N = (1, 2)
 
 
-class FwdTile(NamedTuple):
+class FwdGrid(NamedTuple):
     """A forward launch: ``blocks`` blocks of FWD_BLOCK_ROWS rows x
-    FWD_BLOCK_COLS columns with ``warps_n`` warps along the columns,
-    ``waves`` times the card's resident block slots."""
+    FWD_BLOCK_COLS columns, ``waves`` times the card's resident block
+    slots."""
 
-    warps_n: int
     blocks: int
     waves: float
 
 
-def _fwd_launch(m: int, h: int, n_sms: int, warps_n: int) -> FwdTile:
+def _fwd_grid(m: int, h: int, n_sms: int) -> FwdGrid:
     """The forward's launch of ``m`` rows and ``h`` columns on ``n_sms``
-    SMs with ``warps_n`` warps along the columns."""
+    SMs. Every block walks every gene in one order for each of its rows,
+    so a row's result does not depend on the grid."""
     blocks = -(-m // FWD_BLOCK_ROWS) * -(-h // FWD_BLOCK_COLS)
-    return FwdTile(warps_n, blocks, blocks / (FWD_BLOCKS_PER_SM * n_sms))
+    return FwdGrid(blocks, blocks / (FWD_BLOCKS_PER_SM * n_sms))
 
 
-def _fwd_tile(m: int, h: int, n_sms: int) -> FwdTile:
-    """The forward's warp layout for ``m`` rows and ``h`` columns on
-    ``n_sms`` SMs. A launch that fits one wave of resident blocks takes
-    one warp along the columns (32 x 128 warp tiles: the least A-building
-    and ldmatrix work per MMA); a longer one takes two (32 x 64 warp
-    tiles, 8 warps a block), whose last, partial wave finishes sooner
-    (on an H100, 0.1323 against 0.1500 ms at one wave and 0.2210 against
-    0.2495 ms at 1.2 waves of the example shape: PERF.md). The plan
-    depends on its arguments alone, and a row's result does not depend on
-    it: both layouts walk every gene in one order for every row."""
-    one = _fwd_launch(m, h, n_sms, 1)
-    return one if one.waves <= 1 else _fwd_launch(m, h, n_sms, 2)
-
-
-def fwd_occupancy(warps_n: int) -> int:
-    """Blocks of the forward with ``warps_n`` warps along the columns that
-    the card keeps resident on one SM."""
-    n = _lib().g2v_pm_fwd_occupancy(warps_n)
+def fwd_occupancy(lib: Optional[ctypes.CDLL] = None) -> int:
+    """Blocks of the forward (in ``lib``, by default the port's kernel
+    library) that the card keeps resident on one SM."""
+    n = (lib or _lib()).g2v_pm_fwd_occupancy()
     if n < 0:
-        raise ValueError(f"no forward kernel is built for warps_n={warps_n}")
+        raise RuntimeError("the forward's occupancy query failed")
     return n
 
 
@@ -322,8 +306,7 @@ def packed_matmul_fwd(packed: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     m, h = packed.shape[0], w.shape[1]
     if m == 0:
         return torch.empty((0, h), dtype=torch.float32, device=packed.device)
-    tile = _fwd_tile(m, w16.shape[1], _sm_count(packed.device.index))
-    out = _fwd_on_card(packed, w16, tile)
+    out = _fwd_on_card(packed, w16)
     packed_matmul_fwd.launches += 1
     return out if w16.shape[1] == h else out[:, :h].contiguous()
 
@@ -332,17 +315,15 @@ packed_matmul_fwd.launches = 0
 
 
 def _fwd_on_card(packed: torch.Tensor, w16: torch.Tensor,
-                 tile: FwdTile) -> torch.Tensor:
-    """The forward kernel on checked card tensors (``w16`` padded to a
-    multiple of 8 columns, at least one row) with the warp layout of
-    ``tile``: out [M, w16 width]. Counts nothing: the wrapper counts."""
-    if tile.warps_n not in FWD_WARPS_N:
-        raise ValueError(f"no forward kernel is built for {tile}")
+                 lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """The forward kernel (in ``lib``, by default the port's kernel
+    library) on checked card tensors (``w16`` padded to a multiple of 8
+    columns, at least one row): out [M, w16 width]. Counts nothing: the
+    wrapper counts."""
     p4 = _padded_packed(packed)
     m, (g, h8) = packed.shape[0], w16.shape
     out = torch.empty((m, h8), dtype=torch.float32, device=packed.device)
-    _launch(_lib().g2v_pm_fwd, p4, w16, out, m, g, p4.shape[1], h8,
-            tile.warps_n)
+    _launch((lib or _lib()).g2v_pm_fwd, p4, w16, out, m, g, p4.shape[1], h8)
     return out
 
 

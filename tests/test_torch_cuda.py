@@ -179,25 +179,22 @@ def test_forward_at_k_step_and_block_edges(cuda):
                       x @ w.bfloat16().float().abs())
     for g in (15, 17, 31, 33, 63, 65, 127, 129, 999, 1003):
         x, packed, w, _ = _inputs(300, g, 136, 0.05, seed=g)
-        assert pm._fwd_tile(300, 136, n_sms).blocks >= 2
+        assert pm._fwd_grid(300, 136, n_sms).blocks >= 2
         _assert_close(pm.packed_matmul_fwd(packed, w),
                       pm.packed_matmul_fwd_plain(packed, w),
                       x @ w.bfloat16().float().abs())
 
 
-@pytest.mark.parametrize("warps_n", pm.FWD_WARPS_N)
-def test_forward_under_each_warp_layout(cuda, warps_n):
-    """Each warp layout the kernel is built for keeps the residency the
-    plan counts on and gives the plain version's result: one row, a block
-    less and more one row, a ragged last block, and two column tiles."""
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+def test_forward_keeps_its_residency_and_ragged_blocks(cuda):
+    """The forward keeps the resident blocks its waves are counted in,
+    and gives the plain version's result on one row, a block less and
+    more one row, a ragged last block, and two column tiles."""
     rows = pm.FWD_BLOCK_ROWS
-    assert pm.fwd_occupancy(warps_n) == pm.FWD_BLOCKS_PER_SM
+    assert pm.fwd_occupancy() == pm.FWD_BLOCKS_PER_SM
     for m in (1, rows - 1, rows + 1, 3 * rows + 5):
-        x, packed, w, _ = _inputs(m, 1003, 136, 0.04, seed=m + warps_n)
+        x, packed, w, _ = _inputs(m, 1003, 136, 0.04, seed=m)
         w16 = pm._pad_cols(w.bfloat16(), 8)
-        tile = pm._fwd_launch(m, w16.shape[1], n_sms, warps_n)
-        _assert_close(pm._fwd_on_card(packed, w16, tile)[:, :136],
+        _assert_close(pm._fwd_on_card(packed, w16)[:, :136],
                       pm.packed_matmul_fwd_plain(packed, w),
                       x @ w.bfloat16().float().abs())
 
@@ -219,28 +216,26 @@ def test_forward_single_bits_hit_every_lane_of_the_a_fragment(cuda):
     assert torch.equal(out[1:], w.bfloat16().float())
 
 
-def test_forward_is_m_invariant_where_the_plan_changes(cuda):
+def test_forward_is_m_invariant_at_the_edges_of_a_wave(cuda):
+    """One full wave of resident blocks, and a row either side of it,
+    against a launch of two waves: the same bits for the same rows."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    changes = [m for m in range(2, 60000) if pm._fwd_tile(m, 128, n_sms)
-               .warps_n != pm._fwd_tile(m - 1, 128, n_sms).warps_n]
-    assert changes
-    _, packed, w, _ = _inputs(changes[-1] + 1, 700, 128, 0.03, seed=7)
+    wave = pm.FWD_BLOCKS_PER_SM * n_sms * pm.FWD_BLOCK_ROWS
+    assert pm._fwd_grid(wave, 128, n_sms).waves == 1.0
+    _, packed, w, _ = _inputs(2 * wave, 700, 128, 0.03, seed=7)
     full = pm.packed_matmul_fwd(packed, w)
-    for m in changes:
-        for rows in (m - 1, m):
-            assert torch.equal(pm.packed_matmul_fwd(packed[:rows], w),
-                               full[:rows])
+    for rows in (wave - 1, wave, wave + 1, wave + pm.FWD_BLOCK_ROWS + 1):
+        assert torch.equal(pm.packed_matmul_fwd(packed[:rows], w),
+                           full[:rows])
 
 
-def test_forward_refuses_misaligned_packed_and_unbuilt_layouts(cuda):
+def test_forward_refuses_misaligned_packed(cuda):
     _, packed, w, _ = _inputs(200, 64, 8, 0.1, seed=8)
     flat = torch.empty(200 * 8 + 1, dtype=torch.uint8, device="cuda")
     shifted = flat[1:].view(200, 8)
     shifted.copy_(packed)
     with pytest.raises(ValueError, match="4-byte aligned"):
         pm.packed_matmul_fwd(shifted, w)
-    with pytest.raises(ValueError, match="no forward kernel"):
-        pm._fwd_on_card(packed, w.bfloat16(), pm.FwdTile(4, 1, 0.0))
 
 
 def test_kernel_source_has_no_atomics():

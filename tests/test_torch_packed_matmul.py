@@ -13,6 +13,8 @@ port gets ``np.packbits`` of it. Tolerances:
 The card-side comparison of the CUDA kernels with these plain versions is
 in tests/test_torch_cuda.py and chip_smoke.py.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 
 from g2vec_tpu.ops import packed_matmul as jpm
 from g2vec_tpu_torch.ops import packed_matmul as tpm
+from g2vec_tpu_torch.ops import packed_matmul_probe as probe
 
 pytestmark = pytest.mark.torch
 
@@ -197,18 +200,13 @@ def test_backward_plan_constants_match_the_kernel_source():
 
 
 def test_forward_plan_constants_match_the_kernel_source():
-    """_fwd_tile plans from the kernel's block tile and residency, among
-    the warp layouts g2v_pm_fwd dispatches to."""
-    import re
-
+    """_fwd_grid counts blocks and waves from the kernel's block tile and
+    residency, and the forward is one instance: no template to dispatch."""
     src, env = _kernel_constants()
     assert (env["kFwdRows"], env["kFwdCols"], env["kFwdBlocksPerSM"]) == (
         tpm.FWD_BLOCK_ROWS, tpm.FWD_BLOCK_COLS, tpm.FWD_BLOCKS_PER_SM)
-    built = re.findall(r"if \(warps_n == (\d+)\)\s+return static_cast<int>\("
-                       r"launch_fwd<(\d+)>", src)
-    assert [(int(a), int(b)) for a, b in built] == [
-        (n, n) for n in tpm.FWD_WARPS_N]
     assert env["kFwdWords"] * 4 % tpm.P_ROW_ALIGN == 0
+    assert not re.search(r"pm_fwd_kernel<(?!<<)", src)
 
 
 @pytest.mark.parametrize("h", [1, 128, 130, 1024])
@@ -216,23 +214,64 @@ def test_forward_plan_constants_match_the_kernel_source():
                                10 ** 6])
 def test_forward_tile_plan(m, h):
     n_sms = 132
-    tile = tpm._fwd_tile(m, h, n_sms)
-    assert tile == tpm._fwd_tile(m, h, n_sms)
-    assert tile.warps_n in tpm.FWD_WARPS_N
+    grid = tpm._fwd_grid(m, h, n_sms)
+    assert grid == tpm._fwd_grid(m, h, n_sms)
     # Every row and column lies in exactly one block.
-    assert tile.blocks == -(-m // tpm.FWD_BLOCK_ROWS) * -(-h // 128)
-    assert tile.blocks * tpm.FWD_BLOCK_ROWS >= m
-    slots = tpm.FWD_BLOCKS_PER_SM * n_sms
-    assert tile.waves == tile.blocks / slots
-    # One warp along the columns exactly when the launch fits one wave.
-    assert (tile.warps_n == 1) == (tile.blocks <= slots)
+    row_blocks, col_blocks = -(-m // tpm.FWD_BLOCK_ROWS), -(-h // 128)
+    assert grid.blocks == row_blocks * col_blocks
+    assert (row_blocks - 1) * tpm.FWD_BLOCK_ROWS < m
+    assert row_blocks * tpm.FWD_BLOCK_ROWS >= m
+    assert grid.waves == grid.blocks / (tpm.FWD_BLOCKS_PER_SM * n_sms)
 
 
 def test_forward_tile_plan_at_the_example_shape():
-    # [train | val]: 316 blocks of 128 rows, 1.20 waves of 264 slots, two
-    # warps along the columns; the train rows alone: 253 blocks, one.
-    assert tpm._fwd_tile(40399, 128, 132) == (2, 316, 316 / 264)
-    assert tpm._fwd_tile(32319, 128, 132) == (1, 253, 253 / 264)
+    # [train | val]: 316 blocks of 128 rows, 1.20 waves of 264 slots; one
+    # full wave is 264 blocks, 33,792 rows.
+    assert tpm._fwd_grid(40399, 128, 132) == (316, 316 / 264)
+    assert tpm._fwd_grid(33792, 128, 132) == (264, 1.0)
+
+
+def _layout_constants(src):
+    env = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
+                                 re.M):
+        env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
+    return env
+
+
+@pytest.mark.parametrize("layout", probe.LAYOUTS)
+def test_probe_layouts_edit_only_their_constants(layout):
+    """Each layout the forward is timed beside is the source with its
+    three constexprs changed, tiles whole copies over the block's threads
+    and fits two blocks' rings in an SM's 228 KB of shared memory."""
+    src = probe.source()
+    assert probe.layout_of(src) in probe.LAYOUTS
+    edited = probe.with_layout(src, layout)
+    assert probe.layout_of(edited) == layout
+    changed = [(a, b) for a, b in zip(src.splitlines(), edited.splitlines())
+               if a != b]
+    assert len(src.splitlines()) == len(edited.splitlines())
+    assert all(a.startswith("constexpr int kFwd") for a, _ in changed)
+    env = _layout_constants(edited)
+    assert env["kFwdWChunks"] * 8 * env["kFwdThreads"] == (
+        env["kFwdGenes"] * env["kFwdCols"])
+    assert env["kFwdPWords"] * env["kFwdThreads"] == (
+        env["kFwdRows"] * env["kFwdWords"]) and env["kFwdPWords"] > 0
+    assert env["kFwdNTiles"] % 2 == 0 and env["kFwdGenes"] % 32 == 0
+    assert env["kFwdBlocksPerSM"] * (env["kFwdSmem"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("name", sorted(probe.STRIPPED))
+def test_probe_stripped_copies_edit_the_forward_alone(name):
+    """Each stripped copy's edits match the forward's body (a kernel edit
+    that breaks one fails here, not on the card) and leave the rest of
+    the source as it is."""
+    src = probe.source()
+    edited = probe.stripped(src, probe.STRIPPED[name])
+    assert edited != src
+    cut = src.index("pm_bwd_kernel(const")
+    assert edited.endswith(src[cut:])
+    assert edited.startswith(src[:src.index("pm_fwd_kernel(const")])
 
 
 def test_padded_rows_give_bitwise_equal_plain_outputs(rng):
