@@ -53,7 +53,6 @@ BF16_TC_OPS_PER_S = 989e12
 # over the set bits): |kernel - plain| <= RTOL*|plain| + ULPS * 2^-24 * S.
 # One term dropped or added moves an element by ~S/n_terms, far above it.
 RTOL, ULPS = 1e-5, 256
-N_TIMED = 10
 
 
 def _nvidia_smi() -> str:
@@ -69,28 +68,14 @@ def _timed(fn):
     return fn(), time.perf_counter() - t0
 
 
-def _time_ms(torch, fn, flush):
-    """(median, min, max) device time of ``fn`` over N_TIMED launches, each
-    timed with
-    CUDA events after the 50 MB L2 was flushed (the trainer's launches
-    follow other kernels, so they find the cache cold). A sleep kernel
-    queued ahead of the start event keeps the card busy while the host
-    enqueues ``fn``, so the events bracket device time only."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(N_TIMED):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2], times[0], times[-1]
+def _time_ms(fn, flush):
+    """(median, min, max) device time of ``fn`` over 10 launches, each
+    timed with CUDA events after the 50 MB L2 was flushed (the trainer's
+    launches follow other kernels, so they find the cache cold), behind a
+    sleep kernel so that the events bracket device time only."""
+    from g2vec_tpu_torch.ops.packed_matmul_probe import time_ms
+
+    return time_ms(fn, flush)
 
 
 def _spread(t) -> str:
@@ -177,7 +162,7 @@ def _compare_kernels(torch, pm, packed_all, n_tr, g, h, gen, flush, timed):
         spread = {}
         for key, fn in (("ms", kernel), ("plain_ms", plain),
                         ("library_ms", library)):
-            rec[key], lo, hi = _time_ms(torch, fn, flush)
+            rec[key], lo, hi = _time_ms(fn, flush)
             spread[key] = f"{rec[key]:.4f} ms [{lo:.4f}, {hi:.4f}]"
         rec.update(bound_ms=max(byte_ms, op_ms),
                    bound_by="bytes" if byte_ms >= op_ms else "operations")
@@ -236,7 +221,7 @@ def _backward_splits(torch, pm, packed, g, h, gen, flush):
         plan = pm._bwd_split(m, n, g, h)
         _check_close(torch, f"packed_matmul_bwd S={plan.n_slices}",
                      pm._bwd_on_card(packed, g16, g, plan), want, abs_sum)
-        ms, lo, hi = _time_ms(torch, lambda: pm._bwd_on_card(
+        ms, lo, hi = _time_ms(lambda: pm._bwd_on_card(
             packed, g16, g, plan), flush)
         waves = plan.n_slices * tiles / (pm.BWD_BLOCKS_PER_SM * n_sms)
         print(f"    split S={plan.n_slices} ({waves:.2f} waves, "
@@ -284,7 +269,7 @@ def _forward_layouts(torch, pm, packed, g, h, gen, flush):
         name = probe.layout_name(layout)
         _check_close(torch, f"packed_matmul_fwd M={m}, {name}",
                      pm._fwd_on_card(packed, w16, lib), want, abs_sum)
-        t = _time_ms(torch, lambda: pm._fwd_on_card(packed, w16, lib), flush)
+        t = _time_ms(lambda: pm._fwd_on_card(packed, w16, lib), flush)
         print(f"    M={m}, {name}{', shipped' if layout == shipped else ''} "
               f"({pm.fwd_occupancy(lib)} resident blocks an SM; ptxas "
               f"{report}): {_spread(t)}")
@@ -349,16 +334,16 @@ def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
                  pm.packed_matmul_bwd(padded[:n_tr], g16, g_ref),
                  pm.packed_matmul_bwd_plain(wide[:n_tr], g16, g_ref),
                  x[:n_tr].T @ g16.float().abs())
-    fwd = _time_ms(torch, lambda: pm.packed_matmul_fwd(padded, w16), flush)
-    bwd = _time_ms(torch, lambda: pm.packed_matmul_bwd(padded[:n_tr], g16,
+    fwd = _time_ms(lambda: pm.packed_matmul_fwd(padded, w16), flush)
+    bwd = _time_ms(lambda: pm.packed_matmul_bwd(padded[:n_tr], g16,
                                                        g_ref), flush)
     print(f"    G={g_ref}, P rows padded once to {padded.shape[1]} bytes: "
           f"forward M={n_all} {_spread(fwd)}, backward M={n_tr} "
           f"{_spread(bwd)}")
     narrow = wide[:n_tr]
-    bwd = _time_ms(torch, lambda: pm.packed_matmul_bwd(narrow, g16, g_ref),
+    bwd = _time_ms(lambda: pm.packed_matmul_bwd(narrow, g16, g_ref),
                    flush)
-    pad = _time_ms(torch, lambda: pm._pad_cols(narrow, 4), flush)
+    pad = _time_ms(lambda: pm._pad_cols(narrow, 4), flush)
     print(f"    G={g_ref}, P rows unpadded ({narrow.shape[1]} bytes): "
           f"backward M={n_tr} {_spread(bwd)}, of which the padding copy "
           f"alone {_spread(pad)}")
