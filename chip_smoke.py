@@ -10,22 +10,42 @@ port's seven-stage solo run (``g2vec_tpu_torch.pipeline.run``) on the
 example-scale synthetic dataset on ``cuda`` and checks what comes out,
 then holds each kernel against its plain PyTorch version on the card on
 the ``[train | val]`` rows that run produced (built by the trainer's own
-helper, rows padded once to a multiple of 4 bytes) and times both. Phase
-4 goes on with: the forward's grid, its waves, the bytes of W it streams
-from L2 and its tensor-core ceiling beside the backward's split; the
-forward beside the other layouts it was chosen from (built from copies of
-its source with other constexprs) and the backward under several splits
-of its rows, each held against the plain version and timed; both kernels
-at the reference's 7,523 genes; one ragged shape; the ragged edges of
-both kernels; and the forward's M-invariance, bitwise, across the edges
-of a wave. Phase 5
-runs a small input at hidden width 10 on ``cuda`` and on the CPU. Any
-failure raises and the script exits nonzero without printing a result.
-The last three lines of standard output are: one JSON object with a
-record per kernel, the card's name and power limit as ``nvidia-smi``
-reports them, and the result line ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or outside a checkout of the repository, it exits
-nonzero at once.
+helper, rows padded once to a multiple of 4 bytes) and times both.
+
+Phase 3 runs with the stage overlap and the native reader on (their
+defaults) and with ``--metrics-jsonl``: it checks that the stream's
+``done`` record holds the run's stage seconds and that the native parser
+read the input (a fallback warning fails it), then runs the CLI in fresh
+interpreters in turns (defaults and ``--no-overlap`` three times each,
+then ``--no-overlap --no-native-io``), prints each run's stage seconds
+and spans, and checks that all eight runs wrote byte-identical files.
+Phase 4 goes on with: the forward's grid, its waves, the bytes of W it
+streams from L2 and its tensor-core ceiling beside the backward's split;
+the forward beside the other layouts it was chosen from (built from
+copies of its source with other constexprs) and the backward under
+several splits of its rows, each held against the plain version and
+timed; both kernels at the reference's 7,523 genes; one ragged shape; the
+ragged edges of both kernels; and the forward's M-invariance, bitwise,
+across the edges of a wave. Phase 5 runs a small input at hidden width 10
+on ``cuda`` and on the CPU. Phase 6 runs the example with ``--train-mode
+streaming`` (bf16, both kernels on every shard): it checks the val
+accuracy and its gap to phase 3's full-batch run, and prints their
+biomarker overlap; that a rerun at ring depth 1 and one sampler thread
+gives byte-identical embeddings; the whole parity band of
+tests/test_stream.py (val accuracy gap and biomarker overlap) on the
+medium scale (at the example scale the full-batch run stops after one
+update and its k-means cuts the genes into near-equal thirds, which the
+streaming run's L-groups do not follow: the overlap there is printed, not
+held); and holds both kernels against their plain versions and times
+them at the streaming launch shapes (the widest shard's train rows, the
+full eval buffer).
+
+Any failure raises and the script exits nonzero without printing a
+result. The last three lines of standard output are: one JSON object with
+a record per kernel (its ``streaming`` entry holds phase 6's launches and
+times), the card's name and power limit as ``nvidia-smi`` reports them,
+and the result line ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or outside a checkout of the repository, it exits nonzero at once.
 """
 from __future__ import annotations
 
@@ -35,6 +55,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -105,8 +126,10 @@ def _random_packed(torch, m, g, density, gen):
     return (padded.view(m, nb, 8) * weights).sum(-1, dtype=torch.uint8)
 
 
-def _compare_kernels(torch, pm, packed_all, n_tr, g, h, gen, flush, timed):
-    """Each kernel against its plain version on these inputs; with
+def _compare_kernels(torch, pm, packed_all, n_tr, g, h, gen, flush, timed,
+                     names=("packed_matmul_fwd", "packed_matmul_bwd")):
+    """Each kernel of ``names`` against its plain version on these inputs
+    (the forward on all rows, the backward on the first ``n_tr``); with
     ``timed``, also the kernel's, the plain version's and the library
     yardstick's times and the bound. Returns the per-kernel records."""
     w = (torch.randn((g, h), device="cuda", generator=gen) * 0.09
@@ -118,22 +141,25 @@ def _compare_kernels(torch, pm, packed_all, n_tr, g, h, gen, flush, timed):
     records = {}
     tag = f"M={packed_all.shape[0]} G={g} H={h}"
 
-    out = pm.packed_matmul_fwd(packed_all, w)
-    want = pm.packed_matmul_fwd_plain(packed_all, w)
-    err = _check_close(torch, f"packed_matmul_fwd {tag}", out, want,
-                       x_all @ w.float().abs())
-    # M-invariance: the train rows' bits do not depend on the val rows.
-    if not torch.equal(pm.packed_matmul_fwd(packed_tr, w), out[:n_tr]):
-        raise RuntimeError("packed_matmul_fwd is not M-invariant")
-    records["packed_matmul_fwd"] = {"max_abs_err": err}
+    if "packed_matmul_fwd" in names:
+        out = pm.packed_matmul_fwd(packed_all, w)
+        want = pm.packed_matmul_fwd_plain(packed_all, w)
+        err = _check_close(torch, f"packed_matmul_fwd {tag}", out, want,
+                           x_all @ w.float().abs())
+        # M-invariance: the train rows' bits do not depend on the val rows.
+        if not torch.equal(pm.packed_matmul_fwd(packed_tr, w), out[:n_tr]):
+            raise RuntimeError("packed_matmul_fwd is not M-invariant")
+        records["packed_matmul_fwd"] = {"max_abs_err": err}
 
-    dw = pm.packed_matmul_bwd(packed_tr, g_out, g)
-    want = pm.packed_matmul_bwd_plain(packed_tr, g_out, g)
-    err = _check_close(torch, f"packed_matmul_bwd M={n_tr} G={g} H={h}", dw,
-                       want, x_all[:n_tr].T @ g_out.float().abs())
-    if not torch.equal(pm.packed_matmul_bwd(packed_tr, g_out, g), dw):
-        raise RuntimeError("packed_matmul_bwd is not bitwise reproducible")
-    records["packed_matmul_bwd"] = {"max_abs_err": err}
+    if "packed_matmul_bwd" in names:
+        dw = pm.packed_matmul_bwd(packed_tr, g_out, g)
+        want = pm.packed_matmul_bwd_plain(packed_tr, g_out, g)
+        err = _check_close(torch, f"packed_matmul_bwd M={n_tr} G={g} H={h}",
+                           dw, want, x_all[:n_tr].T @ g_out.float().abs())
+        if not torch.equal(pm.packed_matmul_bwd(packed_tr, g_out, g), dw):
+            raise RuntimeError("packed_matmul_bwd is not bitwise "
+                               "reproducible")
+        records["packed_matmul_bwd"] = {"max_abs_err": err}
     if not timed:
         return records
 
@@ -155,7 +181,8 @@ def _compare_kernels(torch, pm, packed_all, n_tr, g, h, gen, flush, timed):
             lambda: torch.matmul(x16_tr_t, g_out),
             n_tr * nb + n_tr * h * 2 + g * h * 4, nnz_tr * h),
     }
-    for name, (kernel, plain, library, nbytes, n_ops) in cases.items():
+    for name in names:
+        kernel, plain, library, nbytes, n_ops = cases[name]
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = n_ops / F32_ADDS_PER_S * 1e3
         rec = records[name]
@@ -245,6 +272,128 @@ def _forward_plan_line(pm, m, g, h, n_sms) -> str:
             f"{ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms (2*M*G*H = {ops:.3e} "
             f"bf16 operations)")
 
+
+def _backward_plan_line(pm, m, g, h, n_sms) -> str:
+    plan = pm._bwd_slices(m, g, h, n_sms)
+    tiles = -(-g // pm.BWD_BLOCK_GENES) * -(-h // pm.BWD_BLOCK_COLS)
+    waves = plan.n_slices * tiles / (pm.BWD_BLOCKS_PER_SM * n_sms)
+    ops = 2 * m * g * h
+    return (f"backward split: S={plan.n_slices} slices of {plan.rows} rows "
+            f"x {tiles} tiles = {waves:.2f} waves on {n_sms} SMs, workspace "
+            f"{plan.workspace_bytes} bytes; dense tensor-core ceiling "
+            f"{ops / BF16_TC_OPS_PER_S * 1e3:.4f} ms (2*M*G*H = {ops:.3e} "
+            f"bf16 operations)")
+
+
+def _read_metrics(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _check_metrics(path, result) -> None:
+    """The run's ``--metrics-jsonl`` stream: the reference's events, and a
+    ``done`` record holding the stage seconds the run returned."""
+    records = _read_metrics(path)
+    events = [r["event"] for r in records]
+    for name in ("config", "preprocess", "paths", "epoch", "train_done",
+                 "done"):
+        if name not in events:
+            raise RuntimeError(f"{path}: no {name!r} record in {events}")
+    if records[-1]["event"] != "done" or \
+            records[-1]["stage_seconds"] != result.stage_seconds:
+        raise RuntimeError(f"{path}: the done record's stage seconds "
+                           f"differ from the run's")
+
+
+def _cli_runs(files, tmp, epoch):
+    """The solo run through the CLI, each in a fresh interpreter (so each
+    pays the process's first CUDA use), in turns: defaults (overlap, the
+    native reader) and --no-overlap three times each, then --no-overlap
+    --no-native-io. Returns [(flags, stage seconds, overlap_saved_s, stage
+    extras, output bytes)]."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    runs = []
+    for i, flags in enumerate(([], ["--no-overlap"]) * 3
+                              + (["--no-overlap", "--no-native-io"],)):
+        out = os.path.join(tmp, f"cli{i}")
+        metrics = out + ".jsonl"
+        proc = subprocess.run(
+            [sys.executable, "-m", "g2vec_tpu_torch", files["expression"],
+             files["clinical"], files["network"], out, "-e", str(epoch),
+             "--metrics-jsonl", metrics, *flags],
+            capture_output=True, text=True, env=env, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CLI run {flags} failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        if "native TSV reader unavailable" in proc.stderr:
+            raise RuntimeError(f"CLI run {flags} fell back to the Python "
+                               f"reader:\n{proc.stderr}")
+        done = _read_metrics(metrics)[-1]
+        outputs = []
+        for path in done["outputs"]:
+            with open(path, "rb") as f:
+                outputs.append(f.read())
+        runs.append((flags, done["stage_seconds"], done["overlap_saved_s"],
+                     done["stage_extras"], outputs))
+    return runs
+
+
+def _parity(full, stream):
+    """|val acc gap| and the share of the full-batch run's biomarkers the
+    streaming run also selects (tests/test_stream.py's parity band)."""
+    full_bm = set(full.biomarkers)
+    return (abs(stream.acc_val - full.acc_val),
+            len(full_bm & set(stream.biomarkers)) / max(len(full_bm), 1))
+
+
+def _lgroup_sizes(result):
+    return np.bincount(result.lgroup_idx, minlength=3).tolist()
+
+
+def _stream_shapes(torch, cfg):
+    """The streaming trainer's launch shapes on this input, built by its
+    own helpers as it builds them: the train rows of the shard that keeps
+    the most (each row padded once to the kernels' 4-byte stride), every
+    kept shard's train row count, and the full val buffer of
+    EVAL_ROWS_CAP rows gathered from the shards in order."""
+    from g2vec_tpu_torch.ops.graph import thresholded_edges
+    from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
+                                                 walk_shard)
+    from g2vec_tpu_torch.pipeline import preprocess_inputs, read_inputs
+    from g2vec_tpu_torch.train.stream import (EVAL_ROWS_CAP, _filter_rows,
+                                              _shard_split)
+    from g2vec_tpu_torch.train.trainer import _fused_rows
+
+    data, src, dst = preprocess_inputs(*read_inputs(cfg))
+    g = data.expr.shape[1]
+    csr = [edges_to_csr(*thresholded_edges(
+        data.expr[data.label == i], src, dst, threshold=cfg.pcc_threshold,
+        device="cuda"), g) for i in range(2)]
+    plan = plan_shards(g, cfg.numRepetition, cfg.shard_paths,
+                       len_path=cfg.lenPath)
+    seed = cfg.seed if cfg.train_seed is None else cfg.train_seed
+    widest, train_rows, val, n_val = None, [], [], 0
+    for si in range(plan.n_shards):
+        x = np.concatenate([walk_shard(None, None, None, g, plan, si,
+                                       seed=(cfg.seed << 1) | gi,
+                                       csr=csr[gi]) for gi in (0, 1)])
+        y = np.repeat(np.array([0, 1], np.int32), plan.group_rows(si))
+        keep = _filter_rows(x, y)
+        if not len(keep):
+            continue
+        tr, vl = _shard_split(len(keep), seed, si, cfg.val_fraction)
+        train_rows.append(len(tr))
+        if widest is None or len(tr) > len(widest):
+            widest = x[keep][tr]
+        take = vl[:EVAL_ROWS_CAP - n_val]
+        val.append(x[keep][take])
+        n_val += len(take)
+    none = widest[:0]
+    return (torch.from_numpy(_fused_rows(widest, none, g)).cuda(),
+            train_rows,
+            torch.from_numpy(_fused_rows(np.concatenate(val), none, g)).cuda(),
+            plan)
 
 def _forward_layouts(torch, pm, packed, g, h, gen, flush):
     """The forward at the main path's shape beside the other layouts it
@@ -433,21 +582,53 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         print("[3] example-scale solo run on cuda (hidden 128, -p 80 -r 10, "
-              "epoch cap 30)")
+              "epoch cap 30; overlap and the native reader on, metrics "
+              "stream)")
         files = write_synthetic_tsv(SCALES["example"], tmp, prefix="example")
-        cfg = _config(files, tmp, "cuda", epoch=30)
-        pm.reset_launch_counts()
-        result, lines = _run_pipeline(cfg)
-        launches = {"packed_matmul_fwd": pm.packed_matmul_fwd.launches,
-                    "packed_matmul_bwd": pm.packed_matmul_bwd.launches}
+        cfg = _config(files, tmp, "cuda", epoch=30,
+                      metrics_jsonl=os.path.join(tmp, "run_cuda.jsonl"))
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", "native TSV reader unavailable")
+            pm.reset_launch_counts()
+            result, lines = _run_pipeline(cfg)
+            launches = {"packed_matmul_fwd": pm.packed_matmul_fwd.launches,
+                        "packed_matmul_bwd": pm.packed_matmul_bwd.launches}
         for line in lines:
-            if line.startswith("    n_") or "Epoch" in line:
+            if line.startswith("    n_") or "Epoch" in line \
+                    or "[overlap]" in line:
                 print(line)
         epochs = len(result.train_history)
         print(f"    epochs run {epochs}, stop epoch {result.stop_epoch}, "
               f"val acc {result.acc_val:.4f}; launches {launches}")
         print("    stage seconds: " + json.dumps(
-            {k: round(v, 3) for k, v in result.stage_seconds.items()}))
+            {k: round(v, 3) for k, v in result.stage_seconds.items()})
+            + "; overlap saved: " + json.dumps(result.overlap_saved_s))
+        parser = result.stage_extras["load"]["expression_parser"]
+        if parser != "native":
+            raise RuntimeError(f"stage 1 read the expression file with the "
+                               f"{parser} parser, not the native one")
+        _check_metrics(cfg.metrics_jsonl, result)
+        print("    the metrics stream's done record holds these stage "
+              "seconds; the expression file was read by the native parser")
+        with open(result.output_files[0], "rb") as f:
+            main_outputs = [f.read()]
+        for path in result.output_files[1:]:
+            with open(path, "rb") as f:
+                main_outputs.append(f.read())
+        for flags, secs, saved, extras, outputs in _cli_runs(files, tmp, 30):
+            spans = {stage: {k: round(v, 3) for k, v in e["span_s"].items()}
+                     for stage, e in extras.items() if "span_s" in e}
+            print(f"    CLI {' '.join(flags) or '(defaults)'}: stage seconds "
+                  + json.dumps({k: round(v, 3) for k, v in secs.items()})
+                  + f" (total {sum(secs.values()):.3f}); overlap saved "
+                  + json.dumps(saved) + "; parser "
+                  + extras["load"]["expression_parser"] + "; spans "
+                  + json.dumps(spans))
+            if outputs != main_outputs:
+                raise RuntimeError(f"CLI {flags}: output files differ from "
+                                   f"the in-process run's")
+        print("    the three output files are byte-identical across the "
+              "in-process run and the seven CLI runs")
         print(f"    edge keep decisions differing between cuda and cpu "
               f"|PCC|: {_edge_flips(cfg)}")
         for name, n in launches.items():
@@ -524,13 +705,135 @@ def main() -> int:
                 or acc_gap > 0.05 or emb_gap > 1e-3 or same_lg < 0.9):
             raise RuntimeError("cuda and cpu runs of the small input disagree")
 
-    kernels = [{"name": name, "route": "cuda",
-                "source": "g2vec_tpu_torch/csrc/packed_matmul.cu",
-                "replaces": pm.REPLACES[name], "launches": launches[name],
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-               for name, rec in records.items()]
+        print("[6] example-scale streaming run on cuda (--train-mode "
+              "streaming, hidden 128, bf16, epoch cap 30)")
+        s_cfg = _config(files, tmp, "cuda", epoch=30, train_mode="streaming")
+        s_cfg.result_name += "_stream"
+        pm.reset_launch_counts()
+        stream, _ = _run_pipeline(s_cfg)
+        s_launches = {"packed_matmul_fwd": pm.packed_matmul_fwd.launches,
+                      "packed_matmul_bwd": pm.packed_matmul_bwd.launches}
+        st = stream.stream_stats
+        s_epochs = len(stream.train_history)
+        shards = st["n_shards"]
+        print(f"    {shards} shards an epoch of {st['shard_rows']} rows, "
+              f"{s_epochs} epochs, stop epoch {stream.stop_epoch}, val acc "
+              f"{stream.acc_val:.4f}, n_paths {stream.n_paths}; launches "
+              f"{s_launches}, per epoch " + json.dumps(
+                  {k: v / s_epochs for k, v in s_launches.items()}))
+        print("    stage seconds: " + json.dumps(
+            {k: round(v, 3) for k, v in stream.stage_seconds.items()})
+            + "; stream stats: " + json.dumps(st))
+        # Each epoch: one step a shard that kept rows (the same shards in
+        # every epoch), forward and backward, and the two evals' forwards.
+        steps, rest = divmod(s_launches["packed_matmul_bwd"], s_epochs)
+        if rest or not 1 <= steps <= shards or \
+                s_launches["packed_matmul_fwd"] != s_epochs * (steps + 2):
+            raise RuntimeError(f"the streaming run launched {s_launches} in "
+                               f"{s_epochs} epochs of {shards} shards")
+        print(f"    {steps} of {shards} shards kept rows (a shard whose "
+              f"rows all start at genes with no kept edge walks the same "
+              f"one-gene path in both groups, and the filter drops them)")
+        acc_gap, overlap_bm = _parity(result, stream)
+        print(f"    against [3]'s full-batch run: |val acc gap| "
+              f"{acc_gap:.4f} (band 0.20); top-N biomarker overlap "
+              f"{overlap_bm:.3f}, L-group sizes {_lgroup_sizes(result)} "
+              f"(full-batch, stopped after {len(result.train_history) - 1} "
+              f"update(s)) and {_lgroup_sizes(stream)} (streaming)")
+        if not (stream.acc_val > 0.5) or acc_gap > 0.20:
+            raise RuntimeError("the streaming run's val accuracy left the "
+                               "parity band")
+        if stream.embeddings.shape != (n_genes, 128) or \
+                not np.isfinite(stream.embeddings).all():
+            raise RuntimeError("streaming embeddings are not finite [G, 128]")
+        again_cfg = _config(files, tmp, "cuda", epoch=30,
+                            train_mode="streaming", prefetch_depth=1,
+                            sampler_threads=1)
+        again_cfg.result_name += "_stream1"
+        again, _ = _run_pipeline(again_cfg)
+        if again.embeddings.tobytes() != stream.embeddings.tobytes():
+            raise RuntimeError("streaming at prefetch depth 1 and one "
+                               "sampler thread gave other embeddings")
+        print("    prefetch_depth=1, sampler_threads=1: byte-identical "
+              "embeddings")
+        f32_cfg = _config(files, tmp, "cuda", epoch=30,
+                          train_mode="streaming", compute_dtype="float32")
+        f32_cfg.result_name += "_stream_f32"
+        f32, _ = _run_pipeline(f32_cfg)
+        print(f"    streaming at float32 (dense torch.matmul, no kernels): "
+              f"top-N biomarker overlap with bf16 "
+              f"{len(set(f32.biomarkers) & set(stream.biomarkers)) / len(stream.biomarkers):.3f}, "
+              f"L-group agreement "
+              f"{float((f32.lgroup_idx == stream.lgroup_idx).mean()):.3f}")
+
+        print("    the parity band (tests/test_stream.py's) on the medium "
+              "scale, full-batch against streaming, on cuda:")
+        med = write_synthetic_tsv(SCALES["medium"], tmp, prefix="medium")
+        pair = []
+        for mode in ("full", "streaming"):
+            m_cfg = _config(med, tmp, "cuda", epoch=30, train_mode=mode)
+            m_cfg.result_name += f"_medium_{mode}"
+            pair.append(_run_pipeline(m_cfg)[0])
+        cpu_pair = []
+        for mode in ("full", "streaming"):
+            m_cfg = _config(med, tmp, "cpu", epoch=30, train_mode=mode)
+            m_cfg.result_name += f"_medium_{mode}"
+            cpu_pair.append(_run_pipeline(m_cfg)[0])
+        emb_gap = float(np.abs(pair[1].embeddings
+                               - cpu_pair[1].embeddings).max())
+        print(f"    medium on the CPU (plain versions): top-N biomarker "
+              f"overlap {_parity(*cpu_pair)[1]:.3f}; streaming cuda against "
+              f"cpu: max |embedding gap| {emb_gap:.3e}, val acc "
+              f"{pair[1].acc_val:.4f} and {cpu_pair[1].acc_val:.4f}")
+        acc_gap, overlap_bm = _parity(*pair)
+        print(f"    medium: val acc {pair[0].acc_val:.4f} (full) and "
+              f"{pair[1].acc_val:.4f} (streaming), gap {acc_gap:.4f} (band "
+              f"0.20); top-N biomarker overlap {overlap_bm:.3f} (floor 0.6); "
+              f"L-group sizes {_lgroup_sizes(pair[0])} and "
+              f"{_lgroup_sizes(pair[1])}")
+        if acc_gap > 0.20 or overlap_bm < 0.6:
+            raise RuntimeError("the medium streaming run left the parity "
+                               "band")
+
+        print("    kernels at the streaming launch shapes:")
+        shard_rows, train_rows, val_rows, plan = _stream_shapes(torch, s_cfg)
+        if len(train_rows) != steps:
+            raise RuntimeError(f"{len(train_rows)} shards keep rows, the run "
+                               f"stepped {steps} times an epoch")
+        flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                            device="cuda")
+        m_tr, m_val = shard_rows.shape[0], val_rows.shape[0]
+        print(f"    train rows of the {steps} steps of an epoch: "
+              f"{sorted(train_rows)} (of {plan.rows_per_shard} walked a "
+              f"shard); timed at the widest, M={m_tr}; val buffer "
+              f"M={m_val}; rows {shard_rows.shape[1]} bytes")
+        for m in (m_tr, m_val):
+            print(f"    M={m}: " + _forward_plan_line(pm, m, n_genes, 128,
+                                                      n_sms))
+        print(f"    M={m_tr}: " + _backward_plan_line(pm, m_tr, n_genes, 128,
+                                                       n_sms))
+        s_records = _compare_kernels(torch, pm, shard_rows, m_tr, n_genes,
+                                     128, gen, flush, timed=True)
+        s_records["eval_fwd"] = _compare_kernels(
+            torch, pm, val_rows, m_val, n_genes, 128, gen, flush, timed=True,
+            names=("packed_matmul_fwd",))["packed_matmul_fwd"]
+        del flush
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels = []
+    for name, rec in records.items():
+        streaming = {"launches": s_launches[name],
+                     "shard": {"m": m_tr, **{k: s_records[name][k]
+                                             for k in keys}}}
+        if name == "packed_matmul_fwd":
+            streaming["eval_buffer"] = {
+                "m": m_val, **{k: s_records["eval_fwd"][k] for k in keys}}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "g2vec_tpu_torch/csrc/packed_matmul.cu",
+            "replaces": pm.REPLACES[name], "launches": launches[name],
+            **{k: rec[k] for k in keys}, "streaming": streaming})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

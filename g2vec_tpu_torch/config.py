@@ -2,9 +2,10 @@
 
 The reference CLI (ref: G2Vec.py:505-518): four positional arguments plus
 ``-p/-r/-s/-e/-l/-n`` with the same defaults, and the framework flags the
-full-batch solo run reads. Defaults and validation are those of
-``g2vec_tpu/config.py``; ``--device`` is the port's own (``cuda`` unless
-the caller asks for ``cpu``).
+port's solo run reads: the full-batch and streaming trainers, the stage
+overlap, the native reader and the metrics stream. Defaults and
+validation are those of ``g2vec_tpu/config.py``; ``--device`` is the
+port's own (``cuda`` unless the caller asks for ``cpu``).
 """
 from __future__ import annotations
 
@@ -54,6 +55,31 @@ class G2VecConfig:
     sampler_threads: int = 0         # host threads of the C++ sampler
                                      # (0 = all cores; walks are identical
                                      # at any count)
+    overlap: bool = True             # stage overlap (parallel/overlap.py):
+                                     # both groups' walks at once, the
+                                     # card's first use warmed in the
+                                     # background; never changes results
+    train_mode: str = "full"         # "full": the reference's full-batch
+                                     # trainer. "streaming": walk shards
+                                     # stream from the sampler through a
+                                     # bounded ring into minibatch SGD
+                                     # (train/stream.py); statistical
+                                     # contract against full, not bitwise
+    shard_paths: int = 0             # rows per streaming walk shard, both
+                                     # groups (0 = auto, 4096); also the
+                                     # minibatch size
+    prefetch_depth: int = 2          # bounded shard-ring depth; the
+                                     # producer blocks when this many
+                                     # shards wait unconsumed
+    stream_patience: int = 5         # streaming early stop: epochs without
+                                     # a strict val-ACC gain (1 = the
+                                     # full-batch first-dip rule)
+    stream_eval_rows: int = 0        # streaming val/probe buffer row cap
+                                     # (0 = 4096)
+    metrics_jsonl: Optional[str] = None  # structured per-stage/epoch records
+    use_native_io: bool = True       # the C++ expression reader (falls
+                                     # back to Python with a warning when
+                                     # it cannot be built or loaded)
     device: str = "cuda"             # cuda unless the caller asks for cpu
 
     def validate(self) -> None:
@@ -89,6 +115,26 @@ class G2VecConfig:
             raise ValueError(
                 f"sampler_threads must be >= 0 (0 = all cores), "
                 f"got {self.sampler_threads}")
+        if self.train_mode not in ("full", "streaming"):
+            raise ValueError(
+                f"train_mode must be full|streaming, got {self.train_mode}")
+        if self.shard_paths < 0:
+            raise ValueError(
+                f"shard_paths must be >= 0 (0 = auto), got {self.shard_paths}")
+        if 0 < self.shard_paths < 4:
+            raise ValueError(
+                f"shard_paths must be >= 4 (2 per group, and the per-shard "
+                f"split needs both sides non-empty), got {self.shard_paths}")
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.stream_patience < 1:
+            raise ValueError(
+                f"stream_patience must be >= 1, got {self.stream_patience}")
+        if self.stream_eval_rows < 0:
+            raise ValueError(
+                f"stream_eval_rows must be >= 0 (0 = default), "
+                f"got {self.stream_eval_rows}")
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda[:N] or cpu, got {self.device}")
 
@@ -146,6 +192,42 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sampler-threads", type=int, default=0,
                         help="Host threads of the C++ walk sampler (0 = all "
                              "cores); walks are bit-identical at any count.")
+    parser.add_argument("--train-mode", type=str, default="full",
+                        choices=("full", "streaming"),
+                        help="full (default): the reference's full-batch "
+                             "trainer. streaming: walk shards stream from "
+                             "the sampler through a bounded ring into "
+                             "minibatch SGD; training starts before "
+                             "sampling ends (statistical parity with full, "
+                             "bitwise deterministic within the mode).")
+    parser.add_argument("--shard-paths", type=int, default=0, metavar="N",
+                        help="Rows per streaming walk shard / minibatch "
+                             "(both groups; 0 = auto, 4096).")
+    parser.add_argument("--prefetch-depth", type=int, default=2,
+                        metavar="D",
+                        help="Bounded shard-ring depth for --train-mode "
+                             "streaming (default 2); the sampler blocks "
+                             "when D shards wait unconsumed.")
+    parser.add_argument("--stream-patience", type=int, default=5,
+                        metavar="K",
+                        help="Streaming early stop: stop after K epochs "
+                             "without a strict val-ACC gain and return the "
+                             "best epoch's snapshot (default 5).")
+    parser.add_argument("--stream-eval-rows", type=int, default=0,
+                        metavar="M",
+                        help="Rows kept for the streaming val and probe "
+                             "buffers (0 = 4096).")
+    parser.add_argument("--no-overlap", action="store_true",
+                        help="Run the stages one after the other: walk the "
+                             "groups in turn and warm nothing in the "
+                             "background. Results are identical either "
+                             "way.")
+    parser.add_argument("--metrics-jsonl", type=str, default=None,
+                        help="Write structured per-stage/per-epoch metrics "
+                             "here.")
+    parser.add_argument("--no-native-io", action="store_true",
+                        help="Parse the expression file in Python, not with "
+                             "the C++ reader.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu. Without a card, a cuda "
                              "run raises instead of falling back.")
@@ -179,6 +261,14 @@ def config_from_args(argv=None) -> G2VecConfig:
         compute_dtype=args.compute_dtype,
         param_dtype=args.param_dtype,
         sampler_threads=args.sampler_threads,
+        overlap=not args.no_overlap,
+        train_mode=args.train_mode,
+        shard_paths=args.shard_paths,
+        prefetch_depth=args.prefetch_depth,
+        stream_patience=args.stream_patience,
+        stream_eval_rows=args.stream_eval_rows,
+        metrics_jsonl=args.metrics_jsonl,
+        use_native_io=not args.no_native_io,
         device=args.device,
     )
     cfg.validate()

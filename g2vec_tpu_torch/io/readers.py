@@ -13,11 +13,16 @@ skipped.
   edge per row; edges keep file order and direction; the gene set is the
   set of all endpoints.
 
-Malformed input raises ``ValueError`` naming the file and line.
+Malformed input raises ``ValueError`` naming the file and line. The
+expression matrix is parsed by the port's C++ reader
+(:mod:`g2vec_tpu_torch.native.tsv_bindings`) unless the caller asks for
+the Python parser; when that library cannot be built or loaded, the reader
+warns once and parses in Python (``g2vec_tpu/io/readers.py:69-86``).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -35,6 +40,7 @@ class ExpressionData:
     gene: np.ndarray    # [n_genes] str
     expr: np.ndarray    # [n_samples, n_genes] float32
     label: np.ndarray | None = None  # [n_samples] int32, set by match_labels
+    parser: str = "python"           # which parser read the file: native|python
 
 
 @dataclasses.dataclass
@@ -53,8 +59,32 @@ def _read_tsv_lines(path: str) -> List[List[str]]:
     return [r for r in rows if r != [""]]
 
 
-def load_expression(path: str) -> ExpressionData:
-    """Read a gene-expression TSV (ref: G2Vec.py:478-503 contract)."""
+_warned_native = False
+
+
+def load_expression(path: str, use_native: bool = True) -> ExpressionData:
+    """Read a gene-expression TSV (ref: G2Vec.py:478-503 contract).
+
+    With ``use_native`` the C++ parser reads it. Its parse errors
+    (``ValueError``) propagate: a malformed file is malformed in either
+    language. When the library cannot be built or loaded, a
+    ``RuntimeWarning`` says so once per process and the Python parser
+    reads the file.
+    """
+    if use_native:
+        from g2vec_tpu_torch.native import tsv_bindings
+
+        try:
+            sample, gene, expr = tsv_bindings.read_expression(path)
+        except (RuntimeError, OSError) as e:
+            global _warned_native
+            if not _warned_native:
+                _warned_native = True
+                warnings.warn(f"native TSV reader unavailable ({e!r}); "
+                              "using the Python parser", RuntimeWarning)
+        else:
+            return ExpressionData(sample=sample, gene=gene, expr=expr,
+                                  parser="native")
     rows = _read_tsv_lines(path)
     if len(rows) < 2:
         raise ValueError(f"{path}: expression file needs a header and at least one gene row")

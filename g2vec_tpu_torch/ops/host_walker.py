@@ -10,7 +10,8 @@ package's sampler for the same edges and seed, at any thread count.
 from __future__ import annotations
 
 import os
-from typing import Set
+from dataclasses import dataclass
+from typing import Optional, Set
 
 import numpy as np
 
@@ -66,3 +67,90 @@ def generate_path_set_native(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     packed = walk_packed_rows(src, dst, w, n_genes, len_path=len_path,
                               reps=reps, seed=seed, n_threads=n_threads)
     return {row.tobytes() for row in packed}
+
+
+@dataclass(frozen=True)
+class ShardPlan:
+    """The deterministic shard decomposition of one run's walker axis
+    (``g2vec_tpu/ops/host_walker.py``'s, for the streaming trainer).
+
+    Shard ``s`` holds the START-GENE range ``[s*k, (s+1)*k)`` with all its
+    repetitions, for both groups: the flat walker axis is rep-major, so
+    one shard is ``reps`` strided slices of each group's axis. Every copy
+    of a start gene's walks (all reps, both groups) lands in one shard,
+    where the per-shard common-path filter catches it. Walker streams are
+    keyed by global walker index, so a shard's rows are the same bytes at
+    any thread count and any ring depth.
+    """
+
+    n_starts: int           # common genes (each group's start list)
+    reps: int
+    starts_per_shard: int   # k
+    len_path: int
+
+    @property
+    def n_walkers(self) -> int:
+        """Per group: the flat walker-axis length."""
+        return self.n_starts * self.reps
+
+    @property
+    def n_shards(self) -> int:
+        return -(-self.n_starts // self.starts_per_shard)
+
+    @property
+    def rows_per_shard(self) -> int:
+        """Nominal rows in a full shard (both groups, all reps)."""
+        return 2 * self.starts_per_shard * self.reps
+
+    def start_range(self, shard: int) -> tuple:
+        """[lo, hi) of the start-gene axis covered by ``shard``."""
+        lo = shard * self.starts_per_shard
+        return lo, min(lo + self.starts_per_shard, self.n_starts)
+
+    def group_rows(self, shard: int) -> int:
+        """Rows ``shard`` holds per group."""
+        lo, hi = self.start_range(shard)
+        return (hi - lo) * self.reps
+
+
+#: Auto ``--shard-paths``: 4,096 rows a shard, both groups together.
+AUTO_SHARD_PATHS = 4096
+
+
+def plan_shards(n_genes: int, reps: int, shard_paths: int, *,
+                len_path: int) -> ShardPlan:
+    """Shard the walker axis into shards of about ``shard_paths`` rows
+    (both groups' rows across all reps; 0 = :data:`AUTO_SHARD_PATHS`)."""
+    if shard_paths < 0:
+        raise ValueError(f"shard_paths must be >= 0, got {shard_paths}")
+    if shard_paths == 0:
+        shard_paths = AUTO_SHARD_PATHS
+    starts_per_shard = max(1, min(shard_paths // (2 * reps), n_genes))
+    return ShardPlan(n_starts=n_genes, reps=reps,
+                     starts_per_shard=starts_per_shard, len_path=len_path)
+
+
+def walk_shard(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+               n_genes: int, plan: ShardPlan, shard: int, *, seed: int,
+               n_threads: int = 0, csr: Optional[tuple] = None
+               ) -> np.ndarray:
+    """One group's rows of shard ``shard`` -> [group_rows, ceil(G/8)]
+    uint8 packed rows, not deduplicated, rep-major: rep ``r``'s block
+    holds walkers ``[r*n_starts + lo, r*n_starts + hi)`` in walker order,
+    each walker keyed by its global index, so every row is byte for byte
+    the full-range call's row for that walker. A pure function of (plan,
+    shard, seed): the spool re-walks a shard that failed verification.
+    ``csr`` is the group's prebuilt :func:`edges_to_csr`.
+    """
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+
+    lo, hi = plan.start_range(shard)
+    starts = np.tile(np.arange(lo, hi, dtype=np.int32), plan.reps)
+    stream_ids = (np.arange(plan.reps, dtype=np.uint64)[:, None]
+                  * np.uint64(plan.n_starts)
+                  + np.arange(lo, hi, dtype=np.uint64)[None, :]).ravel()
+    if csr is None:
+        csr = edges_to_csr(src, dst, w, n_genes)
+    return walk_paths_packed(*csr, n_genes, starts, stream_ids,
+                             plan.len_path, seed,
+                             n_threads=resolve_sampler_threads(n_threads))

@@ -2,18 +2,32 @@
 
 Drives L0-L6 in the reference's order (ref: main, G2Vec.py:11-120) with
 the reference's console transcript (README.md:21-49) — the same lines as
-``g2vec_tpu/pipeline.py``'s full-batch branch: stage banners ``>>> N.
-...``, the indented preprocessing counts, the epoch log cadence and the
-saved-file listing. Stages 3 (edge weights), 4 (trainer, on the packed
-Hopper kernels in bf16) and 5-6 (k-means, scores) run on ``cfg.device``;
-the walks run on the host's C++ sampler; the embedding stays on the device
-from the trainer through stage 6.
+``g2vec_tpu/pipeline.py``: stage banners ``>>> N. ...``, the indented
+preprocessing counts, the epoch log cadence and the saved-file listing.
+Stages 3 (edge weights), 4 (trainer, on the packed Hopper kernels in
+bf16) and 5-6 (k-means, scores) run on ``cfg.device``; the walks run on
+the host's C++ sampler; the embedding stays on the device from the
+trainer through stage 6.
+
+``cfg.train_mode == "streaming"`` merges stages 3 and 4 as the JAX
+package does (``g2vec_tpu/pipeline.py:400-597``): the sampler emits walk
+shards into the streaming trainer (:mod:`.train.stream`) on the overlap
+scheduler, and stage 4's byproducts replace stage 3's path set.
+
+With ``cfg.overlap`` (the default) native work that releases the
+interpreter lock runs on the overlap scheduler's threads: the kernel
+library's nvcc build (joined before the first launch, where its error is
+raised), the C++ parse of the expression file (the foreground creates the
+CUDA context meanwhile), the streaming producer. The card's other first
+use (each op's first launch) is paid where it falls: a torch op holds the
+interpreter lock while it launches, so a warm-up on one thread only takes
+turns with the Python on another, and one in the foreground cost more
+than it saved (``first_use_probe.py``, PERF.md). The outputs are the same
+bytes either way.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,8 +58,12 @@ class PipelineResult:
     stop_epoch: int = 0
     acc_val: float = 0.0
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    stage_extras: Dict[str, Dict] = dataclasses.field(default_factory=dict)
+    overlap_saved_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    stream_stats: Dict = dataclasses.field(default_factory=dict)
     device: str = ""
-    paths: Optional[np.ndarray] = None   # [n_paths, ceil(G/8)] uint8 stage-3 rows
+    paths: Optional[np.ndarray] = None   # [n_paths, ceil(G/8)] uint8 stage-3
+                                         # rows (full-batch mode only)
     labels: Optional[np.ndarray] = None  # [n_paths] 0 good / 1 poor
 
 
@@ -72,10 +90,25 @@ class _EpochReporter:
                      % (stop_epoch, acc_val, acc_tr, self.block_secs))
 
 
-def read_inputs(cfg: G2VecConfig):
-    """Stage 1: the expression, clinical and network files."""
-    return (load_expression(cfg.expression_file),
-            load_clinical(cfg.clinical_file), load_network(cfg.network_file))
+def read_inputs(cfg: G2VecConfig, overlap=None,
+                while_parsing: Optional[Callable[[], None]] = None):
+    """Stage 1: the expression, clinical and network files. With an
+    overlap scheduler and the native reader, the C++ parse of the
+    expression file runs on a scheduler thread while this thread runs
+    ``while_parsing()`` and reads the other two files."""
+    def expression():
+        return load_expression(cfg.expression_file,
+                               use_native=cfg.use_native_io)
+
+    background = overlap is not None and cfg.use_native_io
+    if background:
+        overlap.submit("read_expression", expression)
+    if while_parsing is not None:
+        while_parsing()
+    clinical = load_clinical(cfg.clinical_file)
+    network = load_network(cfg.network_file)
+    data = overlap.result("read_expression") if background else expression()
+    return data, clinical, network
 
 
 def preprocess_inputs(data, clinical, network):
@@ -88,6 +121,13 @@ def preprocess_inputs(data, clinical, network):
     data = restrict_data(data, common)
     src, dst = edges_to_indices(network, make_gene2idx(data.gene))
     return data, src, dst
+
+
+def _join_kernel_build(overlap) -> None:
+    """Wait for the background nvcc build of the kernel library (if one
+    was started), re-raising its error, before the first kernel launch."""
+    if overlap.has("build_kernels"):
+        overlap.result("build_kernels")
 
 
 def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
@@ -106,119 +146,231 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     from g2vec_tpu_torch.ops.graph import thresholded_edges
     from g2vec_tpu_torch.ops.host_walker import (generate_path_set_native,
                                                  resolve_sampler_threads)
+    from g2vec_tpu_torch.ops.packed_matmul import build_kernels
     from g2vec_tpu_torch.ops.paths import count_gene_freq, integrate_path_sets
+    from g2vec_tpu_torch.parallel.overlap import OverlapScheduler
+    from g2vec_tpu_torch.train.stream import (EVAL_ROWS_CAP,
+                                              train_cbow_streaming)
     from g2vec_tpu_torch.train.trainer import train_cbow
+    from g2vec_tpu_torch.utils.metrics import MetricsWriter
+    from g2vec_tpu_torch.utils.timing import StageTimer
     from g2vec_tpu_torch.weights import params_from_jax
 
     cfg.validate()
     dev = resolve_device(cfg.device)
-    stage_seconds: Dict[str, float] = {}
+    on_card = dev.type == "cuda"
+    timer = StageTimer(sync=(lambda: torch.cuda.synchronize(dev))
+                       if on_card else None)
+    metrics = MetricsWriter(cfg.metrics_jsonl)
+    overlap = OverlapScheduler(max_workers=2)
+    train_seed = cfg.seed if cfg.train_seed is None else cfg.train_seed
+    init_model = None if init is None else params_from_jax(*init)
+    try:
+        console(">>> 0. Arguments")
+        console(str(cfg))
+        metrics.emit("config", **{f.name: str(getattr(cfg, f.name))
+                                  for f in dataclasses.fields(cfg)})
+        if cfg.overlap and on_card and cfg.compute_dtype == "bfloat16":
+            overlap.submit("build_kernels", build_kernels)
 
-    @contextlib.contextmanager
-    def stage(name: str):
-        t0 = time.perf_counter()
-        yield
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        stage_seconds[name] = time.perf_counter() - t0
+        def cuda_context():
+            with timer.span("load", "cuda_context"):
+                torch.empty(1, device=dev)
 
-    console(">>> 0. Arguments")
-    console(str(cfg))
+        console(">>> 1. Load data")
+        with timer.stage("load"):
+            data, clinical, network = read_inputs(
+                cfg, overlap if cfg.overlap else None,
+                cuda_context if cfg.overlap and on_card else None)
+        timer.annotate("load", expression_parser=data.parser)
 
-    console(">>> 1. Load data")
-    with stage("load"):
-        inputs = read_inputs(cfg)
+        console(">>> 2. Preprocess data")
+        with timer.stage("preprocess"):
+            data, src, dst = preprocess_inputs(data, clinical, network)
+        n_samples, n_genes = data.expr.shape
+        n_edges = len(src)
+        console("    n_samples: %d" % n_samples)
+        console("    n_genes  : %d\t(common genes in both EXPRESSION and NETWORK)" % n_genes)
+        console("    n_edges  : %d\t(edges with the common genes)" % n_edges)
+        metrics.emit("preprocess", n_samples=n_samples, n_genes=n_genes,
+                     n_edges=n_edges)
 
-    console(">>> 2. Preprocess data")
-    with stage("preprocess"):
-        data, src, dst = preprocess_inputs(*inputs)
-    n_samples, n_genes = data.expr.shape
-    n_edges = len(src)
-    console("    n_samples: %d" % n_samples)
-    console("    n_genes  : %d\t(common genes in both EXPRESSION and NETWORK)" % n_genes)
-    console("    n_edges  : %d\t(edges with the common genes)" % n_edges)
+        console(">>> 3. Generate random paths from each group")
+        console("    *** most time consuming step ***")
+        sampler_threads = resolve_sampler_threads(cfg.sampler_threads)
+        console(f"    [sampler] native C++ CSR sampler, "
+                f"{sampler_threads} host thread(s)")
+        reporter = _EpochReporter(console, cfg.display_step)
 
-    console(">>> 3. Generate random paths from each group")
-    console("    *** most time consuming step ***")
-    sampler_threads = resolve_sampler_threads(cfg.sampler_threads)
-    console(f"    [sampler] native C++ CSR sampler, "
-            f"{sampler_threads} host thread(s)")
-    with stage("paths"):
-        path_sets = []
-        for i in range(2):
-            s_k, d_k, w_k = thresholded_edges(
-                data.expr[data.label == i], src, dst,
-                threshold=cfg.pcc_threshold, device=dev)
-            path_sets.append(generate_path_set_native(
-                s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
-                reps=cfg.numRepetition, seed=(cfg.seed << 1) | i,
-                n_threads=sampler_threads))
-        paths, labels = integrate_path_sets(path_sets[0], path_sets[1],
-                                            n_genes)
-        gene_freq = count_gene_freq(paths, labels, data.gene)
-    n_paths = paths.shape[0]
-    if n_paths < 2:
-        raise ValueError(
-            "fewer than 2 distinct group-specific paths were generated — "
-            "the |PCC| > %.2f graphs are too sparse for this dataset; try "
-            "lowering --pcc-threshold or raising -r/--numRepetition"
-            % cfg.pcc_threshold)
-    console("    n_paths : %d" % n_paths)
-    console("    n_genes : %d\t(genes in good or poor random paths)" % len(gene_freq))
+        def on_epoch(step, acc_val, acc_tr, secs):
+            reporter.on_epoch(step, acc_val, acc_tr, secs)
+            metrics.emit("epoch", step=step, acc_val=acc_val, acc_tr=acc_tr,
+                         secs=secs)
 
-    console(">>> 4. Compute distributed representations using modified CBOW")
-    console("     Start training the modified CBOW with early stopping")
-    reporter = _EpochReporter(console, cfg.display_step)
-    with stage("train"):
-        result = train_cbow(
-            paths, labels, n_genes=n_genes, hidden=cfg.sizeHiddenlayer,
-            learning_rate=cfg.learningRate, max_epochs=cfg.epoch,
-            val_fraction=cfg.val_fraction,
-            decision_threshold=cfg.decision_threshold,
-            compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
-            seed=(cfg.seed if cfg.train_seed is None else cfg.train_seed),
-            device=dev, on_epoch=reporter.on_epoch,
-            init=None if init is None else params_from_jax(*init))
-    if result.stopped_early:
-        reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)
-    console("    Optimization Finish")
+        if cfg.train_mode == "streaming":
+            # ---- stages 3-4 merged: walk shards stream into the trainer ----
+            with timer.stage("paths"):
+                group_edges = [thresholded_edges(
+                    data.expr[data.label == i], src, dst,
+                    threshold=cfg.pcc_threshold, device=dev)
+                    for i in range(2)]
+            console("    [stream] walk shards stream from the sampler; "
+                    "stage 4 overlaps stage 3")
+            console(">>> 4. Compute distributed representations using "
+                    "modified CBOW")
+            console("     Start training the modified CBOW with early "
+                    "stopping")
+            with timer.stage("train"):
+                _join_kernel_build(overlap)
+                sres = train_cbow_streaming(
+                    groups=group_edges, n_genes=n_genes, genes=data.gene,
+                    hidden=cfg.sizeHiddenlayer,
+                    learning_rate=cfg.learningRate, max_epochs=cfg.epoch,
+                    len_path=cfg.lenPath, reps=cfg.numRepetition,
+                    val_fraction=cfg.val_fraction,
+                    decision_threshold=cfg.decision_threshold,
+                    compute_dtype=cfg.compute_dtype,
+                    param_dtype=cfg.param_dtype, seed=train_seed,
+                    walk_seed=cfg.seed, shard_paths=cfg.shard_paths,
+                    prefetch_depth=cfg.prefetch_depth,
+                    patience=cfg.stream_patience,
+                    sampler_threads=cfg.sampler_threads, overlap=overlap,
+                    eval_rows_cap=(cfg.stream_eval_rows or EVAL_ROWS_CAP),
+                    device=dev, init=init_model, on_epoch=on_epoch)
+            result = sres.train
+            gene_freq = sres.gene_freq
+            n_paths = sres.n_paths
+            paths = labels = None
+            stream_stats = sres.stats.as_dict()
+            console("    n_paths : %d\t(streamed, %d shard(s))"
+                    % (n_paths, sres.stats.n_shards))
+            console("    n_genes : %d\t(genes in good or poor random paths)"
+                    % len(gene_freq))
+            console("    [stream] first update %.0f ms in; sampling wall "
+                    "%.2f s; ring high-water %d/%d shard(s)"
+                    % (sres.stats.time_to_first_update_ms,
+                       sres.stats.sampling_wall_s,
+                       sres.stats.ring_occupancy_hw, cfg.prefetch_depth))
+            metrics.emit("paths", n_paths=n_paths,
+                         n_path_genes=len(gene_freq), walker_backend="native",
+                         sampler_threads=sampler_threads)
+            metrics.emit("stream", **stream_stats)
+            timer.annotate("paths", sampling_wall_s=sres.stats.sampling_wall_s,
+                           walker_backend="native",
+                           sampler_threads=sampler_threads)
+            timer.annotate("train", train_mode="streaming", **stream_stats)
+        else:
+            with timer.stage("paths"):
+                path_sets = []
+                for i, group in enumerate(("g", "p")):
+                    with timer.span("paths", f"pcc_{group}"):
+                        s_k, d_k, w_k = thresholded_edges(
+                            data.expr[data.label == i], src, dst,
+                            threshold=cfg.pcc_threshold, device=dev)
+                    # On this thread: on a scheduler thread, with nothing
+                    # left to overlap, the walks ran 3-4x slower on the
+                    # card's host (PERF.md §6, PR 6).
+                    with timer.span("paths", f"walk_{group}"):
+                        path_sets.append(generate_path_set_native(
+                            s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
+                            reps=cfg.numRepetition, seed=(cfg.seed << 1) | i,
+                            n_threads=sampler_threads))
+                with timer.span("paths", "integrate"):
+                    paths, labels = integrate_path_sets(
+                        path_sets[0], path_sets[1], n_genes)
+                with timer.span("paths", "gene_freq"):
+                    gene_freq = count_gene_freq(paths, labels, data.gene)
+            n_paths = paths.shape[0]
+            if n_paths < 2:
+                raise ValueError(
+                    "fewer than 2 distinct group-specific paths were "
+                    "generated — the |PCC| > %.2f graphs are too sparse for "
+                    "this dataset; try lowering --pcc-threshold or raising "
+                    "-r/--numRepetition" % cfg.pcc_threshold)
+            console("    n_paths : %d" % n_paths)
+            console("    n_genes : %d\t(genes in good or poor random paths)"
+                    % len(gene_freq))
+            metrics.emit("paths", n_paths=n_paths,
+                         n_path_genes=len(gene_freq), walker_backend="native",
+                         sampler_threads=sampler_threads)
+            timer.annotate("paths", walker_backend="native",
+                           sampler_threads=sampler_threads)
+            stream_stats = {}
 
-    console(">>> 5. Find L-groups")
-    emb = result.model.w_ih.detach().float()
-    with stage("lgroups"):
-        lgroup_dev, _ = find_lgroups(
-            emb, freq_index(data.gene, gene_freq),
-            generator=torch.Generator().manual_seed(cfg.kmeans_seed),
-            k=cfg.n_lgroups, compat_tiebreak=cfg.compat_lgroup_tiebreak,
-            iters=cfg.kmeans_iters, centers0=kmeans_centers0)
+            console(">>> 4. Compute distributed representations using "
+                    "modified CBOW")
+            console("     Start training the modified CBOW with early "
+                    "stopping")
+            with timer.stage("train"):
+                _join_kernel_build(overlap)
+                result = train_cbow(
+                    paths, labels, n_genes=n_genes,
+                    hidden=cfg.sizeHiddenlayer,
+                    learning_rate=cfg.learningRate, max_epochs=cfg.epoch,
+                    val_fraction=cfg.val_fraction,
+                    decision_threshold=cfg.decision_threshold,
+                    compute_dtype=cfg.compute_dtype,
+                    param_dtype=cfg.param_dtype, seed=train_seed,
+                    device=dev, on_epoch=on_epoch, init=init_model)
+        if result.stopped_early:
+            reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)
+        console("    Optimization Finish")
+        metrics.emit("train_done", stop_epoch=result.stop_epoch,
+                     acc_val=result.acc_val, acc_tr=result.acc_tr,
+                     stopped_early=result.stopped_early)
 
-    console(">>> 6. Select biomarkers with gene scores")
-    with stage("biomarkers"):
-        label = np.asarray(data.label)
-        scores2 = biomarker_scores(
-            emb,
-            torch.as_tensor(data.expr[label == 0], device=dev),
-            torch.as_tensor(data.expr[label == 1], device=dev),
-            lgroup_dev, cfg.score_mix).cpu().numpy()
-        lgroup_idx = lgroup_dev.cpu().numpy()
-        biomarkers, _ = top_biomarkers(scores2, lgroup_idx, data.gene,
-                                       cfg.numBiomarker)
+        console(">>> 5. Find L-groups")
+        emb = result.model.w_ih.detach().float()
+        with timer.stage("lgroups"):
+            lgroup_dev, _ = find_lgroups(
+                emb, freq_index(data.gene, gene_freq),
+                generator=torch.Generator().manual_seed(cfg.kmeans_seed),
+                k=cfg.n_lgroups, compat_tiebreak=cfg.compat_lgroup_tiebreak,
+                iters=cfg.kmeans_iters, centers0=kmeans_centers0)
 
-    console(">>> 7. Save results")
-    with stage("save"):
-        outputs = [
-            write_biomarkers(cfg.result_name, biomarkers),
-            write_lgroups(cfg.result_name, lgroup_idx, data.gene),
-            write_vectors(cfg.result_name, result.w_ih, data.gene),
-        ]
-    for path in outputs:
-        console("    %s" % path)
+        console(">>> 6. Select biomarkers with gene scores")
+        with timer.stage("biomarkers"):
+            label = np.asarray(data.label)
+            scores2 = biomarker_scores(
+                emb,
+                torch.as_tensor(data.expr[label == 0], device=dev),
+                torch.as_tensor(data.expr[label == 1], device=dev),
+                lgroup_dev, cfg.score_mix).cpu().numpy()
+            lgroup_idx = lgroup_dev.cpu().numpy()
+            biomarkers, _ = top_biomarkers(scores2, lgroup_idx, data.gene,
+                                           cfg.numBiomarker)
 
-    return PipelineResult(
-        genes=data.gene, embeddings=result.w_ih, lgroup_idx=lgroup_idx,
-        biomarkers=biomarkers, output_files=outputs, n_samples=n_samples,
-        n_genes=n_genes, n_edges=n_edges, n_paths=n_paths,
-        n_path_genes=len(gene_freq), train_history=result.history,
-        stop_epoch=result.stop_epoch, acc_val=result.acc_val,
-        stage_seconds=stage_seconds, device=str(dev), paths=paths,
-        labels=labels)
+        console(">>> 7. Save results")
+        with timer.stage("save"):
+            outputs = [
+                write_biomarkers(cfg.result_name, biomarkers),
+                write_lgroups(cfg.result_name, lgroup_idx, data.gene),
+                write_vectors(cfg.result_name, result.w_ih, data.gene),
+            ]
+        for path in outputs:
+            console("    %s" % path)
+        overlap_saved = overlap.saved_seconds() if cfg.overlap else {}
+        if overlap_saved:
+            console("    [overlap] background time hidden under foreground "
+                    "stages: " + ", ".join(
+                        f"{k}={v:.2f}s" for k, v in sorted(overlap_saved.items())))
+        metrics.emit("done", outputs=outputs, stage_seconds=timer.as_dict(),
+                     stage_extras=timer.extras_dict(), walker_backend="native",
+                     sampler_threads=sampler_threads,
+                     overlap_saved_s=overlap_saved)
+
+        return PipelineResult(
+            genes=data.gene, embeddings=result.w_ih, lgroup_idx=lgroup_idx,
+            biomarkers=biomarkers, output_files=outputs, n_samples=n_samples,
+            n_genes=n_genes, n_edges=n_edges, n_paths=n_paths,
+            n_path_genes=len(gene_freq), train_history=result.history,
+            stop_epoch=result.stop_epoch, acc_val=result.acc_val,
+            stage_seconds=timer.as_dict(), stage_extras=timer.extras_dict(),
+            overlap_saved_s=overlap_saved, stream_stats=stream_stats,
+            device=str(dev), paths=paths, labels=labels)
+    finally:
+        # Drain, never raise: the exception in flight (if any) is the one
+        # the caller must see; a background failure either surfaced at a
+        # join already or belongs to a stage the run never reached.
+        overlap.close()
+        metrics.close()

@@ -1,0 +1,657 @@
+"""Streaming minibatch trainer: walk shards flow from the sampler into
+minibatch SGD on the card (``--train-mode streaming``).
+
+The port of ``g2vec_tpu/train/stream.py:train_cbow_streaming`` for one
+process and the native walker:
+
+- The C++ sampler emits fixed-size **walk shards**
+  (:class:`~g2vec_tpu_torch.ops.host_walker.ShardPlan`: each shard is the
+  same start-gene range of both groups, all reps). Shard order is
+  deterministic by shard index; a shard's rows are the same bytes at any
+  thread count.
+- A bounded host **ring** (:class:`ShardRing`, ``--prefetch-depth``)
+  carries shards from the producer (an overlap-scheduler task, or a
+  thread of its own) to the trainer. A full ring blocks the producer, so
+  host path memory peaks at O(shard x depth), never O(total paths).
+- A **double-buffered device prefetch** puts shard b+1's train rows in
+  pinned host memory and copies them ``non_blocking`` on a side stream,
+  with an event the step waits on, while shard b trains.
+- Epoch 0 consumes the ring: training starts the moment shard 0 lands.
+  Shards are spooled to disk with a sha256 each (:class:`ShardSpool`) as
+  they pass, and epochs 1..N replay the spool; a replayed shard whose
+  bytes fail verification is re-walked once (determinism makes the retry
+  exact), and the run raises :class:`SpoolIntegrityError` if even the
+  re-walk mismatches.
+- The early stop reads held-out val accuracy at each epoch's end, on a
+  bounded val buffer gathered from the shards' held-out rows in epoch 0,
+  with ``patience`` epochs without a strict gain before it stops; the
+  best epoch's snapshot is returned.
+
+The step is one Adam step (``train.trainer._Adam``, state carried across
+shards) on the masked-mean BCE over a shard's train rows. At
+``compute_dtype="bfloat16"`` the forward and the backward of the shard's
+product are the packed Hopper kernels (:mod:`..ops.packed_matmul`), so
+both kernels run on every shard; the evals run the forward. At
+``"float32"`` the dense ``torch.matmul`` path of the full-batch trainer.
+The kernels take any M, so the JAX package's row padding and block-wise
+re-pack of each shard are not needed: a shard's kept train rows are
+uploaded as they are, each row padded once to the kernels' 4-byte stride.
+
+Contract against full-batch: statistical (the stream trains on raw walk
+rows, filtered per shard, with per-shard Adam steps). Within streaming the
+trajectory is bitwise deterministic at any ``sampler_threads`` and any
+``prefetch_depth``: host state advances in strict shard order and the
+kernels add in a fixed order.
+
+Not ported yet: checkpoint/resume and fault seams, the device walker and
+its fused device feed, and sharded (multi-rank) streaming.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import shutil
+import tempfile
+import threading
+import time
+import warnings
+from collections import deque
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from g2vec_tpu_torch.device import resolve_device
+from g2vec_tpu_torch.models.cbow import (CBOW, accuracy_from_logits,
+                                         init_params, masked_bce_loss,
+                                         output_logits, torch_dtype)
+from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
+                                             walk_shard)
+from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
+                                               padded_row_bytes, unpack_bits)
+from g2vec_tpu_torch.train.trainer import TrainResult, _Adam
+from g2vec_tpu_torch.utils.integrity import sha256_file
+
+
+@dataclasses.dataclass
+class Shard:
+    """One in-flight walk shard: group-g rows then group-p rows, in the
+    walker's np.packbits layout (8 genes a byte)."""
+
+    index: int
+    x: np.ndarray            # [rows, ceil(G/8)] uint8
+    y: np.ndarray            # [rows] int32 labels (0 good, 1 poor)
+
+    @property
+    def nbytes(self) -> int:
+        return self.x.nbytes + self.y.nbytes
+
+
+class ShardRing:
+    """Bounded producer->consumer shard queue with explicit failure edges.
+
+    - full ring: ``put`` blocks (backpressure: the sampler cannot run
+      ahead of the trainer by more than ``depth`` shards);
+    - producer failure: ``fail(exc)`` parks the exception; the consumer's
+      next ``get`` re-raises it;
+    - producer done: ``finish``; ``get`` returns None once drained;
+    - consumer gone: ``cancel`` wakes a blocked producer, whose ``put``
+      returns False (the producer then exits instead of wedging the
+      overlap drain, which runs ``cancel`` as a closer).
+    """
+
+    def __init__(self, depth: int):
+        if depth < 1:
+            raise ValueError(f"ring depth must be >= 1, got {depth}")
+        self.depth = depth
+        self._items: deque = deque()            # guarded-by: _cv
+        self._cv = threading.Condition()
+        self._error: Optional[BaseException] = None    # guarded-by: _cv
+        self._finished = False                  # guarded-by: _cv
+        self._cancelled = False                 # guarded-by: _cv
+        # Accounting (read after the run; the lock covers writes).
+        self.occupancy_hw = 0        # max shards resident
+        self.peak_bytes = 0          # max bytes resident
+        self.shards_put = 0
+        self.wait_put_s = 0.0        # blocked on a full ring
+        self.wait_get_s = 0.0        # blocked on an empty one
+
+    def put(self, shard: Shard) -> bool:
+        """Enqueue; blocks while full. False: the ring was cancelled
+        (consumer gone) and the producer should stop."""
+        t0 = time.perf_counter()
+        with self._cv:
+            while len(self._items) >= self.depth and not self._cancelled:
+                self._cv.wait(timeout=0.1)
+            self.wait_put_s += time.perf_counter() - t0
+            if self._cancelled:
+                return False
+            self._items.append(shard)
+            self.shards_put += 1
+            self.occupancy_hw = max(self.occupancy_hw, len(self._items))
+            self.peak_bytes = max(self.peak_bytes,
+                                  sum(s.nbytes for s in self._items))
+            self._cv.notify_all()
+        return True
+
+    def get(self) -> Optional[Shard]:
+        """Dequeue the next shard (emission order); blocks while empty.
+        None: the producer finished and the queue is drained. A producer
+        failure re-raises here."""
+        t0 = time.perf_counter()
+        with self._cv:
+            while True:
+                if self._error is not None:
+                    self.wait_get_s += time.perf_counter() - t0
+                    raise self._error
+                if self._items:
+                    self.wait_get_s += time.perf_counter() - t0
+                    shard = self._items.popleft()
+                    self._cv.notify_all()
+                    return shard
+                if self._finished or self._cancelled:
+                    self.wait_get_s += time.perf_counter() - t0
+                    return None
+                self._cv.wait(timeout=0.1)
+
+    def fail(self, exc: BaseException) -> None:
+        with self._cv:
+            self._error = exc
+            self._cv.notify_all()
+
+    def finish(self) -> None:
+        with self._cv:
+            self._finished = True
+            self._cv.notify_all()
+
+    def cancel(self) -> None:
+        """Consumer-side teardown: unblock and stop the producer.
+        Idempotent and safe after finish()."""
+        with self._cv:
+            self._cancelled = True
+            self._items.clear()
+            self._cv.notify_all()
+
+
+class SpoolIntegrityError(ValueError):
+    """A spooled shard failed sha256 verification and its deterministic
+    re-walk did not reproduce the recorded bytes: the walk inputs changed
+    under the run."""
+
+
+class SpoolWriteError(RuntimeError):
+    """A shard failed to spool (ENOSPC, EIO, a short write): the stream
+    cannot replay epochs without its spool."""
+
+    def __init__(self, index: int, path: str, detail: str):
+        self.index, self.path = index, path
+        super().__init__(f"failed to spool shard {index} to {path}: "
+                         f"{detail}; the streaming run cannot replay "
+                         f"epochs without its spool")
+
+
+def _spool_write(index: int, path: str, arr: np.ndarray) -> None:
+    """np.save with its failure modes named: an OSError and a silent short
+    write both raise :class:`SpoolWriteError`."""
+    try:
+        np.save(path, arr)
+        size = os.path.getsize(path)
+    except OSError as e:
+        with contextlib.suppress(OSError):
+            os.unlink(path)
+        raise SpoolWriteError(index, path, f"{type(e).__name__}: {e}") from e
+    if size < arr.nbytes:        # .npy = header + raw bytes, so >= nbytes
+        with contextlib.suppress(OSError):
+            os.unlink(path)
+        raise SpoolWriteError(index, path, f"short write ({size} bytes on "
+                              f"disk < {arr.nbytes} data bytes)")
+
+
+class ShardSpool:
+    """Disk spool of the epoch-0 shard stream, replayed by epochs 1..N.
+
+    One ``.npy`` per shard under a run-private directory, its sha256
+    recorded at emission. A replay whose bytes mismatch is re-walked once
+    through the deterministic sampler; the re-walk must reproduce the
+    recorded hash, else :class:`SpoolIntegrityError`.
+    """
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        self._sha: Dict[int, str] = {}
+        self.rewalks = 0
+
+    def x_path(self, index: int) -> str:
+        return os.path.join(self.directory, f"shard{index:06d}_x.npy")
+
+    def save(self, shard: Shard) -> str:
+        path = self.x_path(shard.index)
+        _spool_write(shard.index, path, shard.x)
+        self._sha[shard.index] = sha256_file(path)
+        return path
+
+    def load(self, index: int,
+             rewalk: Callable[[int], np.ndarray]) -> np.ndarray:
+        """Shard ``index``'s verified rows (its labels are a function of
+        the plan alone)."""
+        path = self.x_path(index)
+        want = self._sha[index]
+        if sha256_file(path) != want:
+            warnings.warn(
+                f"spooled shard {index} failed sha256 verification "
+                f"({path}); re-walking it through the deterministic "
+                f"sampler", RuntimeWarning)
+            self.rewalks += 1
+            _spool_write(index, path, rewalk(index))
+            if sha256_file(path) != want:
+                raise SpoolIntegrityError(
+                    f"shard {index}: the deterministic re-walk does not "
+                    f"reproduce the bytes recorded at emission; the walk "
+                    f"inputs changed under the run")
+        return np.load(path)
+
+
+@dataclasses.dataclass
+class StreamStats:
+    """One streaming run's attribution record (the ``stream`` metrics
+    event and the ``train`` stage's extras)."""
+
+    n_shards: int = 0
+    shards_emitted: int = 0
+    n_paths: int = 0                 # rows trained on (after the per-shard
+                                     # common-drop/dedup)
+    rows_sampled: int = 0            # raw walker rows (2 x walkers)
+    shard_rows: int = 0
+    ring_depth: int = 0
+    ring_occupancy_hw: int = 0
+    ring_peak_bytes: int = 0
+    prefetch_wait_ms: float = 0.0
+    time_to_first_update_ms: float = 0.0
+    shards_at_first_update: int = 0
+    sampling_wall_s: float = 0.0
+    producer_blocked_s: float = 0.0
+    rewalks: int = 0
+    epochs: int = 0
+
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class StreamTrainResult:
+    train: TrainResult
+    gene_freq: Dict[str, int]        # the streaming count_gene_freq twin
+    n_paths: int
+    stats: StreamStats
+
+
+def _check_group_edges(src: np.ndarray, dst: np.ndarray, n_genes: int):
+    for name, arr in (("src", src), ("dst", dst)):
+        if arr.size and (arr.min() < 0 or arr.max() >= n_genes):
+            raise ValueError(
+                f"{name} contains node ids outside [0, {n_genes})")
+
+
+def _shard_split(rows: int, seed: int, shard_index: int,
+                 val_fraction: float):
+    """The per-shard held-out split: the full-batch shuffled hold-out
+    applied per shard, seeded by (train seed, shard index), so it does not
+    depend on thread count or ring depth. Each side keeps a row."""
+    rng = np.random.default_rng(np.random.SeedSequence((seed, shard_index)))
+    perm = rng.permutation(rows)
+    pivot = int(rows * (1.0 - val_fraction))
+    pivot = max(1, min(pivot, rows - 1))
+    return perm[:pivot], perm[pivot:]
+
+
+def _filter_rows(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """``integrate_path_sets`` at shard granularity: drop rows whose bytes
+    appear in both groups' blocks of this shard, and keep one copy per
+    group of within-shard duplicates. Returns the kept row indices, in
+    order. (Walker i starts at the same gene in both groups, so the
+    degenerate common paths line up inside one shard.)"""
+    row_bytes = [r.tobytes() for r in x]
+    g_set = {b for b, label in zip(row_bytes, y) if label == 0}
+    common = g_set & {b for b, label in zip(row_bytes, y) if label == 1}
+    seen = (set(), set())
+    keep = []
+    for i, (b, label) in enumerate(zip(row_bytes, y)):
+        if b in common or b in seen[label]:
+            continue
+        seen[label].add(b)
+        keep.append(i)
+    return np.asarray(keep, dtype=np.int64)
+
+
+#: Bounded eval buffers: the val (and train-probe) sets gather per-shard
+#: held-out rows in shard order up to this many rows, so the epoch-end
+#: eval stays O(1) in graph size.
+EVAL_ROWS_CAP = 4096
+
+
+class _Batch:
+    """A shard's train rows on the training device: packed rows ``x``
+    (each padded to the kernels' row stride), labels ``y [n, 1]``, and on
+    the card the event of their side-stream copy."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, n_genes: int,
+                 dev: torch.device, copy_stream):
+        n, nb = x.shape
+        nbp = padded_row_bytes(n_genes)
+        pin = dev.type == "cuda"
+        x_host = torch.empty((n, nbp), dtype=torch.uint8, pin_memory=pin)
+        xv = x_host.numpy()
+        xv[:, :nb] = x
+        xv[:, nb:] = 0
+        y_host = torch.from_numpy(y.astype(np.float32)[:, None])
+        self.event = None
+        if pin:
+            y_host = y_host.pin_memory()
+            with torch.cuda.stream(copy_stream):
+                self.x = x_host.to(dev, non_blocking=True)
+                self.y = y_host.to(dev, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record(copy_stream)
+        else:
+            self.x, self.y = x_host, y_host
+
+    def ready(self):
+        """(x, y) for the current stream: waits on the copy, and marks
+        the tensors used there, so that the allocator does not hand their
+        memory back to the copy stream while a step still reads them."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.x.device)
+            stream.wait_event(self.event)
+            self.x.record_stream(stream)
+            self.y.record_stream(stream)
+        return self.x, self.y
+
+
+def train_cbow_streaming(
+        *, groups, n_genes: int, genes, hidden: int, learning_rate: float,
+        max_epochs: int, len_path: int, reps: int, val_fraction: float = 0.2,
+        decision_threshold: float = 0.5, compute_dtype: str = "bfloat16",
+        param_dtype: str = "float32", seed: int = 0, walk_seed: int = 0,
+        shard_paths: int = 0, prefetch_depth: int = 2, patience: int = 5,
+        sampler_threads: int = 0, overlap=None,
+        eval_rows_cap: int = EVAL_ROWS_CAP, device="cuda",
+        init: Optional[CBOW] = None,
+        on_epoch: Optional[Callable[[int, float, float, float], None]] = None,
+        ) -> StreamTrainResult:
+    """Stream walk shards from the sampler straight into minibatch SGD;
+    returns the trained embeddings and the streaming twins of stage 3's
+    byproducts (gene votes, path count).
+
+    ``groups`` is ``[(src_g, dst_g, w_g), (src_p, dst_p, w_p)]``, the two
+    thresholded per-group edge lists. ``overlap`` is the pipeline's
+    :class:`~g2vec_tpu_torch.parallel.overlap.OverlapScheduler`: the
+    producer runs on it under its drain contract (None: a thread of its
+    own). ``seed`` is the split/init seed, ``walk_seed`` the walk seed.
+    ``init`` replaces the seeded draw of the CBOW (the tests pass the JAX
+    package's draw through :func:`g2vec_tpu_torch.weights.params_from_jax`).
+    ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
+    """
+    dev = resolve_device(device)
+    if len(groups) != 2:
+        raise ValueError(f"need exactly 2 groups, got {len(groups)}")
+    torch_dtype(compute_dtype)
+    pdtype = torch_dtype(param_dtype)
+    if patience < 1:
+        raise ValueError(f"patience must be >= 1, got {patience}")
+    if eval_rows_cap < 1:
+        raise ValueError(f"eval_rows_cap must be >= 1, got {eval_rows_cap}")
+
+    plan = plan_shards(n_genes, reps, shard_paths, len_path=len_path)
+    n_shards = plan.n_shards
+    stats = StreamStats(n_shards=n_shards, rows_sampled=2 * plan.n_walkers,
+                        shard_rows=plan.rows_per_shard,
+                        ring_depth=prefetch_depth)
+    csr = []
+    for s, d, w in groups:
+        s, d, w = np.asarray(s), np.asarray(d), np.asarray(w)
+        _check_group_edges(s, d, n_genes)
+        csr.append(edges_to_csr(s, d, w, n_genes))
+
+    def _walk_shard_rows(shard_index: int) -> np.ndarray:
+        return np.concatenate([
+            walk_shard(None, None, None, n_genes, plan, shard_index,
+                       seed=(walk_seed << 1) | gi, n_threads=sampler_threads,
+                       csr=csr[gi]) for gi in (0, 1)], axis=0)
+
+    def _shard_labels(shard_index: int) -> np.ndarray:
+        n = plan.group_rows(shard_index)
+        return np.concatenate([np.zeros(n, np.int32), np.ones(n, np.int32)])
+
+    ring = ShardRing(prefetch_depth)
+    spool_dir = tempfile.mkdtemp(prefix="g2v-stream-")
+    spool = ShardSpool(spool_dir)
+    producer_wall = [0.0]
+
+    def _produce():
+        t0 = time.perf_counter()
+        try:
+            for si in range(n_shards):
+                shard = Shard(si, _walk_shard_rows(si), _shard_labels(si))
+                spool.save(shard)
+                if not ring.put(shard):
+                    return          # consumer gone; exit quietly
+            ring.finish()
+        except BaseException as e:  # noqa: BLE001 — the consumer re-raises
+            ring.fail(e)
+        finally:
+            producer_wall[0] = time.perf_counter() - t0
+
+    remove_closer = producer_thread = None
+    if overlap is not None:
+        remove_closer = overlap.add_closer(ring.cancel)
+        overlap.submit("stream_shards", _produce)
+    else:
+        producer_thread = threading.Thread(
+            target=_produce, name="g2v-stream-producer", daemon=True)
+        producer_thread.start()
+
+    # ---- parameters, optimizer, device programs ----
+    if init is None:
+        init = init_params(n_genes, hidden, torch.Generator().manual_seed(seed))
+    if tuple(init.w_ih.shape) != (n_genes, hidden):
+        raise ValueError(f"init w_ih {tuple(init.w_ih.shape)} vs "
+                         f"({n_genes}, {hidden})")
+    model = CBOW(init.w_ih.detach().to(device=dev, dtype=pdtype).clone(),
+                 init.w_ho.detach().to(device=dev, dtype=pdtype).clone())
+    params = [model.w_ih, model.w_ho]
+    adam = _Adam(params, learning_rate)
+    logit_threshold = float(np.log(decision_threshold
+                                   / (1.0 - decision_threshold)))
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def _logits(x: torch.Tensor) -> torch.Tensor:
+        if compute_dtype == "float32":
+            return model(unpack_bits(x, n_genes, torch.float32), "float32")
+        h = packed_matmul(x, model.w_ih.to(torch.bfloat16))
+        return output_logits(h, model.w_ho, compute_dtype)
+
+    def _update(batch: _Batch) -> torch.Tensor:
+        x, y = batch.ready()
+        loss = masked_bce_loss(_logits(x), y, torch.ones_like(y))
+        loss.backward()
+        adam.step(params)
+        return loss.detach()
+
+    @torch.no_grad()
+    def _evaluate(batch: _Batch) -> float:
+        x, y = batch.ready()
+        return float(accuracy_from_logits(_logits(x), y, torch.ones_like(y),
+                                          logit_threshold))
+
+    def _upload(x: np.ndarray, y: np.ndarray) -> _Batch:
+        return _Batch(x, y, n_genes, dev, copy_stream)
+
+    # ---- epoch-0 byproducts, accumulated in shard order ----
+    good_counts = np.zeros(n_genes, np.int64)
+    poor_counts = np.zeros(n_genes, np.int64)
+    val_x: List[np.ndarray] = []
+    val_y: List[np.ndarray] = []
+    probe_x: List[np.ndarray] = []
+    probe_y: List[np.ndarray] = []
+    eval_rows = [0, 0]               # collected (val, probe) row counts
+    kept_rows = [0]                  # rows surviving the per-shard filter
+
+    def _accumulate(x: np.ndarray, y: np.ndarray, tr_idx, vl_idx) -> None:
+        # Row-chunked unpack: the dense transient stays ~32 MB at any G;
+        # int64 sums do not depend on the chunking.
+        rows_chunk = max(1, (32 << 20) // max(1, n_genes))
+        for i in range(0, x.shape[0], rows_chunk):
+            dense = np.unpackbits(x[i:i + rows_chunk], axis=1)[:, :n_genes]
+            yc = y[i:i + rows_chunk]
+            good_counts[:] += dense[yc == 0].sum(axis=0, dtype=np.int64)
+            poor_counts[:] += dense[yc == 1].sum(axis=0, dtype=np.int64)
+        if eval_rows[0] < eval_rows_cap and len(vl_idx):
+            take = vl_idx[:eval_rows_cap - eval_rows[0]]
+            val_x.append(x[take])
+            val_y.append(y[take])
+            eval_rows[0] += len(take)
+        if eval_rows[1] < eval_rows_cap and len(tr_idx):
+            take = tr_idx[:eval_rows_cap - eval_rows[1]]
+            probe_x.append(x[take])
+            probe_y.append(y[take])
+            eval_rows[1] += len(take)
+
+    def _epoch0_iter() -> Iterator[Shard]:
+        for expect in range(n_shards):
+            shard = ring.get()
+            if shard is None:
+                raise RuntimeError(
+                    f"shard ring closed after {expect}/{n_shards} shards: "
+                    f"the producer exited early without failing")
+            if shard.index != expect:
+                raise RuntimeError(f"shard order violated: got "
+                                   f"{shard.index}, expected {expect}")
+            yield shard
+
+    def _replay_iter() -> Iterator[Shard]:
+        for si in range(n_shards):
+            yield Shard(si, spool.load(si, _walk_shard_rows),
+                        _shard_labels(si))
+
+    def _device_feed(shards: Iterator[Shard], epoch0: bool):
+        """The double buffer: shard b+1's copy is queued on the side
+        stream before shard b is yielded to the step, so it hides under
+        the step's device time. Yields ``(accumulate_cb, batch)``; the
+        epoch-0 byproducts are accumulated when the consumer runs the
+        callback, right before the step, so host state advances in strict
+        shard order."""
+        pending = None
+        for shard in shards:
+            keep = _filter_rows(shard.x, shard.y)
+            if not len(keep):
+                continue             # every row was group-common noise
+            fx, fy = shard.x[keep], shard.y[keep]
+            tr_idx, vl_idx = _shard_split(fx.shape[0], seed, shard.index,
+                                          val_fraction)
+            acc_cb = None
+            if epoch0:
+                def acc_cb(fx=fx, fy=fy, tr=tr_idx, vl=vl_idx, k=len(keep)):
+                    kept_rows[0] += k
+                    _accumulate(fx, fy, tr, vl)
+            nxt = (acc_cb, _upload(fx[tr_idx], fy[tr_idx]))
+            if pending is not None:
+                yield pending
+            pending = nxt
+        if pending is not None:
+            yield pending
+
+    # ---- the epoch loop: patience early stop on held-out val accuracy ----
+    history: List[dict] = []
+    best_val, best_tr = -1.0, -1.0
+    best_epoch = 0
+    since_best = 0
+    stopped_early = False
+    stop_epoch = max_epochs - 1
+    snapshot = [p.detach().clone() for p in params]
+    val_dev = probe_dev = None
+    t_phase0 = time.perf_counter()
+    try:
+        for epoch in range(max_epochs):
+            t_epoch = time.perf_counter()
+            losses: List[torch.Tensor] = []
+            feed = _device_feed(_epoch0_iter() if epoch == 0
+                                else _replay_iter(), epoch0=(epoch == 0))
+            for acc_cb, batch in feed:
+                if acc_cb is not None:
+                    acc_cb()
+                losses.append(_update(batch))
+                if len(losses) == 1 and epoch == 0:
+                    losses[0].item()          # wait for the first update
+                    stats.time_to_first_update_ms = round(
+                        (time.perf_counter() - t_phase0) * 1e3, 2)
+                    stats.shards_at_first_update = ring.shards_put
+            if epoch == 0:
+                if eval_rows[0] == 0:
+                    raise ValueError(
+                        "streaming val buffer is empty: shards contributed "
+                        "no held-out rows (raise --shard-paths or "
+                        "val_fraction)")
+                val_dev = _upload(np.concatenate(val_x),
+                                  np.concatenate(val_y))
+                probe_dev = _upload(np.concatenate(probe_x),
+                                    np.concatenate(probe_y))
+            acc_val = _evaluate(val_dev)
+            acc_tr = _evaluate(probe_dev)
+            loss_mean = (float(np.mean(torch.stack(losses).cpu().numpy()
+                                       .astype(np.float64)))
+                         if losses else float("nan"))
+            secs = time.perf_counter() - t_epoch
+            history.append({"epoch": epoch, "acc_val": acc_val,
+                             "acc_tr": acc_tr, "loss": loss_mean,
+                             "secs": secs})
+            if on_epoch is not None:
+                on_epoch(epoch, acc_val, acc_tr, secs)
+            if acc_val > best_val:
+                snapshot = [p.detach().clone() for p in params]
+                best_val, best_tr = acc_val, acc_tr
+                best_epoch = epoch
+                since_best = 0
+            else:
+                since_best += 1
+                if since_best >= patience:
+                    # The post-best epochs' updates are discarded: the
+                    # best epoch's snapshot is the result.
+                    stopped_early = True
+                    stop_epoch = best_epoch
+                    break
+    finally:
+        ring.cancel()
+        if remove_closer is not None:
+            remove_closer()
+        if producer_thread is not None:
+            producer_thread.join(timeout=30)
+        elif overlap is not None:
+            try:
+                overlap.result("stream_shards")
+            except BaseException:  # noqa: BLE001 — the real error
+                pass               # already surfaced at ring.get()
+        shutil.rmtree(spool_dir, ignore_errors=True)
+
+    stats.n_paths = kept_rows[0]
+    stats.epochs = len(history)
+    stats.shards_emitted = ring.shards_put
+    stats.ring_occupancy_hw = ring.occupancy_hw
+    stats.ring_peak_bytes = ring.peak_bytes
+    stats.prefetch_wait_ms = round(ring.wait_get_s * 1e3, 2)
+    stats.producer_blocked_s = round(ring.wait_put_s, 3)
+    stats.sampling_wall_s = round(producer_wall[0], 3)
+    stats.rewalks = spool.rewalks
+    gene_freq: Dict[str, int] = {}
+    for i, g in enumerate(genes):
+        fg, fp = int(good_counts[i]), int(poor_counts[i])
+        if fg or fp:
+            gene_freq[g] = 0 if fg > fp else (1 if fg < fp else 2)
+    best = CBOW(*snapshot)
+    train = TrainResult(
+        w_ih=best.w_ih.detach().float().cpu().numpy(),
+        stop_epoch=(best_epoch if stopped_early else stop_epoch),
+        stopped_early=stopped_early, acc_val=best_val, acc_tr=best_tr,
+        history=history, model=best)
+    return StreamTrainResult(train=train, gene_freq=gene_freq,
+                             n_paths=kept_rows[0], stats=stats)

@@ -318,3 +318,96 @@ def test_trainer_on_the_card_tracks_the_cpu(cuda):
         assert abs(ha["acc_val"] - hb["acc_val"]) <= 0.01
         np.testing.assert_allclose(ha["loss"], hb["loss"], rtol=1e-4)
     np.testing.assert_allclose(a.w_ih, b.w_ih, rtol=0, atol=1e-4)
+
+
+def _stream_groups(n_genes=300, n_edges=1500, seed=6):
+    rng = np.random.default_rng(seed)
+    groups = []
+    for _ in range(2):
+        src = rng.integers(0, n_genes, n_edges).astype(np.int32)
+        dst = rng.integers(0, n_genes, n_edges).astype(np.int32)
+        w = (rng.random(n_edges) * 0.5 + 0.5).astype(np.float32)
+        groups.append((src, dst, w))
+    return groups
+
+
+def _stream_run(dev, compute_dtype, **kw):
+    from g2vec_tpu_torch.train.stream import train_cbow_streaming
+
+    n_genes = 300
+    return train_cbow_streaming(
+        groups=_stream_groups(n_genes), n_genes=n_genes,
+        genes=[f"G{i}" for i in range(n_genes)], hidden=32,
+        learning_rate=0.01, max_epochs=6, len_path=12, reps=4,
+        shard_paths=400, patience=6, compute_dtype=compute_dtype, seed=3,
+        walk_seed=5, device=dev, **kw)
+
+
+def test_streaming_step_on_the_card_tracks_the_cpu_at_float32(cuda):
+    """The streaming trainer's f32 dense path on the card against its CPU
+    run: the same shards and votes, equal accuracies (each a count of
+    exact 0/1 terms), losses and W_ih within float32 summation-order
+    noise compounded through Adam (the full-batch card test's bounds)."""
+    a, b = _stream_run("cuda", "float32"), _stream_run("cpu", "float32")
+    assert (a.n_paths, a.gene_freq) == (b.n_paths, b.gene_freq)
+    assert a.stats.n_shards > 1
+    assert len(a.train.history) == len(b.train.history) == 6
+    for ha, hb in zip(a.train.history, b.train.history):
+        assert abs(ha["acc_val"] - hb["acc_val"]) <= 0.01
+        np.testing.assert_allclose(ha["loss"], hb["loss"], rtol=1e-4)
+    np.testing.assert_allclose(a.train.w_ih, b.train.w_ih, rtol=0, atol=1e-4)
+
+
+def test_streaming_bf16_runs_both_kernels_on_every_shard(cuda):
+    pm.reset_launch_counts()
+    res = _stream_run("cuda", "bfloat16")
+    epochs, shards = len(res.train.history), res.stats.n_shards
+    assert pm.packed_matmul_bwd.launches == epochs * shards
+    assert pm.packed_matmul_fwd.launches == epochs * (shards + 2)
+    again = _stream_run("cuda", "bfloat16", prefetch_depth=1,
+                        sampler_threads=1)
+    assert again.train.w_ih.tobytes() == res.train.w_ih.tobytes()
+
+
+def test_bf16_shard_step_dw_matches_the_plain_backward(cuda):
+    """One shard's step on the card: its train rows, each padded once to
+    the kernels' 4-byte stride, through the autograd op; the gradient of
+    W_ih (before its bf16 rounding) against the plain backward of the same
+    cotangent, within the kernels' tolerance."""
+    from g2vec_tpu_torch.models.cbow import masked_bce_loss, output_logits
+    from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
+                                                 walk_shard)
+    from g2vec_tpu_torch.train.stream import _filter_rows, _shard_split
+    from g2vec_tpu_torch.train.trainer import _fused_rows
+
+    n_genes, hidden = 1003, 128
+    groups = _stream_groups(n_genes, 6000)
+    plan = plan_shards(n_genes, 10, 0, len_path=40)
+    x = np.concatenate([walk_shard(None, None, None, n_genes, plan, 0,
+                                   seed=g, csr=edges_to_csr(*groups[g],
+                                                            n_genes))
+                        for g in (0, 1)])
+    y = np.repeat(np.array([0, 1], np.int32), plan.group_rows(0))
+    keep = _filter_rows(x, y)
+    tr, _ = _shard_split(len(keep), 3, 0, 0.2)
+    rows = _fused_rows(x[keep][tr], x[:0], n_genes)
+    assert rows.shape[1] % 4 == 0 and rows.shape[1] != (n_genes + 7) // 8
+    packed = torch.from_numpy(rows).cuda()
+    labels = torch.from_numpy(y[keep][tr].astype(np.float32)[:, None]).cuda()
+    rng = np.random.default_rng(8)
+    w_ih = torch.from_numpy((rng.standard_normal((n_genes, hidden)) * 0.09)
+                            .astype(np.float32)).cuda()
+    w_ho = torch.from_numpy((rng.standard_normal((hidden, 1)) * 0.09)
+                            .astype(np.float32)).cuda()
+    w16 = w_ih.to(torch.bfloat16).requires_grad_()
+    h = pm.packed_matmul(packed, w16)
+    h.retain_grad()
+    loss = masked_bce_loss(output_logits(h, w_ho, "bfloat16"), labels,
+                           torch.ones_like(labels))
+    loss.backward()
+    x_dense = pm.unpack_bits(packed, n_genes).float()
+    g_out = h.grad
+    dw = pm.packed_matmul_bwd(packed, g_out, n_genes)
+    _assert_close(dw, pm.packed_matmul_bwd_plain(packed, g_out, n_genes),
+                  x_dense.T @ g_out.bfloat16().float().abs())
+    assert torch.equal(w16.grad, dw.to(torch.bfloat16))

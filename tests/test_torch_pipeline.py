@@ -14,6 +14,13 @@ keeps the restart with the lowest inertia, as ``kmeans`` does).
   prints six decimals, so a value may land one printed digit apart;
 - the transcript's ``n_samples``, ``n_genes``, ``n_edges``, ``n_paths``
   and path-gene lines equal those of ``g2vec_tpu.pipeline.run``.
+
+The streaming run (``train_mode="streaming"``) goes through the port's
+pipeline and through ``g2vec_tpu.train.stream.train_cbow_streaming``
+composed with the same stage 5-7 functions. The JAX streaming trainer
+draws its own init from ``jax.random.key(seed)``; the port is given that
+draw. Its ``_lgroups.txt`` and ``_biomarkers.txt`` are byte-equal, and
+the path count, votes and stop epoch equal.
 """
 import os
 
@@ -31,6 +38,8 @@ from g2vec_tpu.ops import graph as jgraph
 from g2vec_tpu.ops import host_walker as jwalker
 from g2vec_tpu.ops import kmeans as jkmeans
 from g2vec_tpu.ops import walker as jpaths
+from g2vec_tpu.models.cbow import init_params as jax_init_params
+from g2vec_tpu.train.stream import train_cbow_streaming as jax_stream
 from g2vec_tpu import preprocess as jprep
 from g2vec_tpu.train.trainer import train_cbow as jax_train
 from g2vec_tpu_torch.config import G2VecConfig
@@ -47,10 +56,8 @@ ARGS = dict(lenPath=20, numRepetition=3, sizeHiddenlayer=16, epoch=30,
 SUFFIXES = ("biomarkers", "lgroups", "vectors")
 
 
-def _jax_composition(files, result_name, init, centers0):
-    """Stages 1-7 from the JAX package's stage functions, with the
-    injected CBOW init and k-means starting centres; returns the training
-    result, the written files and stage 3's packed rows and labels."""
+def _jax_inputs(files):
+    """Stages 1-2 from the JAX package's stage functions."""
     data = jreaders.load_expression(files["expression"])
     data.label = jprep.match_labels(jreaders.load_clinical(files["clinical"]),
                                     data.sample)
@@ -59,7 +66,15 @@ def _jax_composition(files, result_name, init, centers0):
     network = jprep.restrict_network(network, common)
     data = jprep.restrict_data(data, common)
     src, dst = jprep.edges_to_indices(network, jprep.make_gene2idx(data.gene))
-    n_genes = len(common)
+    return data, src, dst
+
+
+def _jax_composition(files, result_name, init, centers0):
+    """Stages 1-7 from the JAX package's stage functions, with the
+    injected CBOW init and k-means starting centres; returns the training
+    result, the written files and stage 3's packed rows and labels."""
+    data, src, dst = _jax_inputs(files)
+    n_genes = len(data.gene)
 
     sets = []
     for i in range(2):
@@ -76,8 +91,15 @@ def _jax_composition(files, result_name, init, centers0):
                         hidden=ARGS["sizeHiddenlayer"], learning_rate=0.005,
                         max_epochs=ARGS["epoch"], compute_dtype="float32",
                         seed=ARGS["seed"], warm_start=init)
-    emb = jnp.asarray(trained.w_ih)
+    return trained, _jax_stages_5_to_7(data, trained.w_ih, gene_freq,
+                                       centers0, result_name), (paths, labels)
 
+
+def _jax_stages_5_to_7(data, w_ih, gene_freq, centers0, result_name):
+    """Stages 5-7 from the JAX package's stage functions on a trained
+    embedding, with the injected k-means starting centres; returns the
+    written files."""
+    emb = jnp.asarray(w_ih)
     c_all, inertia = jax.vmap(lambda c: jkmeans._lloyd(emb, c, 300))(
         jnp.asarray(centers0))
     best = c_all[int(jnp.argmin(inertia))]
@@ -93,11 +115,11 @@ def _jax_composition(files, result_name, init, centers0):
         0.5))
     biomarkers, _ = janalysis.top_biomarkers(scores2, lgroup, data.gene,
                                              ARGS["numBiomarker"])
-    return trained, [
+    return [
         jwriters.write_biomarkers(result_name, biomarkers),
         jwriters.write_lgroups(result_name, lgroup, data.gene),
-        jwriters.write_vectors(result_name, trained.w_ih, data.gene),
-    ], (paths, labels)
+        jwriters.write_vectors(result_name, w_ih, data.gene),
+    ]
 
 
 @pytest.fixture(scope="module")
@@ -128,7 +150,8 @@ def both_runs(tmp_path_factory):
     result = run(cfg, console=lines.append, init=init,
                  kmeans_centers0=centers0)
     return dict(files=files, tmp=tmp, trained=trained, jax_files=jax_files,
-                jax_rows=jax_rows, result=result, lines=lines)
+                jax_rows=jax_rows, result=result, lines=lines,
+                centers0=centers0)
 
 
 def test_synthetic_tsvs_are_byte_identical_to_jax(both_runs, tmp_path):
@@ -204,3 +227,63 @@ def test_transcript_counts_match_jax_pipeline(both_runs, tmp_path):
     stages = [ln for ln in both_runs["lines"] if ln.startswith(">>> ")]
     assert stages == [ln for ln in jax_lines if ln.startswith(">>> ")]
     assert all(os.path.exists(p) for p in both_runs["result"].output_files)
+
+
+STREAM_ARGS = dict(ARGS, train_mode="streaming", shard_paths=24,
+                   stream_patience=4)
+
+
+@pytest.fixture(scope="module")
+def streaming_runs(both_runs):
+    files, tmp = both_runs["files"], both_runs["tmp"]
+    data, src, dst = _jax_inputs(files)
+    n_genes, hidden = len(data.gene), ARGS["sizeHiddenlayer"]
+    groups = [tuple(np.asarray(a) for a in jgraph.thresholded_edges(
+        data.expr[data.label == i], src, dst, 0.5)) for i in range(2)]
+    ref = jax_stream(groups=groups, n_genes=n_genes, genes=data.gene,
+                     hidden=hidden, learning_rate=0.005,
+                     max_epochs=ARGS["epoch"], compute_dtype="float32",
+                     seed=ARGS["seed"], walk_seed=ARGS["seed"],
+                     len_path=ARGS["lenPath"], reps=ARGS["numRepetition"],
+                     shard_paths=STREAM_ARGS["shard_paths"],
+                     patience=STREAM_ARGS["stream_patience"],
+                     use_pallas=False, console=lambda s: None)
+    p = jax_init_params(jax.random.key(ARGS["seed"]), n_genes, hidden)
+    centers0 = both_runs["centers0"]
+    jax_files = _jax_stages_5_to_7(data, ref.train.w_ih, ref.gene_freq,
+                                   centers0, str(tmp / "jax_stream"))
+    cfg = G2VecConfig(expression_file=files["expression"],
+                      clinical_file=files["clinical"],
+                      network_file=files["network"],
+                      result_name=str(tmp / "port_stream"),
+                      compute_dtype="float32", device="cpu", **STREAM_ARGS)
+    result = run(cfg, console=lambda s: None,
+                 init=(np.asarray(p.w_ih), np.asarray(p.w_ho)),
+                 kmeans_centers0=centers0)
+    return dict(ref=ref, jax_files=jax_files, result=result)
+
+
+def test_streaming_training_matches_the_jax_composition(streaming_runs):
+    ref, result = streaming_runs["ref"], streaming_runs["result"]
+    assert len(ref.train.history) >= 3
+    assert result.n_paths == ref.n_paths
+    assert result.n_path_genes == len(ref.gene_freq)
+    assert result.stop_epoch == ref.train.stop_epoch
+    assert [(h["acc_val"], h["acc_tr"]) for h in result.train_history] == \
+        [(h["acc_val"], h["acc_tr"]) for h in ref.train.history]
+    np.testing.assert_allclose(result.embeddings, ref.train.w_ih, rtol=1e-5,
+                               atol=1e-7)
+    assert result.paths is None
+    assert result.stream_stats["n_paths"] == ref.n_paths
+
+
+@pytest.mark.parametrize("suffix", ["biomarkers", "lgroups"])
+def test_streaming_selection_files_are_byte_equal(streaming_runs, suffix):
+    port = streaming_runs["result"].output_files[SUFFIXES.index(suffix)]
+    ref = streaming_runs["jax_files"][SUFFIXES.index(suffix)]
+    with open(port, "rb") as a, open(ref, "rb") as b:
+        got, want = a.read(), b.read()
+    assert got == want
+    if suffix == "lgroups":
+        groups = {line.split("\t")[1] for line in got.decode().splitlines()[1:]}
+        assert groups == {"0", "1", "2"}

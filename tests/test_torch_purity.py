@@ -3,8 +3,9 @@
 - By AST: no module of g2vec_tpu_torch/, and not chip_smoke.py, imports
   jax, jaxlib, optax or g2vec_tpu.
 - At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
-  cpu``) runs a tiny spec end to end in a fresh interpreter, after which
-  neither jax nor any g2vec_tpu module is in ``sys.modules``.
+  cpu``, full-batch and ``--train-mode streaming``) runs a tiny spec end
+  to end in a fresh interpreter, after which neither jax nor any
+  g2vec_tpu module is in ``sys.modules``.
 - Without ``--device cpu`` on a machine with no card, the entry points
   raise instead of running on the CPU.
 """
@@ -62,7 +63,7 @@ files = write_synthetic_tsv(SyntheticSpec(
 sys.argv = ["g2vec_tpu_torch", files["expression"], files["clinical"],
             files["network"], out_dir + "/tiny", "-p", "10", "-r", "3",
             "-s", "8", "-e", "4", "-n", "5", "--kmeans-iters", "20",
-            "--device", "cpu"]
+            "--device", "cpu", *sys.argv[2:]]
 rc = None
 try:
     runpy.run_module("g2vec_tpu_torch", run_name="__main__")
@@ -74,9 +75,10 @@ print(json.dumps({"rc": rc, "bad": bad}))
 """
 
 
-def test_cli_runs_without_jax_in_sys_modules(tmp_path):
+def _run_cli(tmp_path, *extra):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT, str(tmp_path)],
+    proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT, str(tmp_path),
+                           *extra],
                           capture_output=True, text=True, env=env,
                           timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -86,6 +88,22 @@ def test_cli_runs_without_jax_in_sys_modules(tmp_path):
     assert report == {"rc": 0, "bad": []}
     for suffix in ("biomarkers", "lgroups", "vectors"):
         assert (tmp_path / f"tiny_{suffix}.txt").exists()
+    return lines
+
+
+def test_cli_runs_without_jax_in_sys_modules(tmp_path):
+    _run_cli(tmp_path)
+
+
+def test_streaming_cli_runs_without_jax_in_sys_modules(tmp_path):
+    """The streaming trainer, the overlap scheduler, the native reader and
+    the metrics stream are all on this run's path."""
+    lines = _run_cli(tmp_path, "--train-mode", "streaming", "--shard-paths",
+                     "16", "--metrics-jsonl", str(tmp_path / "m.jsonl"))
+    assert any("(streamed, " in line for line in lines)
+    events = [json.loads(line)["event"]
+              for line in open(tmp_path / "m.jsonl")]
+    assert "stream" in events and events[-1] == "done"
 
 
 @pytest.fixture
@@ -101,12 +119,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
     from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
                                                 write_synthetic_tsv)
     from g2vec_tpu_torch.ops.graph import edge_weights
+    from g2vec_tpu_torch.train.stream import train_cbow_streaming
     from g2vec_tpu_torch.train.trainer import train_cbow
 
     files = write_synthetic_tsv(SyntheticSpec(seed=1), str(tmp_path))
-    with pytest.raises(RuntimeError, match="--device cpu"):
-        main([files["expression"], files["clinical"], files["network"],
-              str(tmp_path / "out")])
+    for mode in ("full", "streaming"):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main([files["expression"], files["clinical"], files["network"],
+                  str(tmp_path / "out"), "--train-mode", mode])
     assert not list(tmp_path.glob("out_*"))
     paths = np.packbits(np.eye(4, 16, dtype=bool), axis=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -115,3 +135,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         edge_weights(np.ones((3, 4), np.float32), np.array([0]),
                      np.array([1]))
+    edges = (np.array([0]), np.array([1]), np.array([0.9], np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cbow_streaming(groups=[edges, edges], n_genes=16, genes=[],
+                             hidden=4, learning_rate=0.01, max_epochs=1,
+                             len_path=3, reps=1)
