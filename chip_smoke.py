@@ -38,7 +38,22 @@ update and its k-means cuts the genes into near-equal thirds, which the
 streaming run's L-groups do not follow: the overlap there is printed, not
 held); and holds both kernels against their plain versions and times
 them at the streaming launch shapes (the widest shard's train rows, the
-full eval buffer).
+full eval buffer). Phase 7 holds the device walker's kernel
+(``csrc/device_walker.cu``) against its plain version on the card and the
+C++ walker, byte for byte: on both example groups over all their
+walkers, on every shard of the example's streaming plan, and on a ragged
+set (``len_path`` 1 and 2, a subset of the starts, a walker range not at
+0, a graph with duplicate edges, zero and negative weights and dead
+ends); times the kernel (CUDA events, median of 10 after an L2 flush),
+its plain version, the copy of its rows to the host and the C++ walker on
+the same inputs; runs the example in process with ``walker_backend=
+"device"`` (the counts read after it are the kernel line's launches) and
+through the CLI with and without ``--walker-backend device`` in turns,
+three each, all writing phase 3's bytes; runs the CLI three times with
+one ``--cache-dir`` (the second run and a ``--walker-backend device`` run
+hit both groups' entries); and streams the example with the device walker
+and with ``--device-feed``, whose ``W_ih`` must be phase 6's bytes, with
+no shard through the ring under the feed.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -56,6 +71,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -305,18 +321,21 @@ def _check_metrics(path, result) -> None:
                            f"differ from the run's")
 
 
-def _cli_runs(files, tmp, epoch):
+def _cli_runs(files, tmp, epoch, flag_sets=None, tag="cli"):
     """The solo run through the CLI, each in a fresh interpreter (so each
-    pays the process's first CUDA use), in turns: defaults (overlap, the
-    native reader) and --no-overlap three times each, then --no-overlap
-    --no-native-io. Returns [(flags, stage seconds, overlap_saved_s, stage
-    extras, output bytes)]."""
+    pays the process's first CUDA use), once per entry of ``flag_sets``;
+    by default in turns: defaults (overlap, the native reader) and
+    --no-overlap three times each, then --no-overlap --no-native-io.
+    Returns [(flags, stage seconds, overlap_saved_s, stage extras, output
+    bytes, the metrics stream's done record)]."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
+    if flag_sets is None:
+        flag_sets = (([], ["--no-overlap"]) * 3
+                     + (["--no-overlap", "--no-native-io"],))
     runs = []
-    for i, flags in enumerate(([], ["--no-overlap"]) * 3
-                              + (["--no-overlap", "--no-native-io"],)):
-        out = os.path.join(tmp, f"cli{i}")
+    for i, flags in enumerate(flag_sets):
+        out = os.path.join(tmp, f"{tag}{i}")
         metrics = out + ".jsonl"
         proc = subprocess.run(
             [sys.executable, "-m", "g2vec_tpu_torch", files["expression"],
@@ -335,7 +354,7 @@ def _cli_runs(files, tmp, epoch):
             with open(path, "rb") as f:
                 outputs.append(f.read())
         runs.append((flags, done["stage_seconds"], done["overlap_saved_s"],
-                     done["stage_extras"], outputs))
+                     done["stage_extras"], outputs, done))
     return runs
 
 
@@ -351,25 +370,32 @@ def _lgroup_sizes(result):
     return np.bincount(result.lgroup_idx, minlength=3).tolist()
 
 
+def _stage3_csr(cfg):
+    """The run's stage-3 walk inputs as the pipeline makes them on cuda:
+    ``(n_genes, [host CSR of group g, of group p])``."""
+    from g2vec_tpu_torch.ops.graph import thresholded_edges
+    from g2vec_tpu_torch.ops.host_walker import edges_to_csr
+    from g2vec_tpu_torch.pipeline import preprocess_inputs, read_inputs
+
+    data, src, dst = preprocess_inputs(*read_inputs(cfg))
+    g = data.expr.shape[1]
+    return g, [edges_to_csr(*thresholded_edges(
+        data.expr[data.label == i], src, dst, threshold=cfg.pcc_threshold,
+        device="cuda"), g) for i in range(2)]
+
+
 def _stream_shapes(torch, cfg):
     """The streaming trainer's launch shapes on this input, built by its
     own helpers as it builds them: the train rows of the shard that keeps
     the most (each row padded once to the kernels' 4-byte stride), every
     kept shard's train row count, and the full val buffer of
     EVAL_ROWS_CAP rows gathered from the shards in order."""
-    from g2vec_tpu_torch.ops.graph import thresholded_edges
-    from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
-                                                 walk_shard)
-    from g2vec_tpu_torch.pipeline import preprocess_inputs, read_inputs
+    from g2vec_tpu_torch.ops.host_walker import plan_shards, walk_shard
     from g2vec_tpu_torch.train.stream import (EVAL_ROWS_CAP, _filter_rows,
                                               _shard_split)
     from g2vec_tpu_torch.train.trainer import _fused_rows
 
-    data, src, dst = preprocess_inputs(*read_inputs(cfg))
-    g = data.expr.shape[1]
-    csr = [edges_to_csr(*thresholded_edges(
-        data.expr[data.label == i], src, dst, threshold=cfg.pcc_threshold,
-        device="cuda"), g) for i in range(2)]
+    g, csr = _stage3_csr(cfg)
     plan = plan_shards(g, cfg.numRepetition, cfg.shard_paths,
                        len_path=cfg.lenPath)
     seed = cfg.seed if cfg.train_seed is None else cfg.train_seed
@@ -498,6 +524,270 @@ def _at_reference_genes(torch, pm, n_all, n_tr, h, gen, flush):
           f"alone {_spread(pad)}")
 
 
+def _walk_args(torch, csr_dev, starts, ids, len_path, seed):
+    """The walker wrapper's arguments for these walkers, on the card."""
+    s_t = torch.from_numpy(np.ascontiguousarray(starts, np.int32)).cuda()
+    i_t = torch.from_numpy(np.ascontiguousarray(ids, np.uint64)
+                           .view(np.int64)).cuda()
+    return (csr_dev.indptr, csr_dev.indices, csr_dev.weights, s_t, i_t,
+            len_path, seed, csr_dev.n_genes)
+
+
+def _hold_walks(torch, dw, name, csr, csr_dev, starts, ids, len_path, seed,
+                plain=True):
+    """The kernel's rows against the C++ walker's and, with ``plain``, the
+    plain version's on the card, byte for byte; returns the kernel's
+    arguments."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+
+    args = _walk_args(torch, csr_dev, starts, ids, len_path, seed)
+    got = dw.device_walk(*args).cpu().numpy()
+    want = {"C++": walk_paths_packed(*csr, csr_dev.n_genes, starts, ids,
+                                     len_path, seed)}
+    if plain:
+        want["plain"] = dw.device_walk_plain(*args).cpu().numpy()
+    for who, rows in want.items():
+        if got.shape != rows.shape or got.tobytes() != rows.tobytes():
+            raise RuntimeError(f"device_walk {name}: the kernel's rows "
+                               f"differ from the {who} walker's")
+    return args
+
+
+def _ragged_walks(torch, dw):
+    """The kernel against the C++ walker and its plain version on a graph
+    with duplicate edges, zero and negative weights and dead ends, at
+    ``len_path`` 1, 2 and 80, on a subset of the starts and on a walker
+    range that does not begin at 0."""
+    from g2vec_tpu_torch.ops.host_walker import edges_to_csr
+
+    rng = np.random.default_rng(12)
+    g, e = 1003, 2400
+    src = rng.integers(0, g, e).astype(np.int32)
+    dst = rng.integers(0, g, e).astype(np.int32)
+    w = rng.random(e, dtype=np.float32)
+    dup = rng.integers(0, e, 300)
+    src, dst, w = (np.concatenate([a, a[dup]]) for a in (src, dst, w))
+    w[rng.random(w.shape[0]) < 0.1] = 0.0
+    w[rng.random(w.shape[0]) < 0.05] *= -1.0
+    dead = rng.random(g) < 0.2
+    keep = ~dead[src]
+    csr = edges_to_csr(src[keep], dst[keep], w[keep], g)
+    csr_dev = dw.upload_csr(csr, g, "cuda")
+    reps = 3
+    all_starts = np.tile(np.arange(g, dtype=np.int32), reps)
+    all_ids = np.arange(g * reps, dtype=np.uint64)
+    subset = np.sort(rng.choice(g, 300, replace=False)).astype(np.int32)
+    cases = [("len_path 1", all_starts, all_ids, 1),
+             ("len_path 2", all_starts, all_ids, 2),
+             ("len_path 80", all_starts, all_ids, 80),
+             ("300 starts", np.tile(subset, reps),
+              np.arange(300 * reps, dtype=np.uint64), 80),
+             ("walkers [517, 2900)", all_starts[517:2900],
+              all_ids[517:2900], 80)]
+    for name, starts, ids, length in cases:
+        _hold_walks(torch, dw, f"ragged {name}", csr, csr_dev, starts, ids,
+                    length, 0xC0FFEE)
+    print(f"    ragged: G {g} (rows of {(g + 7) // 8} bytes), "
+          f"{int(keep.sum())} edges with 300 duplicates, zero and negative "
+          f"weights, {int(dead.sum())} dead ends: "
+          + ", ".join(c[0] for c in cases)
+          + ": kernel = plain = C++, byte for byte")
+
+
+def _walk_bytes(torch, dw, args) -> int:
+    """The bytes a walk must move on these inputs: each walker's start and
+    stream id read, each step's indptr pair and CSR entries (index and
+    weight) of the row it scans, and the packed rows written, counted on
+    the paths the plain version walks."""
+    indptr = args[0].cpu().numpy()
+    paths = dw.walk_paths_plain(*args[:-1]).cpu().numpy()
+    length = (paths >= 0).sum(axis=1)
+    # A walk scans its last gene's row too, unless it stopped at len_path.
+    scanned = np.arange(paths.shape[1])[None, :] < np.where(
+        length == paths.shape[1], length - 1, length)[:, None]
+    deg = np.diff(indptr)[np.where(scanned, paths, 0)]
+    n, nbytes = paths.shape[0], (args[-1] + 7) // 8
+    return int(n * 12 + (scanned * (8 + 8 * deg)).sum() + n * nbytes)
+
+
+def _time_walks(torch, dw, csr, args, flush):
+    """The kernel, its plain version and the D2H of its rows by CUDA
+    events (median of 10 after an L2 flush) and the C++ walker on the
+    same inputs by the host clock (median of 5)."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+
+    starts, ids = args[3].cpu().numpy(), args[4].cpu().numpy().view(
+        np.uint64)
+    rec = {}
+    for key, fn in (("ms", lambda: dw.device_walk(*args)),
+                    ("plain_ms", lambda: dw.device_walk_plain(*args))):
+        rec[key], lo, hi = _time_ms(fn, flush)
+        rec[key + "_spread"] = [lo, hi]
+    rows = dw.device_walk(*args)
+    rec["d2h_ms"], lo, hi = _time_ms(lambda: rows.cpu(), flush)
+    rec["d2h_ms_spread"] = [lo, hi]
+    cpp = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        walk_paths_packed(*csr, args[-1], starts, ids, args[5], args[6])
+        cpp.append((time.perf_counter() - t0) * 1e3)
+    cpp.sort()
+    rec["cpp_ms"], rec["cpp_ms_spread"] = cpp[2], [cpp[0], cpp[-1]]
+    nbytes = _walk_bytes(torch, dw, args)
+    rec.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bound_bytes=nbytes)
+    return rec
+
+
+def _outputs(result):
+    out = []
+    for path in result.output_files:
+        with open(path, "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
+                         stream):
+    """Phase 7. Returns the kernel line's ``device_walk`` record."""
+    from g2vec_tpu_torch.ops.host_walker import plan_shards
+
+    g, csrs = _stage3_csr(cfg)
+    reps, length = cfg.numRepetition, cfg.lenPath
+    csr_dev = [dw.upload_csr(c, g, "cuda") for c in csrs]
+    n = g * reps
+    starts = np.tile(np.arange(g, dtype=np.int32), reps)
+    ids = np.arange(n, dtype=np.uint64)
+    args = [_hold_walks(torch, dw, f"group {name}", csrs[gi], csr_dev[gi],
+                        starts, ids, length, (cfg.seed << 1) | gi)
+            for gi, name in enumerate("gp")]
+    degs = [np.diff(c[0]) for c in csrs]
+    print(f"    both groups ({len(csrs[0][1])} and {len(csrs[1][1])} edges "
+          f"over {g} genes, out-degree at most {max(int(d.max()) for d in degs)}), "
+          f"{n} walkers each at len_path {length}: kernel = plain = C++, "
+          f"byte for byte")
+    plan = plan_shards(g, reps, s_cfg.shard_paths, len_path=length)
+    for si in range(plan.n_shards):
+        sh_starts, sh_ids = dw._shard_init(plan, si)
+        for gi in (0, 1):
+            _hold_walks(torch, dw, f"shard {si} group {gi}", csrs[gi],
+                        csr_dev[gi], sh_starts, sh_ids, length,
+                        (s_cfg.seed << 1) | gi)
+    print(f"    the {plan.n_shards} shards of the streaming plan, both "
+          f"groups ({plan.group_rows(0)} walkers a group in a full shard): "
+          f"kernel = plain = C++, byte for byte")
+    _ragged_walks(torch, dw)
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    timed = [_time_walks(torch, dw, csrs[gi], args[gi], flush)
+             for gi in (0, 1)]
+    del flush
+    for name, rec in zip("gp", timed):
+        print(f"    group {name}: kernel {_spread((rec['ms'], *rec['ms_spread']))}"
+              f", bound {rec['bound_ms']:.4f} ms ({rec['bound_bytes']} bytes), "
+              f"plain on the card "
+              f"{_spread((rec['plain_ms'], *rec['plain_ms_spread']))}, the "
+              f"rows to the host {_spread((rec['d2h_ms'], *rec['d2h_ms_spread']))}"
+              f", the C++ walker (all {os.cpu_count()} host threads, host "
+              f"clock, median of 5) "
+              f"{_spread((rec['cpp_ms'], *rec['cpp_ms_spread']))}")
+
+    # The main path with the device backend, in process: the counts read
+    # just after it are its launches.
+    d_cfg = _config(files, tmp, "cuda", epoch=30, walker_backend="device")
+    d_cfg.result_name += "_device"
+    dw.reset_launch_counts()
+    pm.reset_launch_counts()
+    d_res, _ = _run_pipeline(d_cfg)
+    launches = dw.device_walk.launches
+    if launches != 2 or d_res.walker_backend != "device":
+        raise RuntimeError(f"the device-backend run launched the walker "
+                           f"{launches} times ({d_res.walker_backend})")
+    if _outputs(d_res) != main_outputs:
+        raise RuntimeError("--walker-backend device wrote other files than "
+                           "[3]'s run")
+    print(f"    in process, --walker-backend device: {launches} walker "
+          f"launches, files byte-identical to [3]'s; stage seconds "
+          + json.dumps({k: round(v, 3) for k, v in d_res.stage_seconds.items()})
+          + "; paths spans " + json.dumps(
+              {k: round(v, 3) for k, v in
+               d_res.stage_extras["paths"]["span_s"].items()}))
+
+    for flags, secs, _, extras, outputs, _ in _cli_runs(
+            files, tmp, 30, ([], ["--walker-backend", "device"]) * 3,
+            tag="cli_walker"):
+        if outputs != main_outputs:
+            raise RuntimeError(f"CLI {flags}: output files differ from [3]'s")
+        print(f"    CLI {' '.join(flags) or '(defaults)'}: stage seconds "
+              + json.dumps({k: round(v, 3) for k, v in secs.items()})
+              + f" (total {sum(secs.values()):.3f}); paths spans "
+              + json.dumps({k: round(v, 3) for k, v in
+                            extras["paths"]["span_s"].items()}))
+    print("    the three files of the six CLI runs are byte-identical to "
+          "[3]'s")
+
+    cache = os.path.join(tmp, "walk_cache")
+    hits = []
+    for flags, secs, _, _, outputs, done in _cli_runs(
+            files, tmp, 30, (["--cache-dir", cache], ["--cache-dir", cache],
+                             ["--cache-dir", cache, "--walker-backend",
+                              "device"]), tag="cli_cache"):
+        if outputs != main_outputs:
+            raise RuntimeError(f"CLI {flags}: output files differ from [3]'s")
+        hits.append(done["walk_cache_hits"])
+        print(f"    CLI {' '.join(flags)}: walk cache hits "
+              f"{done['walk_cache_hits']}, backend {done['walker_backend']}, "
+              f"paths {secs['paths']:.3f} s")
+    if hits != [[], ["g", "p"], ["g", "p"]]:
+        raise RuntimeError(f"the walk cache's hits were {hits}")
+    print("    the second run and the device-backend run hit both groups' "
+          "entries of the first, and all three wrote [3]'s bytes")
+
+    stream_launches = {}
+    for label, over in (("device", dict(walker_backend="device")),
+                        ("device_feed", dict(walker_backend="device",
+                                             device_feed=True))):
+        c = _config(files, tmp, "cuda", epoch=30, train_mode="streaming",
+                    **over)
+        c.result_name += f"_stream_{label}"
+        dw.reset_launch_counts()
+        pm.reset_launch_counts()
+        r, _ = _run_pipeline(c)
+        stream_launches[label] = dw.device_walk.launches
+        st = r.stream_stats
+        print(f"    streaming, {label}: walker launches "
+              f"{stream_launches[label]}, stage seconds " + json.dumps(
+                  {k: round(v, 3) for k, v in r.stage_seconds.items()})
+              + f"; feed {st['feed_mode']}, shards through the ring "
+              f"{st['shards_emitted']}, bytes kept off host-to-card "
+              f"{st['h2d_bytes_saved']}, sampling wall "
+              f"{st['sampling_wall_s']} s (native [6]: "
+              f"{stream.stream_stats['sampling_wall_s']} s)")
+        if r.embeddings.tobytes() != stream.embeddings.tobytes():
+            raise RuntimeError(f"streaming {label}: W_ih differs from [6]'s")
+        if stream_launches[label] != 2 * st["n_shards"]:
+            raise RuntimeError(f"streaming {label}: the walker launched "
+                               f"{stream_launches[label]} times for "
+                               f"{st['n_shards']} shards")
+        if label == "device_feed" and (st["shards_emitted"] != 0
+                                       or st["h2d_bytes_saved"] <= 0):
+            raise RuntimeError(f"the device feed's stats: {st}")
+    print("    W_ih of both is byte-identical to [6]'s native streaming run")
+
+    rec = timed[0]
+    return {
+        "name": "device_walk", "route": "cuda",
+        "source": "g2vec_tpu_torch/csrc/device_walker.cu",
+        "replaces": dw.REPLACES, "launches": launches, "max_abs_err": 0.0,
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None, "cpp_ms": rec["cpp_ms"], "d2h_ms": rec["d2h_ms"],
+        "shape": f"{n} walkers, len_path {length}, G {g} (group g)",
+        "group_p": {k: timed[1][k] for k in
+                    ("ms", "plain_ms", "bound_ms", "cpp_ms", "d2h_ms")},
+        "streaming": stream_launches}
+
+
 def _config(files, out_dir, device, **overrides):
     from g2vec_tpu_torch.config import G2VecConfig
 
@@ -558,6 +848,7 @@ def main() -> int:
     from g2vec_tpu_torch.data.synthetic import (SCALES, SyntheticSpec,
                                                 write_synthetic_tsv)
     from g2vec_tpu_torch.native.walker_bindings import build_walker
+    from g2vec_tpu_torch.ops import device_walker as dw
     from g2vec_tpu_torch.ops import packed_matmul as pm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -567,15 +858,21 @@ def main() -> int:
     print(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    (so, log), secs = _timed(pm.build_kernels)
-    _, walker_secs = _timed(build_walker)
-    print(f"[2] kernels built in {secs:.1f} s ({so}); walker built in "
+    # One build a source, all started together.
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(_timed, fn) for fn in
+                  (pm.build_kernels, dw.build_walk_kernel, build_walker)]
+        ((so, log), secs), ((walk_so, walk_log), walk_secs), \
+            (_, walker_secs) = [f.result() for f in builds]
+    print(f"[2] built at once: kernels in {secs:.1f} s ({so}), the walker "
+          f"kernel in {walk_secs:.1f} s ({walk_so}), the C++ walker in "
           f"{walker_secs:.1f} s")
     kernel = "?"
-    for line in log.splitlines():
+    for line in (log + walk_log).splitlines():
         if "Compiling entry function" in line:
             kernel = next((w for w in ("pm_fwd_kernel", "pm_bwd_kernel",
-                                       "pm_bwd_sum_kernel") if w in line),
+                                       "pm_bwd_sum_kernel",
+                                       "g2v_walk_kernel") if w in line),
                           line.split("'")[1] if "'" in line else "?")
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
@@ -615,7 +912,8 @@ def main() -> int:
         for path in result.output_files[1:]:
             with open(path, "rb") as f:
                 main_outputs.append(f.read())
-        for flags, secs, saved, extras, outputs in _cli_runs(files, tmp, 30):
+        for flags, secs, saved, extras, outputs, _ in _cli_runs(files, tmp,
+                                                                30):
             spans = {stage: {k: round(v, 3) for k, v in e["span_s"].items()}
                      for stage, e in extras.items() if "span_s" in e}
             print(f"    CLI {' '.join(flags) or '(defaults)'}: stage seconds "
@@ -819,6 +1117,13 @@ def main() -> int:
             names=("packed_matmul_fwd",))["packed_matmul_fwd"]
         del flush
 
+        print("[7] the device walker: the kernel against its plain version "
+              "and the C++ walker, byte for byte; timed at the example; "
+              "the CLI, streaming, the device feed and the walk cache with "
+              "it")
+        walk_rec = _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp,
+                                        main_outputs, stream)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -834,6 +1139,7 @@ def main() -> int:
             "source": "g2vec_tpu_torch/csrc/packed_matmul.cu",
             "replaces": pm.REPLACES[name], "launches": launches[name],
             **{k: rec[k] for k in keys}, "streaming": streaming})
+    kernels.append(walk_rec)
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

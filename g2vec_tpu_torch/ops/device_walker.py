@@ -1,0 +1,487 @@
+"""Stage-3 walks on the card, bit-exact with the C++ sampler.
+
+The port of ``g2vec_tpu/ops/device_walker.py``. The walk (ref:
+G2Vec.py:328-346) and its splitmix64 streams are those of
+``native/walker.cpp``: the same CSR bytes, walk parameters and seed give
+byte-identical packed rows from either sampler, so goldens and walk-cache
+entries (``cache.NATIVE_FAMILY``) are shared between the backends.
+
+:func:`device_walk` is the kernel's wrapper. It dispatches on the device
+of the tensors it is given: a CUDA tensor launches the hand-written kernel
+of ``csrc/device_walker.cu`` (one thread per walker, built with nvcc for
+sm_90a at first use, bound with ctypes, launched on torch's current
+stream) or raises; a CPU tensor takes :func:`device_walk_plain`, the
+reference's lock-step walk in torch. There is no fallback from one to the
+other. It counts its kernel launches in ``.launches``.
+
+The plain version (the reference's ``run``, :195-275): every walker
+advances one step per trip; a step gathers each walker's CSR row at a
+static width of degree slots padded to a power of two, masks the visited
+targets by path replay and the weights that are not > 0, accumulates the
+row's float64 mass in an explicit loop over the slots (left to right, as
+the C++ sampler sums; ``torch.cumsum`` promises no order), draws, and
+picks the first eligible slot whose running sum exceeds the target. The
+splitmix64 state is carried as two 32-bit halves in int64 tensors (torch
+has no uint64 shifts), with 16-bit limb products, so every op is exact.
+The rows are packed by a bit scatter at the end.
+
+The entry points mirror the reference's signatures and byte contracts:
+:func:`walk_packed_rows_device`, :func:`walk_shard_device_arrays` (the
+packed shard stays on the card), :func:`walk_shard_device` and
+:func:`generate_path_set_device`. Each uploads a group's CSR once
+(:func:`upload_csr`; a :class:`DeviceCSR` passed as ``csr`` is reused) and
+brings the rows to the host in one copy. Walker ``i`` of the flat (rep x
+start) axis draws from the stream keyed by ``(seed, i)``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import NamedTuple, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from g2vec_tpu_torch.device import resolve_device
+from g2vec_tpu_torch.native._build import build, load
+from g2vec_tpu_torch.ops.host_walker import ShardPlan, edges_to_csr
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                   "csrc", "device_walker.cu")
+
+#: The device computation this kernel replaces (file:line of the reference's
+#: jitted step scan; its bit packer ``_get_pack_fn`` is at :278).
+REPLACES = "g2vec_tpu/ops/device_walker.py:186"
+
+# The splitmix64 constants (Steele et al.; native/walker.cpp uses the same).
+GOLDEN = 0x9E3779B97F4A7C15
+MIX1 = 0xBF58476D1CE4E5B9
+MIX2 = 0x94D049BB133111EB
+_MASK64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
+
+
+def nvcc_command() -> list:
+    """The packed-matmul kernels' nvcc command with ``-fmad=false``: the
+    walk's float64 sums and draw must not be contracted, or a row could
+    differ from the C++ sampler's."""
+    from g2vec_tpu_torch.ops.packed_matmul import nvcc_command as base
+
+    return [*base(), "-fmad=false"]
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.g2v_walk_device.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
+                                    ctypes.c_int32, ctypes.c_uint64, ptr,
+                                    i64, ptr]
+    lib.g2v_walk_device.restype = ctypes.c_int
+
+
+def build_walk_kernel():
+    """Compile the kernel now; returns ``(library path, nvcc output)``."""
+    return build(SRC, nvcc_command())
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return load(SRC, nvcc_command(), _configure)
+
+
+# ---------------------------------------------------------------------------
+# The stream, in numpy (the reference's helpers, :72-105).
+# ---------------------------------------------------------------------------
+
+def splitmix64_ref(state: int) -> Tuple[int, int]:
+    """One splitmix64 draw in pure Python: (new_state, output word), as
+    native/walker.cpp's ``splitmix64(uint64_t&)``."""
+    state = (state + GOLDEN) & _MASK64
+    z = state
+    z = ((z ^ (z >> 30)) * MIX1) & _MASK64
+    z = ((z ^ (z >> 27)) * MIX2) & _MASK64
+    return state, z ^ (z >> 31)
+
+
+def uniform01_ref(state: int) -> Tuple[int, float]:
+    """One uniform01 draw in pure Python: (new_state, u in [0, 1))."""
+    state, z = splitmix64_ref(state)
+    return state, float(z >> 11) * (2.0 ** -53)
+
+
+def init_walk_state_np(seed: int, stream_ids: np.ndarray) -> np.ndarray:
+    """A walker's first state: ``seed ^ (stream_id * GOLDEN)`` advanced by
+    one discarded splitmix64 draw (the state advance only)."""
+    sid = np.ascontiguousarray(stream_ids, dtype=np.uint64)
+    seed64 = np.uint64(seed & _MASK64)
+    with np.errstate(over="ignore"):
+        st = (seed64 ^ (sid * np.uint64(GOLDEN))) + np.uint64(GOLDEN)
+    return st
+
+
+# ---------------------------------------------------------------------------
+# The stream, in torch: uint64 values as (hi, lo) 32-bit halves held in
+# int64 tensors. No op overflows int64: products are of 16-bit limbs.
+# ---------------------------------------------------------------------------
+
+def _mul32_lo(a, b):
+    """(a * b) mod 2^32 for a, b in [0, 2^32)."""
+    a0, a1 = a & 0xFFFF, a >> 16
+    b0, b1 = b & 0xFFFF, b >> 16
+    return (a0 * b0 + ((a0 * b1 + a1 * b0) << 16)) & _M32
+
+
+def _mul32_wide(a, b):
+    """a * b for a, b in [0, 2^32) as its (hi, lo) halves."""
+    a0, a1 = a & 0xFFFF, a >> 16
+    b0, b1 = b & 0xFFFF, b >> 16
+    mid = a0 * b1 + a1 * b0
+    lo = a0 * b0 + ((mid & 0xFFFF) << 16)
+    return a1 * b1 + (mid >> 16) + (lo >> 32), lo & _M32
+
+
+def _u64_mul(xh, xl, y: int):
+    """The low 64 bits of (xh, xl) * y, y a Python int."""
+    yh, yl = y >> 32, y & _M32
+    hi, lo = _mul32_wide(xl, yl)
+    return (hi + _mul32_lo(xl, yh) + _mul32_lo(xh, yl)) & _M32, lo
+
+
+def _u64_add(xh, xl, y: int):
+    lo = xl + (y & _M32)
+    return (xh + (y >> 32) + (lo >> 32)) & _M32, lo & _M32
+
+
+def _xorshr(h, l, k: int):
+    """(h, l) ^= (h, l) >> k, for 0 < k < 32."""
+    return h ^ (h >> k), l ^ (((l >> k) | (h << (32 - k))) & _M32)
+
+
+def splitmix64_lanes(sh, sl):
+    """One splitmix64 draw on (hi, lo) halves: (state hi, state lo, word
+    hi, word lo)."""
+    sh, sl = _u64_add(sh, sl, GOLDEN)
+    zh, zl = _xorshr(sh, sl, 30)
+    zh, zl = _u64_mul(zh, zl, MIX1)
+    zh, zl = _xorshr(zh, zl, 27)
+    zh, zl = _u64_mul(zh, zl, MIX2)
+    zh, zl = _xorshr(zh, zl, 31)
+    return sh, sl, zh, zl
+
+
+def uniform01_lanes(zh, zl) -> torch.Tensor:
+    """``(word >> 11) * 2^-53`` as float64: the 53-bit integer is exact in
+    int64 and in float64, and the scaling is a power of two."""
+    return ((zh << 21) | (zl >> 11)).to(torch.float64) * 2.0 ** -53
+
+
+def init_state_lanes(seed: int, stream_ids: torch.Tensor):
+    """:func:`init_walk_state_np` on the halves of ``stream_ids`` (int64
+    tensors holding the uint64 bits)."""
+    seed &= _MASK64
+    sh, sl = _u64_mul((stream_ids >> 32) & _M32, stream_ids & _M32, GOLDEN)
+    return _u64_add(sh ^ (seed >> 32), sl ^ (seed & _M32), GOLDEN)
+
+
+# ---------------------------------------------------------------------------
+# The plain version: the reference's lock-step walk, in torch.
+# ---------------------------------------------------------------------------
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def walk_paths_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                     weights: torch.Tensor, starts: torch.Tensor,
+                     stream_ids: torch.Tensor, len_path: int,
+                     seed: int) -> torch.Tensor:
+    """Every walker's path -> [n, len_path] int64 gene ids in visit
+    order, -1 past its end."""
+    dev = indptr.device
+    n = starts.shape[0]
+    deg = indptr[1:] - indptr[:-1]
+    d_slots = _pow2(max(1, int(deg.max())) if deg.numel() else 1)
+    slots = torch.arange(d_slots, device=dev)
+    idx_pad = torch.cat([indices.long(),
+                         torch.zeros(d_slots, dtype=torch.int64, device=dev)])
+    w_pad = torch.cat([weights, torch.zeros(d_slots, dtype=weights.dtype,
+                                            device=dev)])
+    ptr = indptr.long()
+    sh, sl = init_state_lanes(seed, stream_ids)
+    cur = starts.long()
+    paths = torch.full((n, len_path), -1, dtype=torch.int64, device=dev)
+    paths[:, 0] = cur
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    for step in range(1, len_path):
+        off = ptr[cur]
+        cols = off[:, None] + slots
+        cand = idx_pad[cols]
+        wrow = w_pad[cols]
+        seen = (paths[:, :step, None] == cand[:, None, :]).any(dim=1)
+        elig = (slots < (ptr[cur + 1] - off)[:, None]) & ~seen & (wrow > 0.0)
+        mass = torch.where(elig, wrow.double(), 0.0)
+        total = torch.zeros(n, dtype=torch.float64, device=dev)
+        cum = []
+        for j in range(d_slots):
+            total = total + mass[:, j]
+            cum.append(total)
+        cum = torch.stack(cum, dim=1)
+        m = elig.sum(dim=1)
+        draw = live & (m > 0) & (total > 0.0)
+        nsh, nsl, zh, zl = splitmix64_lanes(sh, sl)
+        sh, sl = torch.where(draw, nsh, sh), torch.where(draw, nsl, sl)
+        target = uniform01_lanes(zh, zl) * total
+        # The first eligible slot with target < cum = the count of eligible
+        # slots with cum <= target; rounding may leave none: the last.
+        j = torch.minimum((elig & (cum <= target[:, None])).sum(dim=1),
+                          (m - 1).clamp(min=0))
+        sel = elig & ((elig.long().cumsum(dim=1) - 1) == j[:, None])
+        nxt = torch.where(sel, cand, 0).sum(dim=1)
+        paths[:, step] = torch.where(draw, nxt, -1)
+        cur = torch.where(draw, nxt, cur)
+        live = draw
+        if not bool(live.any()):
+            break
+    return paths
+
+
+_BITS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_paths(paths: torch.Tensor, n_genes: int) -> torch.Tensor:
+    """[n, L] gene ids (-1 pads) -> [n, ceil(G/8)] uint8 np.packbits rows,
+    by a bit scatter (a walk visits a gene once, so the adds are ors);
+    pads land in a dump column that is cut off."""
+    n, length = paths.shape
+    nbytes = (n_genes + 7) // 8
+    dev = paths.device
+    valid = paths >= 0
+    node = paths.clamp(min=0)
+    rows = torch.arange(n, device=dev)[:, None] * (nbytes + 1)
+    flat = rows + torch.where(valid, node >> 3, nbytes)
+    bits = torch.tensor(_BITS, dtype=torch.int32, device=dev)[node & 7]
+    out = torch.zeros(n * (nbytes + 1), dtype=torch.int32, device=dev)
+    out.index_add_(0, flat.reshape(-1),
+                   torch.where(valid, bits, 0).reshape(-1))
+    return out.view(n, nbytes + 1)[:, :nbytes].to(torch.uint8)
+
+
+def device_walk_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                      weights: torch.Tensor, starts: torch.Tensor,
+                      stream_ids: torch.Tensor, len_path: int, seed: int,
+                      n_genes: int) -> torch.Tensor:
+    return pack_paths(walk_paths_plain(indptr, indices, weights, starts,
+                                       stream_ids, len_path, seed), n_genes)
+
+
+# ---------------------------------------------------------------------------
+# The wrapper: CPU tensors -> plain version; CUDA tensors -> the kernel.
+# ---------------------------------------------------------------------------
+
+def _check(indptr, indices, weights, starts, stream_ids, len_path,
+           n_genes) -> None:
+    want = ((indptr, torch.int32, "indptr"), (indices, torch.int32, "indices"),
+            (weights, torch.float32, "weights"),
+            (starts, torch.int32, "starts"),
+            (stream_ids, torch.int64, "stream_ids"))
+    for t, dtype, name in want:
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.device != indptr.device:
+            raise ValueError(f"{name} on {t.device}, indptr on "
+                             f"{indptr.device}")
+    if indptr.shape[0] != n_genes + 1:
+        raise ValueError(f"indptr has {indptr.shape[0]} entries for "
+                         f"{n_genes} genes (want n_genes+1)")
+    if weights.shape != indices.shape:
+        raise ValueError(f"weights has {weights.shape[0]} entries for "
+                         f"{indices.shape[0]} edges")
+    if stream_ids.shape != starts.shape:
+        raise ValueError(f"stream_ids has {stream_ids.shape[0]} entries for "
+                         f"{starts.shape[0]} walkers")
+    if len_path < 1:
+        raise ValueError(f"len_path must be >= 1, got {len_path}")
+
+
+def device_walk(indptr: torch.Tensor, indices: torch.Tensor,
+                weights: torch.Tensor, starts: torch.Tensor,
+                stream_ids: torch.Tensor, len_path: int, seed: int,
+                n_genes: int) -> torch.Tensor:
+    """One walk per entry of ``starts`` -> [n, ceil(n_genes/8)] uint8
+    packed rows on the tensors' device. ``stream_ids`` holds each walker's
+    uint64 stream id as int64 bits. The CSR must be valid and ``starts``
+    and ``indices`` in [0, n_genes): :func:`upload_csr` and the entry
+    points check them on the host before the upload."""
+    _check(indptr, indices, weights, starts, stream_ids, len_path, n_genes)
+    seed &= _MASK64
+    if indptr.device.type == "cpu":
+        return device_walk_plain(indptr, indices, weights, starts,
+                                 stream_ids, len_path, seed, n_genes)
+    if indptr.device.type != "cuda":
+        raise ValueError(f"no kernel for device {indptr.device}")
+    from g2vec_tpu_torch.ops.packed_matmul import _launch
+
+    nbytes = (n_genes + 7) // 8
+    n = starts.shape[0]
+    out = torch.zeros((n, nbytes), dtype=torch.uint8, device=indptr.device)
+    if n:
+        _launch(_lib().g2v_walk_device, indptr, indices, weights, starts,
+                stream_ids, n, len_path, seed, out, nbytes)
+        device_walk.launches += 1
+    return out
+
+
+device_walk.launches = 0
+
+
+def reset_launch_counts() -> None:
+    device_walk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The entry points (numpy in, numpy out, the CSR uploaded once per group).
+# ---------------------------------------------------------------------------
+
+class DeviceCSR(NamedTuple):
+    """A group's CSR on the walk device."""
+
+    indptr: torch.Tensor     # [G+1] int32
+    indices: torch.Tensor    # [E] int32
+    weights: torch.Tensor    # [E] float32
+    n_genes: int
+
+
+def upload_csr(csr, n_genes: int, device="cuda") -> DeviceCSR:
+    """Check a host CSR (:func:`~g2vec_tpu_torch.ops.host_walker.
+    edges_to_csr`) as the C++ binding does, and copy it to ``device``."""
+    dev = resolve_device(device)
+    indptr = np.ascontiguousarray(csr[0], dtype=np.int32)
+    indices = np.ascontiguousarray(csr[1], dtype=np.int32)
+    weights = np.ascontiguousarray(csr[2], dtype=np.float32)
+    if indptr.shape[0] != n_genes + 1:
+        raise ValueError(f"indptr has {indptr.shape[0]} entries for "
+                         f"{n_genes} genes (want n_genes+1)")
+    if weights.shape[0] != indices.shape[0]:
+        raise ValueError(f"weights has {weights.shape[0]} entries for "
+                         f"{indices.shape[0]} edges")
+    if indices.size and (indices.min() < 0 or indices.max() >= n_genes):
+        raise ValueError(f"indices contains node ids outside [0, {n_genes})")
+    if indptr[0] != 0 or indptr[-1] != indices.shape[0] \
+            or np.any(np.diff(indptr) < 0):
+        raise ValueError("indptr is not a valid CSR row-pointer array")
+    return DeviceCSR(*(torch.from_numpy(a).to(dev)
+                       for a in (indptr, indices, weights)), n_genes)
+
+
+def _group_csr(src, dst, w, n_genes: int, csr, device) -> DeviceCSR:
+    if isinstance(csr, DeviceCSR):
+        if csr.n_genes != n_genes:
+            raise ValueError(f"csr holds {csr.n_genes} genes, not {n_genes}")
+        return csr
+    if csr is None:
+        src, dst = np.asarray(src), np.asarray(dst)
+        for name, arr in (("src", src), ("dst", dst)):
+            if arr.size and (arr.min() < 0 or arr.max() >= n_genes):
+                raise ValueError(
+                    f"{name} contains node ids outside [0, {n_genes})")
+        csr = edges_to_csr(src, dst, np.asarray(w), n_genes)
+    return upload_csr(csr, n_genes, device)
+
+
+def _walk(csr: DeviceCSR, starts: np.ndarray, stream_ids: np.ndarray,
+          len_path: int, seed: int) -> torch.Tensor:
+    starts = np.ascontiguousarray(starts, dtype=np.int32)
+    if starts.size and (starts.min() < 0 or starts.max() >= csr.n_genes):
+        raise ValueError(
+            f"starts contains node ids outside [0, {csr.n_genes})")
+    dev = csr.indptr.device
+    ids = np.ascontiguousarray(stream_ids, dtype=np.uint64).view(np.int64)
+    return device_walk(csr.indptr, csr.indices, csr.weights,
+                       torch.from_numpy(starts).to(dev),
+                       torch.from_numpy(ids).to(dev), len_path, seed,
+                       csr.n_genes)
+
+
+def _shard_init(plan: ShardPlan, shard: int,
+                starts: Optional[np.ndarray] = None):
+    """Shard ``shard``'s walkers -> (start genes int32, stream ids uint64)
+    in ``walk_shard``'s order: rep-major, each walker keyed by its global
+    index on the flat (rep x start) axis."""
+    lo, hi = plan.start_range(shard)
+    sub = (np.arange(lo, hi, dtype=np.int32) if starts is None
+           else np.ascontiguousarray(starts[lo:hi], dtype=np.int32))
+    wids = (np.arange(plan.reps, dtype=np.uint64)[:, None]
+            * np.uint64(plan.n_starts)
+            + np.arange(lo, hi, dtype=np.uint64)[None, :]).ravel()
+    return np.tile(sub, plan.reps), wids
+
+
+def walk_shard_device_arrays(src, dst, w, n_genes: int, plan: ShardPlan,
+                             shard: int, *, seed: int, csr=None,
+                             starts: Optional[np.ndarray] = None,
+                             device="cuda") -> Tuple[torch.Tensor, int]:
+    """One group's rows of shard ``shard`` walked on ``device`` ->
+    ``(packed [rows, ceil(G/8)] uint8 on the device, rows)``, byte for
+    byte :func:`~g2vec_tpu_torch.ops.host_walker.walk_shard`'s. ``csr`` is
+    the group's host CSR or its :class:`DeviceCSR` (uploaded once per
+    run by the caller)."""
+    if starts is not None and len(starts) != plan.n_starts:
+        raise ValueError(
+            f"plan.n_starts ({plan.n_starts}) must match len(starts) "
+            f"({len(starts)})")
+    csr = _group_csr(src, dst, w, n_genes, csr, device)
+    start_col, wids = _shard_init(plan, shard, starts)
+    packed = _walk(csr, start_col, wids, plan.len_path, seed)
+    return packed, packed.shape[0]
+
+
+def walk_shard_device(src, dst, w, n_genes: int, plan: ShardPlan,
+                      shard: int, *, seed: int, n_threads: int = 0,
+                      csr=None, starts: Optional[np.ndarray] = None,
+                      device="cuda") -> np.ndarray:
+    """:func:`~g2vec_tpu_torch.ops.host_walker.walk_shard` on ``device``
+    (``n_threads`` is accepted for the same signature and ignored): the
+    same rows, byte for byte, in one device-to-host copy."""
+    packed, _ = walk_shard_device_arrays(src, dst, w, n_genes, plan, shard,
+                                         seed=seed, csr=csr, starts=starts,
+                                         device=device)
+    return packed.cpu().numpy()
+
+
+def walk_packed_rows_device(src, dst, w, n_genes: int, *, len_path: int,
+                            reps: int, seed: int,
+                            starts: Optional[np.ndarray] = None,
+                            walker_lo: int = 0,
+                            walker_hi: Optional[int] = None, csr=None,
+                            device="cuda") -> np.ndarray:
+    """Walks of the global walker range ``[walker_lo, walker_hi)`` of the
+    flat (rep x start) axis on ``device`` -> packed rows, byte-identical
+    to the C++ sampler's for the same walkers."""
+    if len_path < 1:
+        raise ValueError(f"len_path must be >= 1, got {len_path}")
+    starts = (np.arange(n_genes, dtype=np.int32) if starts is None
+              else np.asarray(starts, dtype=np.int32))
+    total = starts.shape[0] * reps
+    walker_hi = total if walker_hi is None else walker_hi
+    if not 0 <= walker_lo <= walker_hi <= total:
+        raise ValueError(
+            f"walker range [{walker_lo}, {walker_hi}) outside [0, {total}]")
+    csr = _group_csr(src, dst, w, n_genes, csr, device)
+    packed = _walk(csr, np.tile(starts, reps)[walker_lo:walker_hi],
+                   np.arange(walker_lo, walker_hi, dtype=np.uint64),
+                   len_path, seed)
+    return packed.cpu().numpy()
+
+
+def generate_path_set_device(src, dst, w, n_genes: int, *, len_path: int,
+                             reps: int, seed: int,
+                             starts: Optional[np.ndarray] = None, csr=None,
+                             device="cuda") -> Set[bytes]:
+    """All-sources x reps walks on ``device`` -> the set of packed rows:
+    :func:`~g2vec_tpu_torch.ops.host_walker.generate_path_set_native`'s
+    set, byte for byte."""
+    packed = walk_packed_rows_device(src, dst, w, n_genes, len_path=len_path,
+                                     reps=reps, seed=seed, starts=starts,
+                                     csr=csr, device=device)
+    return {row.tobytes() for row in packed}

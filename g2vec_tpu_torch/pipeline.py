@@ -6,8 +6,11 @@ the reference's console transcript (README.md:21-49) — the same lines as
 preprocessing counts, the epoch log cadence and the saved-file listing.
 Stages 3 (edge weights), 4 (trainer, on the packed Hopper kernels in
 bf16) and 5-6 (k-means, scores) run on ``cfg.device``; the walks run on
-the host's C++ sampler; the embedding stays on the device from the
-trainer through stage 6.
+the host's C++ sampler or, with ``--walker-backend device``, on the
+card's walker kernel (``ops/device_walker.py``; the same rows, byte for
+byte); the embedding stays on the device from the trainer through stage
+6. With ``--cache-dir`` each group's path set is looked up in the walk
+cache (``cache.py``) and stored there on a miss.
 
 ``cfg.train_mode == "streaming"`` merges stages 3 and 4 as the JAX
 package does (``g2vec_tpu/pipeline.py:400-597``): the sampler emits walk
@@ -62,6 +65,11 @@ class PipelineResult:
     overlap_saved_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     stream_stats: Dict = dataclasses.field(default_factory=dict)
     device: str = ""
+    walker_backend: str = ""     # the resolved stage-3 sampler, "native" or
+                                 # "device" (the config may say "auto")
+    sampler_threads: int = 0     # the C++ sampler's threads (0: device)
+    walk_cache_hits: List[str] = dataclasses.field(default_factory=list)
+                                 # groups whose walks the cache served
     paths: Optional[np.ndarray] = None   # [n_paths, ceil(G/8)] uint8 stage-3
                                          # rows (full-batch mode only)
     labels: Optional[np.ndarray] = None  # [n_paths] 0 good / 1 poor
@@ -123,11 +131,11 @@ def preprocess_inputs(data, clinical, network):
     return data, src, dst
 
 
-def _join_kernel_build(overlap) -> None:
-    """Wait for the background nvcc build of the kernel library (if one
-    was started), re-raising its error, before the first kernel launch."""
-    if overlap.has("build_kernels"):
-        overlap.result("build_kernels")
+def _join_kernel_build(overlap, name: str = "build_kernels") -> None:
+    """Wait for the background nvcc build ``name`` (if one was started),
+    re-raising its error, before the first launch of its kernels."""
+    if overlap.has(name):
+        overlap.result(name)
 
 
 def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
@@ -141,8 +149,13 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     """
     from g2vec_tpu_torch.analysis import (biomarker_scores, find_lgroups,
                                           freq_index, top_biomarkers)
+    from g2vec_tpu_torch.cache import (NATIVE_FAMILY, resolve_cache_tiers,
+                                       walk_cache_key)
     from g2vec_tpu_torch.io.writers import (write_biomarkers, write_lgroups,
                                             write_vectors)
+    from g2vec_tpu_torch.ops.backend import resolve_walker_backend
+    from g2vec_tpu_torch.ops.device_walker import (build_walk_kernel,
+                                                   generate_path_set_device)
     from g2vec_tpu_torch.ops.graph import thresholded_edges
     from g2vec_tpu_torch.ops.host_walker import (generate_path_set_native,
                                                  resolve_sampler_threads)
@@ -165,6 +178,11 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     overlap = OverlapScheduler(max_workers=2)
     train_seed = cfg.seed if cfg.train_seed is None else cfg.train_seed
     init_model = None if init is None else params_from_jax(*init)
+    walker_backend = resolve_walker_backend(cfg)
+    sampler_threads = (resolve_sampler_threads(cfg.sampler_threads)
+                       if walker_backend == "native" else 0)
+    walk_cache = resolve_cache_tiers(cfg.cache_dir, cfg.walk_cache)
+    walk_cache_hits: List[str] = []
     try:
         console(">>> 0. Arguments")
         console(str(cfg))
@@ -172,6 +190,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                                   for f in dataclasses.fields(cfg)})
         if cfg.overlap and on_card and cfg.compute_dtype == "bfloat16":
             overlap.submit("build_kernels", build_kernels)
+        if cfg.overlap and on_card and walker_backend == "device":
+            overlap.submit("build_walk_kernel", build_walk_kernel)
 
         def cuda_context():
             with timer.span("load", "cuda_context"):
@@ -197,9 +217,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
 
         console(">>> 3. Generate random paths from each group")
         console("    *** most time consuming step ***")
-        sampler_threads = resolve_sampler_threads(cfg.sampler_threads)
-        console(f"    [sampler] native C++ CSR sampler, "
-                f"{sampler_threads} host thread(s)")
+        if walker_backend == "native":
+            console(f"    [sampler] native C++ CSR sampler, "
+                    f"{sampler_threads} host thread(s)")
         reporter = _EpochReporter(console, cfg.display_step)
 
         def on_epoch(step, acc_val, acc_tr, secs):
@@ -222,6 +242,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     "stopping")
             with timer.stage("train"):
                 _join_kernel_build(overlap)
+                _join_kernel_build(overlap, "build_walk_kernel")
                 sres = train_cbow_streaming(
                     groups=group_edges, n_genes=n_genes, genes=data.gene,
                     hidden=cfg.sizeHiddenlayer,
@@ -235,6 +256,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     prefetch_depth=cfg.prefetch_depth,
                     patience=cfg.stream_patience,
                     sampler_threads=cfg.sampler_threads, overlap=overlap,
+                    walker_backend=walker_backend,
+                    device_feed=cfg.device_feed,
                     eval_rows_cap=(cfg.stream_eval_rows or EVAL_ROWS_CAP),
                     device=dev, init=init_model, on_epoch=on_epoch)
             result = sres.train
@@ -252,11 +275,19 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                        sres.stats.sampling_wall_s,
                        sres.stats.ring_occupancy_hw, cfg.prefetch_depth))
             metrics.emit("paths", n_paths=n_paths,
-                         n_path_genes=len(gene_freq), walker_backend="native",
-                         sampler_threads=sampler_threads)
+                         n_path_genes=len(gene_freq),
+                         walker_backend=walker_backend,
+                         sampler_threads=sampler_threads,
+                         walk_cache_hits=walk_cache_hits)
             metrics.emit("stream", **stream_stats)
+            if walker_backend == "device":
+                wall = sres.stats.sampling_wall_s
+                metrics.emit("device_walk",
+                             paths_per_s=(n_paths / wall if wall > 0 else 0.0),
+                             h2d_bytes_saved=sres.stats.h2d_bytes_saved,
+                             feed_mode=sres.stats.feed_mode)
             timer.annotate("paths", sampling_wall_s=sres.stats.sampling_wall_s,
-                           walker_backend="native",
+                           walker_backend=walker_backend,
                            sampler_threads=sampler_threads)
             timer.annotate("train", train_mode="streaming", **stream_stats)
         else:
@@ -267,14 +298,45 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                         s_k, d_k, w_k = thresholded_edges(
                             data.expr[data.label == i], src, dst,
                             threshold=cfg.pcc_threshold, device=dev)
+                    seed = (cfg.seed << 1) | i
+                    ckey = None
+                    if walk_cache is not None:
+                        # One family for both backends: their rows are
+                        # the same bytes (cache.NATIVE_FAMILY).
+                        ckey = walk_cache_key(
+                            s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
+                            reps=cfg.numRepetition, seed=seed,
+                            family=NATIVE_FAMILY)
+                        cached = walk_cache.load(ckey)
+                        if cached is not None:
+                            path_sets.append(cached)
+                            walk_cache_hits.append(group)
+                            console(f"    [cache] group {group!r}: verified "
+                                    f"walk artifact hit ({len(cached)} "
+                                    f"unique paths); walks skipped")
+                            metrics.emit("walk_cache", group=group,
+                                         outcome="hit", n_rows=len(cached))
+                            continue
+                        metrics.emit("walk_cache", group=group,
+                                     outcome="miss")
                     # On this thread: on a scheduler thread, with nothing
                     # left to overlap, the walks ran 3-4x slower on the
                     # card's host (PERF.md §6, PR 6).
                     with timer.span("paths", f"walk_{group}"):
-                        path_sets.append(generate_path_set_native(
-                            s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
-                            reps=cfg.numRepetition, seed=(cfg.seed << 1) | i,
-                            n_threads=sampler_threads))
+                        if walker_backend == "device":
+                            _join_kernel_build(overlap, "build_walk_kernel")
+                            path_sets.append(generate_path_set_device(
+                                s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
+                                reps=cfg.numRepetition, seed=seed,
+                                device=dev))
+                        else:
+                            path_sets.append(generate_path_set_native(
+                                s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
+                                reps=cfg.numRepetition, seed=seed,
+                                n_threads=sampler_threads))
+                    if ckey is not None:
+                        walk_cache.store(ckey, path_sets[i], n_genes,
+                                         meta={"group": group})
                 with timer.span("paths", "integrate"):
                     paths, labels = integrate_path_sets(
                         path_sets[0], path_sets[1], n_genes)
@@ -291,10 +353,13 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             console("    n_genes : %d\t(genes in good or poor random paths)"
                     % len(gene_freq))
             metrics.emit("paths", n_paths=n_paths,
-                         n_path_genes=len(gene_freq), walker_backend="native",
-                         sampler_threads=sampler_threads)
-            timer.annotate("paths", walker_backend="native",
-                           sampler_threads=sampler_threads)
+                         n_path_genes=len(gene_freq),
+                         walker_backend=walker_backend,
+                         sampler_threads=sampler_threads,
+                         walk_cache_hits=walk_cache_hits)
+            timer.annotate("paths", walker_backend=walker_backend,
+                           sampler_threads=sampler_threads,
+                           walk_cache_hits=list(walk_cache_hits))
             stream_stats = {}
 
             console(">>> 4. Compute distributed representations using "
@@ -355,9 +420,11 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     "stages: " + ", ".join(
                         f"{k}={v:.2f}s" for k, v in sorted(overlap_saved.items())))
         metrics.emit("done", outputs=outputs, stage_seconds=timer.as_dict(),
-                     stage_extras=timer.extras_dict(), walker_backend="native",
+                     stage_extras=timer.extras_dict(),
+                     walker_backend=walker_backend,
                      sampler_threads=sampler_threads,
-                     overlap_saved_s=overlap_saved)
+                     overlap_saved_s=overlap_saved,
+                     walk_cache_hits=walk_cache_hits)
 
         return PipelineResult(
             genes=data.gene, embeddings=result.w_ih, lgroup_idx=lgroup_idx,
@@ -367,7 +434,10 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             stop_epoch=result.stop_epoch, acc_val=result.acc_val,
             stage_seconds=timer.as_dict(), stage_extras=timer.extras_dict(),
             overlap_saved_s=overlap_saved, stream_stats=stream_stats,
-            device=str(dev), paths=paths, labels=labels)
+            device=str(dev), walker_backend=walker_backend,
+            sampler_threads=sampler_threads,
+            walk_cache_hits=list(walk_cache_hits), paths=paths,
+            labels=labels)
     finally:
         # Drain, never raise: the exception in flight (if any) is the one
         # the caller must see; a background failure either surfaced at a

@@ -2,9 +2,11 @@
 minibatch SGD on the card (``--train-mode streaming``).
 
 The port of ``g2vec_tpu/train/stream.py:train_cbow_streaming`` for one
-process and the native walker:
+process:
 
-- The C++ sampler emits fixed-size **walk shards**
+- The sampler (the C++ one, or with ``walker_backend="device"`` the
+  card's walker kernel on a CUDA stream of its own: the same bytes)
+  emits fixed-size **walk shards**
   (:class:`~g2vec_tpu_torch.ops.host_walker.ShardPlan`: each shard is the
   same start-gene range of both groups, all reps). Shard order is
   deterministic by shard index; a shard's rows are the same bytes at any
@@ -22,6 +24,14 @@ process and the native walker:
   bytes fail verification is re-walked once (determinism makes the retry
   exact), and the run raises :class:`SpoolIntegrityError` if even the
   re-walk mismatches.
+- With ``device_feed`` (``--device-feed``) epoch 0 has no producer and
+  no ring: each shard is walked on the card in the training loop, copied
+  to the host once for the byproducts (filter, split, eval buffers) and
+  for the spool, which one writer thread saves in the background
+  (drained before the replay and at teardown), and the step's train rows
+  are gathered from the resident shard into the layout the upload builds,
+  so no packed training byte crosses from host to card. The outputs are
+  the ring feed's, byte for byte.
 - The early stop reads held-out val accuracy at each epoch's end, on a
   bounded val buffer gathered from the shards' held-out rows in epoch 0,
   with ``patience`` epochs without a strict gain before it stops; the
@@ -43,8 +53,9 @@ trajectory is bitwise deterministic at any ``sampler_threads`` and any
 ``prefetch_depth``: host state advances in strict shard order and the
 kernels add in a fixed order.
 
-Not ported yet: checkpoint/resume and fault seams, the device walker and
-its fused device feed, and sharded (multi-rank) streaming.
+Not ported yet: checkpoint/resume and fault seams (with them the
+reference's retry of a failed device walk: here a kernel error raises),
+and sharded (multi-rank) streaming.
 """
 from __future__ import annotations
 
@@ -57,6 +68,7 @@ import threading
 import time
 import warnings
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -66,6 +78,9 @@ from g2vec_tpu_torch.device import resolve_device
 from g2vec_tpu_torch.models.cbow import (CBOW, accuracy_from_logits,
                                          init_params, masked_bce_loss,
                                          output_logits, torch_dtype)
+from g2vec_tpu_torch.ops.device_walker import (upload_csr,
+                                               walk_shard_device,
+                                               walk_shard_device_arrays)
 from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
                                              walk_shard)
 from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
@@ -273,6 +288,14 @@ class StreamStats:
     producer_blocked_s: float = 0.0
     rewalks: int = 0
     epochs: int = 0
+    feed_mode: str = "ring"          # "ring": shards cross the host ring and
+                                     # are uploaded a step at a time;
+                                     # "device": epoch 0 walks and trains
+                                     # on the card (device_feed)
+    h2d_bytes_saved: int = 0         # packed training bytes the device feed
+                                     # kept from crossing host to card
+    device_recomputes: int = 0       # device walks recomputed after a fault
+                                     # (0: the port has no fault seams yet)
 
     def as_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -330,6 +353,17 @@ def _filter_rows(x: np.ndarray, y: np.ndarray) -> np.ndarray:
 EVAL_ROWS_CAP = 4096
 
 
+class _Resident:
+    """A shard's train rows already on the training device (the device
+    feed): ``x`` in :class:`_Batch`'s padded layout, labels ``y``."""
+
+    def __init__(self, x: torch.Tensor, y: torch.Tensor):
+        self.x, self.y = x, y
+
+    def ready(self):
+        return self.x, self.y
+
+
 class _Batch:
     """A shard's train rows on the training device: packed rows ``x``
     (each padded to the kernels' row stride), labels ``y [n, 1]``, and on
@@ -375,6 +409,7 @@ def train_cbow_streaming(
         param_dtype: str = "float32", seed: int = 0, walk_seed: int = 0,
         shard_paths: int = 0, prefetch_depth: int = 2, patience: int = 5,
         sampler_threads: int = 0, overlap=None,
+        walker_backend: str = "native", device_feed: bool = False,
         eval_rows_cap: int = EVAL_ROWS_CAP, device="cuda",
         init: Optional[CBOW] = None,
         on_epoch: Optional[Callable[[int, float, float, float], None]] = None,
@@ -388,6 +423,9 @@ def train_cbow_streaming(
     :class:`~g2vec_tpu_torch.parallel.overlap.OverlapScheduler`: the
     producer runs on it under its drain contract (None: a thread of its
     own). ``seed`` is the split/init seed, ``walk_seed`` the walk seed.
+    ``walker_backend`` is "native" (the C++ sampler) or "device" (the
+    walker kernel on ``device``); ``device_feed`` fuses the device walks
+    into epoch 0 (module docstring).
     ``init`` replaces the seeded draw of the CBOW (the tests pass the JAX
     package's draw through :func:`g2vec_tpu_torch.weights.params_from_jax`).
     ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
@@ -401,6 +439,11 @@ def train_cbow_streaming(
         raise ValueError(f"patience must be >= 1, got {patience}")
     if eval_rows_cap < 1:
         raise ValueError(f"eval_rows_cap must be >= 1, got {eval_rows_cap}")
+    if walker_backend not in ("native", "device"):
+        raise ValueError(
+            f"walker_backend must be native|device, got {walker_backend!r}")
+    if device_feed and walker_backend != "device":
+        raise ValueError("device_feed requires walker_backend='device'")
 
     plan = plan_shards(n_genes, reps, shard_paths, len_path=len_path)
     n_shards = plan.n_shards
@@ -413,11 +456,29 @@ def train_cbow_streaming(
         _check_group_edges(s, d, n_genes)
         csr.append(edges_to_csr(s, d, w, n_genes))
 
+    # The device walker reads each group's CSR from the card, uploaded
+    # once; off the device feed it walks on a stream of its own, so that
+    # the producer thread's walks and copies wait for nothing the training
+    # loop queues.
+    csr_dev = ([upload_csr(c, n_genes, dev) for c in csr]
+               if walker_backend == "device" else None)
+    walk_stream = (torch.cuda.Stream(dev) if walker_backend == "device"
+                   and dev.type == "cuda" else None)
+
     def _walk_shard_rows(shard_index: int) -> np.ndarray:
-        return np.concatenate([
-            walk_shard(None, None, None, n_genes, plan, shard_index,
-                       seed=(walk_seed << 1) | gi, n_threads=sampler_threads,
-                       csr=csr[gi]) for gi in (0, 1)], axis=0)
+        if walker_backend == "native":
+            return np.concatenate([
+                walk_shard(None, None, None, n_genes, plan, shard_index,
+                           seed=(walk_seed << 1) | gi,
+                           n_threads=sampler_threads, csr=csr[gi])
+                for gi in (0, 1)], axis=0)
+        # Each group's copy to the host synchronizes the walk stream only.
+        with (torch.cuda.stream(walk_stream) if walk_stream is not None
+              else contextlib.nullcontext()):
+            return np.concatenate([
+                walk_shard_device(None, None, None, n_genes, plan,
+                                  shard_index, seed=(walk_seed << 1) | gi,
+                                  csr=csr_dev[gi]) for gi in (0, 1)], axis=0)
 
     def _shard_labels(shard_index: int) -> np.ndarray:
         n = plan.group_rows(shard_index)
@@ -427,6 +488,22 @@ def train_cbow_streaming(
     spool_dir = tempfile.mkdtemp(prefix="g2v-stream-")
     spool = ShardSpool(spool_dir)
     producer_wall = [0.0]
+
+    # Under the device feed one writer thread saves each shard while the
+    # step trains on its resident copy; _drain_spool joins the writes
+    # before the replay reads them and at teardown.
+    stats.feed_mode = "device" if device_feed else "ring"
+    spool_futs: Dict[int, object] = {}
+    spool_pool = (ThreadPoolExecutor(max_workers=1,
+                                     thread_name_prefix="g2v-spool")
+                  if device_feed else None)
+
+    def _spool_async(shard: Shard) -> None:
+        spool_futs[shard.index] = spool_pool.submit(spool.save, shard)
+
+    def _drain_spool() -> None:
+        for si in sorted(spool_futs):
+            spool_futs.pop(si).result()
 
     def _produce():
         t0 = time.perf_counter()
@@ -443,7 +520,9 @@ def train_cbow_streaming(
             producer_wall[0] = time.perf_counter() - t0
 
     remove_closer = producer_thread = None
-    if overlap is not None:
+    if device_feed:
+        pass                # the feed walks epoch 0 in the training loop
+    elif overlap is not None:
         remove_closer = overlap.add_closer(ring.cancel)
         overlap.submit("stream_shards", _produce)
     else:
@@ -561,6 +640,57 @@ def train_cbow_streaming(
         if pending is not None:
             yield pending
 
+    def _feed_x_device(packed_dev: torch.Tensor,
+                       row_idx: np.ndarray) -> torch.Tensor:
+        """The kept train rows gathered from the resident shard into the
+        layout :class:`_Batch` builds on the host: each row padded with
+        zero bytes to the kernels' 4-byte stride (a walk sets no bit past
+        n_genes, so the bytes are the same)."""
+        rows = packed_dev[torch.from_numpy(row_idx).to(dev)]
+        x = torch.zeros((rows.shape[0], padded_row_bytes(n_genes)),
+                        dtype=torch.uint8, device=dev)
+        x[:, :rows.shape[1]] = rows
+        stats.h2d_bytes_saved += x.numel()
+        return x
+
+    def _device_epoch0_feed():
+        """Epoch 0 under the device feed: each shard walked on the card,
+        copied to the host once for the byproducts and the background
+        spool write, its train rows consumed where they lie. The same
+        double buffer and deferred accumulation as :func:`_device_feed`,
+        and the same rows, filter, split and layout bytes."""
+        pending = None
+        for si in range(n_shards):
+            t_walk = time.perf_counter()
+            packed_dev = torch.cat([walk_shard_device_arrays(
+                None, None, None, n_genes, plan, si,
+                seed=(walk_seed << 1) | gi, csr=csr_dev[gi])[0]
+                for gi in (0, 1)])
+            rows_np = packed_dev.cpu().numpy()       # one copy a shard
+            producer_wall[0] += time.perf_counter() - t_walk
+            labels = _shard_labels(si)
+            _spool_async(Shard(si, rows_np, labels))
+            keep = _filter_rows(rows_np, labels)
+            if not len(keep):
+                continue             # every row was group-common noise
+            fx, fy = rows_np[keep], labels[keep]
+            tr_idx, vl_idx = _shard_split(fx.shape[0], seed, si,
+                                          val_fraction)
+
+            def acc_cb(fx=fx, fy=fy, tr=tr_idx, vl=vl_idx, k=len(keep)):
+                kept_rows[0] += k
+                _accumulate(fx, fy, tr, vl)
+
+            y = torch.from_numpy(fy[tr_idx].astype(np.float32)[:, None])
+            nxt = (acc_cb, _Resident(_feed_x_device(packed_dev,
+                                                    keep[tr_idx]),
+                                     y.to(dev)))
+            if pending is not None:
+                yield pending
+            pending = nxt
+        if pending is not None:
+            yield pending
+
     # ---- the epoch loop: patience early stop on held-out val accuracy ----
     history: List[dict] = []
     best_val, best_tr = -1.0, -1.0
@@ -575,8 +705,13 @@ def train_cbow_streaming(
         for epoch in range(max_epochs):
             t_epoch = time.perf_counter()
             losses: List[torch.Tensor] = []
-            feed = _device_feed(_epoch0_iter() if epoch == 0
-                                else _replay_iter(), epoch0=(epoch == 0))
+            if device_feed and epoch == 0:
+                feed = _device_epoch0_feed()
+            else:
+                if device_feed:
+                    _drain_spool()   # the replay reads the spool
+                feed = _device_feed(_epoch0_iter() if epoch == 0
+                                    else _replay_iter(), epoch0=(epoch == 0))
             for acc_cb, batch in feed:
                 if acc_cb is not None:
                     acc_cb()
@@ -622,6 +757,12 @@ def train_cbow_streaming(
                     break
     finally:
         ring.cancel()
+        if spool_pool is not None:
+            # A write error that matters failed the replay that drained
+            # it; an error in flight is the one the caller must see.
+            with contextlib.suppress(Exception):
+                _drain_spool()
+            spool_pool.shutdown(wait=True)
         if remove_closer is not None:
             remove_closer()
         if producer_thread is not None:

@@ -411,3 +411,74 @@ def test_bf16_shard_step_dw_matches_the_plain_backward(cuda):
     _assert_close(dw, pm.packed_matmul_bwd_plain(packed, g_out, n_genes),
                   x_dense.T @ g_out.bfloat16().float().abs())
     assert torch.equal(w16.grad, dw.to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# The device walker
+# ---------------------------------------------------------------------------
+
+def _walk_graph(n_genes, n_edges, seed):
+    """A graph with duplicate edges, zero and negative weights and dead
+    ends, as a host CSR."""
+    from g2vec_tpu_torch.ops.host_walker import edges_to_csr
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_genes, n_edges).astype(np.int32)
+    dst = rng.integers(0, n_genes, n_edges).astype(np.int32)
+    w = (rng.random(n_edges, dtype=np.float32)
+         * (10.0 ** rng.integers(-3, 4, n_edges)).astype(np.float32))
+    dup = rng.integers(0, n_edges, n_edges // 10)
+    src, dst, w = (np.concatenate([a, a[dup]]) for a in (src, dst, w))
+    w[rng.random(w.shape[0]) < 0.1] = 0.0
+    w[rng.random(w.shape[0]) < 0.05] *= -1.0
+    keep = ~(rng.random(n_genes) < 0.2)[src]
+    return edges_to_csr(src[keep], dst[keep], w[keep], n_genes)
+
+
+@pytest.mark.parametrize("n_genes,n_edges,len_path,reps,lo,hi", [
+    (1003, 2400, 1, 2, 0, None), (1003, 2400, 2, 2, 0, None),
+    (1003, 2400, 80, 3, 517, 2900), (37, 300, 9, 5, 0, None),
+    (5850, 13000, 80, 1, 0, None)])
+def test_walker_kernel_matches_plain_and_cpp(cuda, n_genes, n_edges,
+                                             len_path, reps, lo, hi):
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+    from g2vec_tpu_torch.ops import device_walker as dw
+
+    csr = _walk_graph(n_genes, n_edges, n_genes + len_path)
+    dev_csr = dw.upload_csr(csr, n_genes, cuda)
+    hi = n_genes * reps if hi is None else hi
+    starts = np.tile(np.arange(n_genes, dtype=np.int32), reps)[lo:hi]
+    ids = np.arange(lo, hi, dtype=np.uint64)
+    args = (dev_csr.indptr, dev_csr.indices, dev_csr.weights,
+            torch.from_numpy(starts).to(cuda),
+            torch.from_numpy(ids.view(np.int64)).to(cuda), len_path, 77,
+            n_genes)
+    got = dw.device_walk(*args).cpu().numpy()
+    torch.cuda.synchronize()
+    want = walk_paths_packed(*csr, n_genes, starts, ids, len_path, 77)
+    assert got.tobytes() == want.tobytes()
+    assert torch.equal(dw.device_walk_plain(*args).cpu(),
+                       torch.from_numpy(got))
+    packed = dw.walk_packed_rows_device(None, None, None, n_genes,
+                                        len_path=len_path, reps=reps,
+                                        seed=77, walker_lo=lo, walker_hi=hi,
+                                        csr=dev_csr, device=cuda)
+    assert packed.tobytes() == want.tobytes()
+
+
+def test_walker_counts_card_launches_only(cuda):
+    from g2vec_tpu_torch.ops import device_walker as dw
+
+    csr = _walk_graph(64, 300, 1)
+    dev_csr = dw.upload_csr(csr, 64, cuda)
+    dw.reset_launch_counts()
+    none = torch.empty(0, dtype=torch.int32, device=cuda)
+    out = dw.device_walk(dev_csr.indptr, dev_csr.indices, dev_csr.weights,
+                         none, none.long(), 5, 1, 64)
+    assert out.shape == (0, 8) and dw.device_walk.launches == 0
+    dw.walk_packed_rows_device(None, None, None, 64, len_path=5, reps=2,
+                               seed=1, csr=dev_csr, device=cuda)
+    assert dw.device_walk.launches == 1
+    dw.walk_packed_rows_device(None, None, None, 64, len_path=5, reps=2,
+                               seed=1, csr=csr, device="cpu")
+    assert dw.device_walk.launches == 1

@@ -151,7 +151,7 @@ def both_runs(tmp_path_factory):
                  kmeans_centers0=centers0)
     return dict(files=files, tmp=tmp, trained=trained, jax_files=jax_files,
                 jax_rows=jax_rows, result=result, lines=lines,
-                centers0=centers0)
+                centers0=centers0, init=init)
 
 
 def test_synthetic_tsvs_are_byte_identical_to_jax(both_runs, tmp_path):
@@ -231,6 +231,26 @@ def test_transcript_counts_match_jax_pipeline(both_runs, tmp_path):
 
 STREAM_ARGS = dict(ARGS, train_mode="streaming", shard_paths=24,
                    stream_patience=4)
+
+
+def test_device_walker_backend_writes_the_native_files(both_runs):
+    """``walker_backend="device"`` (the walker kernel's plain version on
+    the CPU) writes byte-identical files and the same stage-3 rows."""
+    native = both_runs["result"]
+    assert native.walker_backend == "native"
+    cfg = G2VecConfig(expression_file=both_runs["files"]["expression"],
+                      clinical_file=both_runs["files"]["clinical"],
+                      network_file=both_runs["files"]["network"],
+                      result_name=str(both_runs["tmp"] / "port_device"),
+                      compute_dtype="float32", device="cpu",
+                      walker_backend="device", **ARGS)
+    result = run(cfg, console=lambda s: None, init=both_runs["init"],
+                 kmeans_centers0=both_runs["centers0"])
+    assert result.walker_backend == "device" and result.sampler_threads == 0
+    np.testing.assert_array_equal(result.paths, native.paths)
+    for got, want in zip(result.output_files, native.output_files):
+        with open(got, "rb") as a, open(want, "rb") as b:
+            assert a.read() == b.read()
 
 
 @pytest.fixture(scope="module")

@@ -140,3 +140,28 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
         train_cbow_streaming(groups=[edges, edges], n_genes=16, genes=[],
                              hidden=4, learning_rate=0.01, max_epochs=1,
                              len_path=3, reps=1)
+
+
+@pytest.mark.parametrize("extra", [
+    ("--walker-backend", "device", "--cache-dir", "cache"),
+    ("--train-mode", "streaming", "--shard-paths", "16", "--walker-backend",
+     "device", "--device-feed")], ids=["device-walker", "device-feed"])
+def test_device_walker_cli_runs_without_jax_in_sys_modules(tmp_path, extra):
+    """The device walker, the walk cache and the device feed are on these
+    runs' paths (their plain versions, on the CPU)."""
+    lines = _run_cli(tmp_path, *extra)
+    assert not any("[sampler] native" in line for line in lines)
+
+
+def test_device_walker_refuses_to_fall_back_to_cpu(no_card):
+    import numpy as np
+
+    from g2vec_tpu_torch.ops import device_walker as dw
+    from g2vec_tpu_torch.ops.host_walker import plan_shards
+
+    edges = (np.array([0]), np.array([1]), np.array([0.9], np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dw.walk_packed_rows_device(*edges, 4, len_path=3, reps=1, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dw.walk_shard_device(*edges, 4, plan_shards(4, 1, 4, len_path=3), 0,
+                             seed=0)

@@ -348,3 +348,123 @@ def test_producer_failure_surfaces_and_leaves_no_thread(groups, monkeypatch):
     while threading.active_count() > before and time.time() < deadline:
         time.sleep(0.05)
     assert threading.active_count() <= before
+
+
+# ---------------------------------------------------------------------------
+# The device walker and the device feed
+# ---------------------------------------------------------------------------
+
+def _small_groups():
+    """tests/test_device_walker.py's streaming case: 40 genes, two groups
+    of 240 random edges."""
+    def grp(seed):
+        r = np.random.default_rng(seed)
+        return (r.integers(0, 40, 240).astype(np.int32),
+                r.integers(0, 40, 240).astype(np.int32),
+                r.random(240, dtype=np.float32))
+    return dict(groups=[grp(1), grp(2)], n_genes=40,
+                genes=np.array([f"g{i}" for i in range(40)]), hidden=8,
+                learning_rate=0.05, max_epochs=2, seed=3, walk_seed=5,
+                len_path=5, reps=2, shard_paths=48, compute_dtype="float32",
+                device="cpu")
+
+
+def test_device_feed_streaming_byte_identical_zero_ring_puts():
+    """The reference's device-feed contract on the port at float32: the
+    device backend and the fused feed give W_ih byte-identical to the
+    native ring feed; the feed makes no ring put and keeps the training
+    rows' bytes off the host-to-card path."""
+    kw = _small_groups()
+    ref = tstream.train_cbow_streaming(**kw)
+    dev = tstream.train_cbow_streaming(**kw, walker_backend="device")
+    fused = tstream.train_cbow_streaming(**kw, walker_backend="device",
+                                         device_feed=True)
+    ref_w = ref.train.w_ih.tobytes()
+    assert dev.train.w_ih.tobytes() == ref_w
+    assert fused.train.w_ih.tobytes() == ref_w
+    assert ref.gene_freq == dev.gene_freq == fused.gene_freq
+    assert ref.n_paths == dev.n_paths == fused.n_paths
+    assert _strip(fused.train.history) == _strip(ref.train.history)
+    assert ref.stats.feed_mode == dev.stats.feed_mode == "ring"
+    assert ref.stats.shards_emitted > 0
+    assert dev.stats.shards_emitted == ref.stats.shards_emitted
+    assert fused.stats.feed_mode == "device"
+    assert fused.stats.shards_emitted == 0
+    assert fused.stats.h2d_bytes_saved > 0
+    assert fused.stats.sampling_wall_s > 0
+    assert fused.stats.device_recomputes == 0
+    # The same contract on the reference's own trainer.
+    jref = jstream.train_cbow_streaming(
+        **{k: v for k, v in kw.items() if k != "device"})
+    assert jref.stats.shards_emitted == ref.stats.shards_emitted
+    assert jref.gene_freq == fused.gene_freq
+
+
+def test_device_feed_spool_replays_and_survives_corruption(groups,
+                                                           monkeypatch):
+    """Epochs 1..N replay what the feed's writer thread spooled; a
+    corrupted spooled shard is re-walked on the device walker and the
+    run's bytes are the unfaulted ring run's."""
+    clean = _port_run(groups, max_epochs=3, patience=3)
+    save = tstream.ShardSpool.save
+
+    def save_then_corrupt(self, shard):
+        path = save(self, shard)
+        if shard.index == 2:
+            with open(path, "r+b") as f:
+                f.seek(-1, 2)
+                byte = f.read(1)
+                f.seek(-1, 2)
+                f.write(bytes([byte[0] ^ 0xFF]))
+        return path
+
+    monkeypatch.setattr(tstream.ShardSpool, "save", save_then_corrupt)
+    with pytest.warns(RuntimeWarning, match="re-walking"):
+        fed = _port_run(groups, max_epochs=3, patience=3,
+                        walker_backend="device", device_feed=True)
+    assert fed.stats.rewalks >= 1 and fed.stats.shards_emitted == 0
+    assert _strip(fed.train.history) == _strip(clean.train.history)
+    assert fed.train.w_ih.tobytes() == clean.train.w_ih.tobytes()
+
+
+def test_streaming_config_errors():
+    """tests/test_stream.py's gates on the walker backend and the feed,
+    on the port's config and trainer."""
+    from g2vec_tpu_torch.config import G2VecConfig, config_from_args
+
+    def cfg(**over):
+        c = G2VecConfig(train_mode="streaming", **over)
+        c.validate()
+        return c
+
+    cfg(walker_backend="device")
+    cfg(walker_backend="device", device_feed=True)
+    with pytest.raises(ValueError, match="streaming"):
+        G2VecConfig(device_feed=True, walker_backend="device").validate()
+    with pytest.raises(ValueError, match="walker-backend device"):
+        cfg(device_feed=True)
+    with pytest.raises(ValueError, match="walker_backend"):
+        cfg(walker_backend="jax")
+    with pytest.raises(ValueError, match="walker_batch"):
+        cfg(walker_batch=-1)
+    with pytest.raises(ValueError, match="walker_hbm_budget"):
+        cfg(walker_hbm_budget=-1)
+    with pytest.raises(ValueError, match="shard_paths"):
+        cfg(shard_paths=2)
+    with pytest.raises(ValueError, match="prefetch_depth"):
+        cfg(prefetch_depth=0)
+    with pytest.raises(ValueError, match="stream_patience"):
+        cfg(stream_patience=0)
+    parsed = config_from_args(
+        ["e", "c", "n", "r", "--train-mode", "streaming", "--walker-backend",
+         "device", "--device-feed", "--walker-batch", "8",
+         "--walker-hbm-budget", "1024", "--cache-dir", "d",
+         "--no-walk-cache"])
+    assert (parsed.walker_backend, parsed.device_feed, parsed.walker_batch,
+            parsed.walker_hbm_budget, parsed.cache_dir,
+            parsed.walk_cache) == ("device", True, 8, 1024, "d", False)
+    kw = _small_groups()
+    with pytest.raises(ValueError, match="device_feed requires"):
+        tstream.train_cbow_streaming(**kw, device_feed=True)
+    with pytest.raises(ValueError, match="walker_backend must be"):
+        tstream.train_cbow_streaming(**kw, walker_backend="auto")
