@@ -47,13 +47,14 @@ set (``len_path`` 1 and 2, a subset of the starts, a walker range not at
 ends); times the kernel (CUDA events, median of 10 after an L2 flush),
 its plain version, the copy of its rows to the host and the C++ walker on
 the same inputs; runs the example in process with ``walker_backend=
-"device"`` (the counts read after it are the kernel line's launches) and
-through the CLI with and without ``--walker-backend device`` in turns,
-three each, all writing phase 3's bytes; runs the CLI three times with
-one ``--cache-dir`` (the second run and a ``--walker-backend device`` run
-hit both groups' entries); and streams the example with the device walker
-and with ``--device-feed``, whose ``W_ih`` must be phase 6's bytes, with
-no shard through the ring under the feed.
+"device"`` (the counts read after it are the kernel line's launches, and
+the packed kernels' counts must be phase 3's) and through the CLI with
+and without ``--walker-backend device`` in turns, three each, all writing
+phase 3's bytes; runs the CLI three times with one ``--cache-dir`` (the
+second run and a ``--walker-backend device`` run hit both groups'
+entries); and streams the example with the device walker, which trains
+epoch 0 where it walks: ``W_ih`` must be phase 6's bytes and the packed
+kernels' counts phase 6's, with no shard through the ring.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -537,7 +538,8 @@ def _hold_walks(torch, dw, name, csr, csr_dev, starts, ids, len_path, seed,
                 plain=True):
     """The kernel's rows against the C++ walker's and, with ``plain``, the
     plain version's on the card, byte for byte; returns the kernel's
-    arguments."""
+    arguments and the largest difference of a byte (0: it raises on
+    any)."""
     from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
 
     args = _walk_args(torch, csr_dev, starts, ids, len_path, seed)
@@ -546,18 +548,26 @@ def _hold_walks(torch, dw, name, csr, csr_dev, starts, ids, len_path, seed,
                                      len_path, seed)}
     if plain:
         want["plain"] = dw.device_walk_plain(*args).cpu().numpy()
+    err = 0
     for who, rows in want.items():
-        if got.shape != rows.shape or got.tobytes() != rows.tobytes():
+        if got.shape != rows.shape:
+            raise RuntimeError(f"device_walk {name}: the kernel's rows are "
+                               f"{got.shape}, the {who} walker's "
+                               f"{rows.shape}")
+        err = max(err, int(np.abs(got.astype(np.int16) - rows).max(
+            initial=0)))
+        if err:
             raise RuntimeError(f"device_walk {name}: the kernel's rows "
                                f"differ from the {who} walker's")
-    return args
+    return args, err
 
 
 def _ragged_walks(torch, dw):
     """The kernel against the C++ walker and its plain version on a graph
     with duplicate edges, zero and negative weights and dead ends, at
     ``len_path`` 1, 2 and 80, on a subset of the starts and on a walker
-    range that does not begin at 0."""
+    range that does not begin at 0. Returns the largest byte
+    difference."""
     from g2vec_tpu_torch.ops.host_walker import edges_to_csr
 
     rng = np.random.default_rng(12)
@@ -584,30 +594,27 @@ def _ragged_walks(torch, dw):
               np.arange(300 * reps, dtype=np.uint64), 80),
              ("walkers [517, 2900)", all_starts[517:2900],
               all_ids[517:2900], 80)]
+    err = 0
     for name, starts, ids, length in cases:
-        _hold_walks(torch, dw, f"ragged {name}", csr, csr_dev, starts, ids,
-                    length, 0xC0FFEE)
+        err = max(err, _hold_walks(torch, dw, f"ragged {name}", csr, csr_dev,
+                                   starts, ids, length, 0xC0FFEE)[1])
     print(f"    ragged: G {g} (rows of {(g + 7) // 8} bytes), "
           f"{int(keep.sum())} edges with 300 duplicates, zero and negative "
           f"weights, {int(dead.sum())} dead ends: "
           + ", ".join(c[0] for c in cases)
           + ": kernel = plain = C++, byte for byte")
+    return err
 
 
-def _walk_bytes(torch, dw, args) -> int:
-    """The bytes a walk must move on these inputs: each walker's start and
-    stream id read, each step's indptr pair and CSR entries (index and
-    weight) of the row it scans, and the packed rows written, counted on
-    the paths the plain version walks."""
-    indptr = args[0].cpu().numpy()
-    paths = dw.walk_paths_plain(*args[:-1]).cpu().numpy()
-    length = (paths >= 0).sum(axis=1)
-    # A walk scans its last gene's row too, unless it stopped at len_path.
-    scanned = np.arange(paths.shape[1])[None, :] < np.where(
-        length == paths.shape[1], length - 1, length)[:, None]
-    deg = np.diff(indptr)[np.where(scanned, paths, 0)]
-    n, nbytes = paths.shape[0], (args[-1] + 7) // 8
-    return int(n * 12 + (scanned * (8 + 8 * deg)).sum() + n * nbytes)
+def _walk_bytes(args) -> int:
+    """The bytes a walk must move through device memory on these inputs,
+    each once: the CSR (indptr, indices, weights), each walker's start
+    and stream id, and the packed rows written. A group's CSR is some
+    130 KB and stays in the 50 MB L2 for the whole launch, so the rows
+    the steps scan again and again are read from there."""
+    n, nbytes = args[3].shape[0], (args[-1] + 7) // 8
+    return int(sum(t.numel() * t.element_size() for t in args[:5])
+               + n * nbytes)
 
 
 def _time_walks(torch, dw, csr, args, flush):
@@ -633,7 +640,7 @@ def _time_walks(torch, dw, csr, args, flush):
         cpp.append((time.perf_counter() - t0) * 1e3)
     cpp.sort()
     rec["cpp_ms"], rec["cpp_ms_spread"] = cpp[2], [cpp[0], cpp[-1]]
-    nbytes = _walk_bytes(torch, dw, args)
+    nbytes = _walk_bytes(args)
     rec.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                bound_bytes=nbytes)
     return rec
@@ -648,8 +655,10 @@ def _outputs(result):
 
 
 def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
-                         stream):
-    """Phase 7. Returns the kernel line's ``device_walk`` record."""
+                         main_launches, stream, s_launches):
+    """Phase 7. Returns the kernel line's ``device_walk`` record.
+    ``main_launches`` and ``s_launches`` are the packed kernels' counts of
+    phase 3's and phase 6's runs, which the device-backend runs repeat."""
     from g2vec_tpu_torch.ops.host_walker import plan_shards
 
     g, csrs = _stage3_csr(cfg)
@@ -658,9 +667,11 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
     n = g * reps
     starts = np.tile(np.arange(g, dtype=np.int32), reps)
     ids = np.arange(n, dtype=np.uint64)
-    args = [_hold_walks(torch, dw, f"group {name}", csrs[gi], csr_dev[gi],
+    held = [_hold_walks(torch, dw, f"group {name}", csrs[gi], csr_dev[gi],
                         starts, ids, length, (cfg.seed << 1) | gi)
             for gi, name in enumerate("gp")]
+    args = [a for a, _ in held]
+    err = max(e for _, e in held)
     degs = [np.diff(c[0]) for c in csrs]
     print(f"    both groups ({len(csrs[0][1])} and {len(csrs[1][1])} edges "
           f"over {g} genes, out-degree at most {max(int(d.max()) for d in degs)}), "
@@ -670,13 +681,13 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
     for si in range(plan.n_shards):
         sh_starts, sh_ids = dw._shard_init(plan, si)
         for gi in (0, 1):
-            _hold_walks(torch, dw, f"shard {si} group {gi}", csrs[gi],
-                        csr_dev[gi], sh_starts, sh_ids, length,
-                        (s_cfg.seed << 1) | gi)
+            err = max(err, _hold_walks(
+                torch, dw, f"shard {si} group {gi}", csrs[gi], csr_dev[gi],
+                sh_starts, sh_ids, length, (s_cfg.seed << 1) | gi)[1])
     print(f"    the {plan.n_shards} shards of the streaming plan, both "
           f"groups ({plan.group_rows(0)} walkers a group in a full shard): "
           f"kernel = plain = C++, byte for byte")
-    _ragged_walks(torch, dw)
+    err = max(err, _ragged_walks(torch, dw))
 
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     timed = [_time_walks(torch, dw, csrs[gi], args[gi], flush)
@@ -703,11 +714,17 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
     if launches != 2 or d_res.walker_backend != "device":
         raise RuntimeError(f"the device-backend run launched the walker "
                            f"{launches} times ({d_res.walker_backend})")
+    d_launches = {"packed_matmul_fwd": pm.packed_matmul_fwd.launches,
+                  "packed_matmul_bwd": pm.packed_matmul_bwd.launches}
+    if d_launches != main_launches:
+        raise RuntimeError(f"the device-backend run launched {d_launches}, "
+                           f"[3]'s run {main_launches}")
     if _outputs(d_res) != main_outputs:
         raise RuntimeError("--walker-backend device wrote other files than "
                            "[3]'s run")
     print(f"    in process, --walker-backend device: {launches} walker "
-          f"launches, files byte-identical to [3]'s; stage seconds "
+          f"launches, {d_launches} as in [3], files byte-identical to "
+          f"[3]'s; stage seconds "
           + json.dumps({k: round(v, 3) for k, v in d_res.stage_seconds.items()})
           + "; paths spans " + json.dumps(
               {k: round(v, 3) for k, v in
@@ -743,49 +760,54 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
     print("    the second run and the device-backend run hit both groups' "
           "entries of the first, and all three wrote [3]'s bytes")
 
-    stream_launches = {}
-    for label, over in (("device", dict(walker_backend="device")),
-                        ("device_feed", dict(walker_backend="device",
-                                             device_feed=True))):
-        c = _config(files, tmp, "cuda", epoch=30, train_mode="streaming",
-                    **over)
-        c.result_name += f"_stream_{label}"
-        dw.reset_launch_counts()
-        pm.reset_launch_counts()
-        r, _ = _run_pipeline(c)
-        stream_launches[label] = dw.device_walk.launches
-        st = r.stream_stats
-        print(f"    streaming, {label}: walker launches "
-              f"{stream_launches[label]}, stage seconds " + json.dumps(
-                  {k: round(v, 3) for k, v in r.stage_seconds.items()})
-              + f"; feed {st['feed_mode']}, shards through the ring "
-              f"{st['shards_emitted']}, bytes kept off host-to-card "
-              f"{st['h2d_bytes_saved']}, sampling wall "
-              f"{st['sampling_wall_s']} s (native [6]: "
-              f"{stream.stream_stats['sampling_wall_s']} s)")
-        if r.embeddings.tobytes() != stream.embeddings.tobytes():
-            raise RuntimeError(f"streaming {label}: W_ih differs from [6]'s")
-        if stream_launches[label] != 2 * st["n_shards"]:
-            raise RuntimeError(f"streaming {label}: the walker launched "
-                               f"{stream_launches[label]} times for "
-                               f"{st['n_shards']} shards")
-        if label == "device_feed" and (st["shards_emitted"] != 0
-                                       or st["h2d_bytes_saved"] <= 0):
-            raise RuntimeError(f"the device feed's stats: {st}")
-    print("    W_ih of both is byte-identical to [6]'s native streaming run")
+    # Streaming with the device walker: epoch 0 walks each shard on the
+    # card and trains on it there (the fused feed).
+    c = _config(files, tmp, "cuda", epoch=30, train_mode="streaming",
+                walker_backend="device")
+    c.result_name += "_stream_device"
+    dw.reset_launch_counts()
+    pm.reset_launch_counts()
+    r, _ = _run_pipeline(c)
+    stream_walks = dw.device_walk.launches
+    r_launches = {"packed_matmul_fwd": pm.packed_matmul_fwd.launches,
+                  "packed_matmul_bwd": pm.packed_matmul_bwd.launches}
+    st = r.stream_stats
+    print(f"    streaming, --walker-backend device: walker launches "
+          f"{stream_walks}, {r_launches}, stage seconds " + json.dumps(
+              {k: round(v, 3) for k, v in r.stage_seconds.items()})
+          + f"; feed {st['feed_mode']}, shards through the ring "
+          f"{st['shards_emitted']}, bytes kept off host-to-card "
+          f"{st['h2d_bytes_saved']}, sampling wall "
+          f"{st['sampling_wall_s']} s (native [6]: "
+          f"{stream.stream_stats['sampling_wall_s']} s)")
+    if r.embeddings.tobytes() != stream.embeddings.tobytes():
+        raise RuntimeError("streaming, device walker: W_ih differs from "
+                           "[6]'s")
+    if stream_walks != 2 * st["n_shards"]:
+        raise RuntimeError(f"streaming, device walker: the walker launched "
+                           f"{stream_walks} times for {st['n_shards']} "
+                           f"shards")
+    if r_launches != s_launches:
+        raise RuntimeError(f"streaming, device walker: {r_launches}, [6]'s "
+                           f"run {s_launches}")
+    if (st["feed_mode"] != "device" or st["shards_emitted"] != 0
+            or st["h2d_bytes_saved"] <= 0):
+        raise RuntimeError(f"the device feed's stats: {st}")
+    print("    W_ih is byte-identical to [6]'s native streaming run, with "
+          "[6]'s launches of both packed kernels")
 
     rec = timed[0]
     return {
         "name": "device_walk", "route": "cuda",
         "source": "g2vec_tpu_torch/csrc/device_walker.cu",
-        "replaces": dw.REPLACES, "launches": launches, "max_abs_err": 0.0,
+        "replaces": dw.REPLACES, "launches": launches, "max_abs_err": err,
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": None, "cpp_ms": rec["cpp_ms"], "d2h_ms": rec["d2h_ms"],
         "shape": f"{n} walkers, len_path {length}, G {g} (group g)",
         "group_p": {k: timed[1][k] for k in
                     ("ms", "plain_ms", "bound_ms", "cpp_ms", "d2h_ms")},
-        "streaming": stream_launches}
+        "streaming": {"launches": stream_walks}}
 
 
 def _config(files, out_dir, device, **overrides):
@@ -1122,7 +1144,8 @@ def main() -> int:
               "the CLI, streaming, the device feed and the walk cache with "
               "it")
         walk_rec = _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp,
-                                        main_outputs, stream)
+                                        main_outputs, launches, stream,
+                                        s_launches)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

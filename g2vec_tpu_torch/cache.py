@@ -156,11 +156,9 @@ class WalkCache:
         return art
 
 
-def resolve_cache_tiers(cache_dir: Optional[str],
-                        walk_cache_enabled: bool = True
-                        ) -> Optional[WalkCache]:
+def resolve_cache_tiers(cache_dir: Optional[str]) -> Optional[WalkCache]:
     """The walk tier for a run's flags: ``DIR/walks`` under
-    ``--cache-dir DIR`` unless ``--no-walk-cache``; None without one."""
-    if cache_dir and walk_cache_enabled:
+    ``--cache-dir DIR``; None without one."""
+    if cache_dir:
         return WalkCache(os.path.join(cache_dir, "walks"))
     return None

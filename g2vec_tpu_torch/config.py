@@ -53,17 +53,16 @@ class G2VecConfig:
     compute_dtype: str = "bfloat16"  # bf16 runs the packed kernels; float32
                                      # runs the dense torch.matmul path
     param_dtype: str = "float32"
-    walker_batch: int = 0            # accepted and checked only: in the
-                                     # reference it sizes the legacy
-                                     # ops/walker.py, which no pipeline runs
-    walker_hbm_budget: int = 0       # the same (that walker's byte budget)
     walker_backend: str = "auto"     # "auto": the C++ sampler when it
                                      # builds, else the card's walker;
                                      # "native"/"device" pin one. Both walk
                                      # the same splitmix64 streams: rows,
                                      # outputs and walk-cache entries are
                                      # byte-identical
-                                     # (ops/device_walker.py)
+                                     # (ops/device_walker.py). Streaming
+                                     # on "device" walks epoch 0's shards
+                                     # in the training loop and trains on
+                                     # them where they lie (train/stream.py)
     sampler_threads: int = 0         # host threads of the C++ sampler
                                      # (0 = all cores; walks are identical
                                      # at any count)
@@ -83,13 +82,6 @@ class G2VecConfig:
     prefetch_depth: int = 2          # bounded shard-ring depth; the
                                      # producer blocks when this many
                                      # shards wait unconsumed
-    device_feed: bool = False        # streaming epoch 0 walks each shard
-                                     # on the card and trains on it there:
-                                     # no host ring, no upload of training
-                                     # rows (the spool is written in the
-                                     # background). Needs --train-mode
-                                     # streaming --walker-backend device;
-                                     # outputs byte-identical to the ring
     stream_patience: int = 5         # streaming early stop: epochs without
                                      # a strict val-ACC gain (1 = the
                                      # full-batch first-dip rule)
@@ -98,8 +90,6 @@ class G2VecConfig:
     metrics_jsonl: Optional[str] = None  # structured per-stage/epoch records
     cache_dir: Optional[str] = None  # walk cache root: stage-3 path sets
                                      # under <dir>/walks (cache.py)
-    walk_cache: bool = True          # the walk tier (only with cache_dir;
-                                     # --no-walk-cache turns it off)
     use_native_io: bool = True       # the C++ expression reader (falls
                                      # back to Python with a warning when
                                      # it cannot be built or loaded)
@@ -134,24 +124,10 @@ class G2VecConfig:
             raise ValueError(f"compute_dtype must be bfloat16|float32, got {self.compute_dtype}")
         if self.param_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"param_dtype must be bfloat16|float32, got {self.param_dtype}")
-        if self.walker_batch < 0:
-            raise ValueError(f"walker_batch must be >= 0, got {self.walker_batch}")
-        if self.walker_hbm_budget < 0:
-            raise ValueError(
-                f"walker_hbm_budget must be >= 0, got {self.walker_hbm_budget}")
         if self.walker_backend not in ("auto", "device", "native"):
             raise ValueError(
                 f"walker_backend must be auto|device|native, "
                 f"got {self.walker_backend}")
-        if self.device_feed:
-            if self.train_mode != "streaming":
-                raise ValueError(
-                    "--device-feed fuses device sampling into the "
-                    "STREAMING trainer; add --train-mode streaming")
-            if self.walker_backend != "device":
-                raise ValueError(
-                    "--device-feed samples shards on device; add "
-                    "--walker-backend device")
         if self.sampler_threads < 0:
             raise ValueError(
                 f"sampler_threads must be >= 0 (0 = all cores), "
@@ -230,11 +206,6 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["bfloat16", "float32"])
     parser.add_argument("--param-dtype", type=str, default="float32",
                         choices=["bfloat16", "float32"])
-    parser.add_argument("--walker-batch", type=int, default=0,
-                        help="Accepted for the reference's CLI and checked "
-                             "(>= 0); it sizes the reference's legacy "
-                             "ops/walker.py, which neither package's "
-                             "pipeline runs, and changes nothing here.")
     parser.add_argument("--walker-backend", type=str, default="auto",
                         choices=("auto", "device", "native"),
                         help="Path sampler. 'auto' (default): the threaded "
@@ -242,11 +213,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "else the card's walker kernel. "
                              "'device'/'native' pin one; both walk the same "
                              "splitmix64 streams, so their rows and outputs "
-                             "are byte-identical.")
-    parser.add_argument("--walker-hbm-budget", type=int, default=0,
-                        help="Accepted for the reference's CLI and checked "
-                             "(>= 0); the byte budget of the same legacy "
-                             "walker, unused here.")
+                             "are byte-identical. With --train-mode "
+                             "streaming, 'device' walks each shard of epoch "
+                             "0 on the card and trains on it there: no host "
+                             "ring, no upload of training rows.")
     parser.add_argument("--sampler-threads", type=int, default=0,
                         help="Host threads of the C++ walk sampler (0 = all "
                              "cores); walks are bit-identical at any count.")
@@ -266,14 +236,6 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Bounded shard-ring depth for --train-mode "
                              "streaming (default 2); the sampler blocks "
                              "when D shards wait unconsumed.")
-    parser.add_argument("--device-feed", action="store_true",
-                        help="Streaming epoch 0 walks each shard on the "
-                             "card and trains on it there: no host ring, "
-                             "no upload of training rows (the spool is "
-                             "written in the background for replay). "
-                             "Needs --train-mode streaming --walker-backend "
-                             "device. Outputs byte-identical to the ring "
-                             "feed.")
     parser.add_argument("--stream-patience", type=int, default=5,
                         metavar="K",
                         help="Streaming early stop: stop after K epochs "
@@ -293,9 +255,6 @@ def build_parser() -> argparse.ArgumentParser:
                              "sets under DIR/walks; a repeat run at the "
                              "same inputs and walk parameters skips the "
                              "walks.")
-    parser.add_argument("--no-walk-cache", action="store_true",
-                        help="Never read or write walk artifacts, even with "
-                             "--cache-dir.")
     parser.add_argument("--metrics-jsonl", type=str, default=None,
                         help="Write structured per-stage/per-epoch metrics "
                              "here.")
@@ -334,19 +293,15 @@ def config_from_args(argv=None) -> G2VecConfig:
         compat_lgroup_tiebreak=args.compat_lgroup_tiebreak,
         compute_dtype=args.compute_dtype,
         param_dtype=args.param_dtype,
-        walker_batch=args.walker_batch,
-        walker_hbm_budget=args.walker_hbm_budget,
         walker_backend=args.walker_backend,
         sampler_threads=args.sampler_threads,
         overlap=not args.no_overlap,
         train_mode=args.train_mode,
         shard_paths=args.shard_paths,
         prefetch_depth=args.prefetch_depth,
-        device_feed=args.device_feed,
         stream_patience=args.stream_patience,
         stream_eval_rows=args.stream_eval_rows,
         cache_dir=args.cache_dir,
-        walk_cache=not args.no_walk_cache,
         metrics_jsonl=args.metrics_jsonl,
         use_native_io=not args.no_native_io,
         device=args.device,

@@ -40,11 +40,13 @@
 // then the visited byte of each target: three round trips to L2 or memory in
 // a chain, twice over the row. On the example (5,850 genes, out-degree at
 // most 7, mean 2.2; 58,500 walkers of len_path 80 a group) a walk is 26 steps
-// on average and 80 at most, while all the bytes the walk must move (the
-// packed rows written, ~43 MB, and the CSR entries each step reads, ~40 MB)
-// take about 0.025 ms at 3.35 TB/s. 58,500 threads are 229 blocks of 256, all
-// resident at once on 132 SMs, so the launch lasts about as long as its
-// longest walk's chain of loads.
+// on average and 80 at most. The bytes the walk must move through device
+// memory, each once, are the packed rows written (42.8 MB), the starts and
+// stream ids (0.7 MB) and the CSR (126 KB, which stays in the 50 MB L2 while
+// the steps scan its rows again and again): about 0.013 ms at 3.35 TB/s, some
+// 39x under the kernel's 0.51 ms on an H100 SXM at 700 W (PERF.md section 6).
+// 58,500 threads are 229 blocks of 256, all resident at once on 132 SMs, so
+// the launch lasts about as long as its longest walk's chain of loads.
 
 #include <cstdint>
 

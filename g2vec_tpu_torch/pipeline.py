@@ -181,7 +181,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     walker_backend = resolve_walker_backend(cfg)
     sampler_threads = (resolve_sampler_threads(cfg.sampler_threads)
                        if walker_backend == "native" else 0)
-    walk_cache = resolve_cache_tiers(cfg.cache_dir, cfg.walk_cache)
+    walk_cache = resolve_cache_tiers(cfg.cache_dir)
     walk_cache_hits: List[str] = []
     try:
         console(">>> 0. Arguments")
@@ -257,7 +257,6 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     patience=cfg.stream_patience,
                     sampler_threads=cfg.sampler_threads, overlap=overlap,
                     walker_backend=walker_backend,
-                    device_feed=cfg.device_feed,
                     eval_rows_cap=(cfg.stream_eval_rows or EVAL_ROWS_CAP),
                     device=dev, init=init_model, on_epoch=on_epoch)
             result = sres.train

@@ -5,15 +5,14 @@ The port of ``g2vec_tpu/train/stream.py:train_cbow_streaming`` for one
 process:
 
 - The sampler (the C++ one, or with ``walker_backend="device"`` the
-  card's walker kernel on a CUDA stream of its own: the same bytes)
-  emits fixed-size **walk shards**
+  card's walker kernel: the same bytes) walks fixed-size **walk shards**
   (:class:`~g2vec_tpu_torch.ops.host_walker.ShardPlan`: each shard is the
   same start-gene range of both groups, all reps). Shard order is
   deterministic by shard index; a shard's rows are the same bytes at any
   thread count.
-- A bounded host **ring** (:class:`ShardRing`, ``--prefetch-depth``)
-  carries shards from the producer (an overlap-scheduler task, or a
-  thread of its own) to the trainer. A full ring blocks the producer, so
+- With the C++ sampler a bounded host **ring** (:class:`ShardRing`,
+  ``--prefetch-depth``) carries shards from the producer (an
+  overlap-scheduler task, or a thread of its own) to the trainer. A full ring blocks the producer, so
   host path memory peaks at O(shard x depth), never O(total paths).
 - A **double-buffered device prefetch** puts shard b+1's train rows in
   pinned host memory and copies them ``non_blocking`` on a side stream,
@@ -24,14 +23,15 @@ process:
   bytes fail verification is re-walked once (determinism makes the retry
   exact), and the run raises :class:`SpoolIntegrityError` if even the
   re-walk mismatches.
-- With ``device_feed`` (``--device-feed``) epoch 0 has no producer and
-  no ring: each shard is walked on the card in the training loop, copied
-  to the host once for the byproducts (filter, split, eval buffers) and
-  for the spool, which one writer thread saves in the background
-  (drained before the replay and at teardown), and the step's train rows
-  are gathered from the resident shard into the layout the upload builds,
-  so no packed training byte crosses from host to card. The outputs are
-  the ring feed's, byte for byte.
+- With the device walker (the reference's ``--device-feed``) epoch 0
+  has no producer and no ring: each shard is walked on the card in the
+  training loop, copied to the host once for the byproducts (filter,
+  split, eval buffers) and for the spool, which one writer thread saves
+  in the background (drained before the replay and at teardown), and the
+  step's train rows are gathered from the resident shard into the layout
+  the upload builds, so no packed training byte crosses from host to
+  card. The outputs are
+  the C++ sampler's ring feed's, byte for byte.
 - The early stop reads held-out val accuracy at each epoch's end, on a
   bounded val buffer gathered from the shards' held-out rows in epoch 0,
   with ``patience`` epochs without a strict gain before it stops; the
@@ -291,7 +291,7 @@ class StreamStats:
     feed_mode: str = "ring"          # "ring": shards cross the host ring and
                                      # are uploaded a step at a time;
                                      # "device": epoch 0 walks and trains
-                                     # on the card (device_feed)
+                                     # on the card (the device walker)
     h2d_bytes_saved: int = 0         # packed training bytes the device feed
                                      # kept from crossing host to card
     device_recomputes: int = 0       # device walks recomputed after a fault
@@ -409,7 +409,7 @@ def train_cbow_streaming(
         param_dtype: str = "float32", seed: int = 0, walk_seed: int = 0,
         shard_paths: int = 0, prefetch_depth: int = 2, patience: int = 5,
         sampler_threads: int = 0, overlap=None,
-        walker_backend: str = "native", device_feed: bool = False,
+        walker_backend: str = "native",
         eval_rows_cap: int = EVAL_ROWS_CAP, device="cuda",
         init: Optional[CBOW] = None,
         on_epoch: Optional[Callable[[int, float, float, float], None]] = None,
@@ -423,9 +423,9 @@ def train_cbow_streaming(
     :class:`~g2vec_tpu_torch.parallel.overlap.OverlapScheduler`: the
     producer runs on it under its drain contract (None: a thread of its
     own). ``seed`` is the split/init seed, ``walk_seed`` the walk seed.
-    ``walker_backend`` is "native" (the C++ sampler) or "device" (the
-    walker kernel on ``device``); ``device_feed`` fuses the device walks
-    into epoch 0 (module docstring).
+    ``walker_backend`` is "native" (the C++ sampler feeding the ring) or
+    "device" (the walker kernel on ``device``, fused into epoch 0: module
+    docstring).
     ``init`` replaces the seeded draw of the CBOW (the tests pass the JAX
     package's draw through :func:`g2vec_tpu_torch.weights.params_from_jax`).
     ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
@@ -442,8 +442,6 @@ def train_cbow_streaming(
     if walker_backend not in ("native", "device"):
         raise ValueError(
             f"walker_backend must be native|device, got {walker_backend!r}")
-    if device_feed and walker_backend != "device":
-        raise ValueError("device_feed requires walker_backend='device'")
 
     plan = plan_shards(n_genes, reps, shard_paths, len_path=len_path)
     n_shards = plan.n_shards
@@ -457,13 +455,10 @@ def train_cbow_streaming(
         csr.append(edges_to_csr(s, d, w, n_genes))
 
     # The device walker reads each group's CSR from the card, uploaded
-    # once; off the device feed it walks on a stream of its own, so that
-    # the producer thread's walks and copies wait for nothing the training
-    # loop queues.
+    # once.
+    device_feed = walker_backend == "device"
     csr_dev = ([upload_csr(c, n_genes, dev) for c in csr]
-               if walker_backend == "device" else None)
-    walk_stream = (torch.cuda.Stream(dev) if walker_backend == "device"
-                   and dev.type == "cuda" else None)
+               if device_feed else None)
 
     def _walk_shard_rows(shard_index: int) -> np.ndarray:
         if walker_backend == "native":
@@ -472,13 +467,10 @@ def train_cbow_streaming(
                            seed=(walk_seed << 1) | gi,
                            n_threads=sampler_threads, csr=csr[gi])
                 for gi in (0, 1)], axis=0)
-        # Each group's copy to the host synchronizes the walk stream only.
-        with (torch.cuda.stream(walk_stream) if walk_stream is not None
-              else contextlib.nullcontext()):
-            return np.concatenate([
-                walk_shard_device(None, None, None, n_genes, plan,
-                                  shard_index, seed=(walk_seed << 1) | gi,
-                                  csr=csr_dev[gi]) for gi in (0, 1)], axis=0)
+        return np.concatenate([
+            walk_shard_device(None, None, None, n_genes, plan, shard_index,
+                              seed=(walk_seed << 1) | gi, csr=csr_dev[gi])
+            for gi in (0, 1)], axis=0)
 
     def _shard_labels(shard_index: int) -> np.ndarray:
         n = plan.group_rows(shard_index)

@@ -145,7 +145,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
 @pytest.mark.parametrize("extra", [
     ("--walker-backend", "device", "--cache-dir", "cache"),
     ("--train-mode", "streaming", "--shard-paths", "16", "--walker-backend",
-     "device", "--device-feed")], ids=["device-walker", "device-feed"])
+     "device")], ids=["device-walker", "device-feed"])
 def test_device_walker_cli_runs_without_jax_in_sys_modules(tmp_path, extra):
     """The device walker, the walk cache and the device feed are on these
     runs' paths (their plain versions, on the CPU)."""

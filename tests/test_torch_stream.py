@@ -371,23 +371,18 @@ def _small_groups():
 
 def test_device_feed_streaming_byte_identical_zero_ring_puts():
     """The reference's device-feed contract on the port at float32: the
-    device backend and the fused feed give W_ih byte-identical to the
-    native ring feed; the feed makes no ring put and keeps the training
-    rows' bytes off the host-to-card path."""
+    device walker, which streams through the fused feed, gives W_ih
+    byte-identical to the native ring feed; it makes no ring put and
+    keeps the training rows' bytes off the host-to-card path."""
     kw = _small_groups()
     ref = tstream.train_cbow_streaming(**kw)
-    dev = tstream.train_cbow_streaming(**kw, walker_backend="device")
-    fused = tstream.train_cbow_streaming(**kw, walker_backend="device",
-                                         device_feed=True)
-    ref_w = ref.train.w_ih.tobytes()
-    assert dev.train.w_ih.tobytes() == ref_w
-    assert fused.train.w_ih.tobytes() == ref_w
-    assert ref.gene_freq == dev.gene_freq == fused.gene_freq
-    assert ref.n_paths == dev.n_paths == fused.n_paths
+    fused = tstream.train_cbow_streaming(**kw, walker_backend="device")
+    assert fused.train.w_ih.tobytes() == ref.train.w_ih.tobytes()
+    assert ref.gene_freq == fused.gene_freq
+    assert ref.n_paths == fused.n_paths
     assert _strip(fused.train.history) == _strip(ref.train.history)
-    assert ref.stats.feed_mode == dev.stats.feed_mode == "ring"
+    assert ref.stats.feed_mode == "ring"
     assert ref.stats.shards_emitted > 0
-    assert dev.stats.shards_emitted == ref.stats.shards_emitted
     assert fused.stats.feed_mode == "device"
     assert fused.stats.shards_emitted == 0
     assert fused.stats.h2d_bytes_saved > 0
@@ -421,7 +416,7 @@ def test_device_feed_spool_replays_and_survives_corruption(groups,
     monkeypatch.setattr(tstream.ShardSpool, "save", save_then_corrupt)
     with pytest.warns(RuntimeWarning, match="re-walking"):
         fed = _port_run(groups, max_epochs=3, patience=3,
-                        walker_backend="device", device_feed=True)
+                        walker_backend="device")
     assert fed.stats.rewalks >= 1 and fed.stats.shards_emitted == 0
     assert _strip(fed.train.history) == _strip(clean.train.history)
     assert fed.train.w_ih.tobytes() == clean.train.w_ih.tobytes()
@@ -438,17 +433,8 @@ def test_streaming_config_errors():
         return c
 
     cfg(walker_backend="device")
-    cfg(walker_backend="device", device_feed=True)
-    with pytest.raises(ValueError, match="streaming"):
-        G2VecConfig(device_feed=True, walker_backend="device").validate()
-    with pytest.raises(ValueError, match="walker-backend device"):
-        cfg(device_feed=True)
     with pytest.raises(ValueError, match="walker_backend"):
         cfg(walker_backend="jax")
-    with pytest.raises(ValueError, match="walker_batch"):
-        cfg(walker_batch=-1)
-    with pytest.raises(ValueError, match="walker_hbm_budget"):
-        cfg(walker_hbm_budget=-1)
     with pytest.raises(ValueError, match="shard_paths"):
         cfg(shard_paths=2)
     with pytest.raises(ValueError, match="prefetch_depth"):
@@ -457,14 +443,14 @@ def test_streaming_config_errors():
         cfg(stream_patience=0)
     parsed = config_from_args(
         ["e", "c", "n", "r", "--train-mode", "streaming", "--walker-backend",
-         "device", "--device-feed", "--walker-batch", "8",
-         "--walker-hbm-budget", "1024", "--cache-dir", "d",
-         "--no-walk-cache"])
-    assert (parsed.walker_backend, parsed.device_feed, parsed.walker_batch,
-            parsed.walker_hbm_budget, parsed.cache_dir,
-            parsed.walk_cache) == ("device", True, 8, 1024, "d", False)
+         "device", "--cache-dir", "d"])
+    assert (parsed.walker_backend, parsed.cache_dir) == ("device", "d")
+    # The device walker always streams through the fused feed, and the
+    # reference's legacy-walker sizes steer nothing here: no such flags.
+    for flag in (["--device-feed"], ["--walker-batch", "8"],
+                 ["--walker-hbm-budget", "1024"], ["--no-walk-cache"]):
+        with pytest.raises(SystemExit):
+            config_from_args(["e", "c", "n", "r", *flag])
     kw = _small_groups()
-    with pytest.raises(ValueError, match="device_feed requires"):
-        tstream.train_cbow_streaming(**kw, device_feed=True)
     with pytest.raises(ValueError, match="walker_backend must be"):
         tstream.train_cbow_streaming(**kw, walker_backend="auto")

@@ -125,7 +125,6 @@ def test_resolve_cache_tiers_gives_the_walk_tier_only(tmp_path):
     assert walks.directory == os.path.join(root, "walks")
     assert walks.directory == jcache.resolve_cache_tiers(root, None)[1]\
         .directory
-    assert tcache.resolve_cache_tiers(root, walk_cache_enabled=False) is None
     assert tcache.resolve_cache_tiers(None) is None
 
 
@@ -176,7 +175,9 @@ def _run(files, out, cache_dir, **over):
                       network_file=files["network"], result_name=str(out),
                       lenPath=10, numRepetition=3, sizeHiddenlayer=8,
                       epoch=4, numBiomarker=5, kmeans_iters=20,
-                      device="cpu", cache_dir=str(cache_dir), **over)
+                      device="cpu",
+                      cache_dir=None if cache_dir is None else str(cache_dir),
+                      **over)
     lines = []
     result = run(cfg, console=lines.append)
     outputs = []
@@ -215,7 +216,10 @@ def test_device_backend_hits_native_entries(files, tmp_path, monkeypatch):
     assert dev.walk_cache_hits == ["g", "p"] and out2 == out1
 
 
-def test_no_walk_cache_reads_and_writes_nothing(files, tmp_path):
-    res, _, _ = _run(files, tmp_path / "a", tmp_path / "c", walk_cache=False)
+def test_no_cache_dir_reads_and_writes_nothing(files, tmp_path):
+    before = tcache.cache_stats()["walk"]
+    res, _, _ = _run(files, tmp_path / "a", None)
     assert res.walk_cache_hits == []
-    assert not os.path.exists(tmp_path / "c")
+    assert tcache.cache_stats()["walk"] == before
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        os.path.basename(p) for p in res.output_files)
