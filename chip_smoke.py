@@ -54,7 +54,23 @@ phase 3's bytes; runs the CLI three times with one ``--cache-dir`` (the
 second run and a ``--walker-backend device`` run hit both groups'
 entries); and streams the example with the device walker, which trains
 epoch 0 where it walks: ``W_ih`` must be phase 6's bytes and the packed
-kernels' counts phase 6's, with no shard through the ring.
+kernels' counts phase 6's, with no shard through the ring. Phase 8 runs
+the durable-run drills, each under a fault plan that must fire (the
+fault state file says so) and each writing its unfaulted run's bytes:
+the CLI under ``--supervise`` SIGKILLed just after a streaming cursor
+commits inside epoch 1 (against phase 6: files and ``W_ih``), the same
+on the device feed inside epoch 0 (against phase 7; the resumed
+attempt's walker launches are those of the shards from the cursor on),
+the full-batch example SIGKILLed at ``lgroups`` after its final
+checkpoint (against phase 3; the resumed attempt trains nothing), and
+phase 5's small input at ``-l 0.002`` SIGKILLed at epoch 10 with a
+checkpoint every 4 epochs; each metrics stream holds ``retry``,
+``resume`` and ``supervised_done``. In process, one ``device_walk``
+fault is a relaunch of the kernel (``device_recomputes`` 1, phase 7's
+bytes) and two raise, and the plain walker is never called. Last, it
+times ``save_state``, ``load_state`` and ``save_stream_state`` at the
+example's shapes and the streaming run's ``checkpoint_wall_s`` at the
+default cadence (``W_ih`` still phase 6's).
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -797,7 +813,7 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
           "[6]'s launches of both packed kernels")
 
     rec = timed[0]
-    return {
+    return _outputs(r), {
         "name": "device_walk", "route": "cuda",
         "source": "g2vec_tpu_torch/csrc/device_walker.cu",
         "replaces": dw.REPLACES, "launches": launches, "max_abs_err": err,
@@ -808,6 +824,332 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
         "group_p": {k: timed[1][k] for k in
                     ("ms", "plain_ms", "bound_ms", "cpp_ms", "d2h_ms")},
         "streaming": {"launches": stream_walks}}
+
+
+# A supervised child, run through this wrapper instead of ``python -m
+# g2vec_tpu_torch``: at exit it records its kernel wrappers' launch counts
+# (a SIGKILLed child records nothing).
+_CHILD = r"""
+import atexit, json, os, runpy, sys
+sys.argv = ["g2vec_tpu_torch", *sys.argv[3:]]     # drop "-m g2vec_tpu_torch"
+
+
+def report():
+    from g2vec_tpu_torch.ops import device_walker as dw
+    from g2vec_tpu_torch.ops import packed_matmul as pm
+
+    path = os.path.join(os.environ["G2V_SMOKE_REPORTS"], f"{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump({"packed_matmul_fwd": pm.packed_matmul_fwd.launches,
+                   "packed_matmul_bwd": pm.packed_matmul_bwd.launches,
+                   "device_walk": dw.device_walk.launches}, f)
+
+
+atexit.register(report)
+runpy.run_module("g2vec_tpu_torch", run_name="__main__")
+"""
+
+# The supervisor: the CLI's own entry point, with its children started
+# through the wrapper above.
+_SUPERVISOR = (
+    "import sys; sys.executable = sys.argv[1]; "
+    "from g2vec_tpu_torch.__main__ import main; sys.exit(main(sys.argv[2:]))")
+
+
+def _supervised_cli(files, out, flags, plan, device="cuda", epoch=30):
+    """The CLI under ``--supervise`` with a fault plan and a fault state
+    file, in fresh interpreters (the supervisor and its children), with
+    ``--checkpoint-dir out_ckpt`` and ``--metrics-jsonl out.jsonl``.
+    Checks that it exits 0, that the plan fired, and that the metrics
+    stream holds the supervisor's ``retry``, ``resume`` and
+    ``supervised_done`` and one ``done``. Returns the output files' bytes,
+    the kernel launches of the child that finished (the resumed attempt),
+    the fault state, the epochs the resumed attempt reported, the
+    processes' standard output and the wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    metrics, state = out + ".jsonl", out + ".fault_state.json"
+    reports = out + "_launches"
+    os.makedirs(reports)
+    child = os.path.join(reports, "child.py")
+    with open(child, "w") as f:
+        f.write(_CHILD)
+    wrapper = os.path.join(reports, "python-child")
+    with open(wrapper, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "{child}" "$@"\n')
+    os.chmod(wrapper, 0o755)
+    env = dict(os.environ, PYTHONPATH=root, G2VEC_FAULT_STATE=state,
+               G2V_SMOKE_REPORTS=reports)
+    env.pop("G2VEC_FAULT_PLAN", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUPERVISOR, wrapper, files["expression"],
+         files["clinical"], files["network"], out, "-e", str(epoch),
+         "--metrics-jsonl", metrics, "--checkpoint-dir", out + "_ckpt",
+         "--supervise", "--supervise-backoff", "0", "--fault-plan", plan,
+         "--device", device, *flags],
+        capture_output=True, text=True, env=env, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"supervised CLI run {flags} with {plan!r} "
+                           f"failed:\n{proc.stderr[-3000:]}")
+    if not os.path.exists(state):
+        raise RuntimeError(f"the plan {plan!r} never fired")
+    with open(state) as f:
+        fired = json.load(f)
+    events = _read_metrics(metrics)
+    names = [e["event"] for e in events]
+    for name in ("retry", "resume", "supervised_done"):
+        if name not in names:
+            raise RuntimeError(f"{metrics}: no {name!r} record in {names}")
+    if names.count("done") != 1:
+        raise RuntimeError(f"{metrics}: {names.count('done')} done records")
+    retry = events[names.index("retry")]
+    if "sigkill" in plan and "rc=-9" not in retry["error"]:
+        raise RuntimeError(f"the first attempt was not SIGKILLed: {retry}")
+    done = events[names.index("done")]
+    outputs = []
+    for path in done["outputs"]:
+        with open(path, "rb") as f:
+            outputs.append(f.read())
+    finished = [n for n in os.listdir(reports) if n.endswith(".json")]
+    if len(finished) != 1:
+        raise RuntimeError(f"{len(finished)} children exited normally, "
+                           f"want the resumed attempt alone")
+    with open(os.path.join(reports, finished[0])) as f:
+        launches = json.load(f)
+    resumed = [e["step"] for e in events[names.index("resume") + 1:]
+               if e["event"] == "epoch"]
+    return outputs, launches, fired, resumed, proc.stdout, secs
+
+
+def _resume_cursor(stdout):
+    """(epoch, shard, n_shards) of the resumed attempt's resume line."""
+    for line in stdout.splitlines():
+        if line.startswith("[stream] resuming from cursor epoch "):
+            words = line.split()
+            shard, n = words[-1].split("/")
+            return int(words[-3]), int(shard), int(n)
+    raise RuntimeError("the resumed attempt printed no resume line")
+
+
+def _median_ms(fn, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), min(times), max(times)
+
+
+def _durable_phase(torch, dw, pm, files, small, small_args, tmp,
+                   main_outputs, stream, stream_dev_outputs, smi,
+                   device="cuda"):
+    """Phase 8: each drill's plan must fire and its run must write its
+    unfaulted run's bytes. ``main_outputs``, ``stream`` and
+    ``stream_dev_outputs`` are phases 3, 6 and 7's runs; ``small`` and
+    ``small_args`` phase 5's input and flags. On the card the in-process
+    device-walk drills also check that the plain walker is never
+    called."""
+    from g2vec_tpu_torch.resilience import faults
+    from g2vec_tpu_torch.train import checkpoint as ck
+
+    plain_calls = []
+    real_plain = dw.device_walk_plain
+
+    def counted_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return real_plain(*args, **kwargs)
+
+    stream_outputs = _outputs(stream)
+    dw.device_walk_plain = counted_plain
+    try:
+        # Streaming on the ring, SIGKILLed just after its first cursor
+        # inside epoch 1 is durable (the cut at the epoch-1 boundary is
+        # skipped).
+        out = os.path.join(tmp, "durable_stream")
+        outputs, launches, fired, _, stdout, secs = _supervised_cli(
+            files, out, ["--train-mode", "streaming", "--checkpoint-every",
+                         "8"], "stage=stream_ckpt,kind=sigkill,epoch=1,"
+            "skip=1", device)
+        epoch, shard, n_shards = _resume_cursor(stdout)
+        with np.load(os.path.join(out + "_ckpt", ck.STREAM_NAME)) as z:
+            w_ih = z["leaf_7"]                  # the returned snapshot
+        print(f"    streaming, SIGKILL after the cursor at epoch {epoch} "
+              f"shard {shard}/{n_shards} (plan fired: {fired}): resumed "
+              f"under --supervise in {secs:.1f} s of two processes; "
+              f"launches of the resumed attempt {launches}")
+        if fired != {"stream_ckpt:1:sigkill": 1} or epoch < 1 or shard < 1:
+            raise RuntimeError(f"the streaming kill landed at epoch {epoch} "
+                               f"shard {shard}: {fired}")
+        if outputs != stream_outputs:
+            raise RuntimeError("the resumed streaming run wrote other files "
+                               "than [6]'s")
+        if w_ih.tobytes() != stream.embeddings.tobytes():
+            raise RuntimeError("the resumed streaming W_ih differs from "
+                               "[6]'s")
+        print("    files and W_ih byte-identical to [6]'s uninterrupted run")
+
+        # The device feed, SIGKILLed just after its first cursor (epoch 0).
+        out = os.path.join(tmp, "durable_feed")
+        outputs, launches, fired, _, stdout, secs = _supervised_cli(
+            files, out, ["--train-mode", "streaming", "--walker-backend",
+                         "device", "--checkpoint-every", "8"],
+            "stage=stream_ckpt,kind=sigkill", device)
+        epoch, shard, n_shards = _resume_cursor(stdout)
+        walks = launches["device_walk"]
+        print(f"    device feed, SIGKILL after the cursor at epoch {epoch} "
+              f"shard {shard}/{n_shards} (plan fired: {fired}): the "
+              f"resumed attempt launched the walker {walks} times (2 "
+              f"groups x the {n_shards - shard} shards from the cursor "
+              f"on), launches {launches}, {secs:.1f} s")
+        if fired != {"stream_ckpt:None:sigkill": 1} or epoch != 0 \
+                or shard < 1:
+            raise RuntimeError(f"the feed's kill landed at epoch {epoch} "
+                               f"shard {shard}: {fired}")
+        if device == "cuda" and walks != 2 * (n_shards - shard):
+            raise RuntimeError(f"the resumed feed walked {walks} times "
+                               f"from shard {shard} of {n_shards}")
+        if outputs != stream_dev_outputs:
+            raise RuntimeError("the resumed device feed wrote other files "
+                               "than [7]'s")
+        print("    files byte-identical to [7]'s device-feed run")
+
+        # device_walk in process: one fault is a relaunch, two raise.
+        c = _config(files, tmp, device, epoch=30, train_mode="streaming",
+                    walker_backend="device",
+                    fault_plan="stage=device_walk,kind=crash")
+        c.result_name += "_device_walk_fault"
+        faults._reset_for_tests()
+        dw.reset_launch_counts()
+        r, _ = _run_pipeline(c)
+        walks = dw.device_walk.launches
+        faults._reset_for_tests()
+        st = r.stream_stats
+        print(f"    device_walk crash in process: device_recomputes "
+              f"{st['device_recomputes']}, walker launches {walks} for "
+              f"{st['n_shards']} shards")
+        if st["device_recomputes"] != 1 or _outputs(r) != stream_dev_outputs \
+                or r.embeddings.tobytes() != stream.embeddings.tobytes():
+            raise RuntimeError("the device walk's relaunch changed the run")
+        if device == "cuda" and walks != 2 * st["n_shards"]:
+            raise RuntimeError(f"{walks} walker launches after one fault")
+        c = _config(files, tmp, device, epoch=30, train_mode="streaming",
+                    walker_backend="device",
+                    fault_plan="stage=device_walk,kind=crash,times=2")
+        c.result_name += "_device_walk_fault2"
+        try:
+            _run_pipeline(c)
+        except faults.InjectedFault as e:
+            print(f"    two device_walk faults on one walk: the run raises "
+                  f"({e})")
+        else:
+            raise RuntimeError("a second device_walk fault did not raise")
+        finally:
+            faults._reset_for_tests()
+        if device == "cuda" and plain_calls:
+            raise RuntimeError(f"the plain walker ran {len(plain_calls)} "
+                               f"times on the card")
+        print(f"    files and W_ih byte-identical to [7]'s; the plain "
+              f"walker was called {len(plain_calls)} times")
+
+        # Full batch: the example's run stops after one update, so the
+        # kill is at lgroups, after the final checkpoint.
+        out = os.path.join(tmp, "durable_full")
+        outputs, launches, fired, resumed, _, secs = _supervised_cli(
+            files, out, [], "stage=lgroups,kind=sigkill", device)
+        print(f"    full batch, SIGKILL at lgroups (plan fired: {fired}): "
+              f"the resumed attempt reported epochs {resumed}, launches "
+              f"{launches}, {secs:.1f} s")
+        if fired != {"lgroups:None:sigkill": 1} or resumed:
+            raise RuntimeError("the lgroups drill did not resume a "
+                               "finished run")
+        if device == "cuda" and (launches["packed_matmul_fwd"]
+                                 or launches["packed_matmul_bwd"]):
+            raise RuntimeError(f"the resumed finished run trained: "
+                               f"{launches}")
+        if outputs != main_outputs:
+            raise RuntimeError("the lgroups drill wrote other files than "
+                               "[3]'s")
+        print("    files byte-identical to [3]'s; nothing retrained")
+
+        # The train seam on [5]'s small input. At [5]'s learning rate it
+        # stops after 8 epochs; at 0.002 it trains 19, so that a kill at
+        # epoch 10 lands between the checkpoints at epochs 7 and 11.
+        small_args = dict(small_args, learningRate=0.002)
+        c = _config(small, tmp, device, **small_args)
+        c.result_name += "_small_lr"
+        unfaulted, _ = _run_pipeline(c)
+        out = os.path.join(tmp, "durable_small")
+        flags = ["-p", str(small_args["lenPath"]),
+                 "-r", str(small_args["numRepetition"]),
+                 "-s", str(small_args["sizeHiddenlayer"]),
+                 "-l", str(small_args["learningRate"]),
+                 "-n", str(small_args["numBiomarker"]),
+                 "--seed", str(small_args["seed"]),
+                 "--checkpoint-every", "4"]
+        outputs, _, fired, resumed, _, secs = _supervised_cli(
+            small, out, flags, "stage=train,epoch=10,kind=sigkill", device,
+            epoch=small_args["epoch"])
+        print(f"    small input at -l 0.002 ({len(unfaulted.train_history)} "
+              f"epochs unfaulted), SIGKILL at train epoch 10, checkpoints "
+              f"every 4 (plan fired: {fired}): the resumed attempt "
+              f"reported epochs {resumed[0]}..{resumed[-1]}, {secs:.1f} s")
+        if fired != {"train:10:sigkill": 1} or resumed[0] != 8:
+            raise RuntimeError(f"the train drill resumed at {resumed[:1]}")
+        if outputs != _outputs(unfaulted):
+            raise RuntimeError("the train drill wrote other files than its "
+                               "unfaulted run")
+        print("    files byte-identical to the unfaulted run's")
+
+        # Cost: the streaming example at the default cadence, and each
+        # save alone at the example's shapes.
+        ckpt = os.path.join(tmp, "cost_ckpt")
+        c = _config(files, tmp, device, epoch=30, train_mode="streaming",
+                    checkpoint_dir=ckpt)
+        c.result_name += "_stream_ckpt"
+        r, _ = _run_pipeline(c)
+        st = r.stream_stats
+        if r.embeddings.tobytes() != stream.embeddings.tobytes():
+            raise RuntimeError("checkpointing changed the streaming W_ih")
+        stream_bytes = os.path.getsize(os.path.join(ckpt, ck.STREAM_NAME))
+        arrays, cursor = ck.load_stream_state(ckpt)
+        g, h = stream.embeddings.shape
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = [torch.randn(g, h, generator=gen, device=device),
+                  torch.randn(h, 1, generator=gen, device=device)]
+        opt = (3, [p * 0.1 for p in params], [p * p for p in params])
+        snap = [p.clone() for p in params]
+        full_dir, stream_dir = (os.path.join(tmp, "cost_full"),
+                                os.path.join(tmp, "cost_stream"))
+
+        def save_full():
+            ck.save_state(full_dir, params, opt, snap, 7, 0.5, 0.5)
+
+        full_ms = _median_ms(save_full, 7)
+        full_bytes = os.path.getsize(os.path.join(full_dir, ck.CKPT_NAME))
+        load_ms = _median_ms(lambda: ck.load_state(full_dir, params, opt), 5)
+        stream_ms = _median_ms(
+            lambda: ck.save_stream_state(stream_dir, arrays, cursor), 7)
+        per_save = st["checkpoint_wall_s"] / max(st["checkpoints"], 1)
+        print(f"    cost on {smi}: save_state {full_bytes} bytes, "
+              f"{_spread(full_ms)} (host clock, median of 7, leaves on "
+              f"the card); load_state {_spread(load_ms)}; "
+              f"save_stream_state {stream_bytes} bytes, {_spread(stream_ms)} "
+              f"(host arrays, median of 7)")
+        print(f"    streaming at the default cadence: {st['checkpoints']} "
+              f"saves, checkpoint_wall_s {st['checkpoint_wall_s']} "
+              f"({per_save * 1e3:.1f} ms a save), stage train "
+              f"{r.stage_seconds['train']:.3f} s against [6]'s "
+              f"{stream.stage_seconds['train']:.3f} s; W_ih byte-identical "
+              f"to [6]'s")
+        return {"save_state_ms": full_ms[0], "save_state_bytes": full_bytes,
+                "save_stream_state_ms": stream_ms[0],
+                "stream_state_bytes": stream_bytes,
+                "checkpoints": st["checkpoints"],
+                "checkpoint_wall_s": st["checkpoint_wall_s"]}
+    finally:
+        dw.device_walk_plain = real_plain
+        faults._reset_for_tests()
 
 
 def _config(files, out_dir, device, **overrides):
@@ -1143,9 +1485,17 @@ def main() -> int:
               "and the C++ walker, byte for byte; timed at the example; "
               "the CLI, streaming, the device feed and the walk cache with "
               "it")
-        walk_rec = _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp,
-                                        main_outputs, launches, stream,
-                                        s_launches)
+        stream_dev_outputs, walk_rec = _device_walker_phase(
+            torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs, launches,
+            stream, s_launches)
+
+        print("[8] durable runs: checkpoint/resume, fault plans and the "
+              "supervisor (example, hidden 128, bf16, epoch cap 30; the "
+              "small input at hidden 10)")
+        durable = _durable_phase(torch, dw, pm, files, small, args, tmp,
+                                 main_outputs, stream, stream_dev_outputs,
+                                 smi)
+        print("    " + json.dumps({"durable": durable}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

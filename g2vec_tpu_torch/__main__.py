@@ -2,6 +2,8 @@
 
 Same invocation shape as the reference (``python G2Vec.py ...``) and as
 ``python -m g2vec_tpu``; runs on the card unless ``--device cpu``.
+``--supervise`` is handled before torch is imported, so the supervisor
+process holds no CUDA context; its children run the pipeline.
 """
 from __future__ import annotations
 
@@ -10,9 +12,19 @@ import sys
 
 def main(argv=None) -> int:
     from g2vec_tpu_torch.config import config_from_args
+
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    cfg = config_from_args(argv)
+    if cfg.supervise:
+        # The supervisor re-runs this module (without its own flags, with
+        # --resume) so that even a SIGKILLed child is restarted from its
+        # last checkpoint.
+        from g2vec_tpu_torch.resilience.supervisor import supervise_cli
+
+        return supervise_cli(cfg, argv)
     from g2vec_tpu_torch.pipeline import run
 
-    run(config_from_args(argv))
+    run(cfg)
     return 0
 
 

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Set
 
 import numpy as np
 
+from g2vec_tpu_torch.resilience.faults import fault_point
 from g2vec_tpu_torch.utils.integrity import sha256_file, write_json_atomic
 
 SCHEMA_VERSION = 1
@@ -152,6 +153,10 @@ class WalkCache:
             "schema": SCHEMA_VERSION, "key": key,
             "sha256": sha256_file(art), "n_rows": int(rows.shape[0]),
             "n_genes": int(n_genes), **(meta or {})})
+        # Fault seam: corrupt flips bytes in the artifact after the
+        # manifest recorded the good hash (post-save bitrot, which only
+        # the verification on load can catch).
+        fault_point("walk_cache", path=art)
         record_cache_event("walk", "store")
         return art
 

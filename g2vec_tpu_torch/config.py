@@ -4,9 +4,11 @@ The reference CLI (ref: G2Vec.py:505-518): four positional arguments plus
 ``-p/-r/-s/-e/-l/-n`` with the same defaults, and the framework flags the
 port's solo run reads: the full-batch and streaming trainers, the stage
 overlap, the native reader, the metrics stream, the walker backend and
-the walk cache. Defaults and validation are those of
-``g2vec_tpu/config.py``; ``--device`` is the port's own (``cuda`` unless
-the caller asks for ``cpu``).
+the walk cache, checkpoint/resume, fault injection and the supervisor.
+Defaults and validation are those of ``g2vec_tpu/config.py``; ``--device``
+is the port's own (``cuda`` unless the caller asks for ``cpu``). The port
+checkpoints in the single-file layout only: it takes no
+``--checkpoint-layout``.
 """
 from __future__ import annotations
 
@@ -94,6 +96,23 @@ class G2VecConfig:
                                      # back to Python with a warning when
                                      # it cannot be built or loaded)
     device: str = "cuda"             # cuda unless the caller asks for cpu
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 25       # full-batch: epochs between trainer
+                                     # checkpoints; streaming: shard updates
+                                     # between cursor checkpoints (and one
+                                     # at every epoch boundary)
+    resume: bool = False             # restore the newest verified
+                                     # checkpoint under checkpoint_dir
+
+    # ---- resilience (resilience/) ----
+    supervise: bool = False          # wrap the run in the auto-resume
+                                     # supervisor (bounded retries, backoff,
+                                     # re-enter via --resume)
+    supervise_retries: int = 3       # retries after the first failure
+    supervise_backoff: float = 1.0   # backoff base seconds (doubles/retry)
+    fault_plan: Optional[str] = None  # injection spec, e.g.
+                                     # "stage=train,epoch=40,kind=crash"
+                                     # (resilience/faults.py docstring)
 
     def validate(self) -> None:
         if self.lenPath < 1:
@@ -154,6 +173,25 @@ class G2VecConfig:
                 f"got {self.stream_eval_rows}")
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ValueError(f"device must be cuda[:N] or cpu, got {self.device}")
+        if self.train_mode == "streaming" and self.resume \
+                and not self.checkpoint_dir:
+            raise ValueError(
+                "--resume with --train-mode streaming needs "
+                "--checkpoint-dir: the streaming cursor lives there")
+        if self.checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {self.checkpoint_every}")
+        if self.supervise_retries < 0:
+            raise ValueError(
+                f"supervise_retries must be >= 0, got {self.supervise_retries}")
+        if self.supervise_backoff < 0.0:
+            raise ValueError(
+                f"supervise_backoff must be >= 0, got {self.supervise_backoff}")
+        if self.fault_plan:
+            # Fail at config time with the offending token, not mid-run.
+            from g2vec_tpu_torch.resilience.faults import parse_plan
+
+            parse_plan(self.fault_plan)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -264,6 +302,38 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu. Without a card, a cuda "
                              "run raises instead of falling back.")
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        metavar="DIR",
+                        help="Save the trainer's state under DIR (one "
+                             "sha256-manifested npz, the previous one kept "
+                             "as .prev); streaming also keeps its shard "
+                             "spool there.")
+    parser.add_argument("--checkpoint-every", type=int, default=25,
+                        help="Epochs between full-batch checkpoints, shard "
+                             "updates between streaming cursor checkpoints "
+                             "(default 25).")
+    parser.add_argument("--resume", action="store_true",
+                        help="Continue from the newest verified checkpoint "
+                             "under --checkpoint-dir; the outputs are the "
+                             "uninterrupted run's bytes.")
+    parser.add_argument("--supervise", action="store_true",
+                        help="Run under the auto-resume supervisor: bounded "
+                             "retries with exponential backoff; retryable "
+                             "failures (preemption, OOM, worker death, a "
+                             "killed process, a CUDA error) re-run with "
+                             "--resume in a fresh process, fatal ones (bad "
+                             "input, config errors) stop at once.")
+    parser.add_argument("--supervise-retries", type=int, default=3,
+                        help="Retry budget for --supervise (default 3).")
+    parser.add_argument("--supervise-backoff", type=float, default=1.0,
+                        help="Backoff base seconds for --supervise; doubles "
+                             "per retry, jittered (default 1.0).")
+    parser.add_argument("--fault-plan", type=str, default=None,
+                        metavar="SPEC",
+                        help="Inject faults at named seams, e.g. "
+                             "'stage=train,epoch=40,kind=crash' "
+                             "(kinds: crash|fatal|sigkill|stall|corrupt; "
+                             "equivalently env G2VEC_FAULT_PLAN).")
     return parser
 
 
@@ -305,6 +375,13 @@ def config_from_args(argv=None) -> G2VecConfig:
         metrics_jsonl=args.metrics_jsonl,
         use_native_io=not args.no_native_io,
         device=args.device,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
+        supervise=args.supervise,
+        supervise_retries=args.supervise_retries,
+        supervise_backoff=args.supervise_backoff,
+        fault_plan=args.fault_plan,
     )
     cfg.validate()
     return cfg

@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 
 from g2vec_tpu_torch.native._build import build, load
+from g2vec_tpu_torch.resilience.faults import fault_point
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "tsv_reader.cpp")
@@ -45,10 +46,17 @@ def build_tsv_reader():
     return build(SRC, COMMAND)
 
 
+def _load() -> ctypes.CDLL:
+    # Fault seam: an injected crash (a RuntimeError) takes the reader's
+    # fallback to the Python parser, the way a broken library would.
+    fault_point("native_load")
+    return load(SRC, COMMAND, _configure)
+
+
 def read_expression(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Parse an expression TSV natively -> (samples [S] str, genes [G] str,
     expr [S, G] float32), the arrays the Python reader builds."""
-    lib = load(SRC, COMMAND, _configure)
+    lib = _load()
     err = ctypes.create_string_buffer(512)
     handle = lib.g2v_expr_read(os.fsencode(path), err, len(err))
     if not handle:

@@ -12,6 +12,7 @@ import os
 import numpy as np
 
 from g2vec_tpu_torch.native._build import build, load
+from g2vec_tpu_torch.resilience.faults import fault_point
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "walker.cpp")
 COMMAND = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
@@ -39,6 +40,16 @@ def _configure(lib: ctypes.CDLL) -> None:
 def build_walker():
     """Compile the sampler now; returns ``(library path, compiler output)``."""
     return build(SRC, COMMAND)
+
+
+def load_walker() -> ctypes.CDLL:
+    """The loaded sampler (built on first use; ``RuntimeError`` when it
+    cannot be)."""
+    # Fault seam: an injected crash (a RuntimeError) makes the "auto"
+    # backend resolve to the card's walker, the way a host without a
+    # working toolchain does.
+    fault_point("native_walker_load")
+    return load(SRC, COMMAND, _configure)
 
 
 def walk_paths_packed(indptr: np.ndarray, indices: np.ndarray,
@@ -76,7 +87,7 @@ def walk_paths_packed(indptr: np.ndarray, indices: np.ndarray,
         raise ValueError("indptr is not a valid CSR row-pointer array")
     if n_threads < 0:
         raise ValueError(f"n_threads must be >= 0, got {n_threads}")
-    lib = load(SRC, COMMAND, _configure)
+    lib = load_walker()
     nbytes = (n_genes + 7) // 8
     out = np.empty((n_walkers, nbytes), dtype=np.uint8)
     lib.g2v_walk_packed(

@@ -17,11 +17,10 @@ if TYPE_CHECKING:  # pragma: no cover
 def native_walker_available() -> bool:
     """True when the C++ sampler builds and loads here (the first call
     may pay a g++ build of about a second; the library is cached)."""
-    from g2vec_tpu_torch.native.walker_bindings import COMMAND, SRC, _configure
-    from g2vec_tpu_torch.native._build import load
+    from g2vec_tpu_torch.native.walker_bindings import load_walker
 
     try:
-        load(SRC, COMMAND, _configure)
+        load_walker()
     except (RuntimeError, OSError):
         return False
     return True

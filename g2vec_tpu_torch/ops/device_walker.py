@@ -46,6 +46,7 @@ import torch
 from g2vec_tpu_torch.device import resolve_device
 from g2vec_tpu_torch.native._build import build, load
 from g2vec_tpu_torch.ops.host_walker import ShardPlan, edges_to_csr
+from g2vec_tpu_torch.resilience.faults import fault_point
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "csrc", "device_walker.cu")
@@ -432,6 +433,10 @@ def walk_shard_device_arrays(src, dst, w, n_genes: int, plan: ShardPlan,
             f"({len(starts)})")
     csr = _group_csr(src, dst, w, n_genes, csr, device)
     start_col, wids = _shard_init(plan, shard, starts)
+    # The fault seam between the state init and the launch: the walk is a
+    # function of (plan, shard, seed), so a caller's relaunch after a
+    # fault here gives the same rows.
+    fault_point("device_walk", epoch=shard)
     packed = _walk(csr, start_col, wids, plan.len_path, seed)
     return packed, packed.shape[0]
 

@@ -27,6 +27,14 @@ interpreter lock while it launches, so a warm-up on one thread only takes
 turns with the Python on another, and one in the foreground cost more
 than it saved (``first_use_probe.py``, PERF.md). The outputs are the same
 bytes either way.
+
+Durable runs (the JAX package's ``pipeline.py:160-221``): ``--fault-plan``
+is installed at entry and the stage seams (``load`` ... ``save``) fire at
+the start of each stage; ``--checkpoint-dir``/``--resume``/
+``--checkpoint-every`` pass to the trainer, so a resumed run walks stage 3
+again (or hits ``--cache-dir``) and then restores training; a resumed
+run's metrics stream is appended to, so the supervisor's ``retry`` and
+``resume`` events and every attempt's records form one stream.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from g2vec_tpu_torch.io.readers import (load_clinical, load_expression,
 from g2vec_tpu_torch.preprocess import (edges_to_indices, find_common_genes,
                                         make_gene2idx, match_labels,
                                         restrict_data, restrict_network)
+from g2vec_tpu_torch.resilience.faults import fault_point, install_plan
 
 
 @dataclasses.dataclass
@@ -170,11 +179,17 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     from g2vec_tpu_torch.weights import params_from_jax
 
     cfg.validate()
+    if cfg.fault_plan:
+        # Re-installing on an in-process retry keeps the once-only
+        # entries that already fired fired.
+        install_plan(cfg.fault_plan)
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
     timer = StageTimer(sync=(lambda: torch.cuda.synchronize(dev))
                        if on_card else None)
-    metrics = MetricsWriter(cfg.metrics_jsonl)
+    # A resumed run appends: its records continue the interrupted
+    # attempt's stream, with the supervisor's events in between.
+    metrics = MetricsWriter(cfg.metrics_jsonl, append=cfg.resume)
     overlap = OverlapScheduler(max_workers=2)
     train_seed = cfg.seed if cfg.train_seed is None else cfg.train_seed
     init_model = None if init is None else params_from_jax(*init)
@@ -198,6 +213,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                 torch.empty(1, device=dev)
 
         console(">>> 1. Load data")
+        fault_point("load")
         with timer.stage("load"):
             data, clinical, network = read_inputs(
                 cfg, overlap if cfg.overlap else None,
@@ -205,6 +221,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         timer.annotate("load", expression_parser=data.parser)
 
         console(">>> 2. Preprocess data")
+        fault_point("preprocess")
         with timer.stage("preprocess"):
             data, src, dst = preprocess_inputs(data, clinical, network)
         n_samples, n_genes = data.expr.shape
@@ -229,6 +246,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
 
         if cfg.train_mode == "streaming":
             # ---- stages 3-4 merged: walk shards stream into the trainer ----
+            fault_point("paths")
             with timer.stage("paths"):
                 group_edges = [thresholded_edges(
                     data.expr[data.label == i], src, dst,
@@ -240,6 +258,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     "modified CBOW")
             console("     Start training the modified CBOW with early "
                     "stopping")
+            fault_point("train")
             with timer.stage("train"):
                 _join_kernel_build(overlap)
                 _join_kernel_build(overlap, "build_walk_kernel")
@@ -258,7 +277,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     sampler_threads=cfg.sampler_threads, overlap=overlap,
                     walker_backend=walker_backend,
                     eval_rows_cap=(cfg.stream_eval_rows or EVAL_ROWS_CAP),
-                    device=dev, init=init_model, on_epoch=on_epoch)
+                    device=dev, init=init_model, on_epoch=on_epoch,
+                    checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
+                    checkpoint_every=cfg.checkpoint_every, console=console)
             result = sres.train
             gene_freq = sres.gene_freq
             n_paths = sres.n_paths
@@ -290,6 +311,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                            sampler_threads=sampler_threads)
             timer.annotate("train", train_mode="streaming", **stream_stats)
         else:
+            fault_point("paths")
             with timer.stage("paths"):
                 path_sets = []
                 for i, group in enumerate(("g", "p")):
@@ -365,6 +387,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     "modified CBOW")
             console("     Start training the modified CBOW with early "
                     "stopping")
+            fault_point("train")
             with timer.stage("train"):
                 _join_kernel_build(overlap)
                 result = train_cbow(
@@ -375,7 +398,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     decision_threshold=cfg.decision_threshold,
                     compute_dtype=cfg.compute_dtype,
                     param_dtype=cfg.param_dtype, seed=train_seed,
-                    device=dev, on_epoch=on_epoch, init=init_model)
+                    device=dev, on_epoch=on_epoch, init=init_model,
+                    checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
+                    checkpoint_every=cfg.checkpoint_every)
         if result.stopped_early:
             reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)
         console("    Optimization Finish")
@@ -384,6 +409,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                      stopped_early=result.stopped_early)
 
         console(">>> 5. Find L-groups")
+        fault_point("lgroups")
         emb = result.model.w_ih.detach().float()
         with timer.stage("lgroups"):
             lgroup_dev, _ = find_lgroups(
@@ -393,6 +419,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                 iters=cfg.kmeans_iters, centers0=kmeans_centers0)
 
         console(">>> 6. Select biomarkers with gene scores")
+        fault_point("biomarkers")
         with timer.stage("biomarkers"):
             label = np.asarray(data.label)
             scores2 = biomarker_scores(
@@ -405,6 +432,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                                            cfg.numBiomarker)
 
         console(">>> 7. Save results")
+        fault_point("save")
         with timer.stage("save"):
             outputs = [
                 write_biomarkers(cfg.result_name, biomarkers),

@@ -1,0 +1,13 @@
+"""The durable-run layer of the port's solo run: fault injection and
+auto-resume (the port's copy of ``g2vec_tpu/resilience``, one process).
+
+- :mod:`g2vec_tpu_torch.resilience.faults`: a config/env-driven fault
+  plan that raises, SIGKILLs, stalls or corrupts bytes at named seams.
+- :mod:`g2vec_tpu_torch.resilience.supervisor`: bounded retries around
+  ``pipeline.run``, in process or by re-running a child with
+  ``--resume``.
+
+Checkpoint integrity lives with the checkpoints
+(:mod:`g2vec_tpu_torch.train.checkpoint`). Nothing here imports torch:
+the supervisor process holds no CUDA context.
+"""

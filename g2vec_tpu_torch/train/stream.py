@@ -53,9 +53,31 @@ trajectory is bitwise deterministic at any ``sampler_threads`` and any
 ``prefetch_depth``: host state advances in strict shard order and the
 kernels add in a fixed order.
 
-Not ported yet: checkpoint/resume and fault seams (with them the
-reference's retry of a failed device walk: here a kernel error raises),
-and sharded (multi-rank) streaming.
+Durability (``checkpoint_dir``): the reference's (epoch, shard) cursor
+through :func:`~g2vec_tpu_torch.train.checkpoint.save_stream_state`. Every
+``checkpoint_every`` shard updates, and at every epoch boundary, the
+trainer state (params, Adam, snapshot), the epoch-0 byproducts (gene
+counts, the eval buffers, the kept-row count), the history and the
+partial epoch's losses are saved next to a cursor naming the next shard
+to train and each spooled shard's sha256. The spool is then durable
+(``<checkpoint_dir>/spool``), and ``resume=True`` restarts where the
+cursor points: at epoch >= 1 by replaying the verified spool from the
+cursor shard, in epoch 0 by restarting the producer (or, on the device
+feed, the card's walks) at the cursor shard. Every cut is at a shard
+boundary and the trajectory is deterministic, so a resumed run's outputs
+are the uninterrupted run's bytes.
+
+Fault seams, where the reference has them: ``shard_ring`` in the
+producer after a shard spools (a fault there surfaces at the consumer's
+next ``get``; a dead consumer cancels the ring, so no kind deadlocks),
+``prefetch`` as the consumer asks for each shard, ``train`` at each
+epoch's end, and ``stream_ckpt`` after each cursor commits. A failed
+device walk (the ``device_walk`` seam, or a kernel error) is relaunched
+once, on the same kernel, and counted in ``device_recomputes``.
+
+Not ported yet: the serve daemon's ``check``/``lifecycle`` hooks and the
+process-wide ``stream_stats()`` totals, and sharded (multi-rank)
+streaming.
 """
 from __future__ import annotations
 
@@ -79,12 +101,19 @@ from g2vec_tpu_torch.models.cbow import (CBOW, accuracy_from_logits,
                                          init_params, masked_bce_loss,
                                          output_logits, torch_dtype)
 from g2vec_tpu_torch.ops.device_walker import (upload_csr,
-                                               walk_shard_device,
                                                walk_shard_device_arrays)
 from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
                                              walk_shard)
 from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
                                                padded_row_bytes, unpack_bits)
+from g2vec_tpu_torch.resilience.faults import fault_point
+from g2vec_tpu_torch.train.checkpoint import (RUN_COMPLETED,
+                                              RUN_EARLY_STOPPED,
+                                              RUN_IN_PROGRESS, N_LEAVES,
+                                              flatten_state,
+                                              load_stream_state,
+                                              save_stream_state,
+                                              unflatten_state)
 from g2vec_tpu_torch.train.trainer import TrainResult, _Adam
 from g2vec_tpu_torch.utils.integrity import sha256_file
 
@@ -288,14 +317,17 @@ class StreamStats:
     producer_blocked_s: float = 0.0
     rewalks: int = 0
     epochs: int = 0
+    checkpoints: int = 0             # cursor checkpoints written this run
+    checkpoint_wall_s: float = 0.0   # wall spent inside save_stream_state
+    resumed: int = 0                 # 1 = this run restored a cursor
     feed_mode: str = "ring"          # "ring": shards cross the host ring and
                                      # are uploaded a step at a time;
                                      # "device": epoch 0 walks and trains
                                      # on the card (the device walker)
     h2d_bytes_saved: int = 0         # packed training bytes the device feed
                                      # kept from crossing host to card
-    device_recomputes: int = 0       # device walks recomputed after a fault
-                                     # (0: the port has no fault seams yet)
+    device_recomputes: int = 0       # device walks relaunched after a
+                                     # fault (the device_walk seam)
 
     def as_dict(self) -> Dict:
         return dataclasses.asdict(self)
@@ -402,6 +434,15 @@ class _Batch:
         return self.x, self.y
 
 
+def _loss_values(prefix: List[float], losses: List[torch.Tensor]
+                 ) -> np.ndarray:
+    """The epoch's per-shard losses as float64 (a resumed epoch's restored
+    prefix, then this run's), in one copy from the device."""
+    tail = (torch.stack(losses).cpu().numpy().astype(np.float64)
+            if losses else np.zeros(0, np.float64))
+    return np.concatenate([np.asarray(prefix, np.float64), tail])
+
+
 def train_cbow_streaming(
         *, groups, n_genes: int, genes, hidden: int, learning_rate: float,
         max_epochs: int, len_path: int, reps: int, val_fraction: float = 0.2,
@@ -413,6 +454,9 @@ def train_cbow_streaming(
         eval_rows_cap: int = EVAL_ROWS_CAP, device="cuda",
         init: Optional[CBOW] = None,
         on_epoch: Optional[Callable[[int, float, float, float], None]] = None,
+        checkpoint_dir: Optional[str] = None, resume: bool = False,
+        checkpoint_every: int = 25,
+        console: Callable[[str], None] = print,
         ) -> StreamTrainResult:
     """Stream walk shards from the sampler straight into minibatch SGD;
     returns the trained embeddings and the streaming twins of stage 3's
@@ -429,6 +473,10 @@ def train_cbow_streaming(
     ``init`` replaces the seeded draw of the CBOW (the tests pass the JAX
     package's draw through :func:`g2vec_tpu_torch.weights.params_from_jax`).
     ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
+    ``checkpoint_dir`` turns on the cursor checkpoint every
+    ``checkpoint_every`` shard updates and at every epoch boundary;
+    ``resume=True`` restores the newest verified cursor (module
+    docstring). ``console`` prints the resume line.
     """
     dev = resolve_device(device)
     if len(groups) != 2:
@@ -439,6 +487,9 @@ def train_cbow_streaming(
         raise ValueError(f"patience must be >= 1, got {patience}")
     if eval_rows_cap < 1:
         raise ValueError(f"eval_rows_cap must be >= 1, got {eval_rows_cap}")
+    if checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}")
     if walker_backend not in ("native", "device"):
         raise ValueError(
             f"walker_backend must be native|device, got {walker_backend!r}")
@@ -460,6 +511,20 @@ def train_cbow_streaming(
     csr_dev = ([upload_csr(c, n_genes, dev) for c in csr]
                if device_feed else None)
 
+    def _device_walk_group(gi: int, shard_index: int):
+        """One group's rows of a shard on the card, packed, left there.
+        A failed walk is relaunched once on the same kernel: the walk is
+        a function of (plan, shard, seed), so the rows are the same."""
+        for attempt in (0, 1):
+            try:
+                return walk_shard_device_arrays(
+                    None, None, None, n_genes, plan, shard_index,
+                    seed=(walk_seed << 1) | gi, csr=csr_dev[gi])[0]
+            except Exception:
+                if attempt:
+                    raise
+                stats.device_recomputes += 1
+
     def _walk_shard_rows(shard_index: int) -> np.ndarray:
         if walker_backend == "native":
             return np.concatenate([
@@ -467,23 +532,54 @@ def train_cbow_streaming(
                            seed=(walk_seed << 1) | gi,
                            n_threads=sampler_threads, csr=csr[gi])
                 for gi in (0, 1)], axis=0)
-        return np.concatenate([
-            walk_shard_device(None, None, None, n_genes, plan, shard_index,
-                              seed=(walk_seed << 1) | gi, csr=csr_dev[gi])
-            for gi in (0, 1)], axis=0)
+        return torch.cat([_device_walk_group(gi, shard_index)
+                          for gi in (0, 1)]).cpu().numpy()
 
     def _shard_labels(shard_index: int) -> np.ndarray:
         n = plan.group_rows(shard_index)
         return np.concatenate([np.zeros(n, np.int32), np.ones(n, np.int32)])
 
     ring = ShardRing(prefetch_depth)
-    spool_dir = tempfile.mkdtemp(prefix="g2v-stream-")
+    if checkpoint_dir:
+        # Durable spool: the replay epochs and a resume read it, so it
+        # lives with the cursor and outlives the process; whoever owns
+        # checkpoint_dir removes it.
+        spool_dir = os.path.join(os.path.abspath(checkpoint_dir), "spool")
+        os.makedirs(spool_dir, exist_ok=True)
+    else:
+        spool_dir = tempfile.mkdtemp(prefix="g2v-stream-")
     spool = ShardSpool(spool_dir)
+
+    fingerprint = {
+        "hidden": hidden, "learning_rate": learning_rate,
+        "compute_dtype": compute_dtype, "param_dtype": param_dtype,
+        "seed": seed, "walk_seed": walk_seed,
+        "val_fraction": val_fraction,
+        "decision_threshold": decision_threshold,
+        "n_genes": n_genes, "len_path": len_path, "reps": reps,
+        "n_shards": n_shards, "rows_per_shard": plan.rows_per_shard,
+        "patience": patience, "eval_rows_cap": eval_rows_cap,
+        "max_epochs": max_epochs, "walk_starts": 0,
+    }
+    # ---- resume: the newest verified cursor, read before the producer
+    # starts: it decides where (and whether) sampling restarts ----
+    resume_arrays = resume_cursor = None
+    if checkpoint_dir and resume:
+        loaded = load_stream_state(checkpoint_dir, fingerprint=fingerprint)
+        if loaded is not None:
+            resume_arrays, resume_cursor = loaded
+            spool._sha = {int(k): v for k, v in
+                          resume_cursor.get("spool_sha", {}).items()}
+            stats.resumed = 1
+    start_epoch = int(resume_cursor["epoch"]) if resume_cursor else 0
+    start_shard = int(resume_cursor["shard"]) if resume_cursor else 0
+    resume_done = (int(resume_cursor.get("done", RUN_IN_PROGRESS))
+                   if resume_cursor else RUN_IN_PROGRESS)
     producer_wall = [0.0]
 
     # Under the device feed one writer thread saves each shard while the
     # step trains on its resident copy; _drain_spool joins the writes
-    # before the replay reads them and at teardown.
+    # before a cursor cut, before the replay reads them and at teardown.
     stats.feed_mode = "device" if device_feed else "ring"
     spool_futs: Dict[int, object] = {}
     spool_pool = (ThreadPoolExecutor(max_workers=1,
@@ -500,9 +596,14 @@ def train_cbow_streaming(
     def _produce():
         t0 = time.perf_counter()
         try:
-            for si in range(n_shards):
+            for si in range(start_shard, n_shards):
                 shard = Shard(si, _walk_shard_rows(si), _shard_labels(si))
-                spool.save(shard)
+                path = spool.save(shard)
+                # The in-flight shard's seam: corrupt tears the spooled
+                # bytes (epoch 0 trains on the good copy in memory; the
+                # replay's verification catches them); the other kinds
+                # surface at the consumer's next get through ring.fail.
+                fault_point("shard_ring", epoch=si, path=path)
                 if not ring.put(shard):
                     return          # consumer gone; exit quietly
             ring.finish()
@@ -511,16 +612,19 @@ def train_cbow_streaming(
         finally:
             producer_wall[0] = time.perf_counter() - t0
 
+    # The producer samples only epoch 0's remaining shards: a resume at
+    # epoch >= 1 (or at a terminal cursor) replays the spool, and the
+    # device feed walks in the training loop.
     remove_closer = producer_thread = None
-    if device_feed:
-        pass                # the feed walks epoch 0 in the training loop
-    elif overlap is not None:
-        remove_closer = overlap.add_closer(ring.cancel)
-        overlap.submit("stream_shards", _produce)
-    else:
-        producer_thread = threading.Thread(
-            target=_produce, name="g2v-stream-producer", daemon=True)
-        producer_thread.start()
+    if resume_done == RUN_IN_PROGRESS and start_epoch == 0 \
+            and not device_feed:
+        if overlap is not None:
+            remove_closer = overlap.add_closer(ring.cancel)
+            overlap.submit("stream_shards", _produce)
+        else:
+            producer_thread = threading.Thread(
+                target=_produce, name="g2v-stream-producer", daemon=True)
+            producer_thread.start()
 
     # ---- parameters, optimizer, device programs ----
     if init is None:
@@ -532,6 +636,18 @@ def train_cbow_streaming(
                  init.w_ho.detach().to(device=dev, dtype=pdtype).clone())
     params = [model.w_ih, model.w_ho]
     adam = _Adam(params, learning_rate)
+    snapshot = [p.detach().clone() for p in params]
+    if resume_arrays is not None:
+        # The fingerprint (hidden, n_genes, param_dtype) fixed the leaves'
+        # shapes and dtypes when the cursor was loaded.
+        w_params, opt_state, w_snap = unflatten_state(
+            [torch.as_tensor(resume_arrays[f"leaf_{i}"])
+             for i in range(N_LEAVES)])
+        with torch.no_grad():
+            for p, w in zip(params, w_params):
+                p.copy_(w)
+        adam.load(opt_state, dev)
+        snapshot = [w.to(dev) for w in w_snap]
     logit_threshold = float(np.log(decision_threshold
                                    / (1.0 - decision_threshold)))
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -568,6 +684,34 @@ def train_cbow_streaming(
     eval_rows = [0, 0]               # collected (val, probe) row counts
     kept_rows = [0]                  # rows surviving the per-shard filter
 
+    # ---- early-stop bookkeeping (restored whole on resume) ----
+    history: List[dict] = []
+    best_val, best_tr = -1.0, -1.0
+    best_epoch = 0
+    since_best = 0
+    stopped_early = False
+    stop_epoch = max_epochs - 1
+    losses0: List[float] = []        # a resumed epoch's restored losses
+    x_width = (n_genes + 7) // 8
+    if resume_arrays is not None:
+        good_counts[:] = resume_arrays["good_counts"]
+        poor_counts[:] = resume_arrays["poor_counts"]
+        val_x.append(resume_arrays["val_x"])
+        val_y.append(resume_arrays["val_y"])
+        probe_x.append(resume_arrays["probe_x"])
+        probe_y.append(resume_arrays["probe_y"])
+        sc = resume_arrays["scalars"]
+        best_val, best_tr = float(sc[0]), float(sc[1])
+        best_epoch, since_best = int(sc[2]), int(sc[3])
+        kept_rows[0] = int(sc[4])
+        eval_rows[0], eval_rows[1] = int(sc[5]), int(sc[6])
+        stopped_early, stop_epoch = bool(sc[7]), int(sc[8])
+        history = [{"epoch": int(r[0]), "acc_val": float(r[1]),
+                    "acc_tr": float(r[2]), "loss": float(r[3]),
+                    "secs": float(r[4])}
+                   for r in resume_arrays["history"].reshape(-1, 5)]
+        losses0 = [float(x) for x in resume_arrays["losses"]]
+
     def _accumulate(x: np.ndarray, y: np.ndarray, tr_idx, vl_idx) -> None:
         # Row-chunked unpack: the dense transient stays ~32 MB at any G;
         # int64 sums do not depend on the chunking.
@@ -588,8 +732,9 @@ def train_cbow_streaming(
             probe_y.append(y[take])
             eval_rows[1] += len(take)
 
-    def _epoch0_iter() -> Iterator[Shard]:
-        for expect in range(n_shards):
+    def _epoch0_iter(start: int) -> Iterator[Shard]:
+        for expect in range(start, n_shards):
+            fault_point("prefetch", epoch=expect)
             shard = ring.get()
             if shard is None:
                 raise RuntimeError(
@@ -600,18 +745,20 @@ def train_cbow_streaming(
                                    f"{shard.index}, expected {expect}")
             yield shard
 
-    def _replay_iter() -> Iterator[Shard]:
-        for si in range(n_shards):
+    def _replay_iter(start: int) -> Iterator[Shard]:
+        for si in range(start, n_shards):
+            fault_point("prefetch", epoch=si)
             yield Shard(si, spool.load(si, _walk_shard_rows),
                         _shard_labels(si))
 
     def _device_feed(shards: Iterator[Shard], epoch0: bool):
         """The double buffer: shard b+1's copy is queued on the side
         stream before shard b is yielded to the step, so it hides under
-        the step's device time. Yields ``(accumulate_cb, batch)``; the
-        epoch-0 byproducts are accumulated when the consumer runs the
-        callback, right before the step, so host state advances in strict
-        shard order."""
+        the step's device time. Yields ``(shard index, accumulate_cb,
+        batch)``; the epoch-0 byproducts are accumulated when the
+        consumer runs the callback, right before the step, so host state
+        advances in strict shard order and a cursor cut after shard b's
+        update holds shard b's byproducts and no later ones."""
         pending = None
         for shard in shards:
             keep = _filter_rows(shard.x, shard.y)
@@ -625,7 +772,7 @@ def train_cbow_streaming(
                 def acc_cb(fx=fx, fy=fy, tr=tr_idx, vl=vl_idx, k=len(keep)):
                     kept_rows[0] += k
                     _accumulate(fx, fy, tr, vl)
-            nxt = (acc_cb, _upload(fx[tr_idx], fy[tr_idx]))
+            nxt = (shard.index, acc_cb, _upload(fx[tr_idx], fy[tr_idx]))
             if pending is not None:
                 yield pending
             pending = nxt
@@ -645,19 +792,18 @@ def train_cbow_streaming(
         stats.h2d_bytes_saved += x.numel()
         return x
 
-    def _device_epoch0_feed():
+    def _device_epoch0_feed(start: int):
         """Epoch 0 under the device feed: each shard walked on the card,
         copied to the host once for the byproducts and the background
         spool write, its train rows consumed where they lie. The same
         double buffer and deferred accumulation as :func:`_device_feed`,
         and the same rows, filter, split and layout bytes."""
         pending = None
-        for si in range(n_shards):
+        for si in range(start, n_shards):
+            fault_point("prefetch", epoch=si)
             t_walk = time.perf_counter()
-            packed_dev = torch.cat([walk_shard_device_arrays(
-                None, None, None, n_genes, plan, si,
-                seed=(walk_seed << 1) | gi, csr=csr_dev[gi])[0]
-                for gi in (0, 1)])
+            packed_dev = torch.cat([_device_walk_group(gi, si)
+                                    for gi in (0, 1)])
             rows_np = packed_dev.cpu().numpy()       # one copy a shard
             producer_wall[0] += time.perf_counter() - t_walk
             labels = _shard_labels(si)
@@ -674,66 +820,172 @@ def train_cbow_streaming(
                 _accumulate(fx, fy, tr, vl)
 
             y = torch.from_numpy(fy[tr_idx].astype(np.float32)[:, None])
-            nxt = (acc_cb, _Resident(_feed_x_device(packed_dev,
-                                                    keep[tr_idx]),
-                                     y.to(dev)))
+            nxt = (si, acc_cb,
+                   _Resident(_feed_x_device(packed_dev, keep[tr_idx]),
+                             y.to(dev)))
             if pending is not None:
                 yield pending
             pending = nxt
         if pending is not None:
             yield pending
 
+    def _host_eval_cat():
+        """The eval buffers as one host array pair each (empty-safe): the
+        bytes a resume needs to rebuild the epoch-boundary eval."""
+        if val_x:
+            vx, vy = np.concatenate(val_x), np.concatenate(val_y)
+        else:
+            vx, vy = (np.zeros((0, x_width), np.uint8),
+                      np.zeros((0,), np.int32))
+        if probe_x:
+            px, py = np.concatenate(probe_x), np.concatenate(probe_y)
+        else:
+            px, py = (np.zeros((0, x_width), np.uint8),
+                      np.zeros((0,), np.int32))
+        return vx, vy, px, py
+
+    ckpt_count = [0]
+    ckpt_wall = [0.0]
+
+    def _save_ckpt(cur_epoch: int, next_shard: int, prefix: List[float],
+                   cur_losses: List[torch.Tensor],
+                   done: int = RUN_IN_PROGRESS) -> None:
+        """Cut the cursor at the current consistent boundary: everything
+        the loop owns, keyed to the next shard to train."""
+        if not checkpoint_dir:
+            return
+        if device_feed:
+            # A cursor never names spool bytes still in flight on the
+            # writer thread: join them first.
+            _drain_spool()
+        t0 = time.perf_counter()
+        arrays = {f"leaf_{i}": leaf for i, leaf in enumerate(
+            flatten_state(params, adam.state(), snapshot))}
+        vx, vy, px, py = _host_eval_cat()
+        arrays.update(
+            good_counts=good_counts, poor_counts=poor_counts,
+            val_x=vx, val_y=vy, probe_x=px, probe_y=py,
+            history=np.array(
+                [[h["epoch"], h["acc_val"], h["acc_tr"], h["loss"],
+                  h["secs"]] for h in history],
+                np.float64).reshape(len(history), 5),
+            losses=_loss_values(prefix, cur_losses),
+            scalars=np.array(
+                [best_val, best_tr, best_epoch, since_best, kept_rows[0],
+                 eval_rows[0], eval_rows[1], float(stopped_early),
+                 float(stop_epoch)], np.float64))
+        cursor = {"epoch": int(cur_epoch), "shard": int(next_shard),
+                  "done": int(done), "n_shards": int(n_shards),
+                  "spool_sha": {str(k): v
+                                for k, v in dict(spool._sha).items()}}
+        save_stream_state(checkpoint_dir, arrays, cursor,
+                          fingerprint=fingerprint)
+        ckpt_count[0] += 1
+        ckpt_wall[0] += time.perf_counter() - t0
+
+    def _build_result() -> StreamTrainResult:
+        stats.n_paths = kept_rows[0]
+        stats.epochs = len(history)
+        stats.checkpoints = ckpt_count[0]
+        stats.checkpoint_wall_s = round(ckpt_wall[0], 3)
+        stats.shards_emitted = ring.shards_put
+        stats.ring_occupancy_hw = ring.occupancy_hw
+        stats.ring_peak_bytes = ring.peak_bytes
+        stats.prefetch_wait_ms = round(ring.wait_get_s * 1e3, 2)
+        stats.producer_blocked_s = round(ring.wait_put_s, 3)
+        stats.sampling_wall_s = round(producer_wall[0], 3)
+        stats.rewalks = spool.rewalks
+        gene_freq: Dict[str, int] = {}
+        for i, g in enumerate(genes):
+            fg, fp = int(good_counts[i]), int(poor_counts[i])
+            if fg or fp:
+                gene_freq[g] = 0 if fg > fp else (1 if fg < fp else 2)
+        best = CBOW(*snapshot)
+        train = TrainResult(
+            w_ih=best.w_ih.detach().float().cpu().numpy(),
+            stop_epoch=(best_epoch if stopped_early else stop_epoch),
+            stopped_early=stopped_early, acc_val=best_val, acc_tr=best_tr,
+            history=history, model=best)
+        return StreamTrainResult(train=train, gene_freq=gene_freq,
+                                 n_paths=kept_rows[0], stats=stats)
+
+    if resume_done != RUN_IN_PROGRESS:
+        # The previous run finished and died before its result was used:
+        # the result is rebuilt from the state, with nothing trained.
+        if spool_pool is not None:
+            spool_pool.shutdown(wait=True)
+        return _build_result()
+
     # ---- the epoch loop: patience early stop on held-out val accuracy ----
-    history: List[dict] = []
-    best_val, best_tr = -1.0, -1.0
-    best_epoch = 0
-    since_best = 0
-    stopped_early = False
-    stop_epoch = max_epochs - 1
-    snapshot = [p.detach().clone() for p in params]
     val_dev = probe_dev = None
+    if resume_cursor is not None:
+        console(f"[stream] resuming from cursor epoch {start_epoch} "
+                f"shard {start_shard}/{n_shards}")
+        if start_epoch > 0:
+            # Epoch 0 finished, so the eval buffers are final: rebuild
+            # the copies the epoch-boundary eval reads.
+            val_dev = _upload(val_x[0], val_y[0])
+            probe_dev = _upload(probe_x[0], probe_y[0])
     t_phase0 = time.perf_counter()
+    first_update = [True]
     try:
-        for epoch in range(max_epochs):
+        epoch = start_epoch
+        since_ckpt = 0
+        while epoch < max_epochs and not stopped_early:
             t_epoch = time.perf_counter()
+            resumed_here = resume_cursor is not None and epoch == start_epoch
+            offset = start_shard if resumed_here else 0
+            prefix = losses0 if resumed_here else []
             losses: List[torch.Tensor] = []
             if device_feed and epoch == 0:
-                feed = _device_epoch0_feed()
+                feed = _device_epoch0_feed(offset)
             else:
                 if device_feed:
                     _drain_spool()   # the replay reads the spool
-                feed = _device_feed(_epoch0_iter() if epoch == 0
-                                    else _replay_iter(), epoch0=(epoch == 0))
-            for acc_cb, batch in feed:
+                feed = _device_feed(_epoch0_iter(offset) if epoch == 0
+                                    else _replay_iter(offset),
+                                    epoch0=(epoch == 0))
+            for si, acc_cb, batch in feed:
                 if acc_cb is not None:
                     acc_cb()
                 losses.append(_update(batch))
-                if len(losses) == 1 and epoch == 0:
-                    losses[0].item()          # wait for the first update
+                if first_update[0]:
+                    first_update[0] = False
+                    losses[-1].item()          # wait for the first update
                     stats.time_to_first_update_ms = round(
                         (time.perf_counter() - t_phase0) * 1e3, 2)
                     stats.shards_at_first_update = ring.shards_put
+                since_ckpt += 1
+                if checkpoint_dir and since_ckpt >= checkpoint_every \
+                        and si + 1 < n_shards:
+                    _save_ckpt(epoch, si + 1, prefix, losses)
+                    since_ckpt = 0
             if epoch == 0:
                 if eval_rows[0] == 0:
                     raise ValueError(
                         "streaming val buffer is empty: shards contributed "
                         "no held-out rows (raise --shard-paths or "
                         "val_fraction)")
-                val_dev = _upload(np.concatenate(val_x),
-                                  np.concatenate(val_y))
-                probe_dev = _upload(np.concatenate(probe_x),
-                                    np.concatenate(probe_y))
+                # One host array pair each: the eval's copies are made
+                # from them, and the cursor cuts save them.
+                val_x[:], val_y[:] = ([np.concatenate(val_x)],
+                                      [np.concatenate(val_y)])
+                probe_x[:], probe_y[:] = ([np.concatenate(probe_x)],
+                                          [np.concatenate(probe_y)])
+                val_dev = _upload(val_x[0], val_y[0])
+                probe_dev = _upload(probe_x[0], probe_y[0])
             acc_val = _evaluate(val_dev)
             acc_tr = _evaluate(probe_dev)
-            loss_mean = (float(np.mean(torch.stack(losses).cpu().numpy()
-                                       .astype(np.float64)))
-                         if losses else float("nan"))
+            values = _loss_values(prefix, losses)
+            loss_mean = float(np.mean(values)) if len(values) \
+                else float("nan")
             secs = time.perf_counter() - t_epoch
             history.append({"epoch": epoch, "acc_val": acc_val,
-                             "acc_tr": acc_tr, "loss": loss_mean,
-                             "secs": secs})
+                            "acc_tr": acc_tr, "loss": loss_mean,
+                            "secs": secs})
             if on_epoch is not None:
                 on_epoch(epoch, acc_val, acc_tr, secs)
+            fault_point("train", epoch=epoch)
             if acc_val > best_val:
                 snapshot = [p.detach().clone() for p in params]
                 best_val, best_tr = acc_val, acc_tr
@@ -746,12 +998,23 @@ def train_cbow_streaming(
                     # best epoch's snapshot is the result.
                     stopped_early = True
                     stop_epoch = best_epoch
-                    break
+            epoch += 1
+            if checkpoint_dir and not stopped_early and epoch < max_epochs:
+                # Epoch-boundary cut: no partial-epoch losses, shard 0.
+                _save_ckpt(epoch, 0, [], [])
+                since_ckpt = 0
+        # Terminal cut: its done code makes a relaunch after a death
+        # between here and the result's use rebuild the result from the
+        # state instead of training again.
+        _save_ckpt(epoch, 0, [], [],
+                   done=(RUN_EARLY_STOPPED if stopped_early
+                         else RUN_COMPLETED))
     finally:
         ring.cancel()
         if spool_pool is not None:
-            # A write error that matters failed the replay that drained
-            # it; an error in flight is the one the caller must see.
+            # A write error that matters failed the replay or the cut that
+            # drained it; an error in flight is the one the caller must
+            # see.
             with contextlib.suppress(Exception):
                 _drain_spool()
             spool_pool.shutdown(wait=True)
@@ -759,32 +1022,12 @@ def train_cbow_streaming(
             remove_closer()
         if producer_thread is not None:
             producer_thread.join(timeout=30)
-        elif overlap is not None:
+        elif overlap is not None and overlap.has("stream_shards"):
             try:
                 overlap.result("stream_shards")
             except BaseException:  # noqa: BLE001 — the real error
                 pass               # already surfaced at ring.get()
-        shutil.rmtree(spool_dir, ignore_errors=True)
+        if not checkpoint_dir:
+            shutil.rmtree(spool_dir, ignore_errors=True)
 
-    stats.n_paths = kept_rows[0]
-    stats.epochs = len(history)
-    stats.shards_emitted = ring.shards_put
-    stats.ring_occupancy_hw = ring.occupancy_hw
-    stats.ring_peak_bytes = ring.peak_bytes
-    stats.prefetch_wait_ms = round(ring.wait_get_s * 1e3, 2)
-    stats.producer_blocked_s = round(ring.wait_put_s, 3)
-    stats.sampling_wall_s = round(producer_wall[0], 3)
-    stats.rewalks = spool.rewalks
-    gene_freq: Dict[str, int] = {}
-    for i, g in enumerate(genes):
-        fg, fp = int(good_counts[i]), int(poor_counts[i])
-        if fg or fp:
-            gene_freq[g] = 0 if fg > fp else (1 if fg < fp else 2)
-    best = CBOW(*snapshot)
-    train = TrainResult(
-        w_ih=best.w_ih.detach().float().cpu().numpy(),
-        stop_epoch=(best_epoch if stopped_early else stop_epoch),
-        stopped_early=stopped_early, acc_val=best_val, acc_tr=best_tr,
-        history=history, model=best)
-    return StreamTrainResult(train=train, gene_freq=gene_freq,
-                             n_paths=kept_rows[0], stats=stats)
+    return _build_result()

@@ -23,6 +23,19 @@ launch over the train rows. On the bf16 path both are the packed kernels
 what lets the val rows ride the train rows' launch. ``compute_dtype=
 "float32"`` runs the dense product with ``torch.matmul`` per split, as the
 JAX package's XLA path does — the tight-tolerance path of the tests.
+
+Checkpoint/resume (``checkpoint_dir``, ``resume``, ``checkpoint_every``)
+has the JAX package's semantics (``g2vec_tpu/train/trainer.py``): a save
+every ``checkpoint_every`` epochs counted from where the run started, and
+once at the end with the terminal ``done`` code; a resumed terminal early
+stop returns its snapshot without training, and a completed run goes on
+when ``max_epochs`` was raised. The ``train`` fault seam fires once per
+epoch, after the epoch is reported and before that boundary's save. The
+state the JAX package saves after epoch k exists here inside iteration
+k+1 (after the report and the dip test, before update k+1), so the
+checkpoint is cut there; a resumed run's first iteration re-runs that
+forward for its loss only, and Adam's step count comes back with its
+moments. Resumed and uninterrupted runs give the same bytes.
 """
 from __future__ import annotations
 
@@ -39,6 +52,11 @@ from g2vec_tpu_torch.models.cbow import (CBOW, accuracy_from_logits,
                                          output_logits, torch_dtype)
 from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
                                                padded_row_bytes, unpack_bits)
+from g2vec_tpu_torch.resilience.faults import fault_point
+from g2vec_tpu_torch.train.checkpoint import (RUN_COMPLETED,
+                                              RUN_EARLY_STOPPED,
+                                              RUN_IN_PROGRESS, load_state,
+                                              save_state)
 
 #: Adam hyperparameters, TF1 defaults (ref: G2Vec.py:246).
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -124,14 +142,26 @@ class _Adam:
             p.add_((-self.lr) * update)
             p.grad = None
 
+    def state(self):
+        """``(count, mu, nu)``: optax's ``ScaleByAdamState`` leaves."""
+        return self.count, tuple(self.mu), tuple(self.nu)
+
+    def load(self, state, device) -> None:
+        """Restore :meth:`state`'s tuple (CPU tensors from a checkpoint)."""
+        count, mu, nu = state
+        self.count = int(count)
+        self.mu = [m.to(device) for m in mu]
+        self.nu = [n.to(device) for n in nu]
+
 
 def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                hidden: int, learning_rate: float, max_epochs: int,
                val_fraction: float = 0.2, decision_threshold: float = 0.5,
                compute_dtype: str = "bfloat16", param_dtype: str = "float32",
                seed: int = 0, device="cuda", init: Optional[CBOW] = None,
-               on_epoch: Optional[Callable[[int, float, float, float], None]] = None
-               ) -> TrainResult:
+               on_epoch: Optional[Callable[[int, float, float, float], None]] = None,
+               checkpoint_dir: Optional[str] = None, resume: bool = False,
+               checkpoint_every: int = 25) -> TrainResult:
     """Train the modified CBOW; returns the embedding table and history.
 
     ``paths``: [n_paths, ceil(n_genes/8)] uint8 bit-packed multi-hot rows
@@ -140,8 +170,12 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     (the tests pass the JAX package's init through
     :func:`g2vec_tpu_torch.weights.params_from_jax`); it is copied, never
     modified. ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
+    ``checkpoint_dir``/``resume``/``checkpoint_every``: module docstring.
     """
     dev = resolve_device(device)
+    if checkpoint_every < 1:
+        raise ValueError(
+            f"checkpoint_every must be >= 1, got {checkpoint_every}")
     n_paths = paths.shape[0]
     if n_paths < 2:
         raise ValueError(f"need at least 2 paths to split, got {n_paths}")
@@ -197,16 +231,57 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     snapshot = [p.detach().clone() for p in params]
     stopped_early = False
     stop_epoch = max_epochs - 1
+    start_epoch = 0
+    # Recorded in the checkpoint manifest and checked on resume (the JAX
+    # package's keys; its n_genes_pad is the port's unpadded gene count).
+    # max_epochs is absent: raising it continues a completed run.
+    fingerprint = {
+        "hidden": hidden, "learning_rate": learning_rate,
+        "compute_dtype": compute_dtype, "param_dtype": param_dtype,
+        "seed": seed, "val_fraction": val_fraction,
+        "decision_threshold": decision_threshold, "n_genes_pad": n_genes,
+    }
+    if checkpoint_dir and resume:
+        restored = load_state(checkpoint_dir, params, adam.state(),
+                              fingerprint=fingerprint)
+        if restored is not None:
+            (w_params, opt_state, w_snap, last_epoch, before_val, before_tr,
+             done) = restored
+            with torch.no_grad():
+                for p, w in zip(params, w_params):
+                    p.copy_(w)
+            adam.load(opt_state, dev)
+            snapshot = [w.to(dev) for w in w_snap]
+            if (done == RUN_EARLY_STOPPED
+                    or (done != RUN_IN_PROGRESS
+                        and last_epoch + 1 >= max_epochs)):
+                # Terminal: an early stop is final, and a completed run
+                # with no more epoch budget has nothing to do.
+                best = CBOW(*snapshot)
+                return TrainResult(
+                    w_ih=best.w_ih.detach().float().cpu().numpy(),
+                    stop_epoch=last_epoch,
+                    stopped_early=(done == RUN_EARLY_STOPPED),
+                    acc_val=before_val, acc_tr=before_tr, history=[],
+                    model=best)
+            start_epoch = last_epoch + 1
+
+    def save(epoch: int, done: int = RUN_IN_PROGRESS) -> None:
+        save_state(checkpoint_dir, params, adam.state(), snapshot, epoch,
+                   before_val, before_tr, done=done, fingerprint=fingerprint)
+
     t0 = time.perf_counter()
-    # Iteration e runs epoch e's forward at its entry weights; for e > 0
-    # those are epoch e-1's updated weights, so the same logits report and
-    # dip-test epoch e-1 before update e is applied. The extra iteration
-    # e == max_epochs only reports the last epoch.
-    for epoch in range(max_epochs + 1):
+    # Iteration e runs epoch e's forward at its entry weights; for e past
+    # the first those are epoch e-1's updated weights, so the same logits
+    # report and dip-test epoch e-1 before update e is applied. The extra
+    # iteration e == max_epochs only reports the last epoch. A resumed
+    # run's first iteration reports nothing: its epoch was reported before
+    # the checkpoint was cut.
+    for epoch in range(start_epoch, max_epochs + 1):
         train = epoch < max_epochs
         with torch.set_grad_enabled(train):
             logits_tr, logits_val = split_logits()
-        if epoch > 0:
+        if epoch > start_epoch:
             acc_val = accuracy(logits_val, y_val, w_val)
             acc_tr = accuracy(logits_tr, y_tr, w_tr)
             now = time.perf_counter()
@@ -214,6 +289,7 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
             history[-1].update(acc_val=acc_val, acc_tr=acc_tr, secs=secs)
             if on_epoch is not None:
                 on_epoch(epoch - 1, acc_val, acc_tr, secs)
+            fault_point("train", epoch=epoch - 1)
             if acc_val < before_val:
                 # First strict dip: epoch e-1's update is discarded and the
                 # snapshot keeps epoch e-2's weights (ref: the
@@ -223,6 +299,11 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                 break
             snapshot = [p.detach().clone() for p in params]
             before_val, before_tr = acc_val, acc_tr
+            # The JAX package's chunk boundary: every checkpoint_every
+            # epochs from where this run started, and the last epoch.
+            if checkpoint_dir and ((epoch - start_epoch) % checkpoint_every
+                                   == 0 or epoch == max_epochs):
+                save(epoch - 1)
         if not train:
             break
         loss = masked_bce_loss(logits_tr, y_tr, w_tr)
@@ -232,6 +313,9 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                         "acc_tr": float("nan"), "loss": loss.item(),
                         "secs": 0.0})
 
+    if checkpoint_dir:
+        save(stop_epoch if stopped_early else max_epochs - 1,
+             RUN_EARLY_STOPPED if stopped_early else RUN_COMPLETED)
     best = CBOW(*snapshot)
     return TrainResult(
         w_ih=best.w_ih.detach().float().cpu().numpy(), stop_epoch=stop_epoch,

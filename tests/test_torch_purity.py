@@ -1,7 +1,7 @@
 """The port stands alone: no JAX, nothing of g2vec_tpu, no CPU fallback.
 
 - By AST: no module of g2vec_tpu_torch/, and not chip_smoke.py, imports
-  jax, jaxlib, optax or g2vec_tpu.
+  jax, jaxlib, optax, ml_dtypes or g2vec_tpu.
 - At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
   cpu``, full-batch and ``--train-mode streaming``) runs a tiny spec end
   to end in a fresh interpreter, after which neither jax nor any
@@ -21,7 +21,7 @@ import torch
 pytestmark = pytest.mark.torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "optax", "g2vec_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "ml_dtypes", "g2vec_tpu"}
 
 
 def _port_sources():
@@ -70,7 +70,8 @@ try:
 except SystemExit as e:
     rc = e.code
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "optax", "g2vec_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "ml_dtypes",
+                                    "g2vec_tpu"))
 print(json.dumps({"rc": rc, "bad": bad}))
 """
 

@@ -6,6 +6,8 @@
   misses, and the recompute's store heals it; a missing, mangled or stale
   manifest is a miss.
 - ``resolve_cache_tiers`` gives the walk tier only.
+- The ``walk_cache`` fault seam's corrupt drill: the next run recomputes
+  the torn entry.
 - Entries cross between the packages both ways, and the artifacts are the
   same bytes.
 - The pipeline on ``--device cpu``: a rerun with the same ``cache_dir``
@@ -223,3 +225,24 @@ def test_no_cache_dir_reads_and_writes_nothing(files, tmp_path):
     assert tcache.cache_stats()["walk"] == before
     assert sorted(os.listdir(tmp_path)) == sorted(
         os.path.basename(p) for p in res.output_files)
+
+
+def test_walk_cache_corrupt_drill_recomputes(files, tmp_path):
+    """``stage=walk_cache,kind=corrupt`` flips bytes in the first stored
+    artifact after its manifest recorded the good hash (post-save
+    bitrot): the next run warns, misses that group, walks it again and
+    heals the entry, and writes the same bytes."""
+    from g2vec_tpu_torch.resilience import faults
+
+    faults._reset_for_tests()
+    try:
+        first, out1, _ = _run(files, tmp_path / "a", tmp_path / "c",
+                              fault_plan="stage=walk_cache,kind=corrupt")
+    finally:
+        faults._reset_for_tests()
+    assert first.walk_cache_hits == []
+    with pytest.warns(RuntimeWarning, match="failed sha256 verification"):
+        second, out2, _ = _run(files, tmp_path / "b", tmp_path / "c")
+    assert second.walk_cache_hits == ["p"] and out2 == out1
+    third, out3, _ = _run(files, tmp_path / "d", tmp_path / "c")
+    assert third.walk_cache_hits == ["g", "p"] and out3 == out1
