@@ -70,7 +70,22 @@ fault is a relaunch of the kernel (``device_recomputes`` 1, phase 7's
 bytes) and two raise, and the plain walker is never called. Last, it
 times ``save_state``, ``load_state`` and ``save_stream_state`` at the
 example's shapes and the streaming run's ``checkpoint_wall_s`` at the
-default cadence (``W_ih`` still phase 6's).
+default cadence (``W_ih`` still phase 6's). Phase 9 runs the batch
+engine: both lane launches (``g2v_pm_fwd_lanes``/``g2v_pm_bwd_lanes``) at
+8 lanes of the example (the ``--seeds 8`` sweep's rows) and at ragged
+shapes (odd M, G not a multiple of 8, odd H, a subset of the lanes),
+each lane held against the plain version and, bitwise, against its solo
+launch, timed beside 8 solo launches and ``torch.bmm`` on the dense bf16
+stack; ``--seeds 8 --lanes 8`` in process on one ``ResidentEngine``
+(the lane kernels' launch counts are read over this run; a second
+``execute`` must find the dataset resident, hit the walk memo and write
+the same bytes); the same through the CLI against each lane's solo CLI
+run, byte for byte, with both runs/hour; a mixed manifest (two
+subsamples, a CV fold, a permutation null: several buckets, one-lane
+buckets among them), each lane against its solo run, and its distinct
+walk products timed in turn (as the engine walks them) and on a pool;
+and ``--train-mode streaming --seeds 2``
+against the lanes' solo streaming runs.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -1202,6 +1217,361 @@ def _train_val_rows(torch, cfg, result):
     return torch.from_numpy(rows).cuda(), len(p_tr)
 
 
+def _lane_stack(torch, result, cfg, n_lanes):
+    """The ``--seeds n_lanes`` sweep's P stack at the example, as its lane
+    trainer builds it: lane k's ``[train | val]`` rows of phase 3's paths
+    (the sweep walks with phase 3's seed) split by train seed base + k;
+    and the train row count."""
+    from g2vec_tpu_torch.train.trainer import (_fused_rows, _pack_split,
+                                               _split_indices)
+
+    base = cfg.seed if cfg.train_seed is None else cfg.train_seed
+    rows = []
+    for k in range(n_lanes):
+        tr, vl = _split_indices(result.n_paths, base + k, cfg.val_fraction)
+        rows.append(_fused_rows(
+            _pack_split(result.paths, result.labels, tr)[0],
+            _pack_split(result.paths, result.labels, vl)[0], result.n_genes))
+    return torch.from_numpy(np.stack(rows)).cuda(), len(tr)
+
+
+def _compare_lane_kernels(torch, pm, packed, n_tr, g, h, gen, flush, timed,
+                          lanes=None):
+    """Both lane launches against their plain versions (tolerance as in
+    phase 4) and, bitwise, against one solo launch a lane on the same
+    tensors: the forward on all of a lane's rows, the backward on its
+    first ``n_tr``. With ``timed``, the ms of one lane launch, of the same
+    work as one solo launch a lane, of the plain version and of
+    ``torch.bmm`` on the dense bf16 stack, and the bound (the lanes'
+    bytes, or their f32 adds). Returns the per-kernel records."""
+    ids = list(range(packed.shape[0])) if lanes is None else lanes
+    b = len(ids)
+    w = (torch.randn((b, g, h), device="cuda", generator=gen) * 0.09
+         ).to(torch.bfloat16)
+    g_out = torch.randn((b, n_tr, h), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+    tag = f"B={b} M={packed.shape[1]} G={g} H={h}"
+    out = pm.packed_matmul_lanes_fwd(packed, w, lanes)
+    dw = pm.packed_matmul_lanes_bwd(packed, g_out, g, lanes)
+    errs = {"packed_matmul_lanes_fwd": 0.0, "packed_matmul_lanes_bwd": 0.0}
+    nnz_all = nnz_tr = 0
+    for i, lane in enumerate(ids):
+        x = pm.unpack_bits(packed[lane], g).float()
+        nnz_all += int(x.sum())
+        nnz_tr += int(x[:n_tr].sum())
+        errs["packed_matmul_lanes_fwd"] = max(
+            errs["packed_matmul_lanes_fwd"], _check_close(
+                torch, f"packed_matmul_lanes_fwd {tag} lane {lane}", out[i],
+                pm.packed_matmul_fwd_plain(packed[lane], w[i]),
+                x @ w[i].float().abs()))
+        errs["packed_matmul_lanes_bwd"] = max(
+            errs["packed_matmul_lanes_bwd"], _check_close(
+                torch, f"packed_matmul_lanes_bwd {tag} lane {lane}", dw[i],
+                pm.packed_matmul_bwd_plain(packed[lane, :n_tr], g_out[i], g),
+                x[:n_tr].T @ g_out[i].float().abs()))
+        if not torch.equal(out[i], pm.packed_matmul_fwd(packed[lane], w[i])) \
+                or not torch.equal(dw[i], pm.packed_matmul_bwd(
+                    packed[lane, :n_tr], g_out[i], g)):
+            raise RuntimeError(f"lane {lane} of {tag}: a lane launch is not "
+                               f"bitwise the solo launch")
+        del x
+    print(f"    {tag}: every lane bitwise its solo launches")
+    records = {name: {"max_abs_err": err} for name, err in errs.items()}
+    if not timed:
+        return records
+
+    m, nb = packed.shape[1], packed.shape[2]
+    x16 = torch.stack([pm.unpack_bits(packed[lane], g) for lane in ids])
+    x16_tr_t = x16[:, :n_tr].transpose(1, 2).contiguous()
+    cases = {
+        "packed_matmul_lanes_fwd": (
+            lambda: pm.packed_matmul_lanes_fwd(packed, w, lanes),
+            lambda: [pm.packed_matmul_fwd(packed[lane], w[i])
+                     for i, lane in enumerate(ids)],
+            lambda: pm.packed_matmul_lanes_fwd_plain(packed, w, lanes),
+            lambda: torch.bmm(x16, w),
+            b * (m * nb + g * h * 2 + m * h * 4), nnz_all * h),
+        "packed_matmul_lanes_bwd": (
+            lambda: pm.packed_matmul_lanes_bwd(packed, g_out, g, lanes),
+            lambda: [pm.packed_matmul_bwd(packed[lane, :n_tr], g_out[i], g)
+                     for i, lane in enumerate(ids)],
+            lambda: pm.packed_matmul_lanes_bwd_plain(packed, g_out, g,
+                                                     lanes),
+            lambda: torch.bmm(x16_tr_t, g_out),
+            b * (n_tr * nb + n_tr * h * 2 + g * h * 4), nnz_tr * h),
+    }
+    for name, (kernel, solo, plain, library, nbytes, n_ops) in cases.items():
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = n_ops / F32_ADDS_PER_S * 1e3
+        rec = records[name]
+        spread = {}
+        for key, fn in (("ms", kernel), ("solo_ms", solo),
+                        ("plain_ms", plain), ("library_ms", library)):
+            rec[key], lo, hi = _time_ms(fn, flush)
+            spread[key] = f"{rec[key]:.4f} ms [{lo:.4f}, {hi:.4f}]"
+        rec.update(bound_ms=max(byte_ms, op_ms),
+                   bound_by="bytes" if byte_ms >= op_ms else "operations")
+        print(f"    {name} {tag}: one lane launch {spread['ms']}, {b} solo "
+              f"launches {spread['solo_ms']}, plain {spread['plain_ms']}, "
+              f"library (torch.bmm, dense bf16 stack) "
+              f"{spread['library_ms']}, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}: {nbytes} bytes, {n_ops} f32 adds)")
+    return records
+
+
+def _batch_cli(files, out, flags, epoch=30):
+    """The batch CLI in a fresh interpreter; returns (process seconds, the
+    batch's done record, each lane's output bytes by lane tag)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    metrics = out + ".jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "g2vec_tpu_torch", files["expression"],
+         files["clinical"], files["network"], out, "-e", str(epoch),
+         "--metrics-jsonl", metrics, *flags],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=root),
+        timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"batch CLI {flags} failed:\n{proc.stderr[-3000:]}")
+    records = _read_metrics(metrics)
+    done = [r for r in records if r["event"] == "done" and "lane" not in r]
+    if len(done) != 1:
+        raise RuntimeError(f"{metrics}: {len(done)} batch done records")
+    lanes = {}
+    for r in records:
+        if r["event"] == "done" and "lane" in r:
+            lanes[r["lane"]] = []
+            for path in r["outputs"]:
+                with open(path, "rb") as f:
+                    lanes[r["lane"]].append(f.read())
+    return secs, done[0], lanes
+
+
+def _lane_outputs(res):
+    return [_outputs(lane) for lane in res.lanes]
+
+
+def _solo_lane_runs(res, cfg, tmp, tag):
+    """Each lane's solo run (``pipeline.run(lane_config(...))``) in
+    process; fails unless its files are the lane's bytes."""
+    import dataclasses
+
+    from g2vec_tpu_torch.batch.engine import lane_config
+
+    for v, lane in zip(res.variants, res.lanes):
+        solo_cfg = lane_config(dataclasses.replace(
+            cfg, manifest=None, batch_seeds=0, metrics_jsonl=None,
+            result_name=os.path.join(tmp, f"{tag}_solo")), v)
+        solo, _ = _run_pipeline(solo_cfg)
+        if _outputs(solo) != _outputs(lane):
+            raise RuntimeError(f"{tag}: lane {v.name!r} differs from its "
+                               f"solo run")
+
+
+def _walks_in_turn_and_on_a_pool(m_cfg):
+    """The mixed manifest's distinct walk products, each walked by the
+    engine's own task (``batch.engine._make_walk_task``, the C++ walker on
+    every core), all in turn on this thread as the engine walks them, and
+    all at once on a scheduler pool of 4 threads: twice each, in turns.
+    Fails unless both give the same path sets."""
+    from g2vec_tpu_torch.batch.engine import (_lane_cohort, _make_walk_task,
+                                              plan_variants)
+    from g2vec_tpu_torch.cache import (NATIVE_FAMILY, SharedWalkTier,
+                                       walk_cache_key)
+    from g2vec_tpu_torch.ops.graph import thresholded_edges
+    from g2vec_tpu_torch.ops.host_walker import resolve_sampler_threads
+    from g2vec_tpu_torch.parallel.overlap import OverlapScheduler
+    from g2vec_tpu_torch.pipeline import preprocess_inputs, read_inputs
+
+    data, src, dst = preprocess_inputs(*read_inputs(m_cfg))
+    n_genes = data.expr.shape[1]
+    products = {}
+    for v in plan_variants(m_cfg):
+        ldata = data if v.expr_key() is None else _lane_cohort(data, v)
+        for gi in range(2):
+            s, d, w = thresholded_edges(ldata.expr[ldata.label == gi], src,
+                                        dst, threshold=m_cfg.pcc_threshold,
+                                        device="cuda")
+            seed = (v.seed << 1) | gi
+            products[walk_cache_key(
+                s, d, w, n_genes, len_path=m_cfg.lenPath,
+                reps=m_cfg.numRepetition, seed=seed,
+                family=NATIVE_FAMILY)] = (s, d, w, seed)
+
+    def tasks():
+        tier = SharedWalkTier()
+        return [_make_walk_task(m_cfg, s, d, w, n_genes, seed=seed,
+                                backend="native", tier=tier, ckey=key,
+                                group="g", device="cuda",
+                                n_threads=resolve_sampler_threads(0),
+                                join=lambda: None)
+                for key, (s, d, w, seed) in products.items()]
+
+    def on_pool():
+        with OverlapScheduler(max_workers=4) as pool:
+            for i, task in enumerate(tasks()):
+                pool.submit(f"walk{i}", task)
+            return [pool.result(f"walk{i}") for i in range(len(products))]
+
+    walked = {}
+    for mode in ("in turn", "pool", "in turn", "pool"):
+        sets, secs = _timed(on_pool if mode == "pool"
+                            else lambda: [task() for task in tasks()])
+        walked.setdefault(mode, []).append(secs)
+        if sets != walked.setdefault("sets", sets):
+            raise RuntimeError("walks on the pool gave other path sets")
+    print(f"    its {len(products)} distinct walk products: in turn "
+          f"{walked['in turn'][0]:.3f}, {walked['in turn'][1]:.3f} s; on a "
+          f"pool of 4 threads {walked['pool'][0]:.3f}, "
+          f"{walked['pool'][1]:.3f} s (the same path sets)")
+
+
+def _lanes_phase(torch, pm, result, cfg, files, tmp, smi):
+    """Phase 9: the batch engine on the card. Returns the two lane
+    kernels' records for the kernel line."""
+    import dataclasses
+
+    from g2vec_tpu_torch.batch.engine import (ResidentEngine, lane_config,
+                                              plan_variants)
+
+    n_lanes = 8
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    print(f"    lane kernels at the example, B={n_lanes} (the --seeds "
+          f"{n_lanes} sweep's [train | val] rows):")
+    packed, n_tr = _lane_stack(torch, result, cfg, n_lanes)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pm._bwd_slices(n_tr, result.n_genes, 128, n_sms)
+    print(f"    backward: the solo plan a lane, S={plan.n_slices} slices of "
+          f"{plan.rows} rows; workspace {n_lanes} x {plan.workspace_bytes} "
+          f"= {n_lanes * plan.workspace_bytes} bytes (cap "
+          f"{pm.BWD_LANES_WORKSPACE_CAP}); forward grid "
+          f"{pm._fwd_grid(packed.shape[1], 128, n_sms).blocks} x {n_lanes} "
+          f"blocks")
+    records = _compare_lane_kernels(torch, pm, packed, n_tr, result.n_genes,
+                                    128, gen, flush, timed=True)
+    del packed, flush
+    print("    lane kernels at ragged shapes:")
+    for b, m, g, h, lanes in ((3, 1001, 1003, 131, None),
+                              (3, 777, 999, 7, [2, 0]),
+                              (4, 65, 5850, 128, [3])):
+        stack = torch.stack([_random_packed(torch, m, g, 0.02, gen)
+                             for _ in range(b)])
+        for name, rec in _compare_lane_kernels(
+                torch, pm, stack, m - 2, g, h, gen, None, timed=False,
+                lanes=lanes).items():
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                               rec["max_abs_err"])
+
+    print(f"    --seeds {n_lanes} --lanes {n_lanes} in process on one "
+          f"ResidentEngine, twice (counts read over the first):")
+    b_cfg = _config(files, tmp, "cuda", epoch=30, batch_seeds=n_lanes,
+                    lanes=n_lanes)
+    b_cfg.result_name = os.path.join(tmp, "lanes", "run")
+    with ResidentEngine() as engine:
+        pm.reset_launch_counts()
+        first = engine.execute(b_cfg, console=lambda s: None)
+        launches = {k: getattr(pm, k).launches for k in (
+            "packed_matmul_lanes_fwd", "packed_matmul_lanes_bwd",
+            "packed_matmul_fwd", "packed_matmul_bwd")}
+        again_cfg = dataclasses.replace(
+            b_cfg, result_name=os.path.join(tmp, "lanes2", "run"))
+        lines = []
+        again = engine.execute(again_cfg, console=lines.append)
+        status = engine.status()
+    epochs = [len(lane.train_history) for lane in first.lanes]
+    print(f"    buckets {first.buckets}; epochs run {epochs}; stop epochs "
+          f"{[lane.stop_epoch for lane in first.lanes]}; launches "
+          f"{launches}; stage seconds " + json.dumps(
+              {k: round(v, 3) for k, v in first.stage_seconds.items()})
+          + f"; {first.runs_per_hour:.1f} runs/hour in process")
+    if launches["packed_matmul_lanes_fwd"] != max(epochs) + 1 \
+            or launches["packed_matmul_lanes_bwd"] != max(epochs) \
+            or launches["packed_matmul_fwd"] or launches["packed_matmul_bwd"]:
+        raise RuntimeError(f"the {n_lanes}-lane bucket launched {launches} "
+                           f"for {max(epochs)} epochs")
+    print(f"    second execute: walk_stats {again.walk_stats}; status "
+          + json.dumps({k: status[k] for k in (
+              "batches_executed", "lanes_executed", "datasets_resident",
+              "walk_tier", "walk_products_resident")}))
+    if not any("dataset resident" in line for line in lines) \
+            or again.walk_stats["memo_hits"] != 2 \
+            or again.walk_stats["walked"] != 0 \
+            or _lane_outputs(again) != _lane_outputs(first):
+        raise RuntimeError("the resident engine's second execute was not "
+                           "served from memory with the same bytes")
+
+    print(f"    the batch CLI and each lane's solo CLI run, fresh "
+          f"interpreters:")
+    batch_secs, done, cli_lanes = _batch_cli(
+        files, os.path.join(tmp, "cli_lanes", "run"),
+        ["--seeds", str(n_lanes), "--lanes", str(n_lanes)])
+    variants = plan_variants(b_cfg)
+    flag_sets = [["--train-seed", str(v.train_seed), "--kmeans-seed",
+                  str(v.kmeans_seed)] for v in variants]
+    solo_runs, solo_secs = _timed(lambda: _cli_runs(
+        files, tmp, 30, flag_sets=flag_sets, tag="lane_solo"))
+    for v, lane, (_, secs, _, _, outputs, _) in zip(variants, first.lanes,
+                                                     solo_runs):
+        if cli_lanes[v.tag()] != outputs or _outputs(lane) != outputs:
+            raise RuntimeError(f"lane {v.name!r}: the batch's files differ "
+                               f"from its solo CLI run's")
+    solo_stage = sum(sum(r[1].values()) for r in solo_runs)
+    print(f"    batch CLI: {batch_secs:.3f} s process wall, engine "
+          f"{done['wall_seconds']} s, {done['runs_per_hour']} runs/hour "
+          f"(engine wall), {n_lanes / batch_secs * 3600:.1f} runs/hour "
+          f"(process wall); stage seconds {done['stage_seconds']}")
+    print(f"    {n_lanes} solo CLI runs: {solo_secs:.3f} s process wall "
+          f"({n_lanes / solo_secs * 3600:.1f} runs/hour), stage seconds "
+          f"summed {solo_stage:.3f} s ({n_lanes / solo_stage * 3600:.1f} "
+          f"runs/hour); every lane's three files byte-identical to its solo "
+          f"CLI run and to the in-process batch; {smi}")
+
+    print("    a mixed manifest (two subsamples, a CV fold, a permutation "
+          "null):")
+    manifest = os.path.join(tmp, "mixed.json")
+    with open(manifest, "w") as f:
+        json.dump([{"name": "full"},
+                   {"name": "subA", "patient_subsample": 0.8,
+                    "subsample_seed": 3},
+                   {"name": "subB", "patient_subsample": 0.8,
+                    "subsample_seed": 9},
+                   {"name": "fold2", "subsample_mode": "fold",
+                    "cv_folds": 5, "cv_fold": 2},
+                   {"name": "null", "permute_seed": 5, "train_seed": 1}], f)
+    m_cfg = _config(files, tmp, "cuda", epoch=30, manifest=manifest)
+    m_cfg.result_name = os.path.join(tmp, "mixed", "run")
+    with ResidentEngine() as engine:
+        res = engine.execute(m_cfg, console=lambda s: None)
+    print(f"    stage seconds " + json.dumps(
+        {k: round(v, 3) for k, v in res.stage_seconds.items()})
+        + f"; walk_stats {res.walk_stats}; buckets (lanes, mode, n_paths) "
+        f"{[(b['lanes'], b['mode'], b['n_paths']) for b in res.buckets]}")
+    if len(res.buckets) < 2 or not any(b["lanes"] == 1 for b in res.buckets) \
+            or res.walk_stats["walked"] != 8 \
+            or res.walk_stats["lane_shared"] != 2:
+        raise RuntimeError(f"the mixed manifest planned {res.buckets} with "
+                           f"{res.walk_stats}")
+    _solo_lane_runs(res, m_cfg, tmp, "mixed")
+    _walks_in_turn_and_on_a_pool(m_cfg)
+    print("    every lane's files byte-identical to its solo run")
+
+    print("    --train-mode streaming --seeds 2:")
+    s_cfg = _config(files, tmp, "cuda", epoch=30, batch_seeds=2,
+                    train_mode="streaming")
+    s_cfg.result_name = os.path.join(tmp, "stream_lanes", "run")
+    from g2vec_tpu_torch.batch.engine import run_batch
+
+    s_res, s_secs = _timed(lambda: run_batch(s_cfg, console=lambda s: None))
+    _solo_lane_runs(s_res, s_cfg, tmp, "stream_lanes")
+    print(f"    {s_secs:.3f} s for 2 lanes, buckets {s_res.buckets}; each "
+          f"lane's files byte-identical to its solo streaming run")
+    for name, rec in records.items():
+        rec["launches"] = launches[name]
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -1234,8 +1604,8 @@ def main() -> int:
     kernel = "?"
     for line in (log + walk_log).splitlines():
         if "Compiling entry function" in line:
-            kernel = next((w for w in ("pm_fwd_kernel", "pm_bwd_kernel",
-                                       "pm_bwd_sum_kernel",
+            kernel = next((w for w in ("pm_fwd_kernel", "pm_fwd_lanes_kernel",
+                                       "pm_bwd_kernel", "pm_bwd_sum_kernel",
                                        "g2v_walk_kernel") if w in line),
                           line.split("'")[1] if "'" in line else "?")
         elif "registers" in line or "spill" in line:
@@ -1497,6 +1867,13 @@ def main() -> int:
                                  smi)
         print("    " + json.dumps({"durable": durable}))
 
+        print("[9] lanes: the batch engine (--seeds/--manifest, the lane "
+              "kernels, stages 5-6 over the lanes, ResidentEngine) at the "
+              "example, hidden 128, bf16, epoch cap 30")
+        t9 = time.perf_counter()
+        lane_records = _lanes_phase(torch, pm, result, cfg, files, tmp, smi)
+        print(f"    phase 9 took {time.perf_counter() - t9:.1f} s")
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -1513,6 +1890,13 @@ def main() -> int:
             "replaces": pm.REPLACES[name], "launches": launches[name],
             **{k: rec[k] for k in keys}, "streaming": streaming})
     kernels.append(walk_rec)
+    for name, rec in lane_records.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "g2vec_tpu_torch/csrc/packed_matmul.cu",
+            "replaces": pm.REPLACES[name], "launches": rec["launches"],
+            **{k: rec[k] for k in keys}, "lanes": 8,
+            "solo_ms": rec["solo_ms"]})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,6 +16,9 @@ stays in the repository unchanged), rewritten on PyTorch:
 - L5 analysis             -> :mod:`g2vec_tpu_torch.ops.kmeans`,
   :mod:`g2vec_tpu_torch.ops.stats`, :mod:`g2vec_tpu_torch.analysis`
 - L6 output writers       -> :mod:`g2vec_tpu_torch.io.writers`
+- batches of runs (lanes) -> :mod:`g2vec_tpu_torch.batch` (``--seeds``,
+  ``--manifest``; the lane trainer ``train_cbow_lanes`` on the same
+  kernels, one launch a step for a bucket of lanes)
 
 The package imports ``torch`` and never ``jax``, and nothing of
 ``g2vec_tpu``. Entry points run on the card (``device="cuda"``) unless the

@@ -4,6 +4,8 @@ Same invocation shape as the reference (``python G2Vec.py ...``) and as
 ``python -m g2vec_tpu``; runs on the card unless ``--device cpu``.
 ``--supervise`` is handled before torch is imported, so the supervisor
 process holds no CUDA context; its children run the pipeline.
+``--manifest``/``--seeds`` run the batch engine instead of the solo
+pipeline.
 """
 from __future__ import annotations
 
@@ -22,6 +24,14 @@ def main(argv=None) -> int:
         from g2vec_tpu_torch.resilience.supervisor import supervise_cli
 
         return supervise_cli(cfg, argv)
+    if cfg.manifest or cfg.batch_seeds:
+        # The batch engine: the manifest's lanes in this process
+        # (batch/engine.py); --supervise and checkpointing were refused
+        # with these flags at validation.
+        from g2vec_tpu_torch.batch.engine import run_batch
+
+        run_batch(cfg)
+        return 0
     from g2vec_tpu_torch.pipeline import run
 
     run(cfg)

@@ -12,6 +12,13 @@
 
 The reference's step-3 vote is neutered by a list-vs-int comparison bug
 (ref: G2Vec.py:186-187); it is reproduced under ``compat_tiebreak=True``.
+
+The ``*_lanes`` functions are stages 5-6 over the batch engine's
+``[B, G, H]`` lane stack (``g2vec_tpu/analysis.py``'s vmapped variants).
+The contract is that every lane's files are its solo run's, so each lane
+runs the solo function on its own embeddings with its own k-means
+generator; only the lane-invariant t-scores are computed once for the
+lanes that share a cohort.
 """
 from __future__ import annotations
 
@@ -88,6 +95,42 @@ def find_lgroups(embeddings: torch.Tensor, freq_idx: np.ndarray, *,
     return _renumber(km_idx, good_cluster, poor_cluster), centers
 
 
+def _vote_counts_lanes(km_stack: torch.Tensor, freq_stack: np.ndarray,
+                       k: int):
+    """Per-lane vote tallies: [B, k] stacks of :func:`_vote_counts`."""
+    per_lane = [_vote_counts(km, torch.as_tensor(freq, device=km.device), k)
+                for km, freq in zip(km_stack, freq_stack)]
+    return tuple(np.stack(t) for t in zip(*per_lane))
+
+
+def find_lgroups_lanes(emb_stack: torch.Tensor, freq_stack: np.ndarray,
+                       kmeans_seeds: Sequence[int], *, k: int = 3,
+                       compat_tiebreak: bool = False, n_init: int = 10,
+                       iters: int = 50, centers0=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 5 over the lane stack ``emb_stack [B, G, H]``: L-groups
+    [B, G] int32 and winning centres [B, k, H], each lane's the solo
+    :func:`find_lgroups` of its embeddings under a generator seeded with
+    its ``kmeans_seeds`` entry. ``centers0 [B, n_init, k, H]`` replaces
+    the k-means++ draws (tests)."""
+    if len(kmeans_seeds) != emb_stack.shape[0] \
+            or len(freq_stack) != emb_stack.shape[0]:
+        raise ValueError(f"{emb_stack.shape[0]} lanes, "
+                         f"{len(kmeans_seeds)} k-means seeds, "
+                         f"{len(freq_stack)} vote vectors")
+    groups, centers = [], []
+    for b, seed in enumerate(kmeans_seeds):
+        # A fresh contiguous copy: the solo run's embeddings are one.
+        lg, c = find_lgroups(
+            emb_stack[b].clone(), freq_stack[b],
+            generator=torch.Generator().manual_seed(int(seed)), k=k,
+            compat_tiebreak=compat_tiebreak, n_init=n_init, iters=iters,
+            centers0=None if centers0 is None else centers0[b])
+        groups.append(lg)
+        centers.append(c)
+    return torch.stack(groups), torch.stack(centers)
+
+
 def biomarker_scores(embeddings: torch.Tensor, expr_good: torch.Tensor,
                      expr_poor: torch.Tensor, lgroup_idx: torch.Tensor,
                      score_mix: float = 0.5) -> torch.Tensor:
@@ -95,8 +138,25 @@ def biomarker_scores(embeddings: torch.Tensor, expr_good: torch.Tensor,
     full gene axis (row 0 good, row 1 poor), each row min-max rescaled over
     its own L-group's genes; positions outside a row's group are never
     read."""
-    d_full = dscores(embeddings)
+    return _mixed_scores(dscores(embeddings), tscores(expr_good, expr_poor),
+                         lgroup_idx, score_mix)
+
+
+def biomarker_scores_lanes(emb_stack: torch.Tensor, expr_good: torch.Tensor,
+                           expr_poor: torch.Tensor,
+                           lgroup_stack: torch.Tensor,
+                           score_mix: float = 0.5) -> torch.Tensor:
+    """:func:`biomarker_scores` for lanes that share one cohort and label
+    view: [B, 2, G]. The t-scores are computed once; each lane's d-scores
+    and rescaling are the solo ops on its own embeddings."""
     t_full = tscores(expr_good, expr_poor)
+    return torch.stack([
+        _mixed_scores(dscores(emb_stack[b].clone()), t_full, lgroup_stack[b],
+                      score_mix) for b in range(emb_stack.shape[0])])
+
+
+def _mixed_scores(d_full: torch.Tensor, t_full: torch.Tensor,
+                  lgroup_idx: torch.Tensor, score_mix: float) -> torch.Tensor:
     rows = []
     for group in (0, 1):
         mask = lgroup_idx == group

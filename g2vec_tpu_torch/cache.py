@@ -19,7 +19,8 @@ with a ``RuntimeWarning`` and misses, and the recompute's store
 overwrites the bad entry. A cache can make a run faster, never wrong.
 
 The port has no compile cache, so :func:`resolve_cache_tiers` returns
-the walk tier only.
+the walk tier only. The batch engine stacks :class:`SharedWalkTier`, an
+in-process memo, above it.
 """
 from __future__ import annotations
 
@@ -159,6 +160,55 @@ class WalkCache:
         fault_point("walk_cache", path=art)
         record_cache_event("walk", "store")
         return art
+
+
+@dataclasses.dataclass
+class SharedWalkTier:
+    """An in-process memo above the on-disk :class:`WalkCache` (the
+    reference's ``SharedWalkTier``).
+
+    The batch engine (``batch/engine.py``) runs many lanes in one process;
+    lanes whose walk inputs coincide (a seed sweep shares both groups'
+    products, cohorts of their own share nothing) pay each distinct
+    product once. The memo holds products under the disk tier's
+    content-addressed key, so a memo hit needs no verification (the object
+    never left the process); the disk tier underneath serves hits across
+    processes and receives every store. ``memo_hits``, ``disk_hits`` and
+    ``walked`` count the three outcomes.
+    """
+
+    disk: Optional[WalkCache] = None
+    memo: Dict[str, Set[bytes]] = dataclasses.field(default_factory=dict)
+    memo_hits: int = 0
+    disk_hits: int = 0
+    walked: int = 0
+
+    def load(self, key: str) -> Optional[Set[bytes]]:
+        hit = self.memo.get(key)
+        if hit is not None:
+            self.memo_hits += 1
+            record_cache_event("walk", "memo_hit")
+            return hit
+        if self.disk is not None:
+            hit = self.disk.load(key)
+            if hit is not None:
+                self.disk_hits += 1
+                self.memo[key] = hit
+                return hit
+        else:
+            record_cache_event("walk", "miss")
+        return None
+
+    def store(self, key: str, path_set: Set[bytes], n_genes: int,
+              meta: Optional[Dict] = None) -> None:
+        self.walked += 1
+        self.memo[key] = path_set
+        if self.disk is not None:
+            self.disk.store(key, path_set, n_genes, meta=meta)
+
+    def stats(self) -> Dict[str, int]:
+        return {"memo_hits": self.memo_hits, "disk_hits": self.disk_hits,
+                "walked": self.walked}
 
 
 def resolve_cache_tiers(cache_dir: Optional[str]) -> Optional[WalkCache]:

@@ -4,7 +4,9 @@ The reference CLI (ref: G2Vec.py:505-518): four positional arguments plus
 ``-p/-r/-s/-e/-l/-n`` with the same defaults, and the framework flags the
 port's solo run reads: the full-batch and streaming trainers, the stage
 overlap, the native reader, the metrics stream, the walker backend and
-the walk cache, checkpoint/resume, fault injection and the supervisor.
+the walk cache, checkpoint/resume, fault injection and the supervisor,
+the patient cohort and permutation flags, and the batch engine's
+``--manifest``/``--seeds``/``--lanes``.
 Defaults and validation are those of ``g2vec_tpu/config.py``; ``--device``
 is the port's own (``cuda`` unless the caller asks for ``cpu``). The port
 checkpoints in the single-file layout only: it takes no
@@ -19,7 +21,7 @@ from typing import Optional
 
 @dataclasses.dataclass
 class G2VecConfig:
-    """Configuration of one solo run of the port.
+    """Configuration of one run of the port (or the base of a batch).
 
     Reference-compatible options keep the reference's camelCase names.
     """
@@ -51,6 +53,23 @@ class G2VecConfig:
     # ---- framework flags ----
     seed: int = 0                    # walk seed (the reference is unseeded)
     train_seed: Optional[int] = None  # split/init seed; None = seed
+    patient_subsample: float = 0.0   # fraction of patients kept per label
+                                     # class (stratified, seeded; 0 = off)
+    subsample_seed: int = 0          # seed of the patient cohort draws
+    subsample_mode: str = "fraction"  # cohort: "fraction" keeps a seeded
+                                     # stratified subset; "bootstrap" draws
+                                     # the same count per class with
+                                     # replacement (fraction 0 = the full
+                                     # class size); "fold" trains on every
+                                     # fold but cv_fold of a seeded
+                                     # stratified cv_folds partition
+    cv_folds: int = 0                # partition size for subsample_mode
+                                     # "fold" (0 otherwise)
+    cv_fold: int = 0                 # held-out fold in [0, cv_folds)
+    permute_seed: Optional[int] = None  # permutation null: stage 6 scores
+                                     # against labels shuffled with this
+                                     # seed; walks and training keep the
+                                     # observed labels (None = off)
     compat_lgroup_tiebreak: bool = False
     compute_dtype: str = "bfloat16"  # bf16 runs the packed kernels; float32
                                      # runs the dense torch.matmul path
@@ -113,6 +132,15 @@ class G2VecConfig:
     fault_plan: Optional[str] = None  # injection spec, e.g.
                                      # "stage=train,epoch=40,kind=crash"
                                      # (resilience/faults.py docstring)
+
+    # ---- batch engine (batch/engine.py) ----
+    manifest: Optional[str] = None   # JSON list of variant objects over
+                                     # this base config, run as lanes
+    batch_seeds: int = 0             # --seeds N: an N-variant seed sweep
+                                     # (train and k-means seeds vary, the
+                                     # walk seed stays; 0 = off)
+    lanes: int = 8                   # most lanes trained in one bucket
+                                     # (a larger bucket splits)
 
     def validate(self) -> None:
         if self.lenPath < 1:
@@ -187,6 +215,52 @@ class G2VecConfig:
         if self.supervise_backoff < 0.0:
             raise ValueError(
                 f"supervise_backoff must be >= 0, got {self.supervise_backoff}")
+        if not (0.0 <= self.patient_subsample <= 1.0):
+            raise ValueError(
+                f"patient_subsample must be 0 (off) or in (0,1], "
+                f"got {self.patient_subsample}")
+        if self.subsample_mode not in ("fraction", "bootstrap", "fold"):
+            raise ValueError(
+                f"subsample_mode must be fraction|bootstrap|fold, "
+                f"got {self.subsample_mode}")
+        if self.subsample_mode == "fold":
+            if self.cv_folds < 2:
+                raise ValueError(
+                    f"--subsample-mode fold needs --cv-folds >= 2, "
+                    f"got {self.cv_folds}")
+            if not (0 <= self.cv_fold < self.cv_folds):
+                raise ValueError(
+                    f"--cv-fold must be in [0, {self.cv_folds}), "
+                    f"got {self.cv_fold}")
+            if self.patient_subsample:
+                raise ValueError(
+                    "--subsample-mode fold derives the cohort from the fold "
+                    "partition; --patient-subsample must be 0")
+        elif self.cv_folds or self.cv_fold:
+            raise ValueError(
+                "--cv-folds/--cv-fold are only meaningful with "
+                "--subsample-mode fold")
+        if self.permute_seed is not None and self.permute_seed < 0:
+            raise ValueError(
+                f"--permute-seed must be >= 0, got {self.permute_seed}")
+        if self.batch_seeds < 0:
+            raise ValueError(
+                f"--seeds must be >= 0, got {self.batch_seeds}")
+        if self.lanes < 1:
+            raise ValueError(f"--lanes must be >= 1, got {self.lanes}")
+        if self.manifest and self.batch_seeds:
+            raise ValueError(
+                "--manifest and --seeds are mutually exclusive (a manifest "
+                "already enumerates its variants)")
+        if self.manifest or self.batch_seeds:
+            for flag, name in ((self.supervise, "--supervise"),
+                               (self.checkpoint_dir, "--checkpoint-dir"),
+                               (self.resume, "--resume")):
+                if flag:
+                    raise ValueError(
+                        f"the batch engine (--manifest/--seeds) does not "
+                        f"compose with {name} yet — run lanes as separate "
+                        f"supervised jobs instead")
         if self.fault_plan:
             # Fail at config time with the offending token, not mid-run.
             from g2vec_tpu_torch.resilience.faults import parse_plan
@@ -230,6 +304,48 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Trainer split/init seed (default: --seed).")
     parser.add_argument("--kmeans-seed", type=int, default=0,
                         help="Stage-5 k-means seed (ref: random_state=0).")
+    parser.add_argument("--patient-subsample", type=float, default=0.0,
+                        metavar="FRAC",
+                        help="Keep this fraction of patients per label "
+                             "class (stratified, seeded by "
+                             "--subsample-seed; 0 = off).")
+    parser.add_argument("--subsample-seed", type=int, default=0)
+    parser.add_argument("--subsample-mode", type=str, default="fraction",
+                        choices=("fraction", "bootstrap", "fold"),
+                        help="Cohort derivation. 'fraction' (default): a "
+                             "seeded stratified --patient-subsample subset "
+                             "without replacement. 'bootstrap': the same "
+                             "count per label class drawn with replacement "
+                             "(fraction 0 means the full class size). "
+                             "'fold': train on every fold except --cv-fold "
+                             "of a seeded stratified --cv-folds partition.")
+    parser.add_argument("--cv-folds", type=int, default=0, metavar="K",
+                        help="Stratified partition size for "
+                             "--subsample-mode fold (K >= 2).")
+    parser.add_argument("--cv-fold", type=int, default=0, metavar="I",
+                        help="Held-out fold index in [0, K) for "
+                             "--subsample-mode fold.")
+    parser.add_argument("--permute-seed", type=int, default=None,
+                        help="Permutation null: shuffle the patient labels "
+                             "with this seed for the stage-6 scoring only; "
+                             "walks and training keep the observed labels.")
+    parser.add_argument("--manifest", type=str, default=None, metavar="JSON",
+                        help="Batch run manifest: a JSON list of variant "
+                             "objects (name/seed/train_seed/kmeans_seed/"
+                             "learningRate/epoch/patient_subsample/"
+                             "subsample_seed/subsample_mode/cv_folds/"
+                             "cv_fold/permute_seed overrides of this base "
+                             "config), run as lanes; each lane writes the "
+                             "files its solo run writes.")
+    parser.add_argument("--seeds", type=int, default=0, metavar="N",
+                        dest="batch_seeds",
+                        help="Run an N-lane seed sweep (train and k-means "
+                             "seeds vary; the walk seed stays, so all lanes "
+                             "share one walk product per group).")
+    parser.add_argument("--lanes", type=int, default=8, metavar="B",
+                        help="Most lanes trained in one bucket, on one "
+                             "launch of each kernel a step (default 8); a "
+                             "larger bucket splits.")
     parser.add_argument("--kmeans-iters", type=int, default=300,
                         help="Lloyd iterations per k-means restart.")
     parser.add_argument("--pcc-threshold", type=float, default=0.5)
@@ -360,6 +476,15 @@ def config_from_args(argv=None) -> G2VecConfig:
         score_mix=args.score_mix,
         seed=args.seed,
         train_seed=args.train_seed,
+        patient_subsample=args.patient_subsample,
+        subsample_seed=args.subsample_seed,
+        subsample_mode=args.subsample_mode,
+        cv_folds=args.cv_folds,
+        cv_fold=args.cv_fold,
+        permute_seed=args.permute_seed,
+        manifest=args.manifest,
+        batch_seeds=args.batch_seeds,
+        lanes=args.lanes,
         compat_lgroup_tiebreak=args.compat_lgroup_tiebreak,
         compute_dtype=args.compute_dtype,
         param_dtype=args.param_dtype,

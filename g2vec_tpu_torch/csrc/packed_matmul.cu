@@ -95,6 +95,19 @@
 //     issues MMAs, so the two overlap only as far as the other resident
 //     block hides them. A producer warp feeding wgmma consumers through TMA
 //     is the next step.
+// Lanes. The batch engine trains B lanes of one shape at once (a lane: one
+// run's P, W and g_out). A lane launch takes a lane slot from blockIdx.z
+// (the forward's grid is (row blocks, col blocks, B), the backward's z is
+// lane * S + slice) and offsets its pointers by it before anything else:
+// P by a lane table's entry times P's lane stride (so lanes that stopped
+// training drop out of the launch and the P stack is never copied), W,
+// g_out, out and the workspace by the slot. The forward's lane kernel
+// (pm_fwd_lanes_kernel) runs the solo kernel's body, fwd_block; the
+// backward's solo launch is its lane launch with one slot and no table.
+// Every lane's output is bitwise its solo launch's (the forward is
+// M-invariant; the backward splits each lane by the solo plan and sums its
+// partials in the same order). The workspace is [B, S, G, H].
+//
 // The plain PyTorch versions of both functions live in
 // g2vec_tpu_torch/ops/packed_matmul.py; the wrapper there checks shapes,
 // dtypes, devices and contiguity before any pointer reaches this file.
@@ -222,10 +235,23 @@ __device__ __forceinline__ uint32_t bits_to_bf16x2(uint32_t lo, uint32_t hi,
     return r & 0x3F803F80u;
 }
 
+// The forward's block (row block blockIdx.x, column block blockIdx.y) of
+// one run's P, W and out: the body of both forward kernels, defined after
+// the solo one.
+__device__ __forceinline__ void fwd_block(
+    const uint8_t* __restrict__ packed, const __nv_bfloat16* __restrict__ w,
+    float* __restrict__ out, int m, int g, int nb, int h);
+
 __global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
 pm_fwd_kernel(const uint8_t* __restrict__ packed,
               const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
               int m, int g, int nb, int h) {
+    fwd_block(packed, w, out, m, g, nb, h);
+}
+
+__device__ __forceinline__ void fwd_block(
+    const uint8_t* __restrict__ packed, const __nv_bfloat16* __restrict__ w,
+    float* __restrict__ out, int m, int g, int nb, int h) {
     extern __shared__ __align__(16) uint8_t smem[];
 
     const int tid = threadIdx.x;
@@ -356,11 +382,35 @@ pm_fwd_kernel(const uint8_t* __restrict__ packed,
     }
 }
 
+// Lane slot z of a lane launch: P of lane lane_ids[z], W and out of slot
+// z, through the solo kernel's body. (The solo kernel takes no lane
+// offsets: at its 255 registers they cost its schedule a third of its
+// time, PERF.md.)
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
+pm_fwd_lanes_kernel(const uint8_t* __restrict__ packed,
+                    const int* __restrict__ lane_ids, int64_t p_lane_stride,
+                    const __nv_bfloat16* __restrict__ w,
+                    float* __restrict__ out, int m, int g, int nb, int h) {
+    const int z = blockIdx.z;
+    fwd_block(packed + static_cast<size_t>(lane_ids[z]) * p_lane_stride,
+              w + static_cast<size_t>(z) * g * h,
+              out + static_cast<size_t>(z) * m * h, m, g, nb, h);
+}
+
 __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
 pm_bwd_kernel(const uint8_t* __restrict__ packed,
               const __nv_bfloat16* __restrict__ gout, float* __restrict__ part,
-              int m, int g, int nb, int h, int rows_per_slice) {
+              int m, int g, int nb, int h, int rows_per_slice, int n_slices,
+              const int* __restrict__ lane_ids, int64_t p_lane_stride) {
     extern __shared__ __align__(16) uint8_t smem[];
+
+    // Lane slot z / S: P of lane lane_ids[z / S] (of lane z / S without a
+    // table), g_out of the slot; slice z % S of its rows. The partial goes
+    // to workspace entry z = (slot, slice).
+    const int slot = blockIdx.z / n_slices, slice = blockIdx.z % n_slices;
+    packed += static_cast<size_t>(lane_ids != nullptr ? lane_ids[slot] : slot) *
+              p_lane_stride;
+    gout += static_cast<size_t>(slot) * m * h;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -368,7 +418,7 @@ pm_bwd_kernel(const uint8_t* __restrict__ packed,
     const int gid = lane >> 2, tig = lane & 3;     // MMA groupID, thread in group
     const int byte0 = blockIdx.x * kBwdBytes;
     const int col0 = blockIdx.y * kBwdCols;
-    const int row_begin = blockIdx.z * rows_per_slice;
+    const int row_begin = slice * rows_per_slice;
     const int row_end = min(m, row_begin + rows_per_slice);
     const int n_steps = max(0, row_end - row_begin + kBwdRows - 1) / kBwdRows;
     const uint32_t smem0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -488,12 +538,15 @@ pm_bwd_kernel(const uint8_t* __restrict__ packed,
     }
 }
 
-// dW = part[0] + part[1] + ... + part[S-1], added in that order.
+// dW = part[0] + part[1] + ... + part[S-1], added in that order, for the
+// lane slot blockIdx.y.
 __global__ void __launch_bounds__(kSumThreads)
 pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
                   int64_t n4, int n_slices) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kSumThreads + threadIdx.x;
     if (i >= n4) return;
+    part += static_cast<int64_t>(blockIdx.y) * n_slices * n4;
+    dw += static_cast<int64_t>(blockIdx.y) * n4;
     float4 acc = part[i];
     for (int s = 1; s < n_slices; ++s) {
         const float4 v = part[s * n4 + i];
@@ -506,33 +559,92 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
 }
 
 cudaError_t set_fwd_smem() {
-    return cudaFuncSetAttribute(pm_fwd_kernel,
+    cudaError_t err = cudaFuncSetAttribute(
+        pm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(pm_fwd_lanes_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 kFwdSmem);
+}
+
+dim3 fwd_grid(int64_t m, int64_t h, int64_t lanes) {
+    return dim3(static_cast<unsigned>((m + kFwdRows - 1) / kFwdRows),
+                static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols),
+                static_cast<unsigned>(lanes));
+}
+
+int launch_bwd(const void* packed, const void* lane_ids, int64_t p_lane_stride,
+               const void* gout, void* dw, void* work, int64_t lanes,
+               int64_t m, int64_t g, int64_t nb, int64_t h,
+               int64_t rows_per_slice, int64_t n_slices, void* stream) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaFuncSetAttribute(
+        pm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float* part = static_cast<float*>(n_slices > 1 ? work : dw);
+    const dim3 grid(static_cast<unsigned>((g + kBwdGenes - 1) / kBwdGenes),
+                    static_cast<unsigned>((h + kBwdCols - 1) / kBwdCols),
+                    static_cast<unsigned>(lanes * n_slices));
+    pm_bwd_kernel<<<grid, kBwdThreads, kBwdSmem, s>>>(
+        static_cast<const uint8_t*>(packed),
+        static_cast<const __nv_bfloat16*>(gout), part,
+        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
+        static_cast<int>(h), static_cast<int>(rows_per_slice),
+        static_cast<int>(n_slices), static_cast<const int*>(lane_ids),
+        p_lane_stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
+    const int64_t n4 = g * h / 4;
+    const dim3 sum_grid(static_cast<unsigned>((n4 + kSumThreads - 1) / kSumThreads),
+                        static_cast<unsigned>(lanes));
+    pm_bwd_sum_kernel<<<sum_grid, kSumThreads, 0, s>>>(
+        static_cast<const float4*>(work), static_cast<float4*>(dw), n4,
+        static_cast<int>(n_slices));
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Both entry points launch on `stream` and return cudaGetLastError() (0 on
-// success). Preconditions, checked by the Python wrapper: P [m, nb] uint8
-// contiguous with nb (P's row stride) >= ceil(g/8) and nb % 4 == 0, P
-// 4-byte aligned, W / g_out bf16 contiguous, 16-byte aligned, with
+// Every entry point launches on `stream` and returns cudaGetLastError() (0
+// on success). Preconditions, checked by the Python wrapper: P [m, nb]
+// uint8 contiguous with nb (P's row stride) >= ceil(g/8) and nb % 4 == 0,
+// P 4-byte aligned, W / g_out bf16 contiguous, 16-byte aligned, with
 // h % 8 == 0, out / dW f32 contiguous, g, h >= 1.
 //   forward: m >= 1.
 //   backward: rows_per_slice * n_slices >= m, n_slices >= 1,
 //     and with n_slices > 1 a workspace `work` of n_slices * g * h f32.
+// The lane entry points take `lanes` slots of these, one after the other
+// (W / g_out [lanes, ., h], out / dW [lanes, ., h], the workspace
+// [lanes, n_slices, g, h]), and P as a stack whose lane l starts at byte
+// l * p_lane_stride; slot z reads lane lane_ids[z] (an int32 device array
+// of `lanes` entries) and the backward its first m rows.
+// Grid limits: lanes <= 65535, and for the backward lanes * n_slices.
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
                int64_t g, int64_t nb, int64_t h, void* stream) {
     cudaError_t err = set_fwd_smem();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(static_cast<unsigned>((m + kFwdRows - 1) / kFwdRows),
-                    static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols));
-    pm_fwd_kernel<<<grid, kFwdThreads, kFwdSmem,
+    pm_fwd_kernel<<<fwd_grid(m, h, 1), kFwdThreads, kFwdSmem,
                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(packed),
+        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
+        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
+        static_cast<int>(h));
+    return static_cast<int>(cudaGetLastError());
+}
+
+int g2v_pm_fwd_lanes(const void* packed, const void* lane_ids,
+                     int64_t p_lane_stride, const void* w, void* out,
+                     int64_t lanes, int64_t m, int64_t g, int64_t nb,
+                     int64_t h, void* stream) {
+    cudaError_t err = set_fwd_smem();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    pm_fwd_lanes_kernel<<<fwd_grid(m, h, lanes), kFwdThreads, kFwdSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(packed),
+        static_cast<const int*>(lane_ids), p_lane_stride,
         static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
         static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
         static_cast<int>(h));
@@ -553,27 +665,17 @@ int g2v_pm_fwd_occupancy() {
 int g2v_pm_bwd(const void* packed, const void* gout, void* dw, void* work,
                int64_t m, int64_t g, int64_t nb, int64_t h,
                int64_t rows_per_slice, int64_t n_slices, void* stream) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaFuncSetAttribute(
-        pm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    float* part = static_cast<float*>(n_slices > 1 ? work : dw);
-    const dim3 grid(static_cast<unsigned>((g + kBwdGenes - 1) / kBwdGenes),
-                    static_cast<unsigned>((h + kBwdCols - 1) / kBwdCols),
-                    static_cast<unsigned>(n_slices));
-    pm_bwd_kernel<<<grid, kBwdThreads, kBwdSmem, s>>>(
-        static_cast<const uint8_t*>(packed),
-        static_cast<const __nv_bfloat16*>(gout), part,
-        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
-        static_cast<int>(h), static_cast<int>(rows_per_slice));
-    err = cudaGetLastError();
-    if (err != cudaSuccess || n_slices == 1) return static_cast<int>(err);
-    const int64_t n4 = g * h / 4;
-    pm_bwd_sum_kernel<<<static_cast<unsigned>((n4 + kSumThreads - 1) / kSumThreads),
-                        kSumThreads, 0, s>>>(
-        static_cast<const float4*>(work), static_cast<float4*>(dw), n4,
-        static_cast<int>(n_slices));
-    return static_cast<int>(cudaGetLastError());
+    return launch_bwd(packed, nullptr, 0, gout, dw, work, 1, m, g, nb, h,
+                      rows_per_slice, n_slices, stream);
+}
+
+int g2v_pm_bwd_lanes(const void* packed, const void* lane_ids,
+                     int64_t p_lane_stride, const void* gout, void* dw,
+                     void* work, int64_t lanes, int64_t m, int64_t g,
+                     int64_t nb, int64_t h, int64_t rows_per_slice,
+                     int64_t n_slices, void* stream) {
+    return launch_bwd(packed, lane_ids, p_lane_stride, gout, dw, work, lanes,
+                      m, g, nb, h, rows_per_slice, n_slices, stream);
 }
 
 }  // extern "C"

@@ -38,6 +38,18 @@ gradient reaches W only (the paths are data, ref: G2Vec.py:264), the
 cotangent is cast to bf16 before the backward, dW is cast back to W's
 dtype, and ``grad_rows`` restricts the backward to the first rows (the
 trainer's fused [train | val] forward trains on the train rows only).
+
+Lanes (the batch engine's trainer, ``train_cbow_lanes``): the same two
+functions over a stack of B runs of one shape, P ``[B, M, nb]``, W
+``[B, G, H]``, one launch of each kernel for all of them
+(``packed_matmul_lanes_fwd``/``_bwd`` and the autograd function
+:class:`PackedMatmulLanes`). ``lanes`` picks which lanes of the P stack
+take part (the lanes still training), by a table the kernels read, so P is
+never copied. Every lane's result is bitwise the solo launch's on that
+lane's tensors. The backward's workspace is B times the solo plan's
+(``[B, S, G, H8]`` f32: 264 MB at 8 lanes of the example, S = 11); lanes
+whose workspace would pass ``BWD_LANES_WORKSPACE_CAP`` go in further
+launches. The plain versions are per-lane loops over the solo ones.
 """
 from __future__ import annotations
 
@@ -45,7 +57,7 @@ import ctypes
 import functools
 import os
 import shutil
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -57,7 +69,9 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 #: The TPU functions these kernels replace (file:line of the pallas_call).
 REPLACES = {"packed_matmul_fwd": "g2vec_tpu/ops/packed_matmul.py:302",
-            "packed_matmul_bwd": "g2vec_tpu/ops/packed_matmul.py:323"}
+            "packed_matmul_bwd": "g2vec_tpu/ops/packed_matmul.py:323",
+            "packed_matmul_lanes_fwd": "g2vec_tpu/ops/packed_matmul.py:302",
+            "packed_matmul_lanes_bwd": "g2vec_tpu/ops/packed_matmul.py:323"}
 
 
 def nvcc_command() -> list:
@@ -77,7 +91,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.g2v_pm_fwd_occupancy.restype = ctypes.c_int
     lib.g2v_pm_bwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i64,
                                i64, i64, ptr]
-    for fn in (lib.g2v_pm_fwd, lib.g2v_pm_bwd):
+    lib.g2v_pm_fwd_lanes.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i64, i64,
+                                     i64, i64, ptr]
+    lib.g2v_pm_bwd_lanes.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, i64, i64,
+                                     i64, i64, i64, i64, i64, ptr]
+    for fn in (lib.g2v_pm_fwd, lib.g2v_pm_bwd, lib.g2v_pm_fwd_lanes,
+               lib.g2v_pm_bwd_lanes):
         fn.restype = ctypes.c_int
 
 
@@ -248,9 +267,9 @@ def _check(packed: torch.Tensor, dense: torch.Tensor, n_genes: int,
 
 
 def _pad_cols(t: torch.Tensor, multiple: int) -> torch.Tensor:
-    """``t`` with zero columns appended up to a multiple of ``multiple``
-    (``t`` itself when its width is one already)."""
-    extra = -t.shape[1] % multiple
+    """``t`` with zero columns (last dimension) appended up to a multiple
+    of ``multiple`` (``t`` itself when its width is one already)."""
+    extra = -t.shape[-1] % multiple
     return F.pad(t, (0, extra)) if extra else t
 
 
@@ -362,9 +381,137 @@ def _bwd_on_card(packed: torch.Tensor, g16: torch.Tensor, n_genes: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Lanes: B runs of one shape, one launch of each kernel for all of them.
+# ---------------------------------------------------------------------------
+
+#: The lane backward's workspace ([lanes, S, G, H8] f32) stays at or under
+#: this many bytes a launch; more lanes go in further launches.
+BWD_LANES_WORKSPACE_CAP = 1024 * 2 ** 20
+#: A launch's grid z holds at most this many lane slots (x slices).
+_GRID_Z_MAX = 65535
+
+
+def _lane_ids(packed: torch.Tensor, lanes: Optional[Sequence[int]]) -> list:
+    """The lanes of the P stack ``packed`` that take part, checked."""
+    ids = list(range(packed.shape[0])) if lanes is None else \
+        [int(i) for i in lanes]
+    if any(not 0 <= i < packed.shape[0] for i in ids):
+        raise ValueError(f"lanes {ids} outside the stack's "
+                         f"{packed.shape[0]}")
+    return ids
+
+
+def _check_lanes(packed: torch.Tensor, dense: torch.Tensor, ids: list,
+                 n_genes: int, max_rows: int, what: str) -> None:
+    if packed.dtype != torch.uint8 or packed.dim() != 3:
+        raise ValueError(f"packed must be a 3-D uint8 lane stack, got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    if dense.dim() != 3 or dense.shape[0] != len(ids) \
+            or not 1 <= dense.shape[1] <= max_rows:
+        raise ValueError(f"{what} must be [{len(ids)} lanes, rows, H] with "
+                         f"1..{max_rows} rows, got {tuple(dense.shape)}")
+    _check(packed[0], dense[0], n_genes, dense.shape[1], what)
+
+
+def packed_matmul_lanes_fwd_plain(packed: torch.Tensor, w: torch.Tensor,
+                                  lanes: Optional[Sequence[int]] = None
+                                  ) -> torch.Tensor:
+    ids = _lane_ids(packed, lanes)
+    return torch.stack([packed_matmul_fwd_plain(packed[lane], w[i])
+                        for i, lane in enumerate(ids)])
+
+
+def packed_matmul_lanes_bwd_plain(packed: torch.Tensor, g_out: torch.Tensor,
+                                  n_genes: int,
+                                  lanes: Optional[Sequence[int]] = None
+                                  ) -> torch.Tensor:
+    ids = _lane_ids(packed, lanes)
+    rows = g_out.shape[1]
+    return torch.stack([packed_matmul_bwd_plain(packed[lane, :rows], g_out[i],
+                                                n_genes)
+                        for i, lane in enumerate(ids)])
+
+
+def _lane_table(ids: list, device) -> torch.Tensor:
+    return torch.tensor(ids, dtype=torch.int32, device=device)
+
+
+def packed_matmul_lanes_fwd(packed: torch.Tensor, w: torch.Tensor,
+                            lanes: Optional[Sequence[int]] = None
+                            ) -> torch.Tensor:
+    """For each of ``lanes`` (default: all) of the P stack ``packed [B, M,
+    nb]``: ``unpack(packed[lane]) @ bf16(w[i])``, ``w [len(lanes), G, H]``
+    -> [len(lanes), M, H] float32, in one launch."""
+    ids = _lane_ids(packed, lanes)
+    _check_lanes(packed, w, ids, w.shape[1], w.shape[1], "w")
+    if packed.device.type == "cpu":
+        return packed_matmul_lanes_fwd_plain(packed, w, ids)
+    w16 = _pad_cols(w.to(torch.bfloat16), 8)
+    _check_kernel_args(packed, w16, "w", 16)
+    b, m, h = len(ids), packed.shape[1], w.shape[2]
+    if m == 0:
+        return torch.empty((b, 0, h), dtype=torch.float32,
+                           device=packed.device)
+    if b > _GRID_Z_MAX:
+        raise ValueError(f"{b} lanes exceed a launch's {_GRID_Z_MAX}")
+    p4 = _padded_packed(packed)
+    g, h8 = w16.shape[1], w16.shape[2]
+    out = torch.empty((b, m, h8), dtype=torch.float32, device=packed.device)
+    _launch(_lib().g2v_pm_fwd_lanes, p4, _lane_table(ids, packed.device),
+            m * p4.shape[2], w16, out, b, m, g, p4.shape[2], h8)
+    packed_matmul_lanes_fwd.launches += 1
+    return out if h8 == h else out[:, :, :h].contiguous()
+
+
+packed_matmul_lanes_fwd.launches = 0
+
+
+def packed_matmul_lanes_bwd(packed: torch.Tensor, g_out: torch.Tensor,
+                            n_genes: int,
+                            lanes: Optional[Sequence[int]] = None
+                            ) -> torch.Tensor:
+    """For each of ``lanes`` (default: all) of the P stack ``packed [B, M,
+    nb]``: ``unpack(packed[lane, :rows])^T @ bf16(g_out[i])``, ``g_out
+    [len(lanes), rows, H]``, rows <= M -> [len(lanes), n_genes, H] float32.
+    Each lane is split by the solo plan :func:`_bwd_slices`; one launch
+    for all lanes, or more where the workspace would pass
+    ``BWD_LANES_WORKSPACE_CAP``."""
+    ids = _lane_ids(packed, lanes)
+    _check_lanes(packed, g_out, ids, n_genes, packed.shape[1], "g_out")
+    if packed.device.type == "cpu":
+        return packed_matmul_lanes_bwd_plain(packed, g_out, n_genes, ids)
+    g16 = _pad_cols(g_out.to(torch.bfloat16), 8)
+    _check_kernel_args(packed, g16, "g_out", 16)
+    rows, h, h8 = g_out.shape[1], g_out.shape[2], g16.shape[2]
+    plan = _bwd_slices(rows, n_genes, h, _sm_count(packed.device.index))
+    p4 = _padded_packed(packed)
+    out = torch.empty((len(ids), n_genes, h8), dtype=torch.float32,
+                      device=packed.device)
+    per_launch = max(1, min(BWD_LANES_WORKSPACE_CAP
+                            // max(plan.workspace_bytes, 1),
+                            _GRID_Z_MAX // plan.n_slices))
+    for lo in range(0, len(ids), per_launch):
+        chunk = ids[lo:lo + per_launch]
+        work = (torch.empty((len(chunk), plan.n_slices, n_genes, h8),
+                            dtype=torch.float32, device=packed.device)
+                if plan.n_slices > 1 else None)
+        _launch(_lib().g2v_pm_bwd_lanes, p4, _lane_table(chunk, packed.device),
+                packed.shape[1] * p4.shape[2], g16[lo:lo + len(chunk)],
+                out[lo:lo + len(chunk)], work, len(chunk), rows, n_genes,
+                p4.shape[2], h8, plan.rows, plan.n_slices)
+        packed_matmul_lanes_bwd.launches += 1
+    return out if h8 == h else out[:, :, :h].contiguous()
+
+
+packed_matmul_lanes_bwd.launches = 0
+
+
 def reset_launch_counts() -> None:
     packed_matmul_fwd.launches = 0
     packed_matmul_bwd.launches = 0
+    packed_matmul_lanes_fwd.launches = 0
+    packed_matmul_lanes_bwd.launches = 0
 
 
 class PackedMatmul(torch.autograd.Function):
@@ -393,3 +540,37 @@ def packed_matmul(packed: torch.Tensor, w: torch.Tensor,
     if grad_rows is not None and not 0 <= grad_rows <= packed.shape[0]:
         raise ValueError(f"grad_rows {grad_rows} outside [0, {packed.shape[0]}]")
     return PackedMatmul.apply(packed, w, grad_rows)
+
+
+class PackedMatmulLanes(torch.autograd.Function):
+    """:class:`PackedMatmul` over a lane stack: ``unpack(packed[lane]) @
+    bf16(w[i])`` for each of ``lanes``, with a gradient for ``w`` only."""
+
+    @staticmethod
+    def forward(ctx, packed, w, grad_rows, lanes):
+        ctx.save_for_backward(packed)
+        ctx.n_genes, ctx.w_dtype, ctx.lanes = w.shape[1], w.dtype, lanes
+        ctx.grad_rows = packed.shape[1] if grad_rows is None else grad_rows
+        return packed_matmul_lanes_fwd(packed, w, lanes)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        (packed,) = ctx.saved_tensors
+        rows = ctx.grad_rows
+        dw = packed_matmul_lanes_bwd(packed, g_out[:, :rows].contiguous(),
+                                     ctx.n_genes, ctx.lanes)
+        return None, dw.to(ctx.w_dtype), None, None
+
+
+def packed_matmul_lanes(packed: torch.Tensor, w: torch.Tensor,
+                        grad_rows: Optional[int] = None,
+                        lanes: Optional[Sequence[int]] = None
+                        ) -> torch.Tensor:
+    """Differentiable lane-stack product: ``packed [B, M, nb]``, ``w
+    [len(lanes), G, H]`` -> [len(lanes), M, H] float32; the backward covers
+    each lane's rows ``[0, grad_rows)`` (default: all)."""
+    if grad_rows is not None and not 1 <= grad_rows <= packed.shape[1]:
+        raise ValueError(f"grad_rows {grad_rows} outside [1, "
+                         f"{packed.shape[1]}]")
+    return PackedMatmulLanes.apply(packed, w, grad_rows,
+                                   None if lanes is None else list(lanes))

@@ -10,6 +10,8 @@ own thread goes on (with the card's first use, for one). The scheduler:
   dependencies (names of earlier tasks); it runs on the scheduler's own
   executor as soon as its dependencies resolve.
 - :meth:`OverlapScheduler.result` joins a task, re-raising its exception.
+- :meth:`OverlapScheduler.prune` joins and forgets the tasks of one name
+  prefix (a batch of the engine's long-lived scheduler).
 - :meth:`OverlapScheduler.drain` joins everything. On failure the FIRST
   failing task's exception propagates (by submission order), tasks whose
   dependencies failed are cancelled (marked, never started), and no
@@ -141,6 +143,20 @@ class OverlapScheduler:
             if task.error is not None and not isinstance(task.error,
                                                          TaskCancelled):
                 raise task.error
+
+    def prune(self, prefix: str) -> None:
+        """Wait for every task whose name starts with ``prefix`` and forget
+        it (its result and error included): a long-lived scheduler, as the
+        batch engine keeps, names each batch's tasks under one prefix."""
+        for task in list(self._order):       # an unlocked read, as drain's
+            if task.name.startswith(prefix):
+                task.done.wait()
+        with self._lock:
+            for task in self._order:
+                if task.name.startswith(prefix):
+                    del self._tasks[task.name]
+            self._order = [t for t in self._order
+                           if not t.name.startswith(prefix)]
 
     def add_closer(self, fn: Callable[[], None]) -> Callable[[], None]:
         """Register an unblocker run at the START of :meth:`close`.

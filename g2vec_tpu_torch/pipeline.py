@@ -28,6 +28,13 @@ turns with the Python on another, and one in the foreground cost more
 than it saved (``first_use_probe.py``, PERF.md). The outputs are the same
 bytes either way.
 
+A run's patient cohort (``--patient-subsample``, ``--subsample-mode
+bootstrap|fold``) is drawn at stage 2 from the matched labels, as the JAX
+package draws it (``g2vec_tpu/pipeline.py:281-307``); a permutation null
+(``--permute-seed``) shuffles the labels stage 6 scores against, and
+nothing else (``:893-900``). The batch engine (``batch/engine.py``) runs
+many such configs as lanes and writes each one's solo bytes.
+
 Durable runs (the JAX package's ``pipeline.py:160-221``): ``--fault-plan``
 is installed at entry and the stage seams (``load`` ... ``save``) fire at
 the start of each stage; ``--checkpoint-dir``/``--resume``/
@@ -50,7 +57,8 @@ from g2vec_tpu_torch.io.readers import (load_clinical, load_expression,
                                         load_network)
 from g2vec_tpu_torch.preprocess import (edges_to_indices, find_common_genes,
                                         make_gene2idx, match_labels,
-                                        restrict_data, restrict_network)
+                                        permute_labels, restrict_data,
+                                        restrict_network, select_cohort)
 from g2vec_tpu_torch.resilience.faults import fault_point, install_plan
 
 
@@ -140,6 +148,36 @@ def preprocess_inputs(data, clinical, network):
     return data, src, dst
 
 
+def cohort_line(cfg, n_kept: int, n_before: int) -> Optional[str]:
+    """The stage-2 transcript line of a run's patient cohort (the JAX
+    package's wording), or None for the full cohort."""
+    if cfg.subsample_mode == "bootstrap":
+        return ("    patient bootstrap: drew %d/%d samples with replacement "
+                "(fraction=%.3f, seed=%d)"
+                % (n_kept, n_before, cfg.patient_subsample or 1.0,
+                   cfg.subsample_seed))
+    if cfg.subsample_mode == "fold":
+        return ("    patient folds: training on %d/%d samples (held-out "
+                "fold %d/%d, seed=%d)"
+                % (n_kept, n_before, cfg.cv_fold, cfg.cv_folds,
+                   cfg.subsample_seed))
+    if cfg.patient_subsample:
+        return ("    patient subsample: kept %d/%d samples (fraction=%.3f, "
+                "seed=%d)" % (n_kept, n_before, cfg.patient_subsample,
+                              cfg.subsample_seed))
+    return None
+
+
+def scoring_labels(labels: np.ndarray, permute_seed: Optional[int]
+                   ) -> np.ndarray:
+    """Stage 6's labels: the observed ones, or under a permutation null
+    (``permute_seed``) the seeded shuffle of them. Walks and training
+    always see the observed labels."""
+    labels = np.asarray(labels)
+    return labels if permute_seed is None else permute_labels(labels,
+                                                              permute_seed)
+
+
 def _join_kernel_build(overlap, name: str = "build_kernels") -> None:
     """Wait for the background nvcc build ``name`` (if one was started),
     re-raising its error, before the first launch of its kernels."""
@@ -149,12 +187,19 @@ def _join_kernel_build(overlap, name: str = "build_kernels") -> None:
 
 def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-        kmeans_centers0: Optional[np.ndarray] = None) -> PipelineResult:
+        kmeans_centers0: Optional[np.ndarray] = None,
+        check: Optional[Callable[[], None]] = None,
+        lifecycle: Optional[Callable[[str, dict], None]] = None,
+        ) -> PipelineResult:
     """Execute the full pipeline; returns all artifacts plus run stats.
 
     ``init = (w_ih [G, H], w_ho [H, 1])`` replaces the trainer's seeded
     draw and ``kmeans_centers0 [10, k, H]`` the k-means++ draws; the tests
     inject the same values into the JAX package's stage functions.
+    ``check()`` runs at the trainers' epoch (and streaming shard)
+    boundaries, where an exception it raises stops the run;
+    ``lifecycle(state, info)`` observes the streaming trainer's
+    ``"checkpointed"`` and ``"resumed"`` transitions.
     """
     from g2vec_tpu_torch.analysis import (biomarker_scores, find_lgroups,
                                           freq_index, top_biomarkers)
@@ -224,6 +269,11 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         fault_point("preprocess")
         with timer.stage("preprocess"):
             data, src, dst = preprocess_inputs(data, clinical, network)
+            n_before = data.expr.shape[0]
+            data = select_cohort(data, cfg)
+        line = cohort_line(cfg, data.expr.shape[0], n_before)
+        if line:
+            console(line)
         n_samples, n_genes = data.expr.shape
         n_edges = len(src)
         console("    n_samples: %d" % n_samples)
@@ -279,7 +329,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     eval_rows_cap=(cfg.stream_eval_rows or EVAL_ROWS_CAP),
                     device=dev, init=init_model, on_epoch=on_epoch,
                     checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
-                    checkpoint_every=cfg.checkpoint_every, console=console)
+                    checkpoint_every=cfg.checkpoint_every, console=console,
+                    check=check, lifecycle=lifecycle)
             result = sres.train
             gene_freq = sres.gene_freq
             n_paths = sres.n_paths
@@ -400,7 +451,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     param_dtype=cfg.param_dtype, seed=train_seed,
                     device=dev, on_epoch=on_epoch, init=init_model,
                     checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
-                    checkpoint_every=cfg.checkpoint_every)
+                    checkpoint_every=cfg.checkpoint_every, check=check)
         if result.stopped_early:
             reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)
         console("    Optimization Finish")
@@ -421,7 +472,10 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         console(">>> 6. Select biomarkers with gene scores")
         fault_point("biomarkers")
         with timer.stage("biomarkers"):
-            label = np.asarray(data.label)
+            label = scoring_labels(data.label, cfg.permute_seed)
+            if cfg.permute_seed is not None:
+                console("    permutation null: stage-6 labels shuffled "
+                        "(permute_seed=%d)" % cfg.permute_seed)
             scores2 = biomarker_scores(
                 emb,
                 torch.as_tensor(data.expr[label == 0], device=dev),

@@ -75,9 +75,13 @@ epoch's end, and ``stream_ckpt`` after each cursor commits. A failed
 device walk (the ``device_walk`` seam, or a kernel error) is relaunched
 once, on the same kernel, and counted in ``device_recomputes``.
 
-Not ported yet: the serve daemon's ``check``/``lifecycle`` hooks and the
-process-wide ``stream_stats()`` totals, and sharded (multi-rank)
-streaming.
+``check()`` runs before each shard step (an exception it raises stops the
+run there), ``lifecycle(state, info)`` observes ``"checkpointed"`` after
+each cursor commits and ``"resumed"`` when a cursor is restored, and
+every run adds its counters to the process-wide :func:`stream_stats`
+totals (the batch engine's ``status()`` reads them). Not ported yet: a
+drain that cuts a cursor before it stops (the serve daemon's), and
+sharded (multi-rank) streaming.
 """
 from __future__ import annotations
 
@@ -116,6 +120,31 @@ from g2vec_tpu_torch.train.checkpoint import (RUN_COMPLETED,
                                               unflatten_state)
 from g2vec_tpu_torch.train.trainer import TrainResult, _Adam
 from g2vec_tpu_torch.utils.integrity import sha256_file
+
+
+_STATS_LOCK = threading.Lock()
+_TOTALS: Dict[str, float] = {}
+
+
+def _record_totals(**fields) -> None:
+    """Add one run's counters to the process-wide totals: ``last_*``
+    fields replace, ``max_*`` fields keep the largest, the rest add."""
+    with _STATS_LOCK:
+        _TOTALS["runs"] = _TOTALS.get("runs", 0) + 1
+        for k, v in fields.items():
+            if k.startswith("last_"):
+                _TOTALS[k] = v
+            elif k.startswith("max_"):
+                _TOTALS[k] = max(_TOTALS.get(k, 0), v)
+            else:
+                _TOTALS[k] = _TOTALS.get(k, 0) + v
+
+
+def stream_stats() -> Dict[str, float]:
+    """Every streaming run's counters since the process started (empty
+    until the first run)."""
+    with _STATS_LOCK:
+        return dict(_TOTALS)
 
 
 @dataclasses.dataclass
@@ -457,6 +486,8 @@ def train_cbow_streaming(
         checkpoint_dir: Optional[str] = None, resume: bool = False,
         checkpoint_every: int = 25,
         console: Callable[[str], None] = print,
+        check: Optional[Callable[[], None]] = None,
+        lifecycle: Optional[Callable[[str, dict], None]] = None,
         ) -> StreamTrainResult:
     """Stream walk shards from the sampler straight into minibatch SGD;
     returns the trained embeddings and the streaming twins of stage 3's
@@ -476,7 +507,8 @@ def train_cbow_streaming(
     ``checkpoint_dir`` turns on the cursor checkpoint every
     ``checkpoint_every`` shard updates and at every epoch boundary;
     ``resume=True`` restores the newest verified cursor (module
-    docstring). ``console`` prints the resume line.
+    docstring). ``console`` prints the resume line. ``check`` and
+    ``lifecycle``: module docstring.
     """
     dev = resolve_device(device)
     if len(groups) != 2:
@@ -878,10 +910,14 @@ def train_cbow_streaming(
                   "done": int(done), "n_shards": int(n_shards),
                   "spool_sha": {str(k): v
                                 for k, v in dict(spool._sha).items()}}
-        save_stream_state(checkpoint_dir, arrays, cursor,
-                          fingerprint=fingerprint)
+        path = save_stream_state(checkpoint_dir, arrays, cursor,
+                                 fingerprint=fingerprint)
         ckpt_count[0] += 1
         ckpt_wall[0] += time.perf_counter() - t0
+        if lifecycle is not None:
+            lifecycle("checkpointed",
+                      {"epoch": int(cur_epoch), "shard": int(next_shard),
+                       "done": int(done), "path": path})
 
     def _build_result() -> StreamTrainResult:
         stats.n_paths = kept_rows[0]
@@ -914,6 +950,10 @@ def train_cbow_streaming(
         # the result is rebuilt from the state, with nothing trained.
         if spool_pool is not None:
             spool_pool.shutdown(wait=True)
+        if lifecycle is not None:
+            lifecycle("resumed", {"epoch": start_epoch, "shard": start_shard,
+                                  "done": resume_done})
+        _record_totals(epochs=0)
         return _build_result()
 
     # ---- the epoch loop: patience early stop on held-out val accuracy ----
@@ -921,6 +961,9 @@ def train_cbow_streaming(
     if resume_cursor is not None:
         console(f"[stream] resuming from cursor epoch {start_epoch} "
                 f"shard {start_shard}/{n_shards}")
+        if lifecycle is not None:
+            lifecycle("resumed", {"epoch": start_epoch, "shard": start_shard,
+                                  "done": resume_done})
         if start_epoch > 0:
             # Epoch 0 finished, so the eval buffers are final: rebuild
             # the copies the epoch-boundary eval reads.
@@ -946,6 +989,8 @@ def train_cbow_streaming(
                                     else _replay_iter(offset),
                                     epoch0=(epoch == 0))
             for si, acc_cb, batch in feed:
+                if check is not None:
+                    check()
                 if acc_cb is not None:
                     acc_cb()
                 losses.append(_update(batch))
@@ -1030,4 +1075,14 @@ def train_cbow_streaming(
         if not checkpoint_dir:
             shutil.rmtree(spool_dir, ignore_errors=True)
 
-    return _build_result()
+    result = _build_result()
+    _record_totals(shards_emitted=stats.shards_emitted,
+                   rewalks=stats.rewalks,
+                   max_ring_occupancy_hw=stats.ring_occupancy_hw,
+                   max_ring_peak_bytes=stats.ring_peak_bytes,
+                   prefetch_wait_ms=stats.prefetch_wait_ms,
+                   last_time_to_first_update_ms=(
+                       stats.time_to_first_update_ms),
+                   epochs=stats.epochs, checkpoints=stats.checkpoints,
+                   resumes=stats.resumed)
+    return result

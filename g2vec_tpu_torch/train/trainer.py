@@ -36,12 +36,23 @@ k+1 (after the report and the dip test, before update k+1), so the
 checkpoint is cut there; a resumed run's first iteration re-runs that
 forward for its loss only, and Adam's step count comes back with its
 moments. Resumed and uninterrupted runs give the same bytes.
+
+:func:`train_cbow_lanes` trains a bucket of B lanes of one path-matrix
+shape (the batch engine's runs that differ in seeds and data) as the
+reference's ``train_cbow_lanes`` does (``g2vec_tpu/train/trainer.py``,
+a vmap of the chunk program there): the same split, packing and init per
+lane, each lane's own first-dip stop. On the bf16 path each epoch is ONE
+forward launch and ONE backward launch for all the lanes still training
+(``packed_matmul_lanes_fwd``/``_bwd``); everything between them runs per
+lane with the solo step's ops, so every lane's history, stop epoch and
+``W_ih`` are bitwise the solo :func:`train_cbow`'s on the same device. At
+float32 the lane step is the solo step, per lane.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +62,8 @@ from g2vec_tpu_torch.models.cbow import (CBOW, accuracy_from_logits,
                                          init_params, masked_bce_loss,
                                          output_logits, torch_dtype)
 from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
+                                               packed_matmul_lanes_bwd,
+                                               packed_matmul_lanes_fwd,
                                                padded_row_bytes, unpack_bits)
 from g2vec_tpu_torch.resilience.faults import fault_point
 from g2vec_tpu_torch.train.checkpoint import (RUN_COMPLETED,
@@ -161,7 +174,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                seed: int = 0, device="cuda", init: Optional[CBOW] = None,
                on_epoch: Optional[Callable[[int, float, float, float], None]] = None,
                checkpoint_dir: Optional[str] = None, resume: bool = False,
-               checkpoint_every: int = 25) -> TrainResult:
+               checkpoint_every: int = 25,
+               check: Optional[Callable[[], None]] = None) -> TrainResult:
     """Train the modified CBOW; returns the embedding table and history.
 
     ``paths``: [n_paths, ceil(n_genes/8)] uint8 bit-packed multi-hot rows
@@ -171,6 +185,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     :func:`g2vec_tpu_torch.weights.params_from_jax`); it is copied, never
     modified. ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
     ``checkpoint_dir``/``resume``/``checkpoint_every``: module docstring.
+    ``check()`` runs before each epoch; an exception it raises stops the
+    run there.
     """
     dev = resolve_device(device)
     if checkpoint_every < 1:
@@ -278,6 +294,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     # run's first iteration reports nothing: its epoch was reported before
     # the checkpoint was cut.
     for epoch in range(start_epoch, max_epochs + 1):
+        if check is not None:
+            check()
         train = epoch < max_epochs
         with torch.set_grad_enabled(train):
             logits_tr, logits_val = split_logits()
@@ -321,3 +339,203 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
         w_ih=best.w_ih.detach().float().cpu().numpy(), stop_epoch=stop_epoch,
         stopped_early=stopped_early, acc_val=before_val, acc_tr=before_tr,
         history=history, model=best)
+
+
+@dataclasses.dataclass
+class LaneTrainSpec:
+    """One lane of :func:`train_cbow_lanes`: its packed paths, labels and
+    split/init seed; every other hyperparameter is the bucket's."""
+
+    paths: np.ndarray
+    labels: np.ndarray
+    seed: int
+
+
+class _Lane:
+    """One lane's part of :func:`train_cbow_lanes`: the solo loop's state
+    (parameters, Adam, snapshot, history, the last reported accuracies)
+    and its data on the device."""
+
+    def __init__(self, model: CBOW, learning_rate: float, max_epochs: int,
+                 y_tr, w_tr, y_val, w_val, x_tr=None, x_val=None):
+        self.model = model
+        self.params = [model.w_ih, model.w_ho]
+        self.adam = _Adam(self.params, learning_rate)
+        self.snapshot = [p.detach().clone() for p in self.params]
+        self.history: List[dict] = []
+        self.before_val, self.before_tr = -1.0, -1.0
+        self.stopped_early = False
+        self.stop_epoch = max_epochs - 1
+        self.training = True
+        self.y_tr, self.w_tr, self.y_val, self.w_val = y_tr, w_tr, y_val, w_val
+        self.x_tr, self.x_val = x_tr, x_val
+
+
+def train_cbow_lanes(lanes: Sequence[LaneTrainSpec], *, n_genes: int,
+                     hidden: int, learning_rate: float, max_epochs: int,
+                     val_fraction: float = 0.2,
+                     decision_threshold: float = 0.5,
+                     compute_dtype: str = "bfloat16",
+                     param_dtype: str = "float32", device="cuda",
+                     init: Optional[Sequence[CBOW]] = None,
+                     on_epoch: Optional[Callable[[int, int, float, float, float], None]] = None,
+                     check: Optional[Callable[[], None]] = None,
+                     ) -> Tuple[List[TrainResult], torch.Tensor]:
+    """Train B lanes whose path matrices share one shape; returns
+    ``(results, emb_stack)``: one :class:`TrainResult` per lane and the
+    ``[B, n_genes, hidden]`` float32 stack of their embeddings on the
+    device (stage 5 reads it there).
+
+    ``init`` is one :class:`CBOW` per lane in place of the seeded draws
+    (the tests pass the JAX package's through
+    :func:`g2vec_tpu_torch.weights.params_from_jax`), copied, never
+    modified. ``on_epoch(lane, step, acc_val, acc_tr, secs)`` fires for
+    each lane each epoch it reports; ``secs`` is the epoch's wall for the
+    whole bucket. ``check()`` runs before each epoch. A lane that stops
+    takes part in no later launch, and its parameters are not touched
+    again.
+    """
+    dev = resolve_device(device)
+    n_lanes = len(lanes)
+    if n_lanes < 1:
+        raise ValueError("train_cbow_lanes needs at least one lane")
+    shapes = {spec.paths.shape for spec in lanes}
+    if len(shapes) != 1:
+        raise ValueError(
+            f"train_cbow_lanes is one shape bucket: all lanes must share "
+            f"one path-matrix shape, got {sorted(shapes)}")
+    n_paths, nb = lanes[0].paths.shape
+    if n_paths < 2:
+        raise ValueError(f"need at least 2 paths to split, got {n_paths}")
+    if any(spec.paths.dtype != np.uint8 for spec in lanes) \
+            or nb != (n_genes + 7) // 8:
+        raise ValueError(
+            f"n_genes={n_genes} expects uint8 paths of width "
+            f"{(n_genes + 7) // 8}, got width {nb}")
+    if init is not None and len(init) != n_lanes:
+        raise ValueError(f"init has {len(init)} entries for {n_lanes} lanes")
+    torch_dtype(compute_dtype)
+    pdtype = torch_dtype(param_dtype)
+
+    # ---- per lane: the solo split, packing and init ----
+    rows, state = [], []
+    for b, spec in enumerate(lanes):
+        tr_idx, vl_idx = _split_indices(n_paths, spec.seed, val_fraction)
+        p_tr, y_tr, w_tr = _pack_split(spec.paths, spec.labels, tr_idx)
+        p_val, y_val, w_val = _pack_split(spec.paths, spec.labels, vl_idx)
+        rows.append(_fused_rows(p_tr, p_val, n_genes))
+        lane_init = init[b] if init is not None else init_params(
+            n_genes, hidden, torch.Generator().manual_seed(spec.seed))
+        if tuple(lane_init.w_ih.shape) != (n_genes, hidden):
+            raise ValueError(f"lane {b}: init w_ih "
+                             f"{tuple(lane_init.w_ih.shape)} vs "
+                             f"({n_genes}, {hidden})")
+        model = CBOW(
+            lane_init.w_ih.detach().to(device=dev, dtype=pdtype).clone(),
+            lane_init.w_ho.detach().to(device=dev, dtype=pdtype).clone())
+        state.append(_Lane(model, learning_rate, max_epochs,
+                           *(torch.from_numpy(a).to(dev)
+                             for a in (y_tr, w_tr, y_val, w_val))))
+    n_tr = len(tr_idx)
+    # [B, train + val rows, padded row bytes]: the lanes' [train | val]
+    # rows, which every launch reads in place.
+    x_all = torch.from_numpy(np.stack(rows)).to(dev)
+    del rows
+    if compute_dtype == "float32":
+        for b, lane in enumerate(state):
+            x_dense = unpack_bits(x_all[b], n_genes, torch.float32)
+            lane.x_tr, lane.x_val = x_dense[:n_tr], x_dense[n_tr:]
+    logit_threshold = float(np.log(decision_threshold
+                                   / (1.0 - decision_threshold)))
+
+    def lane_logits(live: List[int], train: bool):
+        """Each live lane's (train logits, val logits, its hidden rows or
+        None); at bf16 from one forward launch for all of them."""
+        if compute_dtype == "float32":
+            out = []
+            for b in live:
+                lane = state[b]
+                with torch.set_grad_enabled(train):
+                    logits_tr = lane.model(lane.x_tr, compute_dtype)
+                with torch.no_grad():
+                    logits_val = lane.model(lane.x_val, compute_dtype)
+                out.append((logits_tr, logits_val, None))
+            return out
+        with torch.no_grad():
+            w16 = torch.stack([state[b].model.w_ih for b in live]
+                              ).to(torch.bfloat16)
+            h_all = packed_matmul_lanes_fwd(x_all, w16, live)
+        out = []
+        for i, b in enumerate(live):
+            # A leaf per lane: its gradient is the cotangent the solo
+            # trainer's backward launch receives.
+            h = h_all[i].detach().requires_grad_(train)
+            with torch.set_grad_enabled(train):
+                logits = output_logits(h, state[b].model.w_ho, compute_dtype)
+            out.append((logits[:n_tr], logits[n_tr:], h))
+        return out
+
+    def accuracy(logits, y, w) -> float:
+        return float(accuracy_from_logits(logits.detach(), y, w,
+                                          logit_threshold))
+
+    t0 = time.perf_counter()
+    for epoch in range(max_epochs + 1):
+        live = [b for b in range(n_lanes) if state[b].training]
+        if not live:
+            break
+        if check is not None:
+            check()
+        train = epoch < max_epochs
+        logits = lane_logits(live, train)
+        now = time.perf_counter()
+        secs, t0 = now - t0, now
+        stepping = []          # (lane, its hidden rows) that update
+        for b, (logits_tr, logits_val, h) in zip(live, logits):
+            lane = state[b]
+            if epoch > 0:
+                # The solo loop's report and first-dip test of epoch e-1.
+                acc_val = accuracy(logits_val, lane.y_val, lane.w_val)
+                acc_tr = accuracy(logits_tr, lane.y_tr, lane.w_tr)
+                lane.history[-1].update(acc_val=acc_val, acc_tr=acc_tr,
+                                        secs=secs)
+                if on_epoch is not None:
+                    on_epoch(b, epoch - 1, acc_val, acc_tr, secs)
+                if acc_val < lane.before_val:
+                    lane.stopped_early, lane.training = True, False
+                    lane.stop_epoch = epoch - 2
+                    continue
+                lane.snapshot = [p.detach().clone() for p in lane.params]
+                lane.before_val, lane.before_tr = acc_val, acc_tr
+            if not train:
+                lane.training = False
+                continue
+            loss = masked_bce_loss(logits_tr, lane.y_tr, lane.w_tr)
+            loss.backward()
+            lane.history.append({"epoch": epoch, "acc_val": float("nan"),
+                                 "acc_tr": float("nan"),
+                                 "loss": loss.item(), "secs": 0.0})
+            stepping.append((b, h))
+        if stepping and compute_dtype != "float32":
+            # ONE backward launch for the lanes that update, on the first
+            # n_tr rows of each; dW is rounded to W's compute copy (bf16)
+            # and back, as the solo autograd path does.
+            with torch.no_grad():
+                dw = packed_matmul_lanes_bwd(
+                    x_all, torch.stack([h.grad[:n_tr] for _, h in stepping]),
+                    n_genes, [b for b, _ in stepping])
+            for i, (b, _) in enumerate(stepping):
+                w_ih = state[b].model.w_ih
+                w_ih.grad = dw[i].to(torch.bfloat16).to(w_ih.dtype)
+        for b, _ in stepping:
+            state[b].adam.step(state[b].params)
+
+    emb_stack = torch.stack([lane.snapshot[0].detach().float()
+                             for lane in state])
+    emb_host = emb_stack.cpu().numpy()
+    results = [TrainResult(
+        w_ih=emb_host[b], stop_epoch=lane.stop_epoch,
+        stopped_early=lane.stopped_early, acc_val=lane.before_val,
+        acc_tr=lane.before_tr, history=lane.history,
+        model=CBOW(*lane.snapshot)) for b, lane in enumerate(state)]
+    return results, emb_stack

@@ -482,3 +482,114 @@ def test_walker_counts_card_launches_only(cuda):
     dw.walk_packed_rows_device(None, None, None, 64, len_path=5, reps=2,
                                seed=1, csr=csr, device="cpu")
     assert dw.device_walk.launches == 1
+
+
+def _lane_inputs(b, m, g, h, density, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.random((b, m, g)) < density
+    packed = torch.from_numpy(np.packbits(x, axis=2)).cuda()
+    w = torch.from_numpy(rng.standard_normal((b, g, h)).astype(np.float32)
+                         * 0.1).cuda()
+    g_out = torch.from_numpy(rng.standard_normal((b, m, h)).astype(np.float32)
+                             ).cuda()
+    return torch.from_numpy(x.astype(np.float32)).cuda(), packed, w, g_out
+
+
+@pytest.mark.parametrize("b,m,g,h,lanes", [
+    (3, 1001, 1003, 132, None), (4, 2000, 5850, 128, [2, 0, 3]),
+    (2, 77, 61, 9, [1]), (3, 5000, 700, 128, None)])
+def test_lane_kernels_match_plain_and_solo_launches(cuda, b, m, g, h, lanes):
+    x, packed, w, g_out = _lane_inputs(b, m, g, h, 30 / g + 0.01, seed=m)
+    ids = list(range(b)) if lanes is None else lanes
+    w, g_out = w[:len(ids)].contiguous(), g_out[:len(ids)].contiguous()
+    rows = m - 3
+    out = pm.packed_matmul_lanes_fwd(packed, w, lanes)
+    dw = pm.packed_matmul_lanes_bwd(packed, g_out[:, :rows].contiguous(), g,
+                                    lanes)
+    for i, lane in enumerate(ids):
+        w16, g16 = w[i].bfloat16().float(), g_out[i, :rows].bfloat16().float()
+        _assert_close(out[i], pm.packed_matmul_fwd_plain(packed[lane], w[i]),
+                      x[lane] @ w16.abs())
+        _assert_close(dw[i], pm.packed_matmul_bwd_plain(
+            packed[lane, :rows], g_out[i, :rows], g),
+            x[lane, :rows].T @ g16.abs())
+        # Bitwise the solo launch on the lane's own tensors.
+        assert torch.equal(out[i], pm.packed_matmul_fwd(
+            packed[lane].contiguous(), w[i]))
+        assert torch.equal(dw[i], pm.packed_matmul_bwd(
+            packed[lane, :rows].contiguous(),
+            g_out[i, :rows].contiguous(), g))
+    torch.cuda.synchronize()
+
+
+def test_lane_backward_splits_lanes_over_the_workspace_cap(cuda, monkeypatch):
+    _, packed, w, g_out = _lane_inputs(5, 3000, 600, 128, 0.03, seed=9)
+    whole = pm.packed_matmul_lanes_bwd(packed, g_out, 600)
+    plan = pm._bwd_slices(3000, 600, 128, pm._sm_count(0))
+    assert plan.n_slices > 1
+    monkeypatch.setattr(pm, "BWD_LANES_WORKSPACE_CAP",
+                        2 * plan.workspace_bytes)
+    pm.reset_launch_counts()
+    assert torch.equal(pm.packed_matmul_lanes_bwd(packed, g_out, 600), whole)
+    assert pm.packed_matmul_lanes_bwd.launches == 3
+
+
+def test_lane_trainer_on_the_card_is_bitwise_the_solo_trainer(cuda):
+    from g2vec_tpu_torch.train.trainer import (LaneTrainSpec, train_cbow,
+                                               train_cbow_lanes)
+
+    specs = []
+    for k, seed in enumerate((3, 7, 11)):
+        rng = np.random.default_rng(20 + k)
+        dense = rng.random((700, 500)) < 0.04
+        labels = (dense[:, :40].sum(1) > dense[:, 40:80].sum(1)
+                  ).astype(np.int32)
+        specs.append(LaneTrainSpec(np.packbits(dense, axis=1), labels, seed))
+    common = dict(n_genes=500, hidden=128, learning_rate=0.01,
+                  max_epochs=25, device=cuda)
+    pm.reset_launch_counts()
+    results, emb = train_cbow_lanes(specs, **common)
+    epochs = [len(r.history) for r in results]
+    assert pm.packed_matmul_lanes_fwd.launches == max(epochs) + 1
+    assert pm.packed_matmul_lanes_bwd.launches == max(epochs)
+    assert pm.packed_matmul_fwd.launches == pm.packed_matmul_bwd.launches == 0
+    for b, spec in enumerate(specs):
+        solo = train_cbow(spec.paths, spec.labels, seed=spec.seed, **common)
+        assert (results[b].stop_epoch, results[b].stopped_early) == \
+            (solo.stop_epoch, solo.stopped_early)
+        assert [(h["acc_val"], h["acc_tr"], h["loss"])
+                for h in results[b].history] == \
+            [(h["acc_val"], h["acc_tr"], h["loss"]) for h in solo.history]
+        assert results[b].w_ih.tobytes() == solo.w_ih.tobytes()
+        assert emb[b].cpu().numpy().tobytes() == solo.w_ih.tobytes()
+
+
+def test_batch_lanes_on_the_card_write_the_solo_files(cuda, tmp_path):
+    import dataclasses
+
+    from g2vec_tpu_torch.batch.engine import lane_config, run_batch
+    from g2vec_tpu_torch.config import G2VecConfig
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.pipeline import run
+
+    files = write_synthetic_tsv(SyntheticSpec(
+        n_good=24, n_poor=20, module_size=12, n_background=24,
+        n_expr_only=4, n_net_only=4, module_chords=2, background_edges=40,
+        seed=7), str(tmp_path))
+    cfg = G2VecConfig(expression_file=files["expression"],
+                      clinical_file=files["clinical"],
+                      network_file=files["network"],
+                      result_name=str(tmp_path / "b" / "out"), lenPath=20,
+                      numRepetition=3, sizeHiddenlayer=16, epoch=30,
+                      numBiomarker=10, seed=11, batch_seeds=3)
+    pm.reset_launch_counts()
+    res = run_batch(cfg, console=lambda s: None)
+    assert pm.packed_matmul_lanes_fwd.launches > 0
+    for v, lane in zip(res.variants, res.lanes):
+        solo = run(lane_config(dataclasses.replace(
+            cfg, batch_seeds=0, result_name=str(tmp_path / "solo")), v),
+            console=lambda s: None)
+        for a, b in zip(lane.output_files, solo.output_files):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                assert fa.read() == fb.read()

@@ -76,7 +76,8 @@ print(json.dumps({"rc": rc, "bad": bad}))
 """
 
 
-def _run_cli(tmp_path, *extra):
+def _run_cli(tmp_path, *extra, names=("tiny",),
+             last_stage=">>> 7. Save results"):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT, str(tmp_path),
                            *extra],
@@ -84,11 +85,12 @@ def _run_cli(tmp_path, *extra):
                           timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-2000:]
     lines = proc.stdout.strip().splitlines()
-    assert ">>> 7. Save results" in lines
+    assert last_stage in lines
     report = json.loads(lines[-1])
     assert report == {"rc": 0, "bad": []}
-    for suffix in ("biomarkers", "lgroups", "vectors"):
-        assert (tmp_path / f"tiny_{suffix}.txt").exists()
+    for name in names:
+        for suffix in ("biomarkers", "lgroups", "vectors"):
+            assert (tmp_path / f"{name}_{suffix}.txt").exists()
     return lines
 
 
@@ -107,6 +109,18 @@ def test_streaming_cli_runs_without_jax_in_sys_modules(tmp_path):
     assert "stream" in events and events[-1] == "done"
 
 
+def test_batch_cli_runs_without_jax_in_sys_modules(tmp_path):
+    """The batch engine, the lane trainer and stages 5-6 over the lanes
+    are on this run's path (the lane products' plain versions, on the
+    CPU)."""
+    lines = _run_cli(tmp_path, "--seeds", "2", "--metrics-jsonl",
+                     str(tmp_path / "m.jsonl"), names=("tiny.s0", "tiny.s1"),
+                     last_stage=">>> [batch] 7. Save results (per lane)")
+    assert ">>> [batch] 4. Train (shape-bucketed lanes)" in lines
+    done = [json.loads(line) for line in open(tmp_path / "m.jsonl")][-1]
+    assert done["event"] == "done" and done["buckets"][0]["lanes"] == 2
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -121,7 +135,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
                                                 write_synthetic_tsv)
     from g2vec_tpu_torch.ops.graph import edge_weights
     from g2vec_tpu_torch.train.stream import train_cbow_streaming
-    from g2vec_tpu_torch.train.trainer import train_cbow
+    from g2vec_tpu_torch.train.trainer import (LaneTrainSpec, train_cbow,
+                                               train_cbow_lanes)
 
     files = write_synthetic_tsv(SyntheticSpec(seed=1), str(tmp_path))
     for mode in ("full", "streaming"):
@@ -129,6 +144,17 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
             main([files["expression"], files["clinical"], files["network"],
                   str(tmp_path / "out"), "--train-mode", mode])
     assert not list(tmp_path.glob("out_*"))
+    for batch in (["--seeds", "2"], ["--seeds", "2", "--train-mode",
+                                     "streaming"]):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            main([files["expression"], files["clinical"], files["network"],
+                  str(tmp_path / "out"), *batch])
+    assert not list(tmp_path.glob("out*"))
+    lanes = [LaneTrainSpec(np.packbits(np.eye(4, 16, dtype=bool), axis=1),
+                           np.array([0, 1, 0, 1]), seed) for seed in (0, 1)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cbow_lanes(lanes, n_genes=16, hidden=4, learning_rate=0.01,
+                         max_epochs=1)
     paths = np.packbits(np.eye(4, 16, dtype=bool), axis=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_cbow(paths, np.array([0, 1, 0, 1]), n_genes=16, hidden=4,
