@@ -85,7 +85,28 @@ subsamples, a CV fold, a permutation null: several buckets, one-lane
 buckets among them), each lane against its solo run, and its distinct
 walk products timed in turn (as the engine walks them) and on a pool;
 and ``--train-mode streaming --seeds 2``
-against the lanes' solo streaming runs.
+against the lanes' solo streaming runs. Phase 10 drives the serve daemon
+(``python -m g2vec_tpu_torch serve``) as a child process: started with
+``CUDA_VISIBLE_DEVICES=`` it must exit nonzero naming the missing card;
+started on the card (``--cache-dir``, ``--metrics-jsonl``, ``--ann-nlist
+16``, a TCP listener whose HTTP ``/status`` is read) it runs a first
+small f32 job, during which Alice's and Bob's jobs (4 variants each: the
+train and k-means seeds of phase 9's ``--seeds 8`` lanes) are admitted
+and must join one batch of 8 lanes (the metrics' ``batch_start``, one
+lane launch of each packed kernel a step and no solo launch, read from
+the daemon's ``status``), every variant's files byte-identical to phase
+9's lane of that seed; a warm job with new seeds must hit the dataset
+memo and both walk products; one ``--query neighbors`` through the CLI,
+then 200 queries through the client (exact and IVF ``neighbors``,
+``topk_biomarkers``, ``list``, ``fquery gene_rank``) over bundles whose
+manifests are verified file by file, each exact answer equal to a numpy
+full sort of the bundle's table, with p50/p99 latencies printed; a
+streaming job on phase 5's input is drained mid-training (the daemon
+exits 0, the job journaled, a cursor saved), the daemon relaunched under
+``--supervise`` resumes it from the cursor to its uninterrupted solo
+run's bytes, and ``--shutdown`` ends the daemon and its supervisor with
+exit 0. The lane kernels' records in the kernel line carry the joined
+batch's launches (``served_launches``).
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -1569,7 +1590,472 @@ def _lanes_phase(torch, pm, result, cfg, files, tmp, smi):
           f"lane's files byte-identical to its solo streaming run")
     for name, rec in records.items():
         rec["launches"] = launches[name]
-    return records
+    lane_bytes = {v.name: (v.train_seed, v.kmeans_seed, _outputs(lane))
+                  for v, lane in zip(first.variants, first.lanes)}
+    return records, lane_bytes
+
+
+def _serve_args(sock, state, cache, metrics, *extra):
+    return ["--socket", sock, "--state-dir", state, "--cache-dir", cache,
+            "--metrics-jsonl", metrics, "--ann-nlist", "16", *extra]
+
+
+def _serve_proc(args, log, env=None):
+    """``python -m g2vec_tpu_torch serve ARGS`` as a child of this script,
+    its output appended to ``log``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "ab") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "g2vec_tpu_torch", "serve", *args],
+            stdout=f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=root, **(env or {})))
+
+
+def _serve_cli(args, timeout=120):
+    """One client op through the CLI; returns (rc, stdout)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "g2vec_tpu_torch", "serve", *args],
+        capture_output=True, text=True, timeout=timeout,
+        env=dict(os.environ, PYTHONPATH=root))
+    return proc.returncode, proc.stdout + proc.stderr
+
+
+def _serve_job(files, out, **fields):
+    return dict(expression_file=files["expression"],
+                clinical_file=files["clinical"],
+                network_file=files["network"], result_name=out, **fields)
+
+
+def _job_events(metrics, job_id, event):
+    return [r for r in _read_metrics(metrics)
+            if r.get("job_id") == job_id and r["event"] == event]
+
+
+def _wait_for(cond, what, deadline_s=120.0, proc=None):
+    t0 = time.perf_counter()
+    while not cond():
+        if proc is not None and proc.poll() is not None:
+            raise RuntimeError(f"the daemon exited (rc {proc.returncode}) "
+                               f"while waiting for {what}")
+        if time.perf_counter() - t0 > deadline_s:
+            raise RuntimeError(f"no {what} within {deadline_s:.0f} s")
+        time.sleep(0.05)
+
+
+def _bundle_arrays(state, key):
+    """A published bundle's live generation, read with numpy after its
+    manifest is verified file by file (sha256 and size)."""
+    import hashlib
+
+    from g2vec_tpu_torch.io.writers import (INVENTORY_MANIFEST,
+                                            read_generation)
+
+    root = os.path.join(state, "inventory", key)
+    gen = os.path.join(root, read_generation(root))
+    with open(os.path.join(gen, INVENTORY_MANIFEST)) as f:
+        manifest = json.load(f)
+    listed = set(manifest["files"])
+    present = set(os.listdir(gen)) - {INVENTORY_MANIFEST}
+    if listed != present:
+        raise RuntimeError(f"bundle {key}: manifest lists {sorted(listed)}, "
+                           f"the generation holds {sorted(present)}")
+    for name, rec in manifest["files"].items():
+        with open(os.path.join(gen, name), "rb") as f:
+            data = f.read()
+        if hashlib.sha256(data).hexdigest() != rec["sha256"] \
+                or len(data) != rec["bytes"]:
+            raise RuntimeError(f"bundle {key}: {name} fails its manifest")
+    with open(os.path.join(gen, "genes.txt")) as f:
+        genes = f.read().split("\n")[:-1]
+    return (genes, np.load(os.path.join(gen, "embeddings.npy")),
+            np.load(os.path.join(gen, "norms.npy")),
+            np.load(os.path.join(gen, "scores.npy")))
+
+
+def _full_sort_neighbors(emb, norms, gi, k):
+    """The exact answer by a full stable sort over the whole table (ties
+    by ascending index), with the query plane's cosine arithmetic."""
+    q = emb[gi]
+    sims = emb @ q
+    denom = norms * np.sqrt(np.dot(q, q))
+    ok = denom > 0
+    sims = np.where(ok, sims / np.where(ok, denom, 1), np.float32(-2.0))
+    sims[gi] = -np.inf
+    order = np.lexsort((np.arange(emb.shape[0]), -sims))[:k]
+    return order, sims[order]
+
+
+def _full_sort_scores(row, k):
+    order = np.lexsort((np.arange(row.shape[0]), -row))[:k]
+    return order, row[order]
+
+
+def _percentiles(ms):
+    ms = np.sort(np.asarray(ms))
+    return (f"p50 {np.percentile(ms, 50):.3f} ms, p99 "
+            f"{np.percentile(ms, 99):.3f} ms (n {len(ms)})")
+
+
+def _check_queries(sock, state, all_keys, keys, rng):
+    """200 queries through the client on the bundles ``keys``, each exact
+    answer held against a numpy full sort of the bundle's table (every
+    bundle's manifest verified first); returns latencies by op."""
+    from g2vec_tpu_torch.serve import client
+
+    tables = {key: _bundle_arrays(state, key) for key in all_keys}
+    lat = {}
+
+    def timed(kind, fn):
+        t0 = time.perf_counter()
+        ev = fn()
+        lat.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        if ev.get("event") not in ("query_result", "fquery_result"):
+            raise RuntimeError(f"{kind}: {ev}")
+        return ev
+
+    for i in range(40):
+        key = keys[int(rng.integers(len(keys)))]
+        job_id, variant = key.split("/")
+        genes, emb, norms, scores = tables[key]
+        gi = int(rng.integers(len(genes)))
+        k = int(rng.integers(1, 51))
+        ev = timed("neighbors exact", lambda: client.query(
+            sock, "neighbors", job_id=job_id, variant=variant,
+            gene=genes[gi], k=k, mode="exact"))
+        idx, sims = _full_sort_neighbors(emb, norms, gi, k)
+        if ev["neighbors"] != [genes[j] for j in idx] \
+                or ev["sims"] != [float(x) for x in sims]:
+            raise RuntimeError(f"exact neighbors of {genes[gi]} in {key} "
+                               f"differ from the full sort")
+        nprobe = 16 if i % 4 == 0 else 4
+        ev = timed("neighbors ivf", lambda: client.query(
+            sock, "neighbors", job_id=job_id, variant=variant,
+            gene=genes[gi], k=k, nprobe=nprobe))
+        if ev["recall_mode"] != "approx" or ev["nlist"] != 16 \
+                or ev["nprobe"] != nprobe:
+            raise RuntimeError(f"IVF neighbors: {ev}")
+        if nprobe >= ev["nlist"] and (
+                ev["neighbors"] != [genes[j] for j in idx]
+                or ev["sims"] != [float(x) for x in sims]):
+            raise RuntimeError("IVF neighbors probing every list differ "
+                               "from the full sort")
+        ev = timed("topk_biomarkers", lambda: client.query(
+            sock, "topk_biomarkers", job_id=job_id, variant=variant, k=k,
+            mode="exact"))
+        for row, group in enumerate(("good", "poor")):
+            idx, sc = _full_sort_scores(scores[row], k)
+            if ev[group]["genes"] != [genes[j] for j in idx] \
+                    or ev[group]["scores"] != [float(x) for x in sc]:
+                raise RuntimeError(f"topk_biomarkers {group} of {key} "
+                                   f"differ from the full sort")
+        ev = timed("list", lambda: client.query(sock, "list"))
+        if sorted(b["bundle"] for b in ev["bundles"]) != sorted(all_keys):
+            raise RuntimeError(f"list: {ev['bundles']}")
+        ev = timed("fquery gene_rank", lambda: client.fquery(
+            sock, "gene_rank", genes[gi], k=k))
+        parts = {p["bundle"]: p for p in ev["bundles"]}
+        if sorted(parts) != sorted(all_keys):
+            raise RuntimeError(f"gene_rank answered for {sorted(parts)}")
+        for other, (o_genes, _, _, o_scores) in tables.items():
+            if genes[gi] not in o_genes:
+                continue
+            oi = o_genes.index(genes[gi])
+            for row, group in enumerate(("good", "poor")):
+                order = np.lexsort((np.arange(len(o_genes)),
+                                    -o_scores[row]))
+                rank = int(np.flatnonzero(order == oi)[0]) + 1
+                if parts[other][group]["rank"] != rank:
+                    raise RuntimeError(f"gene_rank of {genes[gi]} in "
+                                       f"{other}: {parts[other][group]} "
+                                       f"vs full-sort rank {rank}")
+    return lat
+
+
+def _serve_phase(files, small, small_args, tmp, lane_bytes, smi):
+    """Phase 10: the port's serve daemon on the card, as a child process
+    driven through its CLI and client. Returns the served batches' kernel
+    launch counts."""
+    from g2vec_tpu_torch.batch.engine import _variant_from_dict, lane_config
+    from g2vec_tpu_torch.config import G2VecConfig, config_from_job
+    from g2vec_tpu_torch.serve import client
+
+    wd = os.path.join(tmp, "serve")
+    os.makedirs(wd)
+    sock, state = os.path.join(wd, "g.sock"), os.path.join(wd, "state")
+    cache, metrics = os.path.join(wd, "cache"), os.path.join(wd, "mj.jsonl")
+    log, out = os.path.join(wd, "serve.log"), os.path.join(wd, "out")
+    procs = []
+    try:
+        # 1. No card visible: the daemon refuses to start.
+        proc = _serve_proc(_serve_args(os.path.join(wd, "nocard.sock"),
+                                       os.path.join(wd, "nocard"), cache,
+                                       os.path.join(wd, "nocard.jsonl")),
+                           os.path.join(wd, "nocard.log"),
+                           env={"CUDA_VISIBLE_DEVICES": ""})
+        procs.append(proc)
+        rc = proc.wait(timeout=120)
+        with open(os.path.join(wd, "nocard.log")) as f:
+            text = f.read()
+        if rc == 0 or "no CUDA device" not in text:
+            raise RuntimeError(f"a card-less start exited {rc}: "
+                               f"{text[-500:]}")
+        print(f"    with CUDA_VISIBLE_DEVICES= the daemon exits {rc}: "
+              + [ln for ln in text.splitlines() if "no CUDA" in ln][0][:160])
+
+        # 2. The daemon on the card.
+        t0 = time.perf_counter()
+        daemon = _serve_proc(_serve_args(sock, state, cache, metrics,
+                                         "--listen", "127.0.0.1:0"), log)
+        procs.append(daemon)
+        if not client.wait_ready(sock, deadline_s=120.0):
+            raise RuntimeError("the daemon did not answer ping in 120 s")
+        status = client.status(sock)
+        with open(os.path.join(state, "tcp_addr")) as f:
+            host, port = f.read().strip().split(":")
+        import socket as _socket
+
+        with _socket.create_connection((host, int(port)), timeout=10) as c:
+            c.sendall(b"GET /status HTTP/1.0\r\n\r\n")
+            http = b""
+            while chunk := c.recv(65536):
+                http += chunk
+        if not http.startswith(b"HTTP/1.0 200") \
+                or json.loads(http.split(b"\r\n\r\n", 1)[1])["pid"] \
+                != status["pid"]:
+            raise RuntimeError(f"HTTP /status over TCP: {http[:200]!r}")
+        print(f"    daemon pid {status['pid']} ready in "
+              f"{time.perf_counter() - t0:.1f} s on {status['device']} "
+              f"(UNIX socket and tcp {host}:{port}, HTTP /status read)")
+        base = status["engine"]["kernel_launches"]
+
+        # 3. Two tenants' compatible jobs, admitted while the daemon runs
+        # a first small job (f32, no packed kernel), so that the
+        # scheduler finds both queued and joins them.
+        first = _serve_job(small, os.path.join(out, "first"),
+                           compute_dtype="float32", **small_args)
+        first_events = client.request(sock, {"op": "submit", "job": first,
+                                             "tenant": "carol"})
+        ack = next(first_events)
+        if ack.get("event") != "accepted":
+            raise RuntimeError(f"first job: {ack}")
+        for ev in first_events:
+            if ev["event"] == "started":
+                break
+        sweep = [(name, ts, ks) for name, (ts, ks, _) in
+                 sorted(lane_bytes.items(), key=lambda kv: kv[1][0])]
+        joined = {}
+
+        def submit(tenant, lanes):
+            t_submit = time.time()
+            events = client.submit_job(sock, _serve_job(
+                files, os.path.join(out, tenant), epoch=30, variants=[
+                    {"name": n, "train_seed": ts, "kmeans_seed": ks}
+                    for n, ts, ks in lanes]), tenant=tenant)
+            joined[tenant] = (events, time.time() - t_submit)
+
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(submit, "alice", sweep[:4]),
+                    pool.submit(submit, "bob", sweep[4:])]
+            first_done = [ev for ev in first_events][-1]
+            for fut in futs:
+                fut.result()
+        if first_done["event"] != "job_done":
+            raise RuntimeError(f"first job: {first_done}")
+        records = {t: ev[-1] for t, (ev, _) in joined.items()}
+        for tenant, rec in records.items():
+            if rec["event"] != "job_done":
+                raise RuntimeError(f"{tenant}'s job: {rec}")
+        status = client.status(sock)
+        after_joined = status["engine"]["kernel_launches"]
+        launches = {k: after_joined[k] - base[k] for k in base}
+        batches = [r for r in _read_metrics(metrics)
+                   if r["event"] == "batch_start"]
+        ids = {records[t]["job_id"] for t in records}
+        joined_batch = [b for b in batches if set(b["jobs"]) == ids]
+        if len(joined_batch) != 1 or joined_batch[0]["n_lanes"] != 8 \
+                or {records[t]["batch"] for t in records} \
+                != {joined_batch[0]["batch"]} \
+                or any(records[t]["joined_jobs"] != 2 for t in records):
+            raise RuntimeError(f"alice's and bob's jobs did not join one "
+                               f"batch: {batches}, {records}")
+        epochs = max(v["stop_epoch"] for rec in records.values()
+                     for v in rec["variants"].values())
+        if launches["packed_matmul_lanes_fwd"] != epochs + 1 \
+                or launches["packed_matmul_lanes_bwd"] != epochs \
+                or launches["packed_matmul_fwd"] \
+                or launches["packed_matmul_bwd"]:
+            raise RuntimeError(f"the joined 8-lane batch launched "
+                               f"{launches} for {epochs} epochs")
+        for rec in records.values():
+            for name, v in rec["variants"].items():
+                got = []
+                for path in v["outputs"]:
+                    with open(path, "rb") as f:
+                        got.append(f.read())
+                if got != lane_bytes[name][2]:
+                    raise RuntimeError(f"served variant {name} differs "
+                                       f"from phase 9's lane {name}")
+        wall = records["alice"]["batch_wall_seconds"]
+        print(f"    first job (small input, f32; the daemon's first use of "
+              f"the card): latency {first_done['latency_seconds']} s")
+        print(f"    alice's and bob's jobs (4 train seeds each, phase 9's "
+              f"--seeds 8 lanes): one batch ({joined_batch[0]['batch']}) "
+              f"of 8 lanes, batch wall {wall} s = "
+              f"{8 / wall * 3600:.1f} runs/hour; submit-to-job_done "
+              f"latency alice {records['alice']['latency_seconds']} s, bob "
+              f"{records['bob']['latency_seconds']} s (both queued behind "
+              f"the first job); launches {launches} over {epochs} epochs; "
+              f"every variant's three files byte-identical to phase 9's "
+              f"lane of that seed")
+
+        # 4. A warm job: the same inputs, new seeds.
+        warm = client.submit_job(sock, _serve_job(
+            files, os.path.join(out, "warm"), epoch=30, variants=[
+                {"name": f"w{k}", "train_seed": 8 + k,
+                 "kmeans_seed": 8 + k} for k in range(4)]),
+            tenant="alice")[-1]
+        if warm["event"] != "job_done":
+            raise RuntimeError(f"warm job: {warm}")
+        status = client.status(sock)
+        after_warm = status["engine"]["kernel_launches"]
+        warm_launches = {k: after_warm[k] - after_joined[k] for k in base}
+        dones = [r for r in _read_metrics(metrics)
+                 if r["event"] == "done" and "walk_stats" in r]
+        with open(log) as f:
+            resident = f.read().count("dataset resident")
+        if dones[-1]["walk_stats"]["memo_hits"] != 2 \
+                or dones[-1]["walk_stats"]["walked"] != 0 or resident != 1 \
+                or not warm_launches["packed_matmul_lanes_fwd"]:
+            raise RuntimeError(f"the warm job: walk_stats "
+                               f"{dones[-1]['walk_stats']}, 'dataset "
+                               f"resident' {resident} time(s), launches "
+                               f"{warm_launches}")
+        print(f"    warm job (4 new seeds): latency "
+              f"{warm['latency_seconds']} s, batch wall "
+              f"{warm['batch_wall_seconds']} s; dataset memo hit, "
+              f"walk_stats {dones[-1]['walk_stats']}; engine walk_tier "
+              f"{status['engine']['walk_tier']}; launches {warm_launches}")
+
+        # 5. The query plane.
+        keys = sorted(b["bundle"] for b in client.query(sock, "list")[
+            "bundles"])
+        example_keys = [k for k in keys
+                        if k.split("/")[0] != first_done["job_id"]]
+        if len(keys) != 13 or len(example_keys) != 12:
+            raise RuntimeError(f"published bundles: {keys}")
+        genes = _bundle_arrays(state, example_keys[0])[0]
+        t0 = time.perf_counter()
+        rc, text = _serve_cli(["--socket", sock, "--query", "neighbors",
+                               "--query-job", example_keys[0].split("/")[0],
+                               "--query-variant",
+                               example_keys[0].split("/")[1],
+                               "--query-gene", genes[0], "--query-k", "5"])
+        if rc != 0 or json.loads(text)["event"] != "query_result":
+            raise RuntimeError(f"--query neighbors exited {rc}: {text}")
+        print(f"    --query neighbors through the CLI: rc 0 in "
+              f"{time.perf_counter() - t0:.2f} s (a fresh interpreter)")
+        lat = _check_queries(sock, state, keys, example_keys,
+                             np.random.default_rng(10))
+        for kind, ms in lat.items():
+            print(f"    {kind}: {_percentiles(ms)}")
+        print(f"    200 queries over the example's {len(example_keys)} "
+              f"bundles (all {len(keys)} manifests verified): exact neighbors, IVF neighbors at "
+              f"nprobe 16 and topk_biomarkers equal the numpy full sort; "
+              f"gene_rank equals each bundle's full-sort rank; {smi}")
+
+        # 6. Drain a streaming job mid-training, recover under --supervise.
+        drain_job = _serve_job(
+            small, os.path.join(out, "drain"), train_mode="streaming",
+            shard_paths=16, checkpoint_every=4, stream_patience=30,
+            **small_args)
+        sub = {}
+
+        def submit_drain():
+            sub["events"] = list(client.request(
+                sock, {"op": "submit", "job": drain_job, "tenant": "dave"},
+                timeout=300))
+
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(submit_drain)
+            ids_before = set()
+
+            def checkpointed():
+                for r in _read_metrics(metrics):
+                    if r["event"] == "job_state" \
+                            and r.get("state") == "checkpointed":
+                        ids_before.add(r["job_id"])
+                return bool(ids_before)
+            _wait_for(checkpointed, "streaming cursor", proc=daemon)
+            rc, text = _serve_cli(["--socket", sock, "--drain"])
+            if rc != 0:
+                raise RuntimeError(f"--drain exited {rc}: {text}")
+            rc = daemon.wait(timeout=300)
+            fut.result()
+        jid = sub["events"][0]["job_id"]
+        last = sub["events"][-1]
+        ckpt = os.path.join(state, "ckpt", f"{jid}.v")
+        if rc != 0 or last["event"] != "job_drained" \
+                or not os.path.exists(os.path.join(state, "jobs",
+                                                   f"{jid}.json")) \
+                or not os.path.isdir(ckpt) or not os.listdir(ckpt):
+            raise RuntimeError(f"drain: daemon rc {rc}, last event {last}, "
+                               f"journal/cursor missing")
+        drained = _job_events(metrics, jid, "job_state")
+        cursor = [r for r in drained if r["state"] == "checkpointed"][-1]
+        print(f"    streaming job {jid} drained at epoch {cursor['epoch']} "
+              f"shard {cursor['shard']}: daemon exit 0, job journaled, "
+              f"cursor under {os.path.relpath(ckpt, wd)}")
+        supervisor = _serve_proc(_serve_args(sock, state, cache, metrics,
+                                             "--supervise"), log)
+        procs.append(supervisor)
+        if not client.wait_ready(sock, deadline_s=120.0):
+            raise RuntimeError("the supervised daemon did not answer ping")
+        rec = client.poll_result(state, jid, deadline_s=300.0)
+        states = [r["state"] for r in _job_events(metrics, jid, "job_state")]
+        runs = []
+        for state in states:
+            if runs and runs[-1][0] == state:
+                runs[-1][1] += 1
+            else:
+                runs.append([state, 1])
+        if rec["status"] != "done" or "resumed" not in states:
+            raise RuntimeError(f"recovered job: {rec}, states {states}")
+        job_cfg = config_from_job(
+            dict(drain_job, result_name=os.path.join(out, "drain_solo")),
+            G2VecConfig(device="cuda"))
+        solo_cfg = lane_config(job_cfg, _variant_from_dict(
+            0, {"name": "v"}, job_cfg))
+        solo, _ = _run_pipeline(solo_cfg)
+        served_bytes = []
+        for path in rec["variants"]["v"]["outputs"]:
+            with open(path, "rb") as f:
+                served_bytes.append(f.read())
+        if served_bytes != _outputs(solo):
+            raise RuntimeError("the drained-and-recovered streaming job's "
+                               "files differ from its uninterrupted solo "
+                               "run")
+        print(f"    relaunched under --supervise: the journal re-queued "
+              f"{jid}, which resumed from its cursor (states "
+              + ", ".join(st if n == 1 else f"{st} x{n}" for st, n in runs)
+              + ") and "
+              f"wrote its uninterrupted solo run's bytes; latency "
+              f"{rec['latency_seconds']} s from the first submit")
+
+        # 7. Shut down.
+        rc, text = _serve_cli(["--socket", sock, "--shutdown"])
+        if rc != 0:
+            raise RuntimeError(f"--shutdown exited {rc}: {text}")
+        rc = supervisor.wait(timeout=300)
+        if rc != 0:
+            raise RuntimeError(f"the supervised daemon exited {rc}")
+        print("    --shutdown: the daemon and its supervisor exit 0")
+        return {"joined": launches, "warm": warm_launches}
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def main() -> int:
@@ -1871,8 +2357,17 @@ def main() -> int:
               "kernels, stages 5-6 over the lanes, ResidentEngine) at the "
               "example, hidden 128, bf16, epoch cap 30")
         t9 = time.perf_counter()
-        lane_records = _lanes_phase(torch, pm, result, cfg, files, tmp, smi)
+        lane_records, lane_bytes = _lanes_phase(torch, pm, result, cfg,
+                                                files, tmp, smi)
         print(f"    phase 9 took {time.perf_counter() - t9:.1f} s")
+
+        print("[10] serve: the daemon on the card (python -m "
+              "g2vec_tpu_torch serve): admission, two tenants' jobs joined "
+              "into one lane batch, a warm job, the query plane, drain and "
+              "journal recovery under --supervise")
+        t10 = time.perf_counter()
+        served = _serve_phase(files, small, args, tmp, lane_bytes, smi)
+        print(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1896,7 +2391,8 @@ def main() -> int:
             "source": "g2vec_tpu_torch/csrc/packed_matmul.cu",
             "replaces": pm.REPLACES[name], "launches": rec["launches"],
             **{k: rec[k] for k in keys}, "lanes": 8,
-            "solo_ms": rec["solo_ms"]})
+            "solo_ms": rec["solo_ms"],
+            "served_launches": served["joined"][name]})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,7 +5,8 @@ Same invocation shape as the reference (``python G2Vec.py ...``) and as
 ``--supervise`` is handled before torch is imported, so the supervisor
 process holds no CUDA context; its children run the pipeline.
 ``--manifest``/``--seeds`` run the batch engine instead of the solo
-pipeline.
+pipeline. ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon
+or one of its client ops (serve/cli.py).
 """
 from __future__ import annotations
 
@@ -13,9 +14,15 @@ import sys
 
 
 def main(argv=None) -> int:
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    if argv and argv[0] == "serve":
+        # The resident daemon and its client ops (serve/cli.py); the
+        # client side and the --supervise watchdog import no torch.
+        from g2vec_tpu_torch.serve.cli import serve_main
+
+        return serve_main(argv[1:])
     from g2vec_tpu_torch.config import config_from_args
 
-    argv = list(argv) if argv is not None else sys.argv[1:]
     cfg = config_from_args(argv)
     if cfg.supervise:
         # The supervisor re-runs this module (without its own flags, with

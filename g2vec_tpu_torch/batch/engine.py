@@ -19,7 +19,9 @@ runs such repeats as one batched program, and this is its port:
   lane stopping on its own. A bucket of one lane runs the solo
   ``train_cbow``.
 - Stages 5-6 run over all lanes (``analysis.py``'s lane variants), the
-  t-scores once for the lanes that share a cohort and label view.
+  t-scores once for the lanes that share a cohort and label view. Each
+  lane's result carries its k-means centres and ``[2, G]`` scores, which
+  the serve daemon publishes in the lane's query-plane bundle.
 
 Contract: every lane's three output files are the bytes that
 ``pipeline.run(lane_config(cfg, v))`` writes solo on the same device.
@@ -291,7 +293,9 @@ class ResidentEngine:
     - one overlap scheduler for the background kernel builds, each
       batch's tasks under a prefix of their own.
 
-    The serve daemon (not ported yet) keeps one for its lifetime;
+    The serve daemon (``serve/daemon.py``) keeps one for its lifetime,
+    and publishes each lane's query-plane bundle from the lane's result
+    (its embeddings, ``biomarker_scores`` and ``km_centers``);
     :func:`run_batch` makes one per call.
     """
 
@@ -323,7 +327,9 @@ class ResidentEngine:
         trainers' epoch (and shard) boundaries; ``lifecycle(job_id, state,
         info)`` observes a streaming lane's ``"checkpointed"`` and
         ``"resumed"`` transitions (job_id from ``lane_jobs``, else the
-        lane's tag)."""
+        lane's tag). Each lane's result carries its embeddings, its
+        ``[2, G]`` ``biomarker_scores`` and its ``km_centers``, which the
+        serve daemon publishes as the lane's query-plane bundle."""
         kw = dict(console=console, metrics=metrics, lane_jobs=lane_jobs,
                   check=check)
         if cfg.train_mode == "streaming":
@@ -332,7 +338,10 @@ class ResidentEngine:
         return _execute_lanes(self, cfg, variants, **kw)
 
     def status(self) -> Dict:
-        """The warm state's inventory."""
+        """The warm state's inventory, with the process's kernel launch
+        counts (each wrapper's ``.launches``) so that a caller of a
+        resident process sees which kernels its jobs ran."""
+        from g2vec_tpu_torch.ops import device_walker, packed_matmul
         from g2vec_tpu_torch.train.stream import stream_stats
 
         return {
@@ -344,6 +353,12 @@ class ResidentEngine:
             "warm_shapes": [dict(s) for s in self.warm_shapes],
             # Streaming runs' totals; empty until the first one.
             "stream": stream_stats(),
+            "kernel_launches": {
+                name: getattr(packed_matmul, name).launches
+                for name in ("packed_matmul_fwd", "packed_matmul_bwd",
+                             "packed_matmul_lanes_fwd",
+                             "packed_matmul_lanes_bwd")}
+            | {"device_walk": device_walker.device_walk.launches},
         }
 
     def _dataset_key(self, cfg: G2VecConfig) -> Tuple:
@@ -710,17 +725,20 @@ def _execute_lanes(engine: ResidentEngine, cfg: G2VecConfig,
         freq_stack = np.stack([freq_index(data.gene, payloads[li][2])
                                for li in range(n_lanes)])
         lg_dev: List = [None] * n_lanes
+        km_centers: List = [None] * n_lanes   # per lane [k, H], IVF seeds
         with timer.stage("lgroups"):
             for lo in range(0, n_lanes, cfg.lanes):
                 idx = list(range(lo, min(lo + cfg.lanes, n_lanes)))
-                lg, _ = find_lgroups_lanes(
+                lg, kc = find_lgroups_lanes(
                     torch.stack([lane_emb[li] for li in idx]),
                     freq_stack[idx], [variants[li].kmeans_seed for li in idx],
                     k=cfg.n_lgroups,
                     compat_tiebreak=cfg.compat_lgroup_tiebreak,
                     iters=cfg.kmeans_iters)
+                kc_host = kc.cpu().numpy().astype(np.float32)
                 for b, li in enumerate(idx):
                     lg_dev[li] = lg[b]
+                    km_centers[li] = kc_host[b]
 
         console(">>> [batch] 6. Select biomarkers (per cohort)")
         fault_point("biomarkers")
@@ -777,7 +795,8 @@ def _execute_lanes(engine: ResidentEngine, cfg: G2VecConfig,
                     stop_epoch=r.stop_epoch, acc_val=r.acc_val,
                     device=str(dev), walker_backend=walker_backend,
                     sampler_threads=sampler_threads, paths=paths,
-                    labels=labels))
+                    labels=labels, biomarker_scores=scores_host[li],
+                    km_centers=km_centers[li]))
                 lane_metrics[li].emit("done", outputs=outputs,
                                       stop_epoch=r.stop_epoch)
                 for path in outputs:

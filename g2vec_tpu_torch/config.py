@@ -5,8 +5,11 @@ The reference CLI (ref: G2Vec.py:505-518): four positional arguments plus
 port's solo run reads: the full-batch and streaming trainers, the stage
 overlap, the native reader, the metrics stream, the walker backend and
 the walk cache, checkpoint/resume, fault injection and the supervisor,
-the patient cohort and permutation flags, and the batch engine's
-``--manifest``/``--seeds``/``--lanes``.
+the patient cohort and permutation flags, the batch engine's
+``--manifest``/``--seeds``/``--lanes``, and the query plane's
+``--emit-inventory``/``--ann-nlist``. It also holds the serve daemon's
+job schema (:data:`SERVE_JOB_KEYS`, :func:`config_from_job`,
+:func:`serve_join_key`).
 Defaults and validation are those of ``g2vec_tpu/config.py``; ``--device``
 is the port's own (``cuda`` unless the caller asks for ``cpu``). The port
 checkpoints in the single-file layout only: it takes no
@@ -16,7 +19,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -111,6 +114,18 @@ class G2VecConfig:
     metrics_jsonl: Optional[str] = None  # structured per-stage/epoch records
     cache_dir: Optional[str] = None  # walk cache root: stage-3 path sets
                                      # under <dir>/walks (cache.py)
+    emit_inventory: bool = False     # also publish the binary query-plane
+                                     # bundle <RESULT_NAME>_inventory/
+                                     # (float32 embeddings + norms +
+                                     # scores + gene table + sha256
+                                     # manifest: io/writers.py), so an
+                                     # offline run is servable by
+                                     # pointing `serve --inventory-dir`
+                                     # at its directory
+    ann_nlist: int = 0               # IVF list count for the bundle's ANN
+                                     # index: 0 auto (~sqrt(G) past the
+                                     # row floor), >0 forced, <0 disabled
+                                     # (ops/ann.resolve_nlist)
     use_native_io: bool = True       # the C++ expression reader (falls
                                      # back to Python with a warning when
                                      # it cannot be built or loaded)
@@ -268,6 +283,85 @@ class G2VecConfig:
             parse_plan(self.fault_plan)
 
 
+#: G2VecConfig fields a serve job's ``base`` object may set: the JAX
+#: package's list (``g2vec_tpu/config.py``) without the fields the port
+#: has no counterpart for (``walker_batch``, ``walker_hbm_budget``,
+#: ``fused_eval``, ``epoch_superstep``, ``donate_state``, ``device_feed``).
+#: Everything else (the device, cache roots, checkpointing, supervision)
+#: is daemon infrastructure a tenant must not reach through a job
+#: submission: serve/daemon.py builds the execution config from its own
+#: flags plus exactly these per-job fields.
+SERVE_JOB_KEYS = (
+    "expression_file", "clinical_file", "network_file", "result_name",
+    "lenPath", "numRepetition", "sizeHiddenlayer", "epoch", "learningRate",
+    "numBiomarker", "pcc_threshold", "val_fraction", "display_step",
+    "n_lgroups", "kmeans_seed", "kmeans_iters", "decision_threshold",
+    "score_mix", "seed", "train_seed", "patient_subsample",
+    "subsample_seed", "subsample_mode", "cv_folds", "cv_fold",
+    "permute_seed", "compat_lgroup_tiebreak", "compute_dtype",
+    "param_dtype", "walker_backend", "sampler_threads", "use_native_io",
+    "lanes",
+    # Streaming trainer: a tenant may pick the mode and its shard/ring
+    # geometry; the daemon still owns the device. Jobs with different
+    # train_mode never join (serve_join_key), so a streaming job cannot
+    # be folded into a full-batch bucket.
+    "train_mode", "shard_paths", "prefetch_depth", "stream_patience",
+    # Streaming checkpoint cadence (shards between cursor writes). The
+    # daemon owns where checkpoints go (its state dir); a job may only
+    # tune how often its own cursor is cut.
+    "checkpoint_every")
+
+_SERVE_JOB_REQUIRED = ("expression_file", "clinical_file", "network_file",
+                       "result_name")
+
+#: Config fields left out of the serve job-join key: per-lane variant
+#: axes (concrete on each LaneVariant by plan time), output locations and
+#: daemon-owned infrastructure. Everything else must coincide for two
+#: jobs to share one engine batch.
+SERVE_JOIN_EXCLUDE = frozenset({
+    "result_name", "metrics_jsonl", "manifest", "batch_seeds",
+    "seed", "train_seed", "kmeans_seed", "learningRate", "epoch",
+    "patient_subsample", "subsample_seed",
+    "subsample_mode", "cv_folds", "cv_fold", "permute_seed",
+    "cache_dir", "fault_plan"})
+
+
+def serve_join_key(cfg: G2VecConfig) -> Tuple:
+    """The batch-compatibility key of a serve job's config: the daemon
+    merges queued jobs whose keys are equal into one engine batch."""
+    return tuple((f.name, repr(getattr(cfg, f.name)))
+                 for f in dataclasses.fields(cfg)
+                 if f.name not in SERVE_JOIN_EXCLUDE)
+
+
+def config_from_job(base: dict, defaults: Optional[G2VecConfig] = None
+                    ) -> G2VecConfig:
+    """A validated :class:`G2VecConfig` from a serve job's ``base`` dict.
+
+    Only :data:`SERVE_JOB_KEYS` may appear; an unknown or infrastructure
+    key raises ``ValueError`` naming it (a job typo must be rejected at
+    admission, not die mid-batch). ``defaults`` seeds the non-job fields
+    (the daemon passes its own config, the device among them).
+    """
+    if not isinstance(base, dict):
+        raise ValueError(
+            f"job base must be an object, got {type(base).__name__}")
+    unknown = sorted(set(base) - set(SERVE_JOB_KEYS))
+    if unknown:
+        raise ValueError(
+            f"job base has unknown/forbidden key(s) {unknown}; "
+            f"allowed: {sorted(SERVE_JOB_KEYS)}")
+    missing = [k for k in _SERVE_JOB_REQUIRED
+               if not base.get(k) or not isinstance(base.get(k), str)]
+    if missing:
+        raise ValueError(
+            f"job base must set non-empty string(s) for {missing}")
+    cfg = dataclasses.replace(defaults if defaults is not None
+                              else G2VecConfig(), **base)
+    cfg.validate()
+    return cfg
+
+
 def build_parser() -> argparse.ArgumentParser:
     """CLI mirroring the reference parser (ref: G2Vec.py:505-518)."""
     from g2vec_tpu_torch import __version__
@@ -412,6 +506,21 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--metrics-jsonl", type=str, default=None,
                         help="Write structured per-stage/per-epoch metrics "
                              "here.")
+    parser.add_argument("--emit-inventory", action="store_true",
+                        help="Also publish RESULT_NAME_inventory/, the "
+                             "query plane's binary bundle (float32 "
+                             "embeddings + row norms + prognostic scores "
+                             "+ gene table, sha256-manifested), the bytes "
+                             "the serve daemon publishes for the same "
+                             "config; `serve --inventory-dir` makes it "
+                             "queryable.")
+    parser.add_argument("--ann-nlist", type=int, default=0, metavar="N",
+                        help="IVF list count for --emit-inventory's ANN "
+                             "index: 0 (default) auto-sizes to ~sqrt(G) "
+                             "once the bundle clears the row floor, N>0 "
+                             "forces N lists, N<0 disables the build. "
+                             "Seeded from the run's k-means centroids "
+                             "when shapes permit.")
     parser.add_argument("--no-native-io", action="store_true",
                         help="Parse the expression file in Python, not with "
                              "the C++ reader.")
@@ -498,6 +607,8 @@ def config_from_args(argv=None) -> G2VecConfig:
         stream_eval_rows=args.stream_eval_rows,
         cache_dir=args.cache_dir,
         metrics_jsonl=args.metrics_jsonl,
+        emit_inventory=args.emit_inventory,
+        ann_nlist=args.ann_nlist,
         use_native_io=not args.no_native_io,
         device=args.device,
         checkpoint_dir=args.checkpoint_dir,

@@ -8,12 +8,77 @@
 - ``<NAME>_vectors.txt`` (ref: G2Vec.py:203-215): header
   ``GeneSymbol\\tV0...V{h-1}`` then ``gene`` + ``\\t%.6f`` per dim for ALL
   genes.
+- ``<NAME>_inventory/`` (the query plane's binary bundle, ``--emit-
+  inventory`` solo or published by the serve daemon on job completion):
+  float32 ``embeddings.npy`` ``[G, H]`` + ``norms.npy`` row L2 norms +
+  ``scores.npy`` ``[2, G]`` prognostic scores + ``genes.txt`` +
+  ``meta.json``, sealed by a sha256 ``MANIFEST.json``, in generations
+  behind a ``GENERATION`` pointer. The port's copy of
+  ``g2vec_tpu/io/writers.py``'s writer: for the same arrays every array
+  file is byte-identical to the JAX package's, and either package's
+  reader opens the other's bundles.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import os
+import shutil
+from typing import Optional, Sequence
 
 import numpy as np
+
+#: Bundle files whose bytes must match between a solo ``--emit-inventory``
+#: run and the serve daemon's publication of the same config (meta.json
+#: carries run-context fields — job id, publish source — and is excluded).
+INVENTORY_ARRAYS = ("embeddings.npy", "norms.npy", "scores.npy", "genes.txt")
+INVENTORY_MANIFEST = "MANIFEST.json"
+#: Generation pointer at the bundle ROOT: one line naming the live
+#: generation subdirectory (``gen-NNNNNN``). Written tmp + os.replace
+#: LAST, so the flip is the atomic commit point — a reader resolves
+#: the pointer and maps entirely-old or entirely-new files, never a
+#: mix. Bundles written before the generational layout have their
+#: files flat in the root (no pointer) and stay readable as-is.
+GENERATION_FILE = "GENERATION"
+#: Top-M prognostic-score shortlist rows per group kept in
+#: ``ann_scores.npy`` (int64 ``[2, M]``) — computed with the exact
+#: top-k kernel at build time, so serving a k <= M biomarker query
+#: from the prefix is identical to the exact answer by construction.
+ANN_SCORE_TOPM = 1024
+
+
+def read_generation(bundle_dir: str) -> str:
+    """The live generation subdir name from ``bundle_dir``'s pointer,
+    or ``""`` for a pre-generational flat bundle (files in the root)."""
+    try:
+        with open(os.path.join(bundle_dir, GENERATION_FILE)) as f:
+            return f.read().strip()
+    except OSError:
+        return ""
+
+
+def _next_generation(bundle_dir: str) -> int:
+    """Serial for the next generation: one past the live pointer's, or
+    past the highest ``gen-*`` dir present (an orphan from a crash
+    between the subdir rename and the pointer flip must not be reused)."""
+    serial = 0
+    cur = read_generation(bundle_dir)
+    if cur.startswith("gen-"):
+        try:
+            serial = int(cur[4:])
+        except ValueError:
+            serial = 0
+    try:
+        names = os.listdir(bundle_dir)
+    except OSError:
+        names = []
+    for name in names:
+        if name.startswith("gen-"):
+            try:
+                serial = max(serial, int(name[4:]))
+            except ValueError:
+                continue
+    return serial + 1
+
+
 
 
 def write_biomarkers(result_name: str, biomarkers: Sequence[str]) -> str:
@@ -56,3 +121,174 @@ def write_vectors(result_name: str, vectors: np.ndarray,
                 fout.write("\t%.6f" % val)
             fout.write("\n")
     return path
+
+
+def write_inventory_bundle(bundle_dir: str, embeddings: np.ndarray,
+                           genes: Sequence[str],
+                           scores: Optional[np.ndarray],
+                           meta: dict, ann_nlist: int = 0,
+                           seed_centroids: Optional[np.ndarray] = None,
+                           extra_files: Optional[dict] = None
+                           ) -> str:
+    """Publish one query-plane bundle generation under ``bundle_dir``.
+
+    Generation-atomic: the new contents are staged in a ``.tmp.<pid>``
+    sibling, renamed to ``<bundle_dir>/gen-NNNNNN``, and COMMITTED by
+    rewriting the :data:`GENERATION` pointer (tmp + ``os.replace``,
+    rename-last). A concurrent reader resolves the pointer once and
+    maps entirely-old or entirely-new files — never a torn mix — and
+    a crash anywhere before the pointer flip leaves the prior
+    generation serving untouched (the orphan subdir is swept by the
+    next publish). The previous generation is kept on disk so in-flight
+    readers of the old pointer still resolve; older ones are removed.
+    The sha256 manifest (written before the renames, atomically itself)
+    is the read-side integrity gate: serve/inventory.py refuses to map
+    a generation whose manifest is missing or whose hashes mismatch.
+
+    ``extra_files`` maps extra file names to JSON-serializable objects
+    written into the generation and sha256'd into its manifest
+    (``delta_``/``ann_`` prefixed files ride the LENIENT verification
+    tier: corruption costs incrementality or index coverage, never
+    query correctness).
+
+    ``scores`` may be ``None`` for a partial republication from the
+    durable record's text outputs (the ``[2, G]`` score matrix is not
+    recoverable from them); ``meta["has_scores"]`` records which kind
+    this bundle is.
+
+    ``ann_nlist`` gates the IVF index build (ops/ann.py:resolve_nlist —
+    0 auto-indexes large bundles, <0 disables, >0 forces a list count);
+    when an index is built its three files are sha256'd into the SAME
+    manifest as the exact arrays and ``meta["ann"]`` records the build.
+    ``seed_centroids`` (the stage-5 k-means centers, when the caller
+    has them) seed the coarse quantizer for free; any shape mismatch
+    silently falls back to the deterministic row seeding.
+    """
+    import time as _time
+
+    from g2vec_tpu_torch.utils.integrity import (sha256_file,
+                                                 write_json_atomic)
+
+    embeddings = np.asarray(embeddings, dtype=np.float32)
+    if embeddings.ndim != 2 or embeddings.shape[0] != len(genes):
+        raise ValueError(
+            f"write_inventory_bundle: embeddings {embeddings.shape} vs "
+            f"{len(genes)} genes")
+    from g2vec_tpu_torch.ops import ann as ann_ops
+    from g2vec_tpu_torch.ops.knn import row_norms
+    from g2vec_tpu_torch.resilience.faults import fault_point
+
+    bundle_dir = os.path.abspath(bundle_dir)
+    tmp = f"{bundle_dir}.tmp.{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.save(os.path.join(tmp, "embeddings.npy"), embeddings,
+            allow_pickle=False)
+    np.save(os.path.join(tmp, "norms.npy"), row_norms(embeddings),
+            allow_pickle=False)
+    if scores is not None:
+        scores = np.asarray(scores, dtype=np.float32)
+        if scores.ndim != 2 or scores.shape[1] != embeddings.shape[0]:
+            raise ValueError(
+                f"write_inventory_bundle: scores {scores.shape} vs "
+                f"[*, {embeddings.shape[0]}] expected")
+        np.save(os.path.join(tmp, "scores.npy"), scores,
+                allow_pickle=False)
+    with open(os.path.join(tmp, "genes.txt"), "w") as fout:
+        for gene in genes:
+            fout.write("%s\n" % gene)
+    nlist = ann_ops.resolve_nlist(embeddings.shape[0], ann_nlist)
+    ann_meta = None
+    if nlist:
+        t0 = _time.perf_counter()
+        centroids, postings, offsets = ann_ops.build_ivf(
+            embeddings, nlist, seed_centroids=seed_centroids)
+        np.save(os.path.join(tmp, "ann_centroids.npy"), centroids,
+                allow_pickle=False)
+        np.save(os.path.join(tmp, "ann_postings.npy"), postings,
+                allow_pickle=False)
+        np.save(os.path.join(tmp, "ann_offsets.npy"), offsets,
+                allow_pickle=False)
+        # Posting-major vector copy: the RAW float32 rows reordered so
+        # a probed list's candidates are one contiguous slab (streams)
+        # instead of a fancy-indexed gather (~100 ns/row of cache
+        # misses). Raw — not pre-normalized — because bitwise equality
+        # with the gather path requires the identical row-dot-then-
+        # divide arithmetic of ops/knn.
+        np.save(os.path.join(tmp, "ann_vectors.npy"),
+                np.ascontiguousarray(embeddings[postings]),
+                allow_pickle=False)
+        score_topm = 0
+        if scores is not None:
+            from g2vec_tpu_torch.ops.knn import topk_scores
+            score_topm = min(int(embeddings.shape[0]), ANN_SCORE_TOPM)
+            short = np.stack([topk_scores(scores[r], score_topm)[0]
+                              for r in range(scores.shape[0])])
+            np.save(os.path.join(tmp, "ann_scores.npy"),
+                    short.astype(np.int64), allow_pickle=False)
+        ann_meta = {"format": ann_ops.ANN_FORMAT, "nlist": int(nlist),
+                    "nprobe_default": ann_ops.DEFAULT_NPROBE,
+                    "posting_major": True,
+                    "score_topm": int(score_topm),
+                    "seeded": bool(
+                        seed_centroids is not None
+                        and np.asarray(seed_centroids).ndim == 2
+                        and np.asarray(seed_centroids).shape[1]
+                        == embeddings.shape[1]),
+                    "build_ms": round(
+                        (_time.perf_counter() - t0) * 1000.0, 3)}
+    for name, obj in sorted((extra_files or {}).items()):
+        write_json_atomic(os.path.join(tmp, name), obj)
+    meta = dict(meta, n_genes=int(embeddings.shape[0]),
+                hidden=int(embeddings.shape[1]),
+                has_scores=scores is not None, ann=ann_meta)
+    write_json_atomic(os.path.join(tmp, "meta.json"), meta)
+    files = {}
+    for name in sorted(os.listdir(tmp)):
+        files[name] = {"sha256": sha256_file(os.path.join(tmp, name)),
+                       "bytes": os.path.getsize(os.path.join(tmp, name))}
+    write_json_atomic(os.path.join(tmp, INVENTORY_MANIFEST),
+                      {"format": "g2vec-inventory-v1", "files": files})
+    if nlist:
+        # AFTER the manifest, BEFORE the rename: a kind=corrupt here
+        # publishes a bundle whose index bytes no longer match their
+        # manifest hash — the torn-index drill the lenient map path
+        # (serve/inventory.py) must catch and downgrade to exact.
+        fault_point("ann_build",
+                    path=os.path.join(tmp, "ann_postings.npy"))
+    os.makedirs(bundle_dir, exist_ok=True)
+    gen_name = "gen-%06d" % _next_generation(bundle_dir)
+    os.rename(tmp, os.path.join(bundle_dir, gen_name))
+    ptmp = os.path.join(bundle_dir, f".{GENERATION_FILE}.tmp.{os.getpid()}")
+    with open(ptmp, "w") as f:
+        f.write(gen_name + "\n")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(ptmp, os.path.join(bundle_dir, GENERATION_FILE))
+    _gc_generations(bundle_dir, gen_name)
+    return os.path.join(bundle_dir, gen_name)
+
+
+def _gc_generations(bundle_dir: str, live: str) -> None:
+    """Sweep everything but the live generation, its immediate
+    predecessor (in-flight readers of the just-replaced pointer must
+    still resolve; the no-delta byte-identity check also compares
+    across the last flip), and the pointer itself. Removes legacy flat
+    bundle files on the first generational publish over an old-layout
+    bundle — open maps of them stay valid (POSIX unlink semantics)."""
+    try:
+        serial = int(live[4:])
+    except ValueError:
+        return
+    keep = {live, "gen-%06d" % (serial - 1), GENERATION_FILE}
+    for name in sorted(os.listdir(bundle_dir)):
+        if name in keep:
+            continue
+        path = os.path.join(bundle_dir, name)
+        try:
+            if os.path.isdir(path):
+                shutil.rmtree(path, ignore_errors=True)
+            else:
+                os.unlink(path)
+        except OSError:
+            pass

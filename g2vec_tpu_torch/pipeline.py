@@ -42,10 +42,19 @@ the start of each stage; ``--checkpoint-dir``/``--resume``/
 again (or hits ``--cache-dir``) and then restores training; a resumed
 run's metrics stream is appended to, so the supervisor's ``retry`` and
 ``resume`` events and every attempt's records form one stream.
+
+The result carries stage 5's k-means centres and stage 6's ``[2, G]``
+score matrix for the query plane: ``--emit-inventory`` publishes them
+with the embeddings as ``<result_name>_inventory/`` at stage 7
+(``io/writers.write_inventory_bundle``), as ``g2vec_tpu/pipeline.py:
+947-975`` does, and the serve daemon publishes a served lane's bundle
+from them.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -90,6 +99,46 @@ class PipelineResult:
     paths: Optional[np.ndarray] = None   # [n_paths, ceil(G/8)] uint8 stage-3
                                          # rows (full-batch mode only)
     labels: Optional[np.ndarray] = None  # [n_paths] 0 good / 1 poor
+    biomarker_scores: Optional[np.ndarray] = None
+                                 # [2, G] float32 prognostic scores (good
+                                 # row 0, poor row 1): the query plane's
+                                 # topk_biomarkers vector, kept so the
+                                 # serve daemon publishes the bundle
+                                 # without recomputing stage 6
+    km_centers: Optional[np.ndarray] = None
+                                 # [k, hidden] float32 stage-5 k-means
+                                 # centres (winning restart): they seed
+                                 # the bundle's IVF coarse quantiser
+
+
+def _emit_inventory(cfg: G2VecConfig, w_ih: np.ndarray, genes, scores2,
+                    km_centers, metrics, console) -> str:
+    """``--emit-inventory``: publish ``<result_name>_inventory/`` and its
+    ``inventory`` and ``ann_build`` metrics events, as the JAX package's
+    solo run does."""
+    from g2vec_tpu_torch.io.writers import write_inventory_bundle
+
+    bundle_root = cfg.result_name + "_inventory"
+    gen_dir = write_inventory_bundle(
+        bundle_root, np.asarray(w_ih, dtype=np.float32), list(genes),
+        scores2, {"source": "solo",
+                  "result_name": os.path.basename(cfg.result_name)},
+        ann_nlist=cfg.ann_nlist, seed_centroids=km_centers)
+    console("    %s" % gen_dir)
+    name = os.path.basename(bundle_root)
+    metrics.emit("inventory", bundle=name,
+                 bytes=sum(os.path.getsize(os.path.join(gen_dir, f))
+                           for f in os.listdir(gen_dir)),
+                 outcome="published")
+    with open(os.path.join(gen_dir, "meta.json")) as mf:
+        ann_meta = json.load(mf).get("ann")
+    if ann_meta:
+        metrics.emit("ann_build", bundle=name, nlist=ann_meta.get("nlist"),
+                     outcome="built", ms=ann_meta.get("build_ms"),
+                     seeded=ann_meta.get("seeded"), postings=len(genes))
+    else:
+        metrics.emit("ann_build", bundle=name, nlist=0, outcome="skipped")
+    return gen_dir
 
 
 class _EpochReporter:
@@ -463,11 +512,12 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         fault_point("lgroups")
         emb = result.model.w_ih.detach().float()
         with timer.stage("lgroups"):
-            lgroup_dev, _ = find_lgroups(
+            lgroup_dev, km_centers = find_lgroups(
                 emb, freq_index(data.gene, gene_freq),
                 generator=torch.Generator().manual_seed(cfg.kmeans_seed),
                 k=cfg.n_lgroups, compat_tiebreak=cfg.compat_lgroup_tiebreak,
                 iters=cfg.kmeans_iters, centers0=kmeans_centers0)
+            km_centers = km_centers.cpu().numpy().astype(np.float32)
 
         console(">>> 6. Select biomarkers with gene scores")
         fault_point("biomarkers")
@@ -493,6 +543,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                 write_lgroups(cfg.result_name, lgroup_idx, data.gene),
                 write_vectors(cfg.result_name, result.w_ih, data.gene),
             ]
+            if cfg.emit_inventory:
+                _emit_inventory(cfg, result.w_ih, data.gene, scores2,
+                                km_centers, metrics, console)
         for path in outputs:
             console("    %s" % path)
         overlap_saved = overlap.saved_seconds() if cfg.overlap else {}
@@ -518,7 +571,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             device=str(dev), walker_backend=walker_backend,
             sampler_threads=sampler_threads,
             walk_cache_hits=list(walk_cache_hits), paths=paths,
-            labels=labels)
+            labels=labels, biomarker_scores=scores2, km_centers=km_centers)
     finally:
         # Drain, never raise: the exception in flight (if any) is the one
         # the caller must see; a background failure either surfaced at a

@@ -5,7 +5,9 @@ auto-resume (the port's copy of ``g2vec_tpu/resilience``, one process).
   plan that raises, SIGKILLs, stalls or corrupts bytes at named seams.
 - :mod:`g2vec_tpu_torch.resilience.supervisor`: bounded retries around
   ``pipeline.run``, in process or by re-running a child with
-  ``--resume``.
+  ``--resume``, and the serve daemon's relaunch watchdog.
+- :mod:`g2vec_tpu_torch.resilience.lifecycle`: the cooperative job
+  interruptions (cancel, deadline, drain) and the admission SLOs.
 
 Checkpoint integrity lives with the checkpoints
 (:mod:`g2vec_tpu_torch.train.checkpoint`). Nothing here imports torch:

@@ -22,7 +22,10 @@ Keys:
   epoch = shard index). Walk cache: ``walk_cache`` (after a store
   finalizes). Streaming: ``shard_ring`` (the producer, after a shard
   spools; epoch = shard index), ``prefetch`` (the consumer, as it asks
-  for the next shard).
+  for the next shard). Serve: ``drain`` (as the daemon begins a drain,
+  before its stop flag is set). Query plane: ``ann_build`` (after a
+  bundle's manifest is written and before its generation is renamed in;
+  ``path`` = the index's postings file, the seam for ``corrupt``).
 - ``epoch``: fire only once the hook reports an epoch >= this value.
 - ``kind``: ``crash`` (default) raises :class:`InjectedFault`
   (retryable); ``fatal`` raises :class:`InjectedFatal` (fatal);
@@ -63,14 +66,14 @@ KINDS = ("crash", "fatal", "sigkill", "stall", "corrupt")
 SEAMS = ("load", "preprocess", "paths", "train", "lgroups", "biomarkers",
          "save", "checkpoint_write", "checkpoint_finalize",
          "native_load", "native_walker_load", "device_walk", "walk_cache",
-         "shard_ring", "prefetch", "stream_ckpt")
+         "shard_ring", "prefetch", "stream_ckpt", "drain", "ann_build")
 
-#: The JAX package's other seams: the serve daemon's drain, the fleet and
-#: sharded scale-out, the query plane's writers. The port has no call site
-#: for them yet, so a plan that names one is refused.
-NOT_PORTED = ("allgather", "stage_barrier", "heartbeat", "drain",
+#: The JAX package's other seams: the fleet and sharded scale-out, the
+#: incremental update's republish. The port has no call site for them
+#: yet, so a plan that names one is refused.
+NOT_PORTED = ("allgather", "stage_barrier", "heartbeat",
               "shard_exchange", "embed_allreduce", "walk_handoff",
-              "halo_build", "ann_build", "update_publish")
+              "halo_build", "update_publish")
 
 
 class FaultPlanError(ValueError):

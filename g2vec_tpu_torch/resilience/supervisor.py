@@ -1,8 +1,8 @@
 """Auto-resume supervision: bounded retries around ``pipeline.run``.
 
-The port's copy of ``g2vec_tpu/resilience/supervisor.py`` (the solo run;
-the serve daemon's supervisor comes with the serve port). Two entry
-points with one retry policy:
+The port's copy of ``g2vec_tpu/resilience/supervisor.py``, one process
+(the router's ``ReplicaFleet`` comes with the multi-replica half of
+serve). Three entry points with one retry policy:
 
 - :func:`supervise`, in process: call ``pipeline.run(cfg)``, classify any
   exception, and re-enter with ``resume=True`` after exponential backoff
@@ -12,6 +12,9 @@ points with one retry policy:
   flags, with ``--resume``) and classify the child's exit. This is the
   only mode that survives a SIGKILL, and it holds no CUDA context: this
   module imports no torch.
+- :func:`supervise_serve`, the ``serve --supervise`` watchdog: relaunch
+  ``python -m g2vec_tpu_torch serve`` until it exits 0; the daemon's
+  journal re-queues its unfinished jobs on every start.
 
 Classification, as the JAX package's:
 
@@ -94,6 +97,13 @@ def _cuda_sticky(exc: BaseException) -> bool:
 
 def classify_exception(exc: BaseException) -> str:
     """Return ``"retryable"`` or ``"fatal"`` for an in-process failure."""
+    from g2vec_tpu_torch.resilience.lifecycle import JobInterrupted
+
+    if isinstance(exc, JobInterrupted):
+        # A cooperative interruption is an answer, not a failure: it never
+        # enters a retry loop (the daemon handles it before classifying;
+        # this guard is for any other caller).
+        return "fatal"
     if isinstance(exc, _RETRYABLE_TYPES):
         return "retryable"
     if isinstance(exc, InjectedFatal):
@@ -270,3 +280,86 @@ def supervise_cli(cfg, argv: List[str],
         with _event_writer(cfg) as events:
             events.emit("resume", attempt=attempt,
                         checkpoint_dir=cfg.checkpoint_dir)
+
+
+def supervise_serve(argv: List[str], *, retries: int = 3,
+                    backoff: float = 1.0,
+                    metrics_jsonl: Optional[str] = None,
+                    state_dir: Optional[str] = None,
+                    sleep: Callable[[float], None] = time.sleep) -> int:
+    """Watchdog for the ``g2vec serve`` daemon (``g2vec serve --supervise``).
+
+    Relaunches ``python -m g2vec_tpu_torch serve`` (minus the supervisor's own
+    flags) until it exits cleanly, a failure classifies fatal, or the
+    retry budget runs out — the same policy/classification as
+    :func:`supervise_cli`, WITHOUT ``--resume``: the daemon's own journal
+    re-queues in-flight jobs on relaunch, and its persistent ``--cache-dir``
+    tier restores the walks. The child's stderr goes to
+    ``<state_dir>/serve-stderr.log`` (a resident daemon can outlive any
+    pipe buffer); its tail feeds the exit classification.
+    """
+    policy = RetryPolicy(max_retries=retries, backoff_base=backoff)
+    rng = random.Random(0)
+    child_argv = _scrub_supervisor_argv(list(argv))
+    env = dict(os.environ)
+    if env.get(ENV_PLAN) or any(a == "--fault-plan"
+                                or a.startswith("--fault-plan=")
+                                for a in child_argv):
+        if not env.get(ENV_STATE):
+            # One-shot faults must stay one-shot across daemon restarts
+            # (same contract as supervise_cli).
+            fd, state = tempfile.mkstemp(prefix="g2vec-fault-state-")
+            os.close(fd)
+            os.unlink(state)
+            env[ENV_STATE] = state
+
+    def _events():
+        from g2vec_tpu_torch.utils.metrics import MetricsWriter
+
+        return MetricsWriter(metrics_jsonl, append=True)
+
+    err_log = os.path.join(state_dir, "serve-stderr.log") if state_dir \
+        else None
+    attempt = 0
+    while True:
+        cmd = [sys.executable, "-m", "g2vec_tpu_torch", "serve",
+               *child_argv]
+        if err_log:
+            os.makedirs(state_dir, exist_ok=True)
+            with open(err_log, "ab") as ef:
+                ef.write(f"--- serve attempt {attempt} ---\n".encode())
+                ef.flush()
+                proc = subprocess.run(cmd, env=env, stderr=ef)
+            with open(err_log, "rb") as ef2:
+                tail = ef2.read()[-2000:].decode(errors="replace")
+        else:
+            proc = subprocess.run(cmd, env=env, stderr=subprocess.PIPE,
+                                  text=True)
+            if proc.stderr:
+                sys.stderr.write(proc.stderr)
+            tail = (proc.stderr or "")[-2000:]
+        if proc.returncode == 0:
+            if attempt:
+                with _events() as events:
+                    events.emit("serve_supervised_done",
+                                attempts=attempt + 1)
+            return 0
+        verdict = classify_child(proc.returncode, tail)
+        err = f"serve rc={proc.returncode}: {tail[-300:].strip()}"[:500]
+        if verdict == "fatal" or attempt >= policy.max_retries:
+            with _events() as events:
+                events.emit("gave_up", attempt=attempt, classified=verdict,
+                            error=err)
+            print(f"[serve-supervisor] giving up after attempt {attempt}: "
+                  f"{verdict} — rc={proc.returncode}", file=sys.stderr)
+            return proc.returncode if proc.returncode > 0 else 1
+        delay = policy.delay(attempt, rng)
+        with _events() as events:
+            events.emit("serve_relaunch", attempt=attempt,
+                        classified=verdict, error=err,
+                        delay_seconds=round(delay, 3))
+        print(f"[serve-supervisor] daemon died (rc={proc.returncode}, "
+              f"{verdict}); relaunching in {delay:.1f}s — journaled jobs "
+              f"re-queue on start", file=sys.stderr)
+        sleep(delay)
+        attempt += 1

@@ -75,13 +75,15 @@ epoch's end, and ``stream_ckpt`` after each cursor commits. A failed
 device walk (the ``device_walk`` seam, or a kernel error) is relaunched
 once, on the same kernel, and counted in ``device_recomputes``.
 
-``check()`` runs before each shard step (an exception it raises stops the
-run there), ``lifecycle(state, info)`` observes ``"checkpointed"`` after
-each cursor commits and ``"resumed"`` when a cursor is restored, and
-every run adds its counters to the process-wide :func:`stream_stats`
-totals (the batch engine's ``status()`` reads them). Not ported yet: a
-drain that cuts a cursor before it stops (the serve daemon's), and
-sharded (multi-rank) streaming.
+``check()`` runs at the top of each epoch and before each shard step (an
+exception it raises stops the run there; a
+:class:`~g2vec_tpu_torch.resilience.lifecycle.DrainRequested` first cuts
+a cursor at that point, so the serve daemon's drain resumes there),
+``lifecycle(state, info)`` observes ``"checkpointed"`` after each cursor
+commits and ``"resumed"`` when a cursor is restored, and every run adds
+its counters to the process-wide :func:`stream_stats` totals (the batch
+engine's ``status()`` reads them). Not ported yet: sharded (multi-rank)
+streaming.
 """
 from __future__ import annotations
 
@@ -111,6 +113,7 @@ from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
 from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
                                                padded_row_bytes, unpack_bits)
 from g2vec_tpu_torch.resilience.faults import fault_point
+from g2vec_tpu_torch.resilience.lifecycle import DrainRequested
 from g2vec_tpu_torch.train.checkpoint import (RUN_COMPLETED,
                                               RUN_EARLY_STOPPED,
                                               RUN_IN_PROGRESS, N_LEAVES,
@@ -919,6 +922,20 @@ def train_cbow_streaming(
                       {"epoch": int(cur_epoch), "shard": int(next_shard),
                        "done": int(done), "path": path})
 
+    def _checked(cur_epoch: int, next_shard: int, prefix: List[float],
+                 cur_losses: List[torch.Tensor]) -> None:
+        """Run the cooperative-interruption hook at a consistent
+        boundary. A drain cuts a cursor at exactly this point before it
+        propagates (the next run resumes here); a cancel or a deadline
+        propagates bare: it is terminal, there is nothing to keep."""
+        if check is None:
+            return
+        try:
+            check()
+        except DrainRequested:
+            _save_ckpt(cur_epoch, next_shard, prefix, cur_losses)
+            raise
+
     def _build_result() -> StreamTrainResult:
         stats.n_paths = kept_rows[0]
         stats.epochs = len(history)
@@ -980,6 +997,7 @@ def train_cbow_streaming(
             offset = start_shard if resumed_here else 0
             prefix = losses0 if resumed_here else []
             losses: List[torch.Tensor] = []
+            _checked(epoch, offset, prefix, losses)
             if device_feed and epoch == 0:
                 feed = _device_epoch0_feed(offset)
             else:
@@ -989,8 +1007,7 @@ def train_cbow_streaming(
                                     else _replay_iter(offset),
                                     epoch0=(epoch == 0))
             for si, acc_cb, batch in feed:
-                if check is not None:
-                    check()
+                _checked(epoch, si, prefix, losses)
                 if acc_cb is not None:
                     acc_cb()
                 losses.append(_update(batch))

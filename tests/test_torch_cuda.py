@@ -593,3 +593,60 @@ def test_batch_lanes_on_the_card_write_the_solo_files(cuda, tmp_path):
         for a, b in zip(lane.output_files, solo.output_files):
             with open(a, "rb") as fa, open(b, "rb") as fb:
                 assert fa.read() == fb.read()
+
+
+def test_served_jobs_join_on_the_card_and_write_the_solo_files(cuda,
+                                                                tmp_path):
+    """Two compatible jobs on an in-process daemon on the card: one lane
+    batch on the lane kernels, each variant's files its solo run's."""
+    import json
+    import os
+
+    from g2vec_tpu_torch.batch.engine import _variant_from_dict, lane_config
+    from g2vec_tpu_torch.config import G2VecConfig, config_from_job
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.pipeline import run
+    from g2vec_tpu_torch.serve.daemon import ServeDaemon, ServeOptions
+
+    files = write_synthetic_tsv(SyntheticSpec(
+        n_good=24, n_poor=20, module_size=12, n_background=24,
+        n_expr_only=4, n_net_only=4, module_chords=2, background_edges=40,
+        seed=7), str(tmp_path))
+    d = ServeDaemon(ServeOptions(socket_path=str(tmp_path / "s.sock"),
+                                 state_dir=str(tmp_path / "state"),
+                                 ann_nlist=4), console=lambda s: None)
+    jobs = {}
+    try:
+        for tenant, seeds in (("alice", (0, 1)), ("bob", (2,))):
+            job = dict(expression_file=files["expression"],
+                       clinical_file=files["clinical"],
+                       network_file=files["network"],
+                       result_name=str(tmp_path / "out" / tenant),
+                       lenPath=20, numRepetition=3, sizeHiddenlayer=16,
+                       epoch=30, numBiomarker=10, seed=11, variants=[
+                           {"name": f"s{k}", "train_seed": k,
+                            "kmeans_seed": k} for k in seeds])
+            jobs[d.admit({"job": job, "tenant": tenant})["job_id"]] = job
+        pm.reset_launch_counts()
+        assert d.step(timeout=0) == 2
+        assert pm.packed_matmul_lanes_fwd.launches > 0
+        assert d.status()["engine"]["kernel_launches"][
+            "packed_matmul_lanes_fwd"] == pm.packed_matmul_lanes_fwd.launches
+    finally:
+        d.close()
+    for jid, job in jobs.items():
+        with open(tmp_path / "state" / "results" / f"{jid}.json") as f:
+            rec = json.load(f)
+        assert rec["status"] == "done" and rec["joined_jobs"] == 2
+        base = {k: v for k, v in job.items() if k != "variants"}
+        cfg = config_from_job(dict(base, result_name=str(tmp_path / "solo")),
+                              G2VecConfig(device="cuda"))
+        for obj in job["variants"]:
+            solo = run(lane_config(cfg, _variant_from_dict(0, obj, cfg)),
+                       console=lambda s: None)
+            for a, b in zip(rec["variants"][obj["name"]]["outputs"],
+                            solo.output_files):
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    assert fa.read() == fb.read()
+        assert os.listdir(tmp_path / "state" / "inventory" / jid)

@@ -5,7 +5,8 @@
 - At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
   cpu``, full-batch and ``--train-mode streaming``) runs a tiny spec end
   to end in a fresh interpreter, after which neither jax nor any
-  g2vec_tpu module is in ``sys.modules``.
+  g2vec_tpu module is in ``sys.modules``; so do ``serve --help`` (which
+  loads no torch either) and the serve daemon serving a job.
 - Without ``--device cpu`` on a machine with no card, the entry points
   raise instead of running on the CPU.
 """
@@ -119,6 +120,62 @@ def test_batch_cli_runs_without_jax_in_sys_modules(tmp_path):
     assert ">>> [batch] 4. Train (shape-bucketed lanes)" in lines
     done = [json.loads(line) for line in open(tmp_path / "m.jsonl")][-1]
     assert done["event"] == "done" and done["buckets"][0]["lanes"] == 2
+
+
+_SERVE_SCRIPT = r"""
+import json, runpy, sys, threading
+mode, out_dir = sys.argv[1], sys.argv[2]
+if mode == "help":
+    sys.argv = ["g2vec_tpu_torch", "serve", "--help"]
+    try:
+        runpy.run_module("g2vec_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        rc = e.code
+else:
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.serve import client
+    from g2vec_tpu_torch.serve.daemon import ServeDaemon, ServeOptions
+    files = write_synthetic_tsv(SyntheticSpec(
+        n_good=12, n_poor=10, module_size=8, n_background=10, n_expr_only=2,
+        n_net_only=2, module_chords=2, background_edges=15, seed=3), out_dir)
+    d = ServeDaemon(ServeOptions(socket_path=out_dir + "/s.sock",
+                                 state_dir=out_dir + "/state", device="cpu",
+                                 ann_nlist=2), console=lambda s: None)
+    t = threading.Thread(target=d.serve_forever, daemon=True)
+    t.start()
+    assert client.wait_ready(out_dir + "/s.sock", deadline_s=60)
+    events = client.submit_job(out_dir + "/s.sock", dict(
+        expression_file=files["expression"], clinical_file=files["clinical"],
+        network_file=files["network"], result_name=out_dir + "/tiny",
+        lenPath=10, numRepetition=3, sizeHiddenlayer=8, epoch=4,
+        numBiomarker=5, kmeans_iters=20, seeds=2), timeout=120)
+    query = client.query(out_dir + "/s.sock", "list", timeout=30)
+    client.shutdown(out_dir + "/s.sock", timeout=30)
+    t.join(timeout=120)
+    rc = 0 if (events[-1]["event"] == "job_done" and not t.is_alive()
+               and len(query["bundles"]) == 2) else 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "ml_dtypes",
+                                    "g2vec_tpu"))
+print(json.dumps({"rc": rc, "bad": bad, "torch": "torch" in sys.modules}))
+"""
+
+
+@pytest.mark.parametrize("mode", ["help", "daemon"])
+def test_serve_runs_without_jax_in_sys_modules(tmp_path, mode):
+    """``python -m g2vec_tpu_torch serve --help`` loads neither jax nor
+    torch; the daemon (admission, a joined batch, bundle publication, a
+    query, shutdown) loads no jax."""
+    proc = subprocess.run([sys.executable, "-c", _SERVE_SCRIPT, mode,
+                           str(tmp_path)], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=ROOT), timeout=300,
+                          cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {"rc": 0, "bad": [], "torch": mode == "daemon"}
+    if mode == "help":
+        assert "--socket ADDR" in proc.stdout
 
 
 @pytest.fixture
