@@ -18,7 +18,10 @@ defaults) and with ``--metrics-jsonl``: it checks that the stream's
 read the input (a fallback warning fails it), then runs the CLI in fresh
 interpreters in turns (defaults and ``--no-overlap`` three times each,
 then ``--no-overlap --no-native-io``), prints each run's stage seconds
-and spans, and checks that all eight runs wrote byte-identical files.
+and spans, and checks that all eight runs wrote byte-identical files;
+one more CLI run with ``--profile-dir`` (the same bytes) prints the
+trace's CUDA kernel time by kernel name and the device's idle share over
+stage ``train``.
 Phase 4 goes on with: the forward's grid, its waves, the bytes of W it
 streams from L2 and its tensor-core ceiling beside the backward's split;
 the forward beside the other layouts it was chosen from (built from
@@ -106,7 +109,23 @@ exits 0, the job journaled, a cursor saved), the daemon relaunched under
 ``--supervise`` resumes it from the cursor to its uninterrupted solo
 run's bytes, and ``--shutdown`` ends the daemon and its supervisor with
 exit 0. The lane kernels' records in the kernel line carry the joined
-batch's launches (``served_launches``).
+batch's launches (``served_launches``). Phase 11 drives the router
+(``serve --replicas 2 --listen``) as a child process: started with
+``CUDA_VISIBLE_DEVICES=`` it must exit nonzero, its first replica dead
+during boot; then over two card replicas: the router's RSS and that it
+maps no CUDA or torch library; each replica's first job (a small f32 one
+sent to it straight) and the card's ``memory.used`` it added; Alice's
+and Bob's jobs (phase 10's) routed behind an f32 job to the ring's owner
+of their join key, joined into one 8-lane batch (3 lane forward and 2
+lane backward launches, no solo launch, read through that replica's
+``status``), each variant phase 9's lane's bytes; phase 10's streaming
+job routed and its replica SIGKILLed at its first cursor: the router
+fences it, the card's memory drops, the journal moves to the survivor,
+which resumes from the cursor and writes the job's solo bytes; the
+killed replica is relaunched and healthy again and runs a job sent to it
+straight; one exact ``neighbors`` query through the router equals the
+numpy full sort; one ``job_done`` per job id over both replicas'
+metrics; ``--shutdown`` ends the fleet with exit 0. It fails past 120 s.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -2050,12 +2069,451 @@ def _serve_phase(files, small, small_args, tmp, lane_bytes, smi):
         if rc != 0:
             raise RuntimeError(f"the supervised daemon exited {rc}")
         print("    --shutdown: the daemon and its supervisor exit 0")
-        return {"joined": launches, "warm": warm_launches}
+        return {"joined": launches, "warm": warm_launches,
+                "stream_solo": _outputs(solo)}
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def _trace_breakdown(path, stage):
+    """From a ``--profile-dir`` Chrome trace: CUDA kernel time by name over
+    the whole run ({name: (ms, count)}, most first), and the share of the
+    ``stage`` range (the CPU span of ``stage:<name>``) during which the
+    card ran no kernel, copy or memset."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("name") == stage
+            and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation"]
+    if len(span) != 1:
+        raise RuntimeError(f"{len(span)} {stage} ranges in the trace")
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    device = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    if not kernels:
+        raise RuntimeError("the trace holds no CUDA kernel")
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    busy, end = 0.0, t0
+    for a, b in sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                       for e in device):
+        if b > max(a, end):
+            busy += b - max(a, end)
+            end = b
+    ordered = dict(sorted(by_name.items(), key=lambda kv: -kv[1][0]))
+    return ordered, 1.0 - busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def _compute_apps():
+    """{pid: used MiB} of the card's compute processes, as
+    ``nvidia-smi --query-compute-apps=pid,used_memory`` lists them."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    apps = {}
+    for line in proc.stdout.strip().splitlines():
+        pid, mem = (x.strip() for x in line.split(","))
+        apps[int(pid)] = int(mem) if mem.isdigit() else mem
+    return apps
+
+
+def _gpu_used_mib() -> int:
+    """The card's used memory, MiB (``nvidia-smi --query-gpu=memory.used``)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return int(proc.stdout.split()[0])
+
+
+def _rss_mib(pid) -> float:
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    raise RuntimeError(f"no VmRSS for pid {pid}")
+
+
+def _ring_owner(job, names):
+    """The replica the router's ring places ``job`` on (its placement
+    key is the daemon's join key under the router's defaults)."""
+    from g2vec_tpu_torch.config import (G2VecConfig, config_from_job,
+                                        serve_join_key)
+    from g2vec_tpu_torch.serve.router import HashRing
+
+    ring = HashRing()
+    for name in names:
+        ring.add(name)
+    base = {k: v for k, v in job.items() if k not in ("variants", "seeds")}
+    return ring.lookup(repr(serve_join_key(config_from_job(
+        base, G2VecConfig()))))
+
+
+def _job_done_counts(fleet, names):
+    counts = {}
+    for name in names:
+        path = os.path.join(fleet, name, "metrics.jsonl")
+        for rec in (_read_metrics(path) if os.path.exists(path) else []):
+            if rec["event"] == "job_done":
+                counts[rec["job_id"]] = counts.get(rec["job_id"], 0) + 1
+    return counts
+
+
+def _router_phase(files, small, small_args, tmp, lane_bytes, stream_solo,
+                  smi):
+    """Phase 11: ``serve --replicas 2`` on the card, as a child process:
+    two card replicas behind the router, a joined routed batch, a
+    SIGKILLed replica failed over, an exact query through the router."""
+    from g2vec_tpu_torch.serve import client, protocol
+
+    t_phase = time.perf_counter()
+    wd = os.path.join(tmp, "fleet11")
+    fleet, out = os.path.join(wd, "fleet"), os.path.join(wd, "out")
+    os.makedirs(wd)
+    names = ["r0", "r1"]
+    procs = []
+    try:
+        # 0. No card visible to the replicas: the first one fails its
+        # boot, and the router exits non-zero naming it (no CPU serving).
+        t0 = time.perf_counter()
+        nocard_log = os.path.join(wd, "nocard.log")
+        nocard = _serve_proc(["--replicas", "2", "--listen", "127.0.0.1:0",
+                              "--state-dir", os.path.join(wd, "nocard")],
+                             nocard_log, env={"CUDA_VISIBLE_DEVICES": ""})
+        procs.append(nocard)
+        rc = nocard.wait(timeout=120)
+        with open(nocard_log) as f:
+            text = f.read()
+        line = next((ln for ln in text.splitlines()
+                     if "cannot start" in ln), "")
+        if rc == 0 or "died during boot" not in line \
+                or "no CUDA device" not in text:
+            raise RuntimeError(f"a card-less fleet's router exited {rc}: "
+                               f"{text[-800:]}")
+        print(f"    with CUDA_VISIBLE_DEVICES= the router exits {rc} after "
+              f"{time.perf_counter() - t0:.1f} s: {line[:150]}")
+
+        # 1. The router and its two replicas; both used once, straight.
+        t0 = time.perf_counter()
+        router = _serve_proc(["--replicas", "2", "--listen", "127.0.0.1:0",
+                              "--state-dir", fleet, "--cache-dir",
+                              os.path.join(wd, "cache"), "--ann-nlist",
+                              "16", "--probe-interval", "0.3"],
+                             os.path.join(wd, "router.log"))
+        procs.append(router)
+        addr_file = os.path.join(fleet, "router_addr")
+        _wait_for(lambda: os.path.exists(addr_file), "router_addr",
+                  deadline_s=100.0, proc=router)
+        with open(addr_file) as f:
+            addr = f.read().strip()
+        boot_s = time.perf_counter() - t0
+        st = client.status(addr)
+        reps = st["replicas"]
+        if st["role"] != "router" or st["active"] != names or any(
+                reps[n]["state"] != "healthy" for n in names):
+            raise RuntimeError(f"router status: {st}")
+        warm = {}
+
+        def warm_up(name):
+            warm[name] = client.submit_job(reps[name]["addr"], _serve_job(
+                small, os.path.join(out, f"warm_{name}"),
+                compute_dtype="float32", **dict(small_args, epoch=5)),
+                tenant="ops")[-1]
+
+        # One at a time: the card's used memory grows by each replica's
+        # context as its first job makes it.
+        mem, used = {}, _gpu_used_mib()
+        for name in names:
+            warm_up(name)
+            now = _gpu_used_mib()
+            mem[name], used = now - used, now
+        if any(ev["event"] != "job_done" for ev in warm.values()) \
+                or min(mem.values()) <= 0:
+            raise RuntimeError(f"warm-up jobs: {warm}, memory {mem}")
+        apps = _compute_apps()
+        pids = {n: reps[n]["pid"] for n in names}
+        by_pid = all(pid in apps for pid in pids.values())
+        router_pid = st["pid"]
+        with open(f"/proc/{router_pid}/maps") as f:
+            maps = f.read()
+        if router_pid in apps or "libcuda" in maps or "libtorch" in maps:
+            raise RuntimeError("the router process holds a CUDA context "
+                               "or loaded torch")
+        print(f"    router pid {router_pid} up with both replicas in "
+              f"{boot_s:.1f} s (the replicas boot one after the other); "
+              f"router RSS {_rss_mib(router_pid):.1f} MiB, no CUDA "
+              f"context (no libcuda or libtorch mapped in its address "
+              f"space)")
+        print(f"    --query-compute-apps (pid: MiB) {apps}; "
+              + ", ".join(f"{n} pid {pids[n]}: "
+                          + (f"{apps[pids[n]]} MiB listed, "
+                             if pids[n] in apps else "")
+                          + f"memory.used +{mem[n]} MiB with its first job"
+                          for n in names)
+              + ("" if by_pid else " (nvidia-smi does not list this "
+                 "container's pids: the kill is read from memory.used)"))
+
+        # 2. Alice's and Bob's jobs (phase 9's seeds) share one join key:
+        # the ring puts both on one replica, behind a float32 job (no
+        # packed kernel) that keeps its scheduler busy until both queue.
+        sweep = [(name, ts, ks) for name, (ts, ks, _) in
+                 sorted(lane_bytes.items(), key=lambda kv: kv[1][0])]
+
+        def tenant_job(tenant, lanes):
+            return _serve_job(files, os.path.join(out, tenant), epoch=30,
+                              variants=[{"name": n, "train_seed": ts,
+                                         "kmeans_seed": ks}
+                                        for n, ts, ks in lanes])
+
+        alice, bob = tenant_job("alice", sweep[:4]), tenant_job("bob",
+                                                                sweep[4:])
+        owner = _ring_owner(alice, names)
+        if _ring_owner(bob, names) != owner:
+            raise RuntimeError("alice's and bob's jobs hash apart")
+        blocker = next(
+            job for job in (_serve_job(
+                small, os.path.join(out, f"block{nb}"),
+                compute_dtype="float32", **dict(small_args, numBiomarker=nb))
+                for nb in range(5, 60))
+            if _ring_owner(job, names) == owner)
+        owner_addr = reps[owner]["addr"]
+        base = client.status(owner_addr)["engine"]["kernel_launches"]
+        t2 = time.perf_counter()
+        first = client.request(addr, {"op": "submit", "job": blocker,
+                                      "tenant": "carol"})
+        ack = next(first)
+        if ack.get("replica") != owner:
+            raise RuntimeError(f"the blocker went to {ack}, not {owner}")
+        for ev in first:
+            if ev["event"] == "started":
+                break
+        joined = {}
+
+        def submit(tenant, job):
+            joined[tenant] = client.submit_job(addr, job, tenant=tenant)
+
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(submit, "alice", alice),
+                    pool.submit(submit, "bob", bob)]
+            blocked = [ev for ev in first][-1]
+            for fut in futs:
+                fut.result()
+        recs = {t: ev[-1] for t, ev in joined.items()}
+        if blocked["event"] != "job_done" or any(
+                r["event"] != "job_done" for r in recs.values()) or {
+                ev[0]["replica"] for ev in joined.values()} != {owner}:
+            raise RuntimeError(f"routed jobs: {blocked}, {joined}")
+        after = client.status(owner_addr)["engine"]["kernel_launches"]
+        launches = {k: after[k] - base[k] for k in base}
+        epochs = max(v["stop_epoch"] for r in recs.values()
+                     for v in r["variants"].values())
+        if len({r["batch"] for r in recs.values()}) != 1 \
+                or any(r["joined_jobs"] != 2 for r in recs.values()) \
+                or launches["packed_matmul_lanes_fwd"] != epochs + 1 \
+                or launches["packed_matmul_lanes_bwd"] != epochs \
+                or launches["packed_matmul_fwd"] \
+                or launches["packed_matmul_bwd"]:
+            raise RuntimeError(f"the routed jobs did not join one lane "
+                               f"batch: {recs}, launches {launches}")
+        for rec in recs.values():
+            for name, v in rec["variants"].items():
+                got = []
+                for path in v["outputs"]:
+                    with open(path, "rb") as f:
+                        got.append(f.read())
+                if got != lane_bytes[name][2]:
+                    raise RuntimeError(f"routed variant {name} differs from "
+                                       f"phase 9's lane {name}")
+        wall = recs["alice"]["batch_wall_seconds"]
+        print(f"    alice's and bob's jobs routed to {owner} (the ring's "
+              f"owner of their join key) behind a float32 job: one batch "
+              f"of 8 lanes, wall {wall} s = {8 / wall * 3600:.1f} "
+              f"runs/hour; launches read through {owner}'s status "
+              f"{launches} over {epochs} epochs; every variant "
+              f"byte-identical to phase 9's lane ({time.perf_counter() - t2:.1f} s)")
+
+        # 3. A streaming job; SIGKILL its replica once its cursor exists.
+        stream_job = _serve_job(
+            small, os.path.join(out, "stream"), train_mode="streaming",
+            shard_paths=16, checkpoint_every=4, stream_patience=30,
+            **small_args)
+        jid = protocol.idem_job_id("phase11-stream")
+        got = {}
+
+        def stream_submit():
+            got["rec"] = client.submit_and_wait(
+                addr, stream_job, idem_key="phase11-stream", timeout=300,
+                poll_deadline_s=300)
+            got["t"] = time.perf_counter()
+
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(stream_submit)
+            victim = []
+
+            def cursor():
+                for n in names:
+                    path = os.path.join(fleet, n, "metrics.jsonl")
+                    if any(r.get("job_id") == jid
+                           and r.get("state") == "checkpointed"
+                           for r in _read_metrics(path)):
+                        victim.append(n)
+                        return True
+                return False
+            _wait_for(cursor, "the streaming job's cursor", proc=router)
+            victim = victim[0]
+            survivor = next(n for n in names if n != victim)
+            v_pid = pids[victim]
+            if os.path.exists(os.path.join(fleet, victim, "state",
+                                           "results", f"{jid}.json")):
+                raise RuntimeError("the streaming job ended before the "
+                                   "kill")
+            surv_base = client.status(reps[survivor]["addr"])[
+                "engine"]["kernel_launches"]
+            before = _gpu_used_mib()
+            t_kill, t_kill_wall = time.perf_counter(), time.time()
+            os.kill(v_pid, 9)
+
+            def gone():
+                if by_pid:
+                    return v_pid not in _compute_apps()
+                return before - _gpu_used_mib() >= mem[victim] // 2
+            _wait_for(gone, "the killed replica to leave the card", 60.0)
+            t_gone = time.perf_counter()
+            freed = before - _gpu_used_mib()
+            fut.result()
+        t_done = got["t"]
+        rec = got["rec"]
+        if rec["event"] != "job_done" or rec["job_id"] != jid:
+            raise RuntimeError(f"the failed-over streaming job: {rec}")
+        rmetrics = _read_metrics(os.path.join(fleet,
+                                              "router-metrics.jsonl"))
+        fo = [r for r in rmetrics if r["event"] == "failover"
+              and r["job_id"] == jid]
+        if len(fo) != 1 or fo[0]["from_replica"] != victim \
+                or fo[0]["to_replica"] != survivor:
+            raise RuntimeError(f"failover events: {fo}")
+        states = [r["state"] for r in _read_metrics(os.path.join(
+            fleet, survivor, "metrics.jsonl"))
+            if r.get("job_id") == jid and r["event"] == "job_state"]
+        surv_after = client.status(reps[survivor]["addr"])[
+            "engine"]["kernel_launches"]
+        surv_launches = {k: surv_after[k] - surv_base[k]
+                         for k in surv_base}
+        if "resumed" not in states or not surv_launches["packed_matmul_fwd"]:
+            raise RuntimeError(f"the survivor's states {states}, launches "
+                               f"{surv_launches}")
+        served = []
+        for path in rec["variants"]["v"]["outputs"]:
+            with open(path, "rb") as f:
+                served.append(f.read())
+        if served != stream_solo:
+            raise RuntimeError("the failed-over streaming job's files "
+                               "differ from its solo run's")
+
+        def healthy():
+            r = client.status(addr)["replicas"][victim]
+            return r["state"] == "healthy" and r["boots"] == 2
+        _wait_for(healthy, f"{victim} healthy again", 120.0, proc=router)
+        t_healthy = time.perf_counter()
+        relaunched = [r for r in _read_metrics(os.path.join(
+            fleet, "router-metrics.jsonl"))
+            if r["event"] == "replica_relaunched"
+            and r["replica"] == victim]
+        if len(relaunched) != 1:
+            raise RuntimeError(f"relaunch events: {relaunched}")
+        # The event is written once the relaunched listener is up (wall
+        # clocks of one host).
+        up_after_kill = relaunched[0]["ts"] - t_kill_wall
+        new = client.status(addr)["replicas"][victim]
+        direct = client.submit_job(new["addr"], _serve_job(
+            small, os.path.join(out, "relaunched"), **small_args),
+            tenant="ops")[-1]
+        status_new = client.status(new["addr"])
+        if direct["event"] != "job_done" \
+                or not status_new["engine"]["kernel_launches"][
+                    "packed_matmul_fwd"]:
+            raise RuntimeError(f"a job on the relaunched {victim}: {direct}")
+        apps = _compute_apps()
+        runs = []
+        for state in states:
+            if runs and runs[-1][0] == state:
+                runs[-1][1] += 1
+            else:
+                runs.append([state, 1])
+        print(f"    streaming job {jid} on {victim}, SIGKILLed (pid {v_pid}) "
+              f"at its first cursor: the router fenced it and moved the "
+              f"journal to {survivor}, which resumed from the cursor "
+              f"(states " + ", ".join(st if n == 1 else f"{st} x{n}"
+                                      for st, n in runs)
+              + f"; launches {surv_launches}); the files are "
+              f"its solo run's bytes; kill to job_done "
+              f"{t_done - t_kill:.2f} s; its context left the card "
+              f"{t_gone - t_kill:.2f} s after the kill (memory.used "
+              f"-{freed} MiB)")
+        print(f"    {victim} relaunched (listener up {up_after_kill:.2f} s "
+              f"after the kill), healthy {t_healthy - t_kill:.2f} s after "
+              f"the kill, i.e. {t_healthy - t_kill - up_after_kill:.2f} s "
+              f"from its relaunch to healthy; a job sent straight to it "
+              f"ran on the card (new pid {new['pid']}); memory.used "
+              f"{_gpu_used_mib()} MiB, compute apps {apps}")
+
+        # 4. One exact query through the router.
+        key = f"{recs['alice']['job_id']}/{sweep[0][0]}"
+        genes, emb, norms, _ = _bundle_arrays(
+            os.path.join(fleet, owner, "state"), key)
+        ev = client.query(addr, "neighbors", job_id=key.split("/")[0],
+                          variant=key.split("/")[1], gene=genes[3], k=10,
+                          mode="exact")
+        idx, sims = _full_sort_neighbors(emb, norms, 3, 10)
+        if ev.get("event") != "query_result" \
+                or ev["neighbors"] != [genes[j] for j in idx] \
+                or ev["sims"] != [float(x) for x in sims]:
+            raise RuntimeError(f"the routed exact query: {ev}")
+        counts = _job_done_counts(fleet, names)
+        ids = [blocked["job_id"], recs["alice"]["job_id"],
+               recs["bob"]["job_id"], jid]
+        if any(counts.get(i) != 1 for i in ids):
+            raise RuntimeError(f"job_done events by job id: {counts}")
+        print(f"    exact neighbors of {genes[3]} in {key} through the "
+              f"router equal the numpy full sort; one job_done per job id "
+              f"across both replicas' metrics")
+
+        # 5. Shut the fleet down.
+        client.shutdown(addr)
+        rc = router.wait(timeout=120)
+        if rc != 0:
+            raise RuntimeError(f"the router exited {rc}")
+        took = time.perf_counter() - t_phase
+        print(f"    --shutdown: the router and its replicas exit 0; phase "
+              f"11 took {took:.1f} s; {smi}")
+        if took > 120.0:
+            raise RuntimeError(f"phase 11 took {took:.1f} s (bound 120 s)")
+        return {"boot_s": boot_s, "runs_per_hour": 8 / wall * 3600,
+                "kill_to_done_s": t_done - t_kill,
+                "relaunch_to_healthy_s": t_healthy - t_kill - up_after_kill}
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for name in ("r0", "r1"):
+            # A replica the router left behind (it was killed itself):
+            # its pidfile, checked against its command line.
+            try:
+                with open(os.path.join(fleet, name, "state",
+                                       "serve.pid")) as f:
+                    pid = int(f.read())
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    if fleet.encode() in f.read():
+                        os.kill(pid, 9)
+            except (OSError, ValueError):
+                pass
 
 
 def main() -> int:
@@ -2147,6 +2605,18 @@ def main() -> int:
                                    f"the in-process run's")
         print("    the three output files are byte-identical across the "
               "in-process run and the seven CLI runs")
+        prof_dir = os.path.join(tmp, "profile")
+        prof_run = _cli_runs(files, tmp, 30, tag="prof",
+                             flag_sets=(["--profile-dir", prof_dir],))[0]
+        if prof_run[4] != main_outputs:
+            raise RuntimeError("the --profile-dir run's files differ")
+        by_name, idle, window_ms = _trace_breakdown(
+            os.path.join(prof_dir, "trace.json"), "stage:train")
+        print(f"    CLI --profile-dir (torch.profiler, CPU + CUDA; same "
+              f"bytes): stage train {window_ms:.3f} ms, device idle share "
+              f"over it {idle:.4f}; CUDA time by kernel (ms, count): "
+              + json.dumps({k: [round(ms, 4), n]
+                            for k, (ms, n) in by_name.items()}))
         print(f"    edge keep decisions differing between cuda and cpu "
               f"|PCC|: {_edge_flips(cfg)}")
         for name, n in launches.items():
@@ -2368,6 +2838,15 @@ def main() -> int:
         t10 = time.perf_counter()
         served = _serve_phase(files, small, args, tmp, lane_bytes, smi)
         print(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
+
+        print("[11] the router: python -m g2vec_tpu_torch serve "
+              "--replicas 2 on the card; a joined routed batch, a "
+              "SIGKILLed replica failed over, an exact query through the "
+              "router")
+        fleet_numbers = _router_phase(files, small, args, tmp, lane_bytes,
+                                      served["stream_solo"], smi)
+        print("    " + json.dumps({"router": {
+            k: round(v, 3) for k, v in fleet_numbers.items()}}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -5,8 +5,9 @@ Same invocation shape as the reference (``python G2Vec.py ...``) and as
 ``--supervise`` is handled before torch is imported, so the supervisor
 process holds no CUDA context; its children run the pipeline.
 ``--manifest``/``--seeds`` run the batch engine instead of the solo
-pipeline. ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon
-or one of its client ops (serve/cli.py).
+pipeline. ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon,
+the router over its replicas (``--replicas N``) or one of the client ops
+(serve/cli.py).
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import sys
 def main(argv=None) -> int:
     argv = list(argv) if argv is not None else sys.argv[1:]
     if argv and argv[0] == "serve":
-        # The resident daemon and its client ops (serve/cli.py); the
-        # client side and the --supervise watchdog import no torch.
+        # The resident daemon, the router and the client ops
+        # (serve/cli.py); the client side, the router and the
+        # --supervise watchdog import no torch.
         from g2vec_tpu_torch.serve.cli import serve_main
 
         return serve_main(argv[1:])

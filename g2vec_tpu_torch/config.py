@@ -112,6 +112,10 @@ class G2VecConfig:
     stream_eval_rows: int = 0        # streaming val/probe buffer row cap
                                      # (0 = 4096)
     metrics_jsonl: Optional[str] = None  # structured per-stage/epoch records
+    profile_dir: Optional[str] = None  # torch.profiler trace of the run
+                                     # (CPU + CUDA) as DIR/trace.json
+    debug_nans: bool = False         # raise at the first non-finite loss
+                                     # or gradient, naming it
     cache_dir: Optional[str] = None  # walk cache root: stage-3 path sets
                                      # under <dir>/walks (cache.py)
     emit_inventory: bool = False     # also publish the binary query-plane
@@ -270,7 +274,9 @@ class G2VecConfig:
         if self.manifest or self.batch_seeds:
             for flag, name in ((self.supervise, "--supervise"),
                                (self.checkpoint_dir, "--checkpoint-dir"),
-                               (self.resume, "--resume")):
+                               (self.resume, "--resume"),
+                               (self.profile_dir, "--profile-dir"),
+                               (self.debug_nans, "--debug-nans")):
                 if flag:
                     raise ValueError(
                         f"the batch engine (--manifest/--seeds) does not "
@@ -323,7 +329,7 @@ SERVE_JOIN_EXCLUDE = frozenset({
     "seed", "train_seed", "kmeans_seed", "learningRate", "epoch",
     "patient_subsample", "subsample_seed",
     "subsample_mode", "cv_folds", "cv_fold", "permute_seed",
-    "cache_dir", "fault_plan"})
+    "cache_dir", "profile_dir", "fault_plan"})
 
 
 def serve_join_key(cfg: G2VecConfig) -> Tuple:
@@ -506,6 +512,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--metrics-jsonl", type=str, default=None,
                         help="Write structured per-stage/per-epoch metrics "
                              "here.")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Write a torch.profiler trace of the run (CPU "
+                             "and CUDA activity, one range per stage) to "
+                             "DIR/trace.json.")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="Raise at the first non-finite loss or "
+                             "gradient and name it (autograd anomaly mode "
+                             "names the backward op that made a NaN); the "
+                             "default run does no such check.")
     parser.add_argument("--emit-inventory", action="store_true",
                         help="Also publish RESULT_NAME_inventory/, the "
                              "query plane's binary bundle (float32 "
@@ -607,6 +622,8 @@ def config_from_args(argv=None) -> G2VecConfig:
         stream_eval_rows=args.stream_eval_rows,
         cache_dir=args.cache_dir,
         metrics_jsonl=args.metrics_jsonl,
+        profile_dir=args.profile_dir,
+        debug_nans=args.debug_nans,
         emit_inventory=args.emit_inventory,
         ann_nlist=args.ann_nlist,
         use_native_io=not args.no_native_io,

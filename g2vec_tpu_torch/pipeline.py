@@ -52,6 +52,7 @@ from them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -227,6 +228,40 @@ def scoring_labels(labels: np.ndarray, permute_seed: Optional[int]
                                                               permute_seed)
 
 
+def _start_profile(on_card: bool):
+    """``--profile-dir``: a ``torch.profiler`` trace of the run, CPU
+    activity and, on the card, CUDA activity, started where the JAX
+    package starts its ``jax.profiler`` trace (before stage 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stage_range(name: str):
+    """One profiler range per stage (``stage:<name>``), so a trace reader
+    can cut device time by stage."""
+    return torch.profiler.record_function(f"stage:{name}")
+
+
+def _stop_profile(prof, profile_dir: str) -> None:
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+def _nan_watch(on: bool):
+    """``--debug-nans`` over the training stage: autograd anomaly mode, so
+    a backward op that makes a NaN raises naming itself (the trainers
+    check the loss and the gradients for infinities too). Off, nothing."""
+    return (torch.autograd.detect_anomaly(check_nan=True) if on
+            else contextlib.nullcontext())
+
+
 def _join_kernel_build(overlap, name: str = "build_kernels") -> None:
     """Wait for the background nvcc build ``name`` (if one was started),
     re-raising its error, before the first launch of its kernels."""
@@ -279,8 +314,6 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         install_plan(cfg.fault_plan)
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
-    timer = StageTimer(sync=(lambda: torch.cuda.synchronize(dev))
-                       if on_card else None)
     # A resumed run appends: its records continue the interrupted
     # attempt's stream, with the supervisor's events in between.
     metrics = MetricsWriter(cfg.metrics_jsonl, append=cfg.resume)
@@ -292,6 +325,10 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                        if walker_backend == "native" else 0)
     walk_cache = resolve_cache_tiers(cfg.cache_dir)
     walk_cache_hits: List[str] = []
+    profiler = _start_profile(on_card) if cfg.profile_dir else None
+    timer = StageTimer(sync=(lambda: torch.cuda.synchronize(dev))
+                       if on_card else None,
+                       mark=_stage_range if profiler is not None else None)
     try:
         console(">>> 0. Arguments")
         console(str(cfg))
@@ -358,7 +395,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             console("     Start training the modified CBOW with early "
                     "stopping")
             fault_point("train")
-            with timer.stage("train"):
+            with timer.stage("train"), _nan_watch(cfg.debug_nans):
                 _join_kernel_build(overlap)
                 _join_kernel_build(overlap, "build_walk_kernel")
                 sres = train_cbow_streaming(
@@ -379,7 +416,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     device=dev, init=init_model, on_epoch=on_epoch,
                     checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
                     checkpoint_every=cfg.checkpoint_every, console=console,
-                    check=check, lifecycle=lifecycle)
+                    check=check, lifecycle=lifecycle,
+                    debug_nans=cfg.debug_nans)
             result = sres.train
             gene_freq = sres.gene_freq
             n_paths = sres.n_paths
@@ -488,7 +526,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             console("     Start training the modified CBOW with early "
                     "stopping")
             fault_point("train")
-            with timer.stage("train"):
+            with timer.stage("train"), _nan_watch(cfg.debug_nans):
                 _join_kernel_build(overlap)
                 result = train_cbow(
                     paths, labels, n_genes=n_genes,
@@ -500,7 +538,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     param_dtype=cfg.param_dtype, seed=train_seed,
                     device=dev, on_epoch=on_epoch, init=init_model,
                     checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
-                    checkpoint_every=cfg.checkpoint_every, check=check)
+                    checkpoint_every=cfg.checkpoint_every, check=check,
+                    debug_nans=cfg.debug_nans)
         if result.stopped_early:
             reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)
         console("    Optimization Finish")
@@ -577,4 +616,6 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         # the caller must see; a background failure either surfaced at a
         # join already or belongs to a stage the run never reached.
         overlap.close()
+        if profiler is not None:
+            _stop_profile(profiler, cfg.profile_dir)
         metrics.close()

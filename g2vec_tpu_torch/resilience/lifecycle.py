@@ -2,9 +2,10 @@
 durable-job layer (serve/daemon.py + batch/engine.py + both trainers).
 
 The port's copy of ``g2vec_tpu/resilience/lifecycle.py``: the
-interruptions and the admission SLOs (:class:`TokenBucket`,
-:func:`shed_decision`). The router's replica health and scaling policy
-come with the multi-replica half of serve (not ported yet).
+interruptions, the router's replica health machine
+(:class:`ReplicaHealth`), the admission SLOs (:class:`TokenBucket`,
+:func:`shed_decision`) and the router's scaling policy
+(:class:`ScalingPolicy`). Nothing here imports torch.
 
 The daemon threads a zero-argument ``check`` callable through
 ``ResidentEngine.execute`` into the trainers' epoch/shard loops. The
@@ -19,6 +20,8 @@ exactly where device state is host-consistent, so an interrupted job is
 always either resumable or cleanly terminal, never torn.
 """
 from __future__ import annotations
+
+import random
 
 
 class JobInterrupted(RuntimeError):
@@ -56,12 +59,123 @@ class DrainRequested(JobInterrupted):
 
 
 # ---------------------------------------------------------------------------
+# Replica health — the router's per-replica probe state machine.
+# ---------------------------------------------------------------------------
+
+#: healthy → suspect → dead → rejoining → healthy. ``suspect`` keeps the
+#: replica in the hash ring (a single missed probe is usually GC or a
+#: long compile, not death); ``dead`` removes it and triggers failover;
+#: ``rejoining`` answers probes again but takes no traffic until its
+#: stale journal is drained.
+REPLICA_STATES = ("healthy", "suspect", "dead", "rejoining")
+
+
+class ReplicaHealth:
+    """Pure probe-driven health state for one replica. No I/O, no clock
+    reads — the router feeds it ``on_probe(ok, journal_depth, now)`` and
+    acts on the returned transition, which keeps every edge unit-testable
+    as a table.
+
+    Thresholds: ``suspect_after`` consecutive failures demote healthy →
+    suspect, ``dead_after`` total consecutive failures declare dead (the
+    failover trigger — the router fences the process before re-queueing,
+    so a slow-but-alive replica can never double-execute), and a dead
+    replica that answers again must produce ``rejoin_after`` consecutive
+    OK probes **with an empty journal** before it is healthy: the empty-
+    journal gate is what forces a rejoining replica to drain stale work
+    (or have the router migrate it) before taking new traffic.
+
+    ``probe_interval(base)`` backs off exponentially for non-healthy
+    replicas so a dead host costs probes, not a probe *storm*.
+    """
+
+    def __init__(self, name: str, suspect_after: int = 1,
+                 dead_after: int = 3, rejoin_after: int = 2):
+        if not (1 <= suspect_after < dead_after):
+            raise ValueError("need 1 <= suspect_after < dead_after")
+        self.name = name
+        self.state = "healthy"
+        self.suspect_after = suspect_after
+        self.dead_after = dead_after
+        self.rejoin_after = rejoin_after
+        self.fails = 0          # consecutive failed probes
+        self.oks = 0            # consecutive OK probes (rejoin gate)
+        self.last_ok: float = 0.0
+        self.last_transition: float = 0.0
+        self.journal_depth: int = 0
+
+    @property
+    def in_ring(self) -> bool:
+        """Whether the hash ring may route new jobs here."""
+        return self.state in ("healthy", "suspect")
+
+    def probe_interval(self, base: float) -> float:
+        """Seconds until the next probe: ``base`` while healthy, doubled
+        per consecutive failure (capped at 8x) otherwise — plus nothing;
+        jitter is the caller's business."""
+        if self.state == "healthy":
+            return base
+        return base * min(8.0, 2.0 ** max(0, self.fails - 1))
+
+    def on_probe(self, ok: bool, journal_depth: int = 0,
+                 now: float = 0.0):
+        """Feed one probe outcome. Returns ``(old_state, new_state)`` on
+        a transition, else None."""
+        old = self.state
+        if ok:
+            self.fails = 0
+            self.oks += 1
+            self.last_ok = now
+            self.journal_depth = journal_depth
+            if old in ("healthy", "suspect"):
+                self.state = "healthy"
+            elif old == "dead":
+                self.state = "rejoining"
+                self.oks = 1        # this probe is the first of the gate
+            elif old == "rejoining":
+                if self.oks >= self.rejoin_after and journal_depth == 0:
+                    self.state = "healthy"
+        else:
+            self.fails += 1
+            self.oks = 0
+            if old == "rejoining":
+                self.state = "dead"     # flapped straight back out
+            elif old in ("healthy", "suspect"):
+                if self.fails >= self.dead_after:
+                    self.state = "dead"
+                elif self.fails >= self.suspect_after:
+                    self.state = "suspect"
+        if self.state != old:
+            self.last_transition = now
+            return (old, self.state)
+        return None
+
+    def force_dead(self, now: float = 0.0):
+        """The router *observed* death out-of-band (connection refused on
+        a forward, fence kill). Skips the probe count."""
+        old = self.state
+        self.state = "dead"
+        self.fails = max(self.fails, self.dead_after)
+        self.oks = 0
+        if old != "dead":
+            self.last_transition = now
+            return (old, "dead")
+        return None
+
+    def snapshot(self) -> dict:
+        return {"name": self.name, "state": self.state,
+                "fails": self.fails, "oks": self.oks,
+                "journal_depth": self.journal_depth,
+                "last_ok": self.last_ok}
+
+
+# ---------------------------------------------------------------------------
 # Admission SLOs — per-tenant rate limiting and deadline-aware shedding.
 # ---------------------------------------------------------------------------
 
 
 class TokenBucket:
-    """Classic token-bucket rate limiter, pure:
+    """Classic token-bucket rate limiter, pure like :class:`ReplicaHealth`:
     the caller supplies ``now`` on every call, so refill math is exact
     and every edge (burst boundary, fractional refill, idle catch-up) is
     unit-testable without sleeping.
@@ -136,3 +250,116 @@ def shed_decision(deadline_s, queued: int, service_time_s):
     if est_wait <= float(deadline_s):
         return None
     return max(float(service_time_s), est_wait - float(deadline_s))
+
+
+# ---------------------------------------------------------------------------
+# Scaling policy — the router's hysteretic replica-count controller.
+# ---------------------------------------------------------------------------
+
+
+class ScalingPolicy:
+    """Seeded, hysteretic scale controller. Pure: the router feeds it one
+    ``observe(queued_total, active, est_wait_s)`` per control tick and
+    acts on the returned decision (``"up"`` / ``"down"`` / ``"hold"``).
+
+    Two signals, asymmetric thresholds, streak counting, and a cooldown
+    — the classic recipe against flapping:
+
+    - **pressure** = queued jobs per active replica. ``up_queue`` and
+      ``down_queue`` are deliberately far apart (default 4.0 vs 0.5) so
+      the region between them is a dead band.
+    - **wait** — the fleet-MEAN queue-drain estimate (total queued ×
+      mean observed service time / reachable replicas), not a tail
+      percentile: tune ``up_wait_s`` as "a typical queued job waits
+      this long", not as a p99. Scale-up also triggers when it crosses
+      ``up_wait_s`` even at modest depth (a few slow jobs hurt
+      deadlines as much as many fast ones).
+    - A decision needs ``up_ticks`` (or ``down_ticks``) *consecutive*
+      ticks beyond threshold; any tick back inside the band resets the
+      streak, so a square-wave load (spike, quiet, spike …) that flips
+      faster than the streak length produces zero decisions.
+    - After any decision, ``cooldown_ticks`` ticks of enforced hold let
+      the fleet absorb the change before the next one.
+
+    Scale-down is much slower than scale-up (6 ticks vs 2 by default):
+    adding capacity late costs deadlines, removing it late costs only a
+    warm idle process. ``choose_victim`` picks the replica to drain with
+    the policy's own seeded rng, so a chaos run with a fixed seed drains
+    the same replicas every time."""
+
+    def __init__(self, min_replicas: int, max_replicas: int,
+                 up_queue: float = 4.0, down_queue: float = 0.5,
+                 up_wait_s: float = 8.0, up_ticks: int = 2,
+                 down_ticks: int = 6, cooldown_ticks: int = 5,
+                 seed: int = 0):
+        if not (1 <= min_replicas <= max_replicas):
+            raise ValueError("need 1 <= min_replicas <= max_replicas")
+        if not (0 <= down_queue < up_queue):
+            raise ValueError("need 0 <= down_queue < up_queue")
+        self.min_replicas = min_replicas
+        self.max_replicas = max_replicas
+        self.up_queue = float(up_queue)
+        self.down_queue = float(down_queue)
+        self.up_wait_s = float(up_wait_s)
+        self.up_ticks = int(up_ticks)
+        self.down_ticks = int(down_ticks)
+        self.cooldown_ticks = int(cooldown_ticks)
+        self.rng = random.Random(seed)
+        self.up_streak = 0
+        self.down_streak = 0
+        self.cooldown = 0
+        self.ticks = 0
+        self.decisions = 0
+
+    def observe(self, queued_total: int, active: int,
+                est_wait_s=None) -> str:
+        """Feed one control tick; returns ``"up"``, ``"down"`` or
+        ``"hold"``. The caller is responsible for actually changing the
+        fleet — the policy only counts and decides."""
+        self.ticks += 1
+        pressure = queued_total / max(1, active)
+        hot = (pressure >= self.up_queue
+               or (est_wait_s is not None
+                   and est_wait_s >= self.up_wait_s))
+        cold = (pressure <= self.down_queue
+                and (est_wait_s is None or est_wait_s < self.up_wait_s))
+        if hot:
+            self.up_streak += 1
+            self.down_streak = 0
+        elif cold:
+            self.down_streak += 1
+            self.up_streak = 0
+        else:                   # dead band — reset both streaks
+            self.up_streak = 0
+            self.down_streak = 0
+        if self.cooldown > 0:
+            self.cooldown -= 1
+            return "hold"
+        if (self.up_streak >= self.up_ticks
+                and active < self.max_replicas):
+            self.up_streak = 0
+            self.cooldown = self.cooldown_ticks
+            self.decisions += 1
+            return "up"
+        if (self.down_streak >= self.down_ticks
+                and active > self.min_replicas):
+            self.down_streak = 0
+            self.cooldown = self.cooldown_ticks
+            self.decisions += 1
+            return "down"
+        return "hold"
+
+    def choose_victim(self, candidates):
+        """Seeded pick of the replica to drain on scale-down. Sorted
+        input + the policy's own rng = reproducible under a fixed seed."""
+        ordered = sorted(candidates)
+        if not ordered:
+            return None
+        return self.rng.choice(ordered)
+
+    def snapshot(self) -> dict:
+        return {"min": self.min_replicas, "max": self.max_replicas,
+                "up_streak": self.up_streak,
+                "down_streak": self.down_streak,
+                "cooldown": self.cooldown, "ticks": self.ticks,
+                "decisions": self.decisions}

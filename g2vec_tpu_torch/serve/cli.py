@@ -1,6 +1,6 @@
 """The ``serve`` subcommand of the port: daemon, watchdog and client modes.
 
-The port's copy of ``g2vec_tpu/serve/cli.py``, the single daemon, run as
+The port's copy of ``g2vec_tpu/serve/cli.py``, run as
 ``python -m g2vec_tpu_torch serve ...``. Daemon::
 
     serve --socket /tmp/g2vec.sock --state-dir /tmp/g2vec-serve \\
@@ -8,13 +8,23 @@ The port's copy of ``g2vec_tpu/serve/cli.py``, the single daemon, run as
         [--metrics-jsonl F] [--device cpu] [--supervise] \\
         [--listen HOST:PORT] [--auth-token-file F] [--ann-nlist N]
 
-Client (``--socket`` takes a UNIX path or a TCP host:port)::
+Router (fleet front door; ``--state-dir`` becomes the fleet root)::
+
+    serve --replicas 3 --listen 0.0.0.0:7433 --state-dir /srv/g2vec \\
+        [--device cpu] [--auth-token-file F] [--probe-interval 0.5] \\
+        [--probe-deadline 2] [--cache-dir DIR] [--queue-depth 16] \\
+        [--max-join 4] [--lease-ttl-s 5] [--standby] [--join-spread K] \\
+        [--remote-replicas]
+
+Client (``--socket`` takes a UNIX path or a TCP host:port: a daemon or
+the router)::
 
     serve --socket /tmp/g2vec.sock --submit job.json [--tenant me] \\
         [--priority interactive|batch] [--deadline-s SECS] \\
         [--auth-token-file F]
     serve --socket host:7433 --status | --ping | --shutdown
     serve --socket host:7433 --cancel JOB_ID | --drain
+    serve --socket host:7433 --drain-replica r1
     serve --socket host:7433 --query list
     serve --socket host:7433 --query neighbors --query-job i1234 \\
         --query-gene TP53 --query-k 10 [--query-variant v] \\
@@ -37,10 +47,10 @@ next start.
 
 ``--device`` takes the place of the JAX package's ``--platform``: the
 daemon runs on the card unless ``--device cpu``, and exits non-zero at
-start when no card is visible. Not ported yet, and refused: the router
-and its fleet (``--replicas``, ``--standby``, the router flags,
-``--drain-replica``) and the ``update`` op (a submit file holding an
-``update`` envelope).
+start when no card is visible. In router mode the flag is forwarded to
+every replica, and a replica that cannot boot fails the router's start
+(exit 1). Not ported yet, and refused: the ``update`` op (a submit file
+holding an ``update`` envelope).
 """
 from __future__ import annotations
 
@@ -49,13 +59,6 @@ import json
 import sys
 from typing import List, Optional
 
-
-#: The JAX package's router-mode flags and its fleet client op.
-_ROUTER_FLAGS = ("--replicas", "--probe-interval", "--probe-deadline",
-                 "--sticky-deadline", "--min-replicas", "--max-replicas",
-                 "--warm-spares", "--warmup-job", "--scale-interval",
-                 "--standby", "--lease-ttl-s", "--join-spread",
-                 "--remote-replicas", "--drain-replica")
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -90,14 +93,82 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    metavar="N",
                    help="Reject request lines over this size (default 0 "
                         "= the protocol's 8 MiB line bound).")
-    # router mode: not ported yet (refused by serve_main)
-    for flag in _ROUTER_FLAGS:
-        if flag in ("--standby", "--remote-replicas"):
-            p.add_argument(flag, action="store_true",
-                           help="Router mode: not ported yet.")
-        else:
-            p.add_argument(flag, default=None,
-                           help="Router mode: not ported yet.")
+    # router mode
+    p.add_argument("--replicas", type=int, default=None, metavar="N",
+                   help="Router mode: front N daemon replicas under "
+                        "--state-dir (consistent-hash placement, health "
+                        "probes, exactly-once failover). Needs --listen.")
+    p.add_argument("--probe-interval", type=float, default=0.5,
+                   metavar="S",
+                   help="Router health-probe cadence for healthy replicas "
+                        "(default 0.5); unhealthy ones back off "
+                        "exponentially.")
+    p.add_argument("--probe-deadline", type=float, default=2.0,
+                   metavar="S",
+                   help="One probe's socket deadline (default 2); a "
+                        "replica that cannot answer /status within it "
+                        "fails the probe.")
+    p.add_argument("--sticky-deadline", type=float, default=120.0,
+                   metavar="S",
+                   help="How long a keyed submit waits for an already-"
+                        "journaled key's home replica to recover before "
+                        "it is refused with retry_later (default 120); "
+                        "never ring-placed elsewhere, which would run "
+                        "the job twice.")
+    p.add_argument("--min-replicas", type=int, default=0, metavar="N",
+                   help="Router mode: elastic floor — the scaling "
+                        "controller may drain the active set down to N "
+                        "(default 0 = track --replicas; the fleet stays "
+                        "static unless min < max).")
+    p.add_argument("--max-replicas", type=int, default=0, metavar="N",
+                   help="Router mode: elastic ceiling — sustained queue "
+                        "pressure grows the active set up to N "
+                        "(default 0 = track --replicas).")
+    p.add_argument("--warm-spares", type=int, default=0, metavar="N",
+                   help="Router mode: keep N spare daemons launched "
+                        "(CUDA context up, zero jobs) but out of the "
+                        "ring, so a scale-up is a ring add instead of a "
+                        "cold boot; the pool refills in the background "
+                        "after each promotion (default 0).")
+    p.add_argument("--warmup-job", default=None, metavar="FILE",
+                   help="Router mode: canary job payload (JSON) run "
+                        "through every spare right after it parks in "
+                        "the warm pool — out of the ring, result "
+                        "discarded — so the first CUDA use, the kernels' "
+                        "load and the parse are paid while the spare "
+                        "idles instead of on its first post-promotion "
+                        "batch (default: no pre-warming).")
+    p.add_argument("--scale-interval", type=float, default=1.0,
+                   metavar="S",
+                   help="Router scaling-control cadence: one /status "
+                        "sweep of the active set and one policy tick "
+                        "per interval (default 1.0).")
+    p.add_argument("--standby", action="store_true",
+                   help="Router mode: start as a STANDBY — watch the "
+                        "fleet's leadership lease and take over (epoch "
+                        "+1, adopting the running replicas) only when "
+                        "the active router's lease expires or is "
+                        "released. Implies leased leadership.")
+    p.add_argument("--lease-ttl-s", type=float, default=0.0, metavar="S",
+                   help="Router mode: enable leased leadership with "
+                        "this ttl (default 0 = no lease machinery; "
+                        "--standby without it uses 5s). The leader "
+                        "renews at ttl/3; on loss it keeps serving "
+                        "reads while daemons fence its mutations as "
+                        "stale_epoch.")
+    p.add_argument("--join-spread", type=int, default=1, metavar="K",
+                   help="Router mode: bounded per-join-key placement "
+                        "spread — a hot key may land on any of K salted "
+                        "ring candidates, least-loaded first (default 1 "
+                        "= classic single-home placement). Keyed "
+                        "(idem_key) submits stay sticky regardless.")
+    p.add_argument("--remote-replicas", action="store_true",
+                   help="Router mode: the fleet's daemons are launched "
+                        "and supervised elsewhere — adopt them via "
+                        "their published tcp_addr files, never spawn, "
+                        "SIGKILL-verify, or relaunch locally. An "
+                        "unreachable remote replica is fenced (marker + "
+                        "epoch) before its journal migrates.")
     p.add_argument("--state-dir", default=None, metavar="DIR",
                    help="Daemon state root: jobs/ (journal of accepted, "
                         "unfinished jobs — re-queued on restart), "
@@ -210,6 +281,11 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    help="Client mode: graceful drain — stop admitting, "
                         "checkpoint in-flight streaming jobs, journal "
                         "everything unfinished, exit 0.")
+    p.add_argument("--drain-replica", type=str, default=None,
+                   metavar="NAME",
+                   help="Client mode (router): drain one replica "
+                        "synchronously and relaunch it; prints the exit "
+                        "code the drained daemon returned.")
     # client query plane
     p.add_argument("--query", type=str, default=None,
                    choices=("neighbors", "topk_biomarkers", "meta",
@@ -263,17 +339,6 @@ def build_serve_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_router(args) -> None:
-    """The router and its fleet are not ported yet: refuse their flags."""
-    for flag in _ROUTER_FLAGS:
-        value = getattr(args, flag[2:].replace("-", "_"))
-        if value not in (None, False):
-            build_serve_parser().error(
-                f"{flag} is not ported yet: g2vec_tpu_torch serves one "
-                f"daemon (the router, its lease and the replica fleet "
-                f"are ROADMAP item 10c)")
-
-
 def _read_token(path: Optional[str]) -> Optional[str]:
     if not path:
         return None
@@ -286,11 +351,10 @@ def _read_token(path: Optional[str]) -> Optional[str]:
 
 def serve_main(argv: Optional[List[str]] = None) -> int:
     args = build_serve_parser().parse_args(argv)
-    _refuse_router(args)
     from g2vec_tpu_torch.serve import client
 
     if args.status or args.ping or args.shutdown or args.submit \
-            or args.cancel or args.drain \
+            or args.cancel or args.drain or args.drain_replica \
             or args.query or args.fquery or args.result:
         if not args.socket:
             build_serve_parser().error(
@@ -351,6 +415,15 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
                 print(json.dumps(ev, indent=1))
                 return 0 if ev.get("event") not in ("rejected",
                                                     "error") else 4
+            if args.drain_replica:
+                for ev in client.request(
+                        args.socket,
+                        {"op": "drain_replica",
+                         "replica": args.drain_replica,
+                         "auth_token": token}, timeout=600.0):
+                    print(json.dumps(ev))
+                    return 0 if ev.get("event") == "drained" else 4
+                return 4
             src = sys.stdin if args.submit == "-" else open(args.submit)
             with src:
                 job = json.load(src)
@@ -386,8 +459,63 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
 
     if not args.state_dir:
         build_serve_parser().error(
-            "daemon mode needs --state-dir (or pass a client op: "
+            "daemon/router mode needs --state-dir (or pass a client op: "
             "--submit/--status/--ping/--shutdown)")
+    if args.replicas is not None:
+        # Router mode imports no torch: the replicas own the card; this
+        # process only probes, places and fails over.
+        if args.replicas < 1:
+            build_serve_parser().error("--replicas must be >= 1")
+        if not args.listen:
+            build_serve_parser().error("router mode needs --listen")
+        from g2vec_tpu_torch.serve.router import Router, RouterOptions
+
+        fwd: List[str] = ["--queue-depth", str(args.queue_depth),
+                          "--max-join", str(args.max_join),
+                          "--job-retries", str(args.job_retries),
+                          "--read-deadline-s", str(args.read_deadline_s),
+                          "--inventory-budget-bytes",
+                          str(args.inventory_budget_bytes),
+                          "--query-cache-entries",
+                          str(args.query_cache_entries),
+                          "--ann-nlist", str(args.ann_nlist),
+                          "--device", args.device]
+        if args.max_request_bytes:
+            fwd += ["--max-request-bytes", str(args.max_request_bytes)]
+        if args.max_result_bytes:
+            fwd += ["--max-result-bytes", str(args.max_result_bytes)]
+        if args.inventory_dir:
+            fwd += ["--inventory-dir", args.inventory_dir]
+        if args.tenant_quotas:
+            fwd += ["--tenant-quotas", args.tenant_quotas]
+        if args.shed:
+            fwd += ["--shed"]
+        if args.cache_dir:
+            fwd += ["--cache-dir", args.cache_dir]
+        if args.fault_plan:
+            fwd += ["--fault-plan", args.fault_plan]
+        opts = RouterOptions(
+            fleet_dir=args.state_dir, replicas=args.replicas,
+            listen=args.listen, probe_interval=args.probe_interval,
+            probe_deadline=args.probe_deadline,
+            auth_token=_read_token(args.auth_token_file),
+            read_deadline_s=args.read_deadline_s,
+            max_request_bytes=args.max_request_bytes,
+            metrics_jsonl=args.metrics_jsonl,
+            sticky_deadline_s=args.sticky_deadline,
+            inventory_budget_bytes=args.inventory_budget_bytes,
+            max_result_bytes=args.max_result_bytes,
+            min_replicas=args.min_replicas,
+            max_replicas=args.max_replicas,
+            warm_spares=args.warm_spares,
+            warmup_job=args.warmup_job,
+            scale_interval=args.scale_interval,
+            standby=args.standby,
+            lease_ttl_s=args.lease_ttl_s,
+            join_spread=args.join_spread,
+            remote_replicas=args.remote_replicas,
+            serve_argv=tuple(fwd))
+        return Router(opts).serve_forever()
     if not args.socket:
         build_serve_parser().error("daemon mode needs --socket")
     if args.supervise:

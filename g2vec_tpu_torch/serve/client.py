@@ -1,6 +1,6 @@
-"""Client for ``g2vec serve`` daemons (CLI, chip smoke, tests).
+"""Client for ``g2vec serve`` daemons and routers (CLI, chip smoke, tests).
 
-The port's copy of ``g2vec_tpu/serve/client.py``, the single-daemon ops:
+The port's copy of ``g2vec_tpu/serve/client.py`` without ``update_job``:
 it talks the protocol.py JSONL dialect over a UNIX socket path or a TCP
 ``host:port`` address (:func:`protocol.dial` picks the transport), to
 the port's daemon or the JAX package's. The one failure mode worth a
@@ -10,20 +10,29 @@ carries the job_id so the caller can fall back to :func:`poll_result`
 (filesystem) or :func:`poll_result_net` (the ``result`` op), which read
 the durable record that survives the daemon's death.
 
-:func:`submit_and_wait` and :func:`poll_result_net` accept a list of
-addresses and rotate through it under the jittered backoff. What waits
-for later items: ``update_job`` (the ``update`` op, with incremental
-updates) and the fleet helpers (``fleet_addrs``, ``router_addrs``,
-``degraded_*``, with the router).
+HA fleets add two layers on top:
+
+- :func:`submit_and_wait` and :func:`poll_result_net` accept a list of
+  router addresses (active + standbys) and rotate through it under the
+  jittered backoff, so a client survives a router takeover.
+- When no router answers at all, the ``degraded_*`` helpers fall back to
+  the fleet's published per-replica ``tcp_addr`` files: reads fan out to
+  the replicas directly, and keyed submits go to a replica chosen from
+  the key. The idempotency key derives the job_id, so a healed router's
+  sticky scan reconciles a degraded submit exactly once.
+
+``update_job`` (the ``update`` op) waits for incremental updates.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import random
 import socket
 import time
 import uuid
+import zlib
 from typing import Iterator, List, Optional, Sequence, Union
 
 from g2vec_tpu_torch.serve import protocol
@@ -447,3 +456,142 @@ def poll_result_net(socket_path: Addr, job_id: str,
     raise ServeTimeout(f"no result record for job {job_id} within "
                        f"{deadline_s:.0f}s (via {addrs})",
                        job_id=job_id)
+
+
+# ---- degraded mode (no router answers) ----------------------------------
+#
+# The fleet's replicas publish their own ``tcp_addr`` files on the shared
+# fleet disk; a client that can read that disk can keep working when
+# every router is partitioned away or dead. Reads (status / result /
+# query) fan out to the replicas directly — they can never duplicate
+# work. Submits are allowed ONLY with an idempotency key: the key
+# derives the job_id, the chosen replica's dedup table absorbs retries,
+# and the first healed router's sticky scan finds the journal entry or
+# result record wherever it landed — reconciliation IS the idem key.
+
+
+def fleet_addrs(fleet_dir: str) -> List[str]:
+    """Replica addresses published under ``<fleet_dir>/<name>/state/
+    tcp_addr``, sorted by replica name. Replicas that never bound (no
+    file) or are mid-relaunch (empty file) are skipped."""
+    out: List[str] = []
+    for path in sorted(glob.glob(os.path.join(
+            fleet_dir, "*", "state", "tcp_addr"))):
+        try:
+            with open(path) as fh:
+                addr = fh.read().strip()
+        except OSError:
+            continue
+        if addr:
+            out.append(addr)
+    return out
+
+
+def router_addrs(fleet_dir: str) -> List[str]:
+    """The active router's published address (``<fleet_dir>/
+    router_addr``), as a rotation list — [] when no router ever bound."""
+    try:
+        with open(os.path.join(fleet_dir, "router_addr")) as fh:
+            addr = fh.read().strip()
+    except OSError:
+        return []
+    return [addr] if addr else []
+
+
+def degraded_result(fleet_dir: str, job_id: str,
+                    timeout: Optional[float] = 10.0,
+                    auth_token: Optional[str] = None) -> dict:
+    """``result`` fan-out across the replicas: the first durable record
+    wins; otherwise ``pending`` (some replica reachable, none finished)
+    or a structured ``no_replicas`` error."""
+    reached = False
+    for addr in fleet_addrs(fleet_dir):
+        try:
+            ev = result(addr, job_id, timeout=timeout,
+                        auth_token=auth_token)
+        except (OSError, ServeConnectionLost, protocol.ProtocolError):
+            continue
+        reached = True
+        if ev.get("event") not in ("pending", "error"):
+            return dict(ev, degraded=True)
+    if reached:
+        return {"event": "pending", "job_id": job_id, "degraded": True}
+    return {"event": "error", "error": "no_replicas", "degraded": True,
+            "detail": f"no replica reachable via {fleet_dir}"}
+
+
+def degraded_query(fleet_dir: str, q: str, job_id: Optional[str] = None,
+                   variant: Optional[str] = None,
+                   gene: Optional[str] = None, k: Optional[int] = None,
+                   timeout: Optional[float] = 10.0,
+                   auth_token: Optional[str] = None) -> dict:
+    """Read-plane query fan-out: first replica that answers without an
+    error serves it (only the bundle's home replica has the inventory,
+    the rest answer ``not_found``)."""
+    last: Optional[dict] = None
+    for addr in fleet_addrs(fleet_dir):
+        try:
+            ev = query(addr, q, job_id=job_id, variant=variant,
+                       gene=gene, k=k, timeout=timeout,
+                       auth_token=auth_token)
+        except (OSError, ServeConnectionLost, protocol.ProtocolError):
+            continue
+        if not ev.get("error"):
+            return dict(ev, degraded=True)
+        last = ev
+    if last is not None:
+        return dict(last, degraded=True)
+    return {"event": "error", "error": "no_replicas", "degraded": True,
+            "detail": f"no replica reachable via {fleet_dir}"}
+
+
+def degraded_status(fleet_dir: str,
+                    timeout: Optional[float] = 5.0) -> dict:
+    """Per-replica status roll-up assembled client-side — the degraded
+    twin of the router's ``status`` aggregate."""
+    reps = {}
+    for addr in fleet_addrs(fleet_dir):
+        try:
+            reps[addr] = status(addr, timeout=timeout)
+        except (OSError, ServeConnectionLost, protocol.ProtocolError):
+            reps[addr] = {"event": "error", "error": "unreachable"}
+    return {"event": "status", "role": "degraded_client",
+            "degraded": True, "fleet_dir": fleet_dir, "replicas": reps}
+
+
+def degraded_submit(fleet_dir: str, job: dict, tenant: str = "default",
+                    idem_key: Optional[str] = None,
+                    timeout: Optional[float] = None,
+                    priority: Optional[str] = None,
+                    deadline_s: Optional[float] = None,
+                    auth_token: Optional[str] = None) -> List[dict]:
+    """Keyed submit straight to a replica while no router answers.
+
+    Requires an ``idem_key`` (minted when absent — the caller should
+    keep it for retries): the key derives the job_id, so this submit is
+    reconcilable no matter where it lands. Before submitting, every
+    reachable replica is asked for the durable record — a job that
+    already ran anywhere dedups client-side. The target replica is
+    chosen deterministically from the key over the reachable set, so a
+    degraded retry of the same key lands on the same replica and its
+    dedup table absorbs it. Raises :class:`ServeConnectionLost` when no
+    replica is reachable at all."""
+    if idem_key is None:
+        idem_key = f"d-{uuid.uuid4().hex}"
+    jid = protocol.idem_job_id(idem_key)
+    rec = degraded_result(fleet_dir, jid, auth_token=auth_token)
+    if rec.get("event") not in ("pending", "error"):
+        return [{"event": "accepted", "job_id": jid, "deduped": True,
+                 "degraded": True}, rec]
+    addrs = fleet_addrs(fleet_dir)
+    if not addrs:
+        raise ServeConnectionLost(
+            f"degraded submit: no replica published an address under "
+            f"{fleet_dir}", job_id=jid)
+    # Deterministic placement over the *reachable* set: stable for
+    # retries of the same key, no coordination required.
+    target = addrs[zlib.crc32(idem_key.encode()) % len(addrs)]
+    events = submit_job(target, job, tenant=tenant, timeout=timeout,
+                        priority=priority, deadline_s=deadline_s,
+                        idem_key=idem_key, auth_token=auth_token)
+    return [dict(ev, degraded=True) for ev in events]

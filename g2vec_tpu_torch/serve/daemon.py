@@ -799,7 +799,7 @@ class ServeDaemon:
             # The incremental update engine is not in this package yet:
             # refused as an unported fault seam is, before any planning.
             self.metrics.emit("job_rejected", error="not_ported",
-                              op="update")
+                              detail="op 'update'")
             return {"event": "rejected", "error": "not_ported",
                     "op": "update",
                     "detail": "the 'update' op is not ported yet: "

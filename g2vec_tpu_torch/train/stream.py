@@ -121,7 +121,8 @@ from g2vec_tpu_torch.train.checkpoint import (RUN_COMPLETED,
                                               load_stream_state,
                                               save_stream_state,
                                               unflatten_state)
-from g2vec_tpu_torch.train.trainer import TrainResult, _Adam
+from g2vec_tpu_torch.train.trainer import (TrainResult, _Adam,
+                                           check_finite, check_gradients)
 from g2vec_tpu_torch.utils.integrity import sha256_file
 
 
@@ -491,6 +492,7 @@ def train_cbow_streaming(
         console: Callable[[str], None] = print,
         check: Optional[Callable[[], None]] = None,
         lifecycle: Optional[Callable[[str, dict], None]] = None,
+        debug_nans: bool = False,
         ) -> StreamTrainResult:
     """Stream walk shards from the sampler straight into minibatch SGD;
     returns the trained embeddings and the streaming twins of stage 3's
@@ -511,7 +513,8 @@ def train_cbow_streaming(
     ``checkpoint_every`` shard updates and at every epoch boundary;
     ``resume=True`` restores the newest verified cursor (module
     docstring). ``console`` prints the resume line. ``check`` and
-    ``lifecycle``: module docstring.
+    ``lifecycle``: module docstring. ``debug_nans``: as
+    :func:`~g2vec_tpu_torch.train.trainer.train_cbow`'s, per shard update.
     """
     dev = resolve_device(device)
     if len(groups) != 2:
@@ -696,7 +699,11 @@ def train_cbow_streaming(
     def _update(batch: _Batch) -> torch.Tensor:
         x, y = batch.ready()
         loss = masked_bce_loss(_logits(x), y, torch.ones_like(y))
+        if debug_nans:
+            check_finite(loss, "loss (masked_bce_loss) of a shard update")
         loss.backward()
+        if debug_nans:
+            check_gradients(params, "after a shard update")
         adam.step(params)
         return loss.detach()
 

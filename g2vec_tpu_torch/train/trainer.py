@@ -175,7 +175,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                on_epoch: Optional[Callable[[int, float, float, float], None]] = None,
                checkpoint_dir: Optional[str] = None, resume: bool = False,
                checkpoint_every: int = 25,
-               check: Optional[Callable[[], None]] = None) -> TrainResult:
+               check: Optional[Callable[[], None]] = None,
+               debug_nans: bool = False) -> TrainResult:
     """Train the modified CBOW; returns the embedding table and history.
 
     ``paths``: [n_paths, ceil(n_genes/8)] uint8 bit-packed multi-hot rows
@@ -186,7 +187,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     modified. ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
     ``checkpoint_dir``/``resume``/``checkpoint_every``: module docstring.
     ``check()`` runs before each epoch; an exception it raises stops the
-    run there.
+    run there. ``debug_nans`` (``--debug-nans``) raises at the first
+    non-finite loss or gradient (:func:`check_finite`).
     """
     dev = resolve_device(device)
     if checkpoint_every < 1:
@@ -325,7 +327,11 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
         if not train:
             break
         loss = masked_bce_loss(logits_tr, y_tr, w_tr)
+        if debug_nans:
+            check_finite(loss, f"loss (masked_bce_loss) at epoch {epoch}")
         loss.backward()
+        if debug_nans:
+            check_gradients(params, f"at epoch {epoch}")
         adam.step(params)
         history.append({"epoch": epoch, "acc_val": float("nan"),
                         "acc_tr": float("nan"), "loss": loss.item(),
@@ -339,6 +345,22 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
         w_ih=best.w_ih.detach().float().cpu().numpy(), stop_epoch=stop_epoch,
         stopped_early=stopped_early, acc_val=before_val, acc_tr=before_tr,
         history=history, model=best)
+
+
+def check_finite(value: torch.Tensor, what: str) -> None:
+    """``--debug-nans``: raise ``FloatingPointError`` naming ``what`` when
+    ``value`` holds a NaN or an infinity (the JAX package's
+    ``jax_debug_nans`` raises the same type). The read syncs the device,
+    which is why only a debug run pays it."""
+    if not bool(torch.isfinite(value).all()):
+        raise FloatingPointError(f"--debug-nans: non-finite {what}")
+
+
+def check_gradients(params: Sequence[torch.Tensor], when: str) -> None:
+    """``--debug-nans`` after a backward: each of ``[w_ih, w_ho]``'s
+    gradients, named (w_ih's comes from the packed-matmul backward)."""
+    for name, p in zip(("w_ih", "w_ho"), params):
+        check_finite(p.grad, f"gradient of {name} {when}")
 
 
 @dataclasses.dataclass

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Callable, ContextManager, Dict, Iterator, List,
+                    Optional, Tuple)
 
 
 class StageTimer:
@@ -21,20 +22,27 @@ class StageTimer:
     ``stage_seconds``.
     """
 
-    def __init__(self, sync: Optional[Callable[[], None]] = None) -> None:
+    def __init__(self, sync: Optional[Callable[[], None]] = None,
+                 mark: Optional[Callable[[str], ContextManager]] = None
+                 ) -> None:
         self.stages: List[Tuple[str, float]] = []
         self.extras: Dict[str, Dict] = {}
         self._sync = sync
+        self._mark = mark
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
+        """Time one stage; ``mark(name)`` (a profiler range under
+        ``--profile-dir``) is entered around it, device sync included."""
         t0 = time.perf_counter()
-        try:
-            yield
-            if self._sync is not None:
-                self._sync()
-        finally:
-            self.stages.append((name, time.perf_counter() - t0))
+        with (self._mark(name) if self._mark is not None
+              else contextlib.nullcontext()):
+            try:
+                yield
+                if self._sync is not None:
+                    self._sync()
+            finally:
+                self.stages.append((name, time.perf_counter() - t0))
 
     @contextlib.contextmanager
     def span(self, stage: str, name: str) -> Iterator[None]:

@@ -650,3 +650,98 @@ def test_served_jobs_join_on_the_card_and_write_the_solo_files(cuda,
                 with open(a, "rb") as fa, open(b, "rb") as fb:
                     assert fa.read() == fb.read()
         assert os.listdir(tmp_path / "state" / "inventory" / jid)
+
+
+def test_router_fails_a_job_over_between_card_replicas(cuda, tmp_path):
+    """An in-process router over two card replicas: a routed job runs,
+    then a streaming job's replica is SIGKILLed at its first cursor and
+    the job fails over to the survivor, ending in its solo run's bytes
+    with one terminal event fleet-wide."""
+    import json
+    import os
+    import signal
+    import threading
+    import time
+
+    from g2vec_tpu_torch.batch.engine import _variant_from_dict, lane_config
+    from g2vec_tpu_torch.config import G2VecConfig, config_from_job
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.pipeline import run
+    from g2vec_tpu_torch.serve import client, protocol
+    from g2vec_tpu_torch.serve.router import Router, RouterOptions
+
+    files = write_synthetic_tsv(SyntheticSpec(
+        n_good=24, n_poor=20, module_size=12, n_background=24,
+        n_expr_only=4, n_net_only=4, module_chords=2, background_edges=40,
+        seed=7), str(tmp_path))
+    fleet = str(tmp_path / "fleet")
+    r = Router(RouterOptions(fleet_dir=fleet, replicas=2,
+                             listen="127.0.0.1:0", probe_interval=0.3),
+               console=lambda s: None)
+    th = threading.Thread(target=r.serve_forever, daemon=True)
+    th.start()
+
+    def job(name, **kw):
+        return dict(expression_file=files["expression"],
+                    clinical_file=files["clinical"],
+                    network_file=files["network"],
+                    result_name=str(tmp_path / "out" / name), lenPath=20,
+                    numRepetition=3, sizeHiddenlayer=10, epoch=30,
+                    numBiomarker=10, seed=11, **kw)
+
+    stream = job("stream", train_mode="streaming", shard_paths=16,
+                 checkpoint_every=4, stream_patience=30)
+    jid = protocol.idem_job_id("card-drill")
+    holder = {}
+    try:
+        deadline = time.time() + 180
+        while r.tcp_addr is None and th.is_alive() \
+                and time.time() < deadline:
+            time.sleep(0.1)
+        assert r.tcp_addr is not None, "router never bound"
+        addr = f"{r.tcp_addr[0]}:{r.tcp_addr[1]}"
+        assert client.submit_and_wait(addr, job("first"),
+                                      timeout=300)["event"] == "job_done"
+        sub = threading.Thread(target=lambda: holder.update(
+            rec=client.submit_and_wait(addr, stream, idem_key="card-drill",
+                                       timeout=300, poll_deadline_s=300)),
+            daemon=True)
+        sub.start()
+        def events(name):
+            path = os.path.join(fleet, name, "metrics.jsonl")
+            if not os.path.exists(path):
+                return []
+            with open(path) as f:
+                return [json.loads(line) for line in f]
+
+        victim, deadline = None, time.time() + 120
+        while victim is None and time.time() < deadline:
+            for name in ("r0", "r1"):
+                if any(e.get("job_id") == jid
+                       and e.get("state") == "checkpointed"
+                       for e in events(name)):
+                    victim = name
+            time.sleep(0.02)
+        assert victim is not None
+        os.kill(r.fleet.replica(victim).pid, signal.SIGKILL)
+        sub.join(timeout=300)
+        assert not sub.is_alive()
+        assert holder["rec"]["event"] == "job_done"
+        survivor = "r1" if victim == "r0" else "r0"
+        assert "resumed" in [e.get("state") for e in events(survivor)
+                             if e.get("job_id") == jid]
+        assert sum(1 for name in ("r0", "r1") for e in events(name)
+                   if e.get("event") == "job_done"
+                   and e.get("job_id") == jid) == 1
+    finally:
+        r._stop.set()
+        th.join(timeout=180)
+    cfg = config_from_job(dict(stream, result_name=str(tmp_path / "solo")),
+                          G2VecConfig(device="cuda"))
+    solo = run(lane_config(cfg, _variant_from_dict(0, {"name": "v"}, cfg)),
+               console=lambda s: None)
+    for a, b in zip(holder["rec"]["variants"]["v"]["outputs"],
+                    solo.output_files):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()

@@ -5,8 +5,9 @@
 - At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
   cpu``, full-batch and ``--train-mode streaming``) runs a tiny spec end
   to end in a fresh interpreter, after which neither jax nor any
-  g2vec_tpu module is in ``sys.modules``; so do ``serve --help`` (which
-  loads no torch either) and the serve daemon serving a job.
+  g2vec_tpu module is in ``sys.modules``; so do ``serve --help`` and the
+  router serving a job through a replica (both load no torch either),
+  and the serve daemon serving a job.
 - Without ``--device cpu`` on a machine with no card, the entry points
   raise instead of running on the CPU.
 """
@@ -131,6 +132,37 @@ if mode == "help":
         runpy.run_module("g2vec_tpu_torch", run_name="__main__")
     except SystemExit as e:
         rc = e.code
+elif mode == "router":
+    import os, time
+    import g2vec_tpu_torch.serve.router
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.serve import client
+    from g2vec_tpu_torch.serve.cli import serve_main
+    files = write_synthetic_tsv(SyntheticSpec(
+        n_good=12, n_poor=10, module_size=8, n_background=10, n_expr_only=2,
+        n_net_only=2, module_chords=2, background_edges=15, seed=3), out_dir)
+    fleet = out_dir + "/fleet"
+    t = threading.Thread(target=serve_main, args=([
+        "--replicas", "1", "--listen", "127.0.0.1:0", "--state-dir", fleet,
+        "--device", "cpu"],), daemon=True)
+    t.start()
+    deadline = time.time() + 120
+    while not os.path.exists(fleet + "/router_addr") and t.is_alive() \
+            and time.time() < deadline:
+        time.sleep(0.1)
+    addr = open(fleet + "/router_addr").read().strip()
+    events = client.submit_job(addr, dict(
+        expression_file=files["expression"], clinical_file=files["clinical"],
+        network_file=files["network"], result_name=out_dir + "/tiny",
+        lenPath=10, numRepetition=3, sizeHiddenlayer=8, epoch=4,
+        numBiomarker=5, kmeans_iters=20), timeout=120)
+    st = client.status(addr)
+    client.shutdown(addr, timeout=30)
+    t.join(timeout=120)
+    rc = 0 if (events[-1]["event"] == "job_done"
+               and events[0]["replica"] == "r0"
+               and st["role"] == "router" and not t.is_alive()) else 1
 else:
     from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
                                                 write_synthetic_tsv)
@@ -162,18 +194,21 @@ print(json.dumps({"rc": rc, "bad": bad, "torch": "torch" in sys.modules}))
 """
 
 
-@pytest.mark.parametrize("mode", ["help", "daemon"])
+@pytest.mark.parametrize("mode", ["help", "daemon", "router"])
 def test_serve_runs_without_jax_in_sys_modules(tmp_path, mode):
     """``python -m g2vec_tpu_torch serve --help`` loads neither jax nor
     torch; the daemon (admission, a joined batch, bundle publication, a
-    query, shutdown) loads no jax."""
+    query, shutdown) loads no jax; the router (``serve --replicas 1``,
+    one routed job on its ``--device cpu`` replica, shutdown) loads
+    neither."""
     proc = subprocess.run([sys.executable, "-c", _SERVE_SCRIPT, mode,
                            str(tmp_path)], capture_output=True, text=True,
                           env=dict(os.environ, PYTHONPATH=ROOT), timeout=300,
                           cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-2000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report == {"rc": 0, "bad": [], "torch": mode == "daemon"}
+    assert report == {"rc": 0, "bad": [], "torch": mode == "daemon"}, \
+        proc.stderr[-2000:]
     if mode == "help":
         assert "--socket ADDR" in proc.stdout
 

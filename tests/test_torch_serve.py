@@ -235,14 +235,21 @@ def test_update_op_is_refused_as_not_ported(daemons, tsv, tmp_path):
 
 
 def test_router_flags_are_refused(tmp_path):
+    """Router mode is ported; what the JAX CLI refuses, the port's
+    refuses: ``--replicas`` without ``--listen`` or below 1, and the
+    ``--drain-replica`` client op without ``--socket``."""
+    from g2vec_tpu.serve.cli import serve_main as jserve_main
     from g2vec_tpu_torch.serve.cli import serve_main
 
-    for argv in (["--replicas", "2"], ["--standby"],
+    for argv in (["--state-dir", str(tmp_path / "d"), "--replicas", "2"],
+                 ["--state-dir", str(tmp_path / "d"), "--replicas", "0",
+                  "--listen", "127.0.0.1:0"],
                  ["--drain-replica", "r1"]):
-        with pytest.raises(SystemExit) as e:
-            serve_main(["--socket", str(tmp_path / "s"), "--state-dir",
-                        str(tmp_path / "d"), *argv])
-        assert e.value.code == 2
+        for main in (serve_main, jserve_main):
+            with pytest.raises(SystemExit) as e:
+                main(argv)
+            assert e.value.code == 2
+    assert not os.path.exists(tmp_path / "d")
 
 
 def test_token_bucket_and_shed_decision_equal_jax():
