@@ -82,8 +82,9 @@ launch, timed beside 8 solo launches and ``torch.bmm`` on the dense bf16
 stack; ``--seeds 8 --lanes 8`` in process on one ``ResidentEngine``
 (the lane kernels' launch counts are read over this run; a second
 ``execute`` must find the dataset resident, hit the walk memo and write
-the same bytes); the same through the CLI against each lane's solo CLI
-run, byte for byte, with both runs/hour; a mixed manifest (two
+the same bytes); the same through the CLI against half the lanes' solo CLI
+runs and the other half's solo runs in process, byte for byte, with both
+runs/hour; a mixed manifest (two
 subsamples, a CV fold, a permutation null: several buckets, one-lane
 buckets among them), each lane against its solo run, and its distinct
 walk products timed in turn (as the engine walks them) and on a pool;
@@ -126,6 +127,27 @@ killed replica is relaunched and healthy again and runs a job sent to it
 straight; one exact ``neighbors`` query through the router equals the
 numpy full sort; one ``job_done`` per job id over both replicas'
 metrics; ``--shutdown`` ends the fleet with exit 0. It fails past 120 s.
+Phase 12 runs the scenario engine and incremental updates at the example:
+``--scenario bootstrap --replicates 8`` (replicates b000 and b005 against
+their solo runs, byte for byte, and a rerun's stability file against the
+first's), ``--scenario permutation --replicates 8`` (``walked=2`` on a
+cold cache, the lane kernels launched, the t/p/q columns against a numpy
+recomputation from the lanes' labels) and ``--scenario cv --folds 5``
+(the held-out sets cover every patient once), each with its wall, runs
+per hour and launches; then, on a card daemon served on a UNIX socket, a
+cold job and its bootstrap, no-op (the arrays the prior generation's
+bytes, no launch), expression-only (no range walked) and edge-delta
+(some ranges walked) updates through ``client.update_job``, each update's
+wall beside the cold job's and its fine-tune's launches, an exact
+``neighbors`` query from the new generation against the numpy full sort,
+the same delta in process (the daemon's bytes) with its band against a
+cold retrain printed; and on tests/test_update.py's spec, for seeds 0-3,
+the edge delta's accuracy held within 0.20 of a cold retrain's, its list
+overlap printed beside the two cold runs' own, and seed 0's update on
+the card held against the CPU's.
+It fails past 150 s. The lane kernels' records carry the scenarios'
+launches (``scenario_launches``), the solo ones the updates'
+(``update_launches``).
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -144,6 +166,7 @@ import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1542,14 +1565,18 @@ def _lanes_phase(torch, pm, result, cfg, files, tmp, smi):
         raise RuntimeError("the resident engine's second execute was not "
                            "served from memory with the same bytes")
 
-    print(f"    the batch CLI and each lane's solo CLI run, fresh "
-          f"interpreters:")
+    # Half the lanes against solo CLI runs (the runs/hour yardstick), the
+    # other half against solo runs in process: a fresh interpreter costs
+    # several seconds, and the script's time is budgeted.
+    n_solo = n_lanes // 2
+    print(f"    the batch CLI and {n_solo} lanes' solo CLI runs, fresh "
+          f"interpreters; the other lanes' solo runs in process:")
     batch_secs, done, cli_lanes = _batch_cli(
         files, os.path.join(tmp, "cli_lanes", "run"),
         ["--seeds", str(n_lanes), "--lanes", str(n_lanes)])
     variants = plan_variants(b_cfg)
     flag_sets = [["--train-seed", str(v.train_seed), "--kmeans-seed",
-                  str(v.kmeans_seed)] for v in variants]
+                  str(v.kmeans_seed)] for v in variants[:n_solo]]
     solo_runs, solo_secs = _timed(lambda: _cli_runs(
         files, tmp, 30, flag_sets=flag_sets, tag="lane_solo"))
     for v, lane, (_, secs, _, _, outputs, _) in zip(variants, first.lanes,
@@ -1557,16 +1584,23 @@ def _lanes_phase(torch, pm, result, cfg, files, tmp, smi):
         if cli_lanes[v.tag()] != outputs or _outputs(lane) != outputs:
             raise RuntimeError(f"lane {v.name!r}: the batch's files differ "
                                f"from its solo CLI run's")
+    for v, lane in zip(variants[n_solo:], first.lanes[n_solo:]):
+        if cli_lanes[v.tag()] != _outputs(lane):
+            raise RuntimeError(f"lane {v.name!r}: the batch CLI's files "
+                               f"differ from the in-process batch's")
+    _solo_lane_runs(SimpleNamespace(variants=first.variants[n_solo:],
+                                    lanes=first.lanes[n_solo:]),
+                    b_cfg, tmp, "lanes_rest")
     solo_stage = sum(sum(r[1].values()) for r in solo_runs)
     print(f"    batch CLI: {batch_secs:.3f} s process wall, engine "
           f"{done['wall_seconds']} s, {done['runs_per_hour']} runs/hour "
           f"(engine wall), {n_lanes / batch_secs * 3600:.1f} runs/hour "
           f"(process wall); stage seconds {done['stage_seconds']}")
-    print(f"    {n_lanes} solo CLI runs: {solo_secs:.3f} s process wall "
-          f"({n_lanes / solo_secs * 3600:.1f} runs/hour), stage seconds "
-          f"summed {solo_stage:.3f} s ({n_lanes / solo_stage * 3600:.1f} "
-          f"runs/hour); every lane's three files byte-identical to its solo "
-          f"CLI run and to the in-process batch; {smi}")
+    print(f"    {n_solo} solo CLI runs: {solo_secs:.3f} s process wall "
+          f"({n_solo / solo_secs * 3600:.1f} runs/hour), stage seconds "
+          f"summed {solo_stage:.3f} s ({n_solo / solo_stage * 3600:.1f} "
+          f"runs/hour); every lane's three files byte-identical to the "
+          f"batch CLI's and to its solo run (CLI or in process); {smi}")
 
     print("    a mixed manifest (two subsamples, a CV fold, a permutation "
           "null):")
@@ -2516,6 +2550,399 @@ def _router_phase(files, small, small_args, tmp, lane_bytes, stream_solo,
                 pass
 
 
+#: The launch counters of the packed kernels, solo and lane.
+_PM_NAMES = ("packed_matmul_fwd", "packed_matmul_bwd",
+             "packed_matmul_lanes_fwd", "packed_matmul_lanes_bwd")
+
+
+def _pm_counts(pm):
+    return {name: getattr(pm, name).launches for name in _PM_NAMES}
+
+
+def _stability_rows(path):
+    """``<NAME>_stability.txt`` -> (meta dict, header cells, rows)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    meta = dict(ln[2:].split("\t", 1) for ln in lines
+                if ln.startswith("# ") and "\t" in ln[2:])
+    body = [ln.split("\t") for ln in lines if not ln.startswith("#")]
+    return meta, body[0], body[1:]
+
+
+def _plain_permutation_columns(expr, labels, nulls, selected, genes):
+    """The permutation table's cells from numpy alone: |t| with the pooled
+    variance, the add-one p-value over the nulls' label draws, BH q by a
+    sort, and the observed lane's selection."""
+    def abs_t(lab):
+        a = expr[lab == 0].astype(np.float64)
+        b = expr[lab == 1].astype(np.float64)
+        na, nb = len(a), len(b)
+        pooled = ((na - 1) * a.var(axis=0, ddof=1)
+                  + (nb - 1) * b.var(axis=0, ddof=1)) / (na + nb - 2)
+        den = np.sqrt(pooled) * np.sqrt(1.0 / na + 1.0 / nb)
+        diff = a.mean(axis=0) - b.mean(axis=0)
+        return np.abs(np.divide(diff, den, out=np.zeros_like(diff),
+                                where=den > 0))
+
+    t_obs = abs_t(labels)
+    t_null = np.stack([abs_t(lab) for lab in nulls])
+    p = (1.0 + (t_null >= t_obs).sum(axis=0)) / (1.0 + len(nulls))
+    order = np.argsort(p, kind="stable")
+    m = len(p)
+    q_sorted = np.minimum(1.0, np.minimum.accumulate(
+        (p[order] * m / np.arange(1, m + 1))[::-1])[::-1])
+    q = np.empty(m)
+    q[order] = q_sorted
+    sel = set(selected)
+    return [["%.6f" % t_obs[i], "%.6f" % p[i], "%.6f" % q[i],
+             "1" if g in sel else "0"] for i, g in enumerate(genes)]
+
+
+def _scenario_runs(pm, files, tmp):
+    """Phase 12a: the three scenarios at the example on the card."""
+    import dataclasses
+
+    from g2vec_tpu_torch.batch.engine import _lane_cohort, lane_config
+    from g2vec_tpu_torch.pipeline import preprocess_inputs, read_inputs
+    from g2vec_tpu_torch.preprocess import permute_labels
+    from g2vec_tpu_torch.stats.run import run_scenario
+
+    def scenario(kind, sub, **kw):
+        out = os.path.join(tmp, "scn", sub)
+        os.makedirs(out, exist_ok=True)
+        cfg = _config(files, out, "cuda", epoch=30, scenario=kind,
+                      scenario_seed=12, **kw)
+        pm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_scenario(cfg, console=lambda s: None)
+        wall = time.perf_counter() - t0
+        counts = _pm_counts(pm)
+        b = res.batch
+        print(f"    {kind} ({res.n_variants} lanes, scenario "
+              f"{res.scenario_id}): {wall:.3f} s = "
+              f"{res.n_variants / wall * 3600:.1f} runs/hour (engine "
+              f"{b.wall_seconds:.3f} s, {b.runs_per_hour:.1f}); walks "
+              + json.dumps(res.walk_stats) + "; buckets "
+              + json.dumps([(x["lanes"], x["mode"]) for x in b.buckets])
+              + "; launches " + json.dumps(counts) + "; stage seconds "
+              + json.dumps({k: round(v, 3)
+                            for k, v in b.stage_seconds.items()}))
+        return cfg, res, wall, counts
+
+    runs = {}
+    cfg, res, wall, counts = scenario("bootstrap", "b1", replicates=8)
+    runs["bootstrap"] = (res, wall, counts)
+    for name in ("b000", "b005"):
+        v = next(v for v in res.batch.variants if v.name == name)
+        lane = res.batch.lanes[res.batch.variants.index(v)]
+        solo, _ = _run_pipeline(lane_config(dataclasses.replace(
+            cfg, result_name=os.path.join(tmp, "scn", "solo")), v))
+        if _outputs(solo) != _outputs(lane):
+            raise RuntimeError(f"bootstrap replicate {name} differs from "
+                               f"its solo run")
+    again = scenario("bootstrap", "b2", replicates=8)[1]
+    with open(res.output, "rb") as a, open(again.output, "rb") as b:
+        if a.read() != b.read():
+            raise RuntimeError("a rerun's stability file differs")
+    print("    replicates b000 and b005 are their solo runs' bytes; a rerun "
+          "writes the same stability file")
+
+    cfg, res, wall, counts = scenario("permutation", "p1", replicates=8)
+    runs["permutation"] = (res, wall, counts)
+    if res.walk_stats["walked"] != 2:
+        raise RuntimeError(f"a cold permutation scenario walked "
+                           f"{res.walk_stats['walked']} products, not 2")
+    if not counts["packed_matmul_lanes_fwd"] \
+            or not counts["packed_matmul_lanes_bwd"]:
+        raise RuntimeError(f"the permutation lanes launched {counts}")
+    data, _, _ = preprocess_inputs(*read_inputs(cfg))
+    obs, nulls = res.batch.variants[0], res.batch.variants[1:]
+    cohort = data if obs.expr_key() is None else _lane_cohort(data, obs)
+    want = _plain_permutation_columns(
+        cohort.expr, cohort.label,
+        [permute_labels(cohort.label, v.permute_seed) for v in nulls],
+        res.batch.lanes[0].biomarkers, list(data.gene))
+    _, header, rows = _stability_rows(res.output)
+    if header[1:] != ["t_obs", "p_value", "q_value", "selected_obs"] \
+            or [r[1:] for r in rows] != want:
+        raise RuntimeError("the permutation table differs from its numpy "
+                           "recomputation")
+    print("    permutation: walked=2 on a cold cache; the t/p/q/selected "
+          "columns equal a numpy recomputation from the lanes' labels "
+          "and the observed lane's list")
+
+    cfg, res, wall, counts = scenario("cv", "c1", folds=5)
+    runs["cv"] = (res, wall, counts)
+    held = [set(data.sample) - set(_lane_cohort(data, v).sample)
+            for v in res.batch.variants]
+    if set().union(*held) != set(data.sample) \
+            or sum(map(len, held)) != len(data.sample):
+        raise RuntimeError("the CV held-out sets do not cover every "
+                           "patient once")
+    meta = _stability_rows(res.output)[0]
+    print(f"    cv: the 5 held-out sets cover the {len(data.sample)} "
+          f"patients once; acc_mean {meta['acc_mean']}, acc_ci95 "
+          f"{meta['acc_ci95']}")
+    return runs
+
+
+def _edited_inputs(files, tmp, gene_prefix="GMOD"):
+    """The inputs of the edit drills: the expression file with one gene
+    that keeps no edge in either group nudged, and the network with three
+    module edges added."""
+    from g2vec_tpu_torch.incremental import _load_inputs
+    from g2vec_tpu_torch.ops.graph import thresholded_edges
+
+    cfg = _config(files, tmp, "cpu")
+    data, src, dst = _load_inputs(cfg)
+    kept = set()
+    for i in range(2):
+        s, d, _ = thresholded_edges(data.expr[data.label == i], src, dst,
+                                    device="cpu")
+        kept |= set(s.tolist()) | set(d.tolist())
+    quiet = next(g for gi, g in enumerate(data.gene) if gi not in kept)
+    with open(files["expression"]) as f:
+        lines = f.readlines()
+    for i, line in enumerate(lines):
+        parts = line.rstrip("\n").split("\t")
+        if parts[0] == quiet:
+            parts[1] = repr(float(parts[1]) + 0.005)
+            lines[i] = "\t".join(parts) + "\n"
+    expr = os.path.join(tmp, "expr_nudged.tsv")
+    with open(expr, "w") as f:
+        f.writelines(lines)
+    with open(files["network"]) as f:
+        net_lines = f.readlines()
+    have = set()
+    for line in net_lines[1:]:
+        a, b = line.split("\t")[0], line.split("\t")[1].strip()
+        have |= {(a, b), (b, a)}
+    added = [(f"{gene_prefix}{i:04d}", f"{gene_prefix}{j:04d}")
+             for i in range(12) for j in range(i + 1, 12)
+             if (f"{gene_prefix}{i:04d}", f"{gene_prefix}{j:04d}")
+             not in have][:3]
+    net = os.path.join(tmp, "net_delta.tsv")
+    with open(net, "w") as f:
+        f.writelines(net_lines)
+        for a, b in added:
+            f.write(f"{a}\t{b}\n")
+    return expr, net, quiet, added
+
+
+def _band_on_the_test_spec(tmp):
+    """tests/test_update.py's spec (f32): cold run, bootstrap, an edge
+    delta and a cold retrain on the new network, for walk/train seeds 0-3
+    on the card and seed 0 on the CPU too. Held: |dACC| <= 0.20 for every
+    seed, and the card's update against the CPU's (acc within 0.05, lists
+    overlapping >= 0.9). Printed: the overlap half of the band beside the
+    overlap of the two cold runs (how far a cold retrain itself moves)."""
+    import dataclasses
+
+    from g2vec_tpu_torch.cache import resolve_cache_tiers
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.incremental import run_update, within_band
+    from g2vec_tpu_torch.io.writers import write_inventory_bundle
+
+    root = os.path.join(tmp, "band")
+    os.makedirs(root)
+    files = write_synthetic_tsv(SyntheticSpec(
+        n_good=48, n_poor=40, module_size=12, n_background=24,
+        n_expr_only=4, n_net_only=4, module_chords=2, background_edges=40,
+        seed=7), root, prefix="band")
+    _, net, _, _ = _edited_inputs(files, root)
+
+    def one(device, seed):
+        out = os.path.join(root, f"{device}{seed}")
+        cfg = _config(files, out, device, lenPath=12, numRepetition=6,
+                      sizeHiddenlayer=16, epoch=40, learningRate=0.05,
+                      numBiomarker=10, compute_dtype="float32",
+                      walker_backend="native", seed=seed,
+                      cache_dir=os.path.join(out, "cache"))
+        cold, _ = _run_pipeline(cfg)
+        bundle = os.path.join(out, "bundle")
+        write_inventory_bundle(bundle, cold.embeddings, list(cold.genes),
+                               cold.biomarker_scores, {})
+        wc = resolve_cache_tiers(cfg.cache_dir)
+        up = run_update(cfg, bundle, walk_cache=wc)
+        write_inventory_bundle(bundle, up.embeddings, up.genes,
+                               up.biomarker_scores, {}, extra_files={
+                                   "delta_fingerprints.json":
+                                   up.fingerprints})
+        cfg3 = dataclasses.replace(cfg, network_file=net)
+        up3 = run_update(cfg3, bundle, walk_cache=wc)
+        cold3, _ = _run_pipeline(dataclasses.replace(
+            cfg3, result_name=os.path.join(out, "cold3")))
+        ok, detail = within_band(up3.acc_val, cold3.acc_val,
+                                 up3.biomarkers, cold3.biomarkers)
+        colds = within_band(cold.acc_val, cold3.acc_val, cold.biomarkers,
+                            cold3.biomarkers)[1]
+        print(f"    {device} seed {seed}: edge delta {up3.stats['mode']} "
+              f"{up3.stats['ranges_rewalked']}/{up3.stats['ranges_total']}"
+              f" ranges; against the cold retrain " + json.dumps(
+                  dict(detail, within=ok)) + "; the two cold runs "
+              + json.dumps(colds))
+        if up3.stats["mode"] != "delta" or detail["dacc"] > 0.20:
+            raise RuntimeError(f"{device} seed {seed}: the edge delta left "
+                               f"the accuracy band: {detail}")
+        return up3, detail
+
+    print("    the band on tests/test_update.py's spec (48/40, -p 12 -r 6, "
+          "hidden 16, f32; |dACC| <= 0.20 held, overlap >= 0.6 printed):")
+    details = [one("cuda", seed) for seed in range(4)]
+    card = details[0][0]
+    cpu = one("cpu", 0)[0]
+    same = len(set(card.biomarkers) & set(cpu.biomarkers)) \
+        / max(len(set(cpu.biomarkers)), 1)
+    print(f"    seed 0, card against CPU: update acc {card.acc_val:.4f} and "
+          f"{cpu.acc_val:.4f}, biomarker overlap {same:.3f}")
+    if abs(card.acc_val - cpu.acc_val) > 0.05 or same < 0.9:
+        raise RuntimeError("the card's update disagrees with the CPU's")
+    return [d for _, d in details]
+
+
+def _update_drills(torch, pm, files, tmp):
+    """Phase 12b: the update op on a card daemon at the example."""
+    import dataclasses
+    import shutil
+    import threading
+
+    from g2vec_tpu_torch.cache import resolve_cache_tiers
+    from g2vec_tpu_torch.incremental import run_update, within_band
+    from g2vec_tpu_torch.io.writers import GENERATION_FILE, read_generation
+    from g2vec_tpu_torch.serve import client
+    from g2vec_tpu_torch.serve.daemon import ServeDaemon, ServeOptions
+
+    root = os.path.join(tmp, "upd")
+    os.makedirs(os.path.join(root, "out"))
+    sock, state = os.path.join(root, "g.sock"), os.path.join(root, "state")
+    d = ServeDaemon(ServeOptions(socket_path=sock, state_dir=state,
+                                 device="cuda", ann_nlist=16,
+                                 cache_dir=os.path.join(root, "cache"),
+                                 metrics_jsonl=os.path.join(root,
+                                                            "m.jsonl")),
+                    console=lambda s: None)
+    th = threading.Thread(target=d.serve_forever, daemon=True)
+    th.start()
+    expr, net, quiet, added = _edited_inputs(files, root)
+    base = dict(expression_file=files["expression"],
+                clinical_file=files["clinical"],
+                network_file=files["network"], epoch=30)
+    walls, launches, stats = {}, {}, {}
+    try:
+        if not client.wait_ready(sock, deadline_s=60):
+            raise RuntimeError("the card daemon never became ready")
+        t0 = time.perf_counter()
+        events = client.submit_job(sock, dict(
+            base, result_name=os.path.join(root, "out", "cold"),
+            variants=[{"name": "v0"}]), timeout=300)
+        walls["cold"] = time.perf_counter() - t0
+        if events[-1]["event"] != "job_done":
+            raise RuntimeError(f"the cold job ended {events[-1]}")
+        jid = events[-1]["job_id"]
+        key = f"{jid}/v0"
+        gen_root = os.path.join(state, "inventory", jid, "v0")
+
+        def arrays(gen):
+            out = []
+            for fn in ("embeddings.npy", "norms.npy", "scores.npy",
+                       "genes.txt"):
+                with open(os.path.join(gen_root, gen, fn), "rb") as f:
+                    out.append(f.read())
+            return out
+
+        drills = (("bootstrap", base), ("noop", base),
+                  ("expr_only", dict(base, expression_file=expr)),
+                  ("delta", dict(base, network_file=net)))
+        for i, (mode, job) in enumerate(drills):
+            pm.reset_launch_counts()
+            t0 = time.perf_counter()
+            evs = client.update_job(
+                sock, jid, dict(job, result_name=os.path.join(
+                    root, "out", f"u{i}")), idem_key=f"upd-{mode}",
+                variant="v0", timeout=300)
+            walls[mode] = time.perf_counter() - t0
+            launches[mode] = _pm_counts(pm)
+            rec = evs[-1]
+            if rec["event"] != "job_done" or rec["stats"]["mode"] != mode:
+                raise RuntimeError(f"update {mode}: {rec}")
+            stats[mode] = rec
+            if rec["generation"] != read_generation(gen_root) \
+                    or rec["generation"] != "gen-%06d" % (i + 2):
+                raise RuntimeError(f"update {mode} published "
+                                   f"{rec['generation']}")
+            trained = launches[mode]["packed_matmul_fwd"] \
+                + launches[mode]["packed_matmul_bwd"]
+            if (mode == "noop") != (trained == 0) \
+                    or launches[mode]["packed_matmul_lanes_fwd"]:
+                raise RuntimeError(f"update {mode} launched "
+                                   f"{launches[mode]}")
+            s = rec["stats"]
+            print(f"    update {mode}: {walls[mode]:.3f} s (cold job "
+                  f"{walls['cold']:.3f} s; {walls[mode] / walls['cold']:.3f}"
+                  f"x), wall_s {s['wall_s']}, walked_rows "
+                  f"{s['walked_rows']}, ranges {s['ranges_rewalked']}/"
+                  f"{s['ranges_total']}, cache hits {s['cache_hits']}, "
+                  f"epochs {s.get('epochs')}, stop {s.get('stop_epoch')}, "
+                  f"acc_val {rec['acc_val']}, {rec['generation']}; "
+                  f"fine-tune launches " + json.dumps(
+                      {k: v for k, v in launches[mode].items() if v}))
+            if mode == "noop" and arrays("gen-000002") != arrays(
+                    "gen-000003"):
+                raise RuntimeError("the no-op update's arrays differ from "
+                                   "the prior generation's")
+            if mode == "expr_only" and s["ranges_rewalked"]:
+                raise RuntimeError("an expression-only change re-walked")
+            if mode == "delta" and not (0 < s["ranges_rewalked"]
+                                        < s["ranges_total"]):
+                raise RuntimeError(f"the edge delta re-walked "
+                                   f"{s['ranges_rewalked']} ranges")
+        print(f"    (nudged {quiet}, added edges {added}); the no-op's "
+              f"arrays are the prior generation's bytes")
+        genes, emb, norms, _ = _bundle_arrays(state, key)
+        gi = genes.index(added[0][0])
+        ev = client.query(sock, "neighbors", job_id=jid, variant="v0",
+                          gene=genes[gi], k=10, mode="exact")
+        idx, sims = _full_sort_neighbors(emb, norms, gi, 10)
+        if ev.get("generation") != "gen-000005" \
+                or ev["neighbors"] != [genes[j] for j in idx] \
+                or ev["sims"] != [float(x) for x in sims]:
+            raise RuntimeError(f"the exact query after the republish: {ev}")
+        print(f"    an exact neighbors query of {genes[gi]} answers from "
+              f"gen-000005, equal to the numpy full sort")
+        # The band at the example: the same delta in process, from a copy
+        # of the bundle pointed back at the generation the daemon's delta
+        # started from. It must publish the daemon's arrays, byte for
+        # byte; its biomarker list goes against a cold retrain.
+        copy = os.path.join(root, "bundle_copy")
+        shutil.copytree(gen_root, copy)
+        with open(os.path.join(copy, GENERATION_FILE), "w") as f:
+            f.write("gen-000004\n")
+        cfg_d = _config(dict(files, network=net), os.path.join(root, "out"),
+                        "cuda", epoch=30)
+        up = run_update(cfg_d, copy, walk_cache=resolve_cache_tiers(
+            os.path.join(root, "cache")))
+        if up.embeddings.tobytes() != emb.tobytes():
+            raise RuntimeError("the in-process delta update's embeddings "
+                               "differ from the daemon's republished ones")
+        cold_d, _ = _run_pipeline(dataclasses.replace(
+            cfg_d, result_name=os.path.join(root, "out", "cold_delta")))
+        ok, detail = within_band(up.acc_val, cold_d.acc_val,
+                                 up.biomarkers, cold_d.biomarkers)
+        print("    the band at the example (printed, not held): the edge "
+              "delta (in process, the daemon's bytes) against a cold "
+              "retrain on the card: " + json.dumps(dict(detail, within=ok))
+              + f"; cold retrain {cold_d.acc_val:.4f}, update "
+              f"{up.acc_val:.4f}")
+    finally:
+        d._stop.set()
+        th.join(timeout=60)
+        d.close()
+    if th.is_alive():
+        raise RuntimeError("the card daemon did not stop")
+    return walls, launches, stats
+
+
 def main() -> int:
     import torch
 
@@ -2848,6 +3275,19 @@ def main() -> int:
         print("    " + json.dumps({"router": {
             k: round(v, 3) for k, v in fleet_numbers.items()}}))
 
+        print("[12] scenarios and incremental updates at the example "
+              "(hidden 128, bf16, epoch cap 30): --scenario bootstrap|"
+              "permutation|cv on the lanes; the update op on a card daemon")
+        t12 = time.perf_counter()
+        scenarios = _scenario_runs(pm, files, tmp)
+        update_walls, update_launches, _ = _update_drills(torch, pm, files,
+                                                          tmp)
+        _band_on_the_test_spec(tmp)
+        took = time.perf_counter() - t12
+        print(f"[12] phase 12 took {took:.1f} s")
+        if took > 150:
+            raise RuntimeError(f"phase 12 took {took:.1f} s (bound 150 s)")
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -2862,7 +3302,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "g2vec_tpu_torch/csrc/packed_matmul.cu",
             "replaces": pm.REPLACES[name], "launches": launches[name],
-            **{k: rec[k] for k in keys}, "streaming": streaming})
+            **{k: rec[k] for k in keys}, "streaming": streaming,
+            "update_launches": {mode: n[name] for mode, n in
+                                update_launches.items()}})
     kernels.append(walk_rec)
     for name, rec in lane_records.items():
         kernels.append({
@@ -2871,7 +3313,9 @@ def main() -> int:
             "replaces": pm.REPLACES[name], "launches": rec["launches"],
             **{k: rec[k] for k in keys}, "lanes": 8,
             "solo_ms": rec["solo_ms"],
-            "served_launches": served["joined"][name]})
+            "served_launches": served["joined"][name],
+            "scenario_launches": {kind: run[2][name] for kind, run in
+                                  scenarios.items()}})
     print(f"    total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

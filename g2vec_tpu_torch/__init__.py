@@ -19,6 +19,10 @@ stays in the repository unchanged), rewritten on PyTorch:
 - batches of runs (lanes) -> :mod:`g2vec_tpu_torch.batch` (``--seeds``,
   ``--manifest``; the lane trainer ``train_cbow_lanes`` on the same
   kernels, one launch a step for a bucket of lanes)
+- scenarios               -> :mod:`g2vec_tpu_torch.stats` (``--scenario
+  bootstrap|permutation|cv`` as lanes, reduced into a stability table)
+- incremental updates     -> :mod:`g2vec_tpu_torch.incremental` (the
+  serve daemon's ``update`` op: delta re-walk, warm-start fine-tune)
 
 The package imports ``torch`` and never ``jax``, and nothing of
 ``g2vec_tpu``. Entry points run on the card (``device="cuda"``) unless the

@@ -5,7 +5,7 @@ Same invocation shape as the reference (``python G2Vec.py ...``) and as
 ``--supervise`` is handled before torch is imported, so the supervisor
 process holds no CUDA context; its children run the pipeline.
 ``--manifest``/``--seeds`` run the batch engine instead of the solo
-pipeline. ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon,
+pipeline, and ``--scenario`` a scenario on it (stats/run.py). ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon,
 the router over its replicas (``--replicas N``) or one of the client ops
 (serve/cli.py).
 """
@@ -33,6 +33,14 @@ def main(argv=None) -> int:
         from g2vec_tpu_torch.resilience.supervisor import supervise_cli
 
         return supervise_cli(cfg, argv)
+    if cfg.scenario:
+        # The scenario engine: a seeded replicate manifest run as one lane
+        # batch and reduced into <NAME>_stability.txt (stats/); validated
+        # exclusive of --manifest/--seeds.
+        from g2vec_tpu_torch.stats.run import run_scenario
+
+        run_scenario(cfg)
+        return 0
     if cfg.manifest or cfg.batch_seeds:
         # The batch engine: the manifest's lanes in this process
         # (batch/engine.py); --supervise and checkpointing were refused

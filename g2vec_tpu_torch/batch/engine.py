@@ -108,9 +108,12 @@ class LaneVariant:
         return (self.patient_subsample, self.subsample_seed)
 
 
-def _variant_from_dict(index: int, obj, cfg: G2VecConfig) -> LaneVariant:
-    """Validate one variant object against the base config."""
-    who = f"manifest variant {index}"
+def _variant_from_dict(index: int, obj, cfg: G2VecConfig,
+                       origin: Optional[str] = None) -> LaneVariant:
+    """Validate one variant object against the base config. ``origin``
+    names where a generated variant came from (a scenario's replicate:
+    "manifest variant 3 (scenario ab12cd, replicate 3)")."""
+    who = f"manifest variant {index}" + (f" ({origin})" if origin else "")
     if not isinstance(obj, dict):
         raise ManifestError(
             f"{who} must be an object, got {type(obj).__name__}")
@@ -245,7 +248,8 @@ def lane_config(cfg: G2VecConfig, v: LaneVariant) -> G2VecConfig:
         subsample_mode=v.subsample_mode, cv_folds=v.cv_folds,
         cv_fold=v.cv_fold, permute_seed=v.permute_seed,
         result_name=f"{cfg.result_name}.{v.name}",
-        manifest=None, batch_seeds=0, metrics_jsonl=None)
+        manifest=None, batch_seeds=0, metrics_jsonl=None,
+        scenario=None, replicates=0, folds=0)
     lane.validate()
     return lane
 

@@ -6,7 +6,9 @@ port's solo run reads: the full-batch and streaming trainers, the stage
 overlap, the native reader, the metrics stream, the walker backend and
 the walk cache, checkpoint/resume, fault injection and the supervisor,
 the patient cohort and permutation flags, the batch engine's
-``--manifest``/``--seeds``/``--lanes``, and the query plane's
+``--manifest``/``--seeds``/``--lanes``, the scenario engine's
+``--scenario``/``--replicates``/``--folds``/``--scenario-seed``, and the
+query plane's
 ``--emit-inventory``/``--ann-nlist``. It also holds the serve daemon's
 job schema (:data:`SERVE_JOB_KEYS`, :func:`config_from_job`,
 :func:`serve_join_key`).
@@ -161,6 +163,16 @@ class G2VecConfig:
     lanes: int = 8                   # most lanes trained in one bucket
                                      # (a larger bucket splits)
 
+    # ---- scenario engine (stats/) ----
+    scenario: Optional[str] = None   # bootstrap|permutation|cv: a seeded
+                                     # replicate manifest over this base
+                                     # config, run as lanes and reduced
+                                     # into <RESULT_NAME>_stability.txt
+    replicates: int = 0              # replicates of bootstrap/permutation
+    folds: int = 0                   # folds of cv (K >= 2)
+    scenario_seed: int = 0           # root of the seed tree
+                                     # (stats/plan.py derive_seed)
+
     def validate(self) -> None:
         if self.lenPath < 1:
             raise ValueError(f"lenPath must be >= 1, got {self.lenPath}")
@@ -262,6 +274,53 @@ class G2VecConfig:
         if self.permute_seed is not None and self.permute_seed < 0:
             raise ValueError(
                 f"--permute-seed must be >= 0, got {self.permute_seed}")
+        if self.replicates < 0:
+            raise ValueError(
+                f"--replicates must be >= 0, got {self.replicates}")
+        if self.folds < 0:
+            raise ValueError(f"--folds must be >= 0, got {self.folds}")
+        if self.scenario is not None:
+            if self.scenario not in ("bootstrap", "permutation", "cv"):
+                raise ValueError(
+                    f"--scenario must be bootstrap|permutation|cv, "
+                    f"got {self.scenario}")
+            if self.manifest or self.batch_seeds:
+                raise ValueError(
+                    "--scenario IS a generated manifest; it is mutually "
+                    "exclusive with --manifest/--seeds")
+            if self.train_mode != "full":
+                raise ValueError(
+                    "--scenario executes replicates as batched full-mode "
+                    "lanes; --train-mode streaming does not compose")
+            if self.subsample_mode != "fraction" \
+                    or self.permute_seed is not None:
+                raise ValueError(
+                    "--scenario derives the per-replicate cohort/"
+                    "permutation axes itself; leave --subsample-mode/"
+                    "--permute-seed at their defaults")
+            if self.scenario == "cv":
+                if self.folds < 2:
+                    raise ValueError(
+                        f"--scenario cv needs --folds >= 2, "
+                        f"got {self.folds}")
+                if self.replicates:
+                    raise ValueError(
+                        "--scenario cv sizes itself with --folds, not "
+                        "--replicates")
+                if self.patient_subsample:
+                    raise ValueError(
+                        "--scenario cv derives each cohort from the fold "
+                        "partition; --patient-subsample must be 0")
+            else:
+                if self.replicates < 1:
+                    raise ValueError(
+                        f"--scenario {self.scenario} needs "
+                        f"--replicates >= 1, got {self.replicates}")
+                if self.folds:
+                    raise ValueError(
+                        "--folds is only meaningful with --scenario cv")
+        elif self.replicates or self.folds:
+            raise ValueError("--replicates/--folds need --scenario")
         if self.batch_seeds < 0:
             raise ValueError(
                 f"--seeds must be >= 0, got {self.batch_seeds}")
@@ -271,7 +330,7 @@ class G2VecConfig:
             raise ValueError(
                 "--manifest and --seeds are mutually exclusive (a manifest "
                 "already enumerates its variants)")
-        if self.manifest or self.batch_seeds:
+        if self.manifest or self.batch_seeds or self.scenario:
             for flag, name in ((self.supervise, "--supervise"),
                                (self.checkpoint_dir, "--checkpoint-dir"),
                                (self.resume, "--resume"),
@@ -279,9 +338,9 @@ class G2VecConfig:
                                (self.debug_nans, "--debug-nans")):
                 if flag:
                     raise ValueError(
-                        f"the batch engine (--manifest/--seeds) does not "
-                        f"compose with {name} yet — run lanes as separate "
-                        f"supervised jobs instead")
+                        f"the batch engine (--manifest/--seeds/--scenario) "
+                        f"does not compose with {name} yet — run lanes as "
+                        f"separate supervised jobs instead")
         if self.fault_plan:
             # Fail at config time with the offending token, not mid-run.
             from g2vec_tpu_torch.resilience.faults import parse_plan
@@ -446,6 +505,23 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Most lanes trained in one bucket, on one "
                              "launch of each kernel a step (default 8); a "
                              "larger bucket splits.")
+    parser.add_argument("--scenario", type=str, default=None,
+                        choices=("bootstrap", "permutation", "cv"),
+                        help="Scenario engine: expand this base config into "
+                             "a seeded replicate manifest (bootstrap patient "
+                             "resamples, label-permutation nulls or "
+                             "stratified CV folds), run it as lanes and "
+                             "reduce the replicates' outputs into "
+                             "RESULT_NAME_stability.txt.")
+    parser.add_argument("--replicates", type=int, default=0, metavar="N",
+                        help="Replicates of --scenario bootstrap|permutation.")
+    parser.add_argument("--folds", type=int, default=0, metavar="K",
+                        help="Folds of --scenario cv (K >= 2; one lane a "
+                             "held-out fold).")
+    parser.add_argument("--scenario-seed", type=int, default=0,
+                        help="Root of the scenario's seed tree: every "
+                             "replicate's seed is a hash of (root, index, "
+                             "role), so a rerun is byte-identical.")
     parser.add_argument("--kmeans-iters", type=int, default=300,
                         help="Lloyd iterations per k-means restart.")
     parser.add_argument("--pcc-threshold", type=float, default=0.5)
@@ -609,6 +685,10 @@ def config_from_args(argv=None) -> G2VecConfig:
         manifest=args.manifest,
         batch_seeds=args.batch_seeds,
         lanes=args.lanes,
+        scenario=args.scenario,
+        replicates=args.replicates,
+        folds=args.folds,
+        scenario_seed=args.scenario_seed,
         compat_lgroup_tiebreak=args.compat_lgroup_tiebreak,
         compute_dtype=args.compute_dtype,
         param_dtype=args.param_dtype,

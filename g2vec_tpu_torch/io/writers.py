@@ -8,6 +8,8 @@
 - ``<NAME>_vectors.txt`` (ref: G2Vec.py:203-215): header
   ``GeneSymbol\\tV0...V{h-1}`` then ``gene`` + ``\\t%.6f`` per dim for ALL
   genes.
+- ``<NAME>_stability.txt`` (the scenario engine's table,
+  :func:`write_stability`): the JAX package's format byte for byte.
 - ``<NAME>_inventory/`` (the query plane's binary bundle, ``--emit-
   inventory`` solo or published by the serve daemon on job completion):
   float32 ``embeddings.npy`` ``[G, H]`` + ``norms.npy`` row L2 norms +
@@ -120,6 +122,35 @@ def write_vectors(result_name: str, vectors: np.ndarray,
             for val in vector:
                 fout.write("\t%.6f" % val)
             fout.write("\n")
+    return path
+
+
+def write_stability(result_name: str, scenario: str,
+                    meta: Sequence, columns: Sequence[str],
+                    genes: Sequence[str],
+                    rows: Sequence[Sequence[str]]) -> str:
+    """The scenario reducer's artifact: ``<NAME>_stability.txt``.
+
+    ``meta`` is an ordered sequence of ``(key, value)`` pairs written as
+    ``# key\tvalue`` lines; ``rows`` holds one preformatted string per
+    cell (stats/reduce.py owns the number formats), so this writer only
+    joins bytes.
+    """
+    if len(genes) != len(rows):
+        raise ValueError(f"write_stability: {len(genes)} genes vs "
+                         f"{len(rows)} rows")
+    path = result_name + "_stability.txt"
+    with open(path, "w") as fout:
+        fout.write("# g2vec stability v1\tscenario=%s\n" % scenario)
+        for key, value in meta:
+            fout.write("# %s\t%s\n" % (key, value))
+        fout.write("GeneSymbol\t" + "\t".join(columns) + "\n")
+        for gene, row in zip(genes, rows):
+            if len(row) != len(columns):
+                raise ValueError(
+                    f"write_stability: row for {gene!r} has {len(row)} "
+                    f"cells for {len(columns)} columns")
+            fout.write(gene + "\t" + "\t".join(row) + "\n")
     return path
 
 
@@ -259,6 +290,12 @@ def write_inventory_bundle(bundle_dir: str, embeddings: np.ndarray,
     os.makedirs(bundle_dir, exist_ok=True)
     gen_name = "gen-%06d" % _next_generation(bundle_dir)
     os.rename(tmp, os.path.join(bundle_dir, gen_name))
+    # Before the pointer flip: a kind=crash or sigkill here leaves the
+    # new generation orphaned and the old pointer serving (the update
+    # op's drill; journal recovery replays the publish). A kind=corrupt
+    # flips bytes in the pointer, which the reader must refuse.
+    fault_point("update_publish",
+                path=os.path.join(bundle_dir, GENERATION_FILE))
     ptmp = os.path.join(bundle_dir, f".{GENERATION_FILE}.tmp.{os.getpid()}")
     with open(ptmp, "w") as f:
         f.write(gen_name + "\n")

@@ -26,6 +26,9 @@ Keys:
   before its stop flag is set). Query plane: ``ann_build`` (after a
   bundle's manifest is written and before its generation is renamed in;
   ``path`` = the index's postings file, the seam for ``corrupt``).
+  Incremental updates: ``update_publish`` (after a bundle's new
+  generation is renamed in and before the pointer flips; ``path`` = the
+  pointer file).
 - ``epoch``: fire only once the hook reports an epoch >= this value.
 - ``kind``: ``crash`` (default) raises :class:`InjectedFault`
   (retryable); ``fatal`` raises :class:`InjectedFatal` (fatal);
@@ -66,14 +69,15 @@ KINDS = ("crash", "fatal", "sigkill", "stall", "corrupt")
 SEAMS = ("load", "preprocess", "paths", "train", "lgroups", "biomarkers",
          "save", "checkpoint_write", "checkpoint_finalize",
          "native_load", "native_walker_load", "device_walk", "walk_cache",
-         "shard_ring", "prefetch", "stream_ckpt", "drain", "ann_build")
+         "shard_ring", "prefetch", "stream_ckpt", "drain", "ann_build",
+         "update_publish")
 
-#: The JAX package's other seams: the fleet and sharded scale-out, the
-#: incremental update's republish. The port has no call site for them
-#: yet, so a plan that names one is refused.
+#: The JAX package's other seams: the fleet and sharded scale-out. The
+#: port has no call site for them yet, so a plan that names one is
+#: refused.
 NOT_PORTED = ("allgather", "stage_barrier", "heartbeat",
               "shard_exchange", "embed_allreduce", "walk_handoff",
-              "halo_build", "update_publish")
+              "halo_build")
 
 
 class FaultPlanError(ValueError):

@@ -49,8 +49,9 @@ next start.
 daemon runs on the card unless ``--device cpu``, and exits non-zero at
 start when no card is visible. In router mode the flag is forwarded to
 every replica, and a replica that cannot boot fails the router's start
-(exit 1). Not ported yet, and refused: the ``update`` op (a submit file
-holding an ``update`` envelope).
+(exit 1). A submit file that holds a whole ``update`` envelope
+(``"op": "update"``, ``job_id``, ``idem_key``, ``job``) goes to the
+``update`` op (``client.update_job``).
 """
 from __future__ import annotations
 
@@ -427,21 +428,28 @@ def serve_main(argv: Optional[List[str]] = None) -> int:
             src = sys.stdin if args.submit == "-" else open(args.submit)
             with src:
                 job = json.load(src)
-            if isinstance(job, dict) and job.get("op") == "update":
-                # An ``update`` envelope: the incremental update op is
-                # not ported yet (the daemon refuses it the same way).
-                print(json.dumps({"event": "rejected",
-                                  "error": "not_ported", "op": "update",
-                                  "detail": "the 'update' op is not "
-                                            "ported yet (ROADMAP item "
-                                            "11)"}))
-                return 4
             try:
-                events = client.submit_job(args.socket, job,
-                                           tenant=args.tenant,
-                                           priority=args.priority,
-                                           deadline_s=args.deadline_s,
-                                           auth_token=token)
+                # A submit file may hold the whole ``update`` envelope
+                # (op/job_id/idem_key/job/...): it goes to the update op,
+                # not into a plain submit's job object (where the schema
+                # would reject ``op`` as an unknown key).
+                if isinstance(job, dict) and job.get("op") == "update":
+                    events = client.update_job(
+                        args.socket, job.get("job_id", ""),
+                        job.get("job", {}),
+                        idem_key=job.get("idem_key", ""),
+                        variant=job.get("variant"),
+                        epochs=int(job.get("epochs", 0) or 0),
+                        tenant=args.tenant,
+                        priority=args.priority,
+                        deadline_s=args.deadline_s,
+                        auth_token=token)
+                else:
+                    events = client.submit_job(args.socket, job,
+                                               tenant=args.tenant,
+                                               priority=args.priority,
+                                               deadline_s=args.deadline_s,
+                                               auth_token=token)
             except client.ServeConnectionLost as e:
                 print(json.dumps({"event": "connection_lost",
                                   "job_id": e.job_id, "error": str(e)}))

@@ -1,7 +1,6 @@
 """Client for ``g2vec serve`` daemons and routers (CLI, chip smoke, tests).
 
-The port's copy of ``g2vec_tpu/serve/client.py`` without ``update_job``:
-it talks the protocol.py JSONL dialect over a UNIX socket path or a TCP
+The port's copy of ``g2vec_tpu/serve/client.py``: it talks the protocol.py JSONL dialect over a UNIX socket path or a TCP
 ``host:port`` address (:func:`protocol.dial` picks the transport), to
 the port's daemon or the JAX package's. The one failure mode worth a
 dedicated type: the server dying mid-job (SIGKILL, preemption) closes
@@ -21,7 +20,8 @@ HA fleets add two layers on top:
   the key. The idempotency key derives the job_id, so a healed router's
   sticky scan reconciles a degraded submit exactly once.
 
-``update_job`` (the ``update`` op) waits for incremental updates.
+:func:`update_job` (the ``update`` op) streams an incremental update of
+a published bundle to its end.
 """
 from __future__ import annotations
 
@@ -152,6 +152,46 @@ def submit_job(socket_path: str, job: dict, tenant: str = "default",
     raise ServeConnectionLost(
         f"daemon stream closed before job "
         f"{job_id or '<unacknowledged>'} finished", job_id=job_id)
+
+
+def update_job(socket_path: str, target_job_id: str, job: dict,
+               idem_key: str, variant: Optional[str] = None,
+               epochs: int = 0, tenant: str = "default",
+               timeout: Optional[float] = None,
+               priority: Optional[str] = None,
+               deadline_s: Optional[float] = None,
+               auth_token: Optional[str] = None) -> List[dict]:
+    """Retrain ``target_job_id``'s published bundle from the new inputs in
+    ``job`` and stream the events to the end: the ``update`` op.
+    ``idem_key`` is required (a resubmit after a lost ack dedups instead
+    of training twice); ``epochs`` bounds the warm-start fine-tune (0 lets
+    the daemon pick). Returns and raises as :func:`submit_job` does."""
+    events: List[dict] = []
+    payload = {"op": "update", "job_id": target_job_id, "job": job,
+               "idem_key": idem_key, "tenant": tenant}
+    if variant is not None:
+        payload["variant"] = variant
+    if epochs:
+        payload["epochs"] = int(epochs)
+    if priority is not None:
+        payload["priority"] = priority
+    if deadline_s is not None:
+        payload["deadline_s"] = deadline_s
+    if auth_token is not None:
+        payload["auth_token"] = auth_token
+    try:
+        for ev in request(socket_path, payload, timeout=timeout):
+            events.append(ev)
+            kind = ev.get("event")
+            if kind == "rejected" or kind in _TERMINAL:
+                return events
+    except socket.timeout:
+        raise ServeTimeout(
+            f"no event from the daemon within {timeout}s while waiting "
+            f"on the update of {target_job_id}") from None
+    raise ServeConnectionLost(
+        f"daemon stream closed before the update of {target_job_id} "
+        f"finished")
 
 
 def _one(socket_path: str, op: str, timeout: Optional[float],

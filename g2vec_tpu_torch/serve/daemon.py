@@ -46,9 +46,15 @@ The daemon runs on the card unless ``--device cpu``: with no card it
 raises at start (``device.resolve_device``). A kernel that fails to
 build or launch fails its batch through
 ``resilience.supervisor.classify_exception`` (fatal for a broken CUDA
-context), never by a move to the plain version. Not ported yet: the
-``update`` op (refused at admission with a structured ``not_ported``
-error) and the router, the lease and the replica fleet.
+context), never by a move to the plain version.
+
+- **The update op**: an ``update`` payload rides the submit pipeline
+  (validation, idempotency key required, quotas, journal, recovery) but
+  plans into a lane-less job that runs the incremental engine
+  (``incremental.run_update``: delta re-walk and warm-start fine-tune on
+  the daemon's device) against the target bundle's live generation, then
+  publishes the next generation atomically with its
+  ``delta_fingerprints.json``.
 
 Outputs are BYTE-IDENTICAL to the same config run solo (same device and
 dtype): jobs execute through the engine's lanes, each of which writes
@@ -113,6 +119,35 @@ idem_job_id = protocol.idem_job_id
 #: keyless jobs — see router._failover). job_ids name files under the
 #: state dir, so the charset is locked down: no separators, no dotfiles.
 _JOB_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,79}")
+
+
+def _update_fields(payload: dict, idem_key: Optional[str], variants_spec,
+                   seeds) -> Tuple[str, Optional[str], int]:
+    """An ``update`` payload's target, variant and epoch bound, with the
+    JAX daemon's checks and messages."""
+    if not idem_key:
+        raise ValueError(
+            "update requires 'idem_key' — the op is "
+            "idempotency-keyed by contract (resubmits after a "
+            "lost ack must dedup, and failover re-derives the "
+            "same id on any replica)")
+    target = payload.get("job_id")
+    if not isinstance(target, str) or not target:
+        raise ValueError("update needs a 'job_id' string naming "
+                         "the target bundle")
+    uvariant = payload.get("variant")
+    if uvariant is not None and not isinstance(uvariant, str):
+        raise ValueError(f"'variant' must be a string, got {uvariant!r}")
+    epochs = payload.get("epochs", 0)
+    if not isinstance(epochs, int) or isinstance(epochs, bool) \
+            or epochs < 0:
+        raise ValueError(f"'epochs' must be a non-negative int, "
+                         f"got {epochs!r}")
+    if variants_spec is not None or seeds:
+        raise ValueError("an update job cannot set 'variants' "
+                         "or 'seeds' — it targets one existing "
+                         "bundle")
+    return target, uvariant, epochs
 
 
 class QueueFull(RuntimeError):
@@ -259,6 +294,13 @@ class ServeJob:
     #: Client-generated idempotency key; job_id is derived from it, so a
     #: retried/re-routed submission dedups instead of duplicating.
     idem_key: Optional[str] = None
+    #: Set (to the target bundle's job_id) when this job is an ``update``:
+    #: it carries no lanes, runs the incremental engine instead of an
+    #: engine batch and publishes the target's next generation. Its
+    #: join_key is unique, so it never joins a training batch.
+    update_of: Optional[str] = None
+    update_variant: Optional[str] = None
+    update_epochs: int = 0       # 0: incremental.run_update's default
     cancel_ev: threading.Event = dataclasses.field(
         default_factory=threading.Event)
 
@@ -685,10 +727,17 @@ class ServeDaemon:
         variants_spec = base.pop("variants", None)
         seeds = base.pop("seeds", 0)
         cfg = config_from_job(base, self._defaults)
-        if variants_spec is not None and seeds:
+        # An ``update`` rides this pipeline end to end (validation, idem
+        # dedup, quotas, journal, recovery) as a lane-less job.
+        update = payload.get("op") == "update"
+        if update:
+            target, uvariant, epochs = _update_fields(
+                payload, idem_key, variants_spec, seeds)
+            variants = []
+        elif variants_spec is not None and seeds:
             raise ValueError("job sets both 'variants' and 'seeds' — "
                              "pick one")
-        if seeds:
+        elif seeds:
             if not isinstance(seeds, int) or isinstance(seeds, bool) \
                     or not (1 <= seeds <= MAX_JOB_LANES):
                 raise ValueError(f"'seeds' must be an int in "
@@ -759,7 +808,14 @@ class ServeDaemon:
                                      else submitted_at),
                        priority=priority, deadline_s=deadline_s,
                        idem_key=idem_key)
-        job.join_key = _join_key(cfg)
+        if update:
+            job.update_of, job.update_variant = target, uvariant
+            job.update_epochs = epochs
+            # A unique join key: an update never joins an engine batch,
+            # and two updates of one bundle run one after the other.
+            job.join_key = ("update", job.job_id)
+        else:
+            job.join_key = _join_key(cfg)
         return job
 
     def _quota_for(self, tenant: str) -> Optional[TenantQuota]:
@@ -795,17 +851,6 @@ class ServeDaemon:
           already exceeds ``deadline_s`` gets a structured ``shed``
           rejection with ``retry_after_s`` instead of an accept that is
           contractually doomed to ``deadline_exceeded``."""
-        if isinstance(payload, dict) and payload.get("op") == "update":
-            # The incremental update engine is not in this package yet:
-            # refused as an unported fault seam is, before any planning.
-            self.metrics.emit("job_rejected", error="not_ported",
-                              detail="op 'update'")
-            return {"event": "rejected", "error": "not_ported",
-                    "op": "update",
-                    "detail": "the 'update' op is not ported yet: "
-                              "g2vec_tpu_torch has no incremental update "
-                              "engine (ROADMAP item 11); submit the "
-                              "edited inputs as a new job"}
         try:
             job = self._plan_job(payload)
         except (ValueError, TypeError, ManifestError) as e:
@@ -1186,6 +1231,9 @@ class ServeDaemon:
                 live.append(j)
         if not live:
             return 0
+        if job.update_of is not None:
+            # Its join key is unique, so the batch is this job alone.
+            return self._run_update_job(job)
         return self._run_jobs(live)
 
     def _notify(self, job: ServeJob, event: Optional[dict]) -> None:
@@ -1387,6 +1435,149 @@ class ServeDaemon:
         with self._lock:
             for j in batch:
                 self._running.pop(j.job_id, None)
+
+    def _run_update_job(self, job: ServeJob) -> int:
+        """One ``update`` job: the incremental engine against the target
+        bundle's live generation, then the next generation's publication.
+        It shares the submit lifecycle: journaled until its record lands
+        (a SIGKILL replays it from the journal), parked when fenced, and
+        cancel, deadline and drain are honoured at the engine's check
+        boundaries."""
+        with self._lock:
+            self._running[job.job_id] = job
+        try:
+            return self._run_update_inner(job)
+        finally:
+            with self._lock:
+                self._running.pop(job.job_id, None)
+
+    def _run_update_inner(self, job: ServeJob) -> int:
+        key, err = self._resolve_bundle(job.update_of, job.update_variant)
+        if err is not None:
+            self._fail_or_requeue(
+                job, f"update target: {err.get('error')}: "
+                     f"{err.get('detail')}", "fatal")
+            return 0
+        path = self._inv_known.get(key)
+        self._job_state(job.job_id, "started", update_of=key,
+                        attempt=job.attempts)
+        self._notify(job, {"event": "started", "job_id": job.job_id,
+                           "update_of": key,
+                           "epochs": job.update_epochs})
+
+        def check() -> None:
+            if self._draining:
+                raise DrainRequested(detail="daemon drain")
+            if self._fenced():
+                raise DrainRequested(detail="fenced by router")
+            if job.cancel_ev.is_set():
+                raise JobCancelled(job.job_id)
+            if job.deadline_expired():
+                raise JobDeadlineExceeded(
+                    job.job_id, detail=f"deadline_s={job.deadline_s}")
+
+        from g2vec_tpu_torch.cache import resolve_cache_tiers
+        from g2vec_tpu_torch.incremental import run_update
+
+        t0 = time.time()
+        try:
+            res = run_update(
+                job.cfg, path,
+                walk_cache=resolve_cache_tiers(self.opts.cache_dir),
+                epochs=job.update_epochs, console=self.console,
+                check=check,
+                emit=lambda kind, **f: self.metrics.emit(
+                    kind, bundle=key, job_id=job.job_id, **f))
+        except JobInterrupted as e:
+            if isinstance(e, DrainRequested):
+                self._job_state(job.job_id, "drained", update_of=key)
+                self._notify(job, {"event": "job_drained",
+                                   "job_id": job.job_id,
+                                   "note": "update stays journaled and "
+                                           "re-runs on the next start"})
+                self._notify(job, None)
+            else:
+                self._finish_terminal(job, e.reason, str(e))
+            return 0
+        except BaseException as e:  # noqa: BLE001 — classified below
+            if isinstance(e, (KeyboardInterrupt, SystemExit)):
+                raise
+            from g2vec_tpu_torch.resilience.supervisor import (
+                classify_exception)
+
+            err_s = f"{type(e).__name__}: {e}"[:500]
+            self.console(f"[serve] update {job.job_id} failed: {err_s}")
+            self._fail_or_requeue(job, err_s, classify_exception(e))
+            return 0
+        wall = time.time() - t0
+        if self._fenced():
+            # Between the last check and the publication: the survivor
+            # owns this update now. No pointer flip, no record.
+            self._job_state(job.job_id, "drained", update_of=key)
+            self._notify(job, {"event": "job_drained",
+                               "job_id": job.job_id,
+                               "note": "replica fenced; update stays "
+                                       "journaled for migration"})
+            self._notify(job, None)
+            return 0
+        from g2vec_tpu_torch.io.writers import write_inventory_bundle
+
+        try:
+            gen_dir = write_inventory_bundle(
+                path, res.embeddings, res.genes, res.biomarker_scores,
+                {"source": "update", "job_id": job.update_of,
+                 "variant": job.update_variant, "tenant": job.tenant,
+                 "updated_by": job.job_id, "mode": res.stats["mode"]},
+                ann_nlist=self.opts.ann_nlist,
+                seed_centroids=res.km_centers,
+                extra_files={"delta_fingerprints.json":
+                             res.fingerprints})
+        except (OSError, ValueError) as e:
+            # Publication is the update's deliverable (unlike a submit's
+            # best-effort bundle): its failure fails the job.
+            self._fail_or_requeue(
+                job, f"republish failed: {type(e).__name__}: {e}"[:500],
+                "retryable" if isinstance(e, OSError) else "fatal")
+            return 0
+        generation = os.path.basename(gen_dir)
+        # As in _publish_inventory: readers map the new generation, every
+        # cached answer of the old one becomes unreachable, resolution
+        # rescans.
+        self.catalog.invalidate(key)
+        self.qcache.invalidate_bundle(key)
+        self._inv_known = {}
+        self.metrics.emit(
+            "republish", bundle=key, generation=generation,
+            mode=res.stats["mode"],
+            bytes=sum(os.path.getsize(os.path.join(gen_dir, fn))
+                      for fn in os.listdir(gen_dir)))
+        self._emit_ann_build(key, gen_dir)
+        now = time.time()
+        acc = res.acc_val
+        record = {"event": "job_done", "job_id": job.job_id,
+                  "tenant": job.tenant, "status": "done",
+                  "idem_key": job.idem_key, "update_of": key,
+                  "generation": generation, "stats": res.stats,
+                  "acc_val": (None if acc != acc else round(acc, 6)),
+                  "wall_seconds": round(wall, 3),
+                  "latency_seconds": round(now - job.submitted_at, 3),
+                  "submitted_at": job.submitted_at, "finished_at": now}
+        write_json_atomic(
+            os.path.join(self._results_dir, f"{job.job_id}.json"), record)
+        self._unjournal(job)
+        self._cleanup_ckpt(job.job_id)
+        with self._lock:
+            self.jobs_done += 1
+        self._tenant_count(job.tenant, "done")
+        self._job_state(job.job_id, "done", update_of=key)
+        self.metrics.emit("update", bundle=key, job_id=job.job_id,
+                          generation=generation, **res.stats)
+        self._notify(job, record)
+        self._notify(job, None)
+        self.console(f"[serve] update {job.job_id} -> {key} "
+                     f"({generation}, mode={res.stats['mode']}, "
+                     f"walked={res.stats['walked_rows']}) in {wall:.2f}s")
+        return 1
 
     def _route_outputs(self, job: ServeJob, v: LaneVariant, lane) -> List[str]:
         """Move a lane's spool files to the job's requested result_name —
@@ -1866,8 +2057,8 @@ class ServeDaemon:
                     protocol.write_event(f, stale)
                     return
             if op in ("submit", "update"):
-                # ``update`` is a write: admission answers it (with the
-                # structured not_ported refusal) like a submit.
+                # ``update`` is a write: it rides the submit pipeline
+                # (admission, journal, streamed events).
                 sub: "queue.Queue" = queue.Queue()
                 resp = self.admit(req, subscriber=sub)
                 protocol.write_event(f, resp)

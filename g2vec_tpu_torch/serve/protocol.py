@@ -1,8 +1,7 @@
 """Wire protocol for ``g2vec serve``: JSONL over a UNIX or TCP socket.
 
 The port's copy of ``g2vec_tpu/serve/protocol.py``, with the same wire
-format: a client of either package talks to a daemon of the other. The
-port's daemon refuses the ``update`` op (not ported yet).
+format: a client of either package talks to a daemon of the other.
 
 One request object per connection, newline-terminated; the daemon answers
 with a stream of newline-delimited JSON events and closes the stream after

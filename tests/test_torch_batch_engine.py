@@ -289,11 +289,22 @@ def test_cli_flags_reach_the_config():
         "fold", "--cv-folds", "5", "--cv-fold", "4", "--permute-seed", "7"])
     assert (cfg.manifest, cfg.subsample_mode, cfg.cv_folds, cfg.cv_fold,
             cfg.permute_seed) == ("m.json", "fold", 5, 4, 7)
-    # The scenario engine is not ported: argparse refuses its flags.
-    for flag in (["--scenario", "cv"], ["--replicates", "2"],
-                 ["--folds", "3"]):
-        with pytest.raises(SystemExit):
+    # The scenario engine's flags (stats/): they reach the config, the
+    # config checks refuse a half scenario, argparse an unknown one.
+    cfg = config_from_args(["E", "C", "N", "R", "--scenario", "cv",
+                            "--folds", "3", "--scenario-seed", "4"])
+    assert (cfg.scenario, cfg.folds, cfg.replicates, cfg.scenario_seed) \
+        == ("cv", 3, 0, 4)
+    cfg = config_from_args(["E", "C", "N", "R", "--scenario", "bootstrap",
+                            "--replicates", "2"])
+    assert (cfg.scenario, cfg.replicates) == ("bootstrap", 2)
+    for flag, match in ((["--scenario", "cv"], "--folds >= 2"),
+                        (["--replicates", "2"], "need --scenario"),
+                        (["--folds", "3"], "need --scenario")):
+        with pytest.raises(ValueError, match=match):
             config_from_args(["E", "C", "N", "R", *flag])
+    with pytest.raises(SystemExit):
+        config_from_args(["E", "C", "N", "R", "--scenario", "jackknife"])
 
 
 @pytest.mark.parametrize("overrides", [

@@ -745,3 +745,83 @@ def test_router_fails_a_job_over_between_card_replicas(cuda, tmp_path):
                     solo.output_files):
         with open(a, "rb") as fa, open(b, "rb") as fb:
             assert fa.read() == fb.read()
+
+
+def _small_files(tmp_path):
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+
+    return write_synthetic_tsv(SyntheticSpec(
+        n_good=24, n_poor=20, module_size=12, n_background=24,
+        n_expr_only=4, n_net_only=4, module_chords=2, background_edges=40,
+        seed=7), str(tmp_path))
+
+
+def test_permutation_scenario_on_the_card_runs_the_lanes(cuda, tmp_path):
+    """A permutation scenario on the card: one walk product a group, the
+    lane kernels launched for its bucket, and a null replicate's files
+    its solo run's bytes."""
+    import dataclasses
+
+    from g2vec_tpu_torch.batch.engine import lane_config
+    from g2vec_tpu_torch.config import G2VecConfig
+    from g2vec_tpu_torch.pipeline import run
+    from g2vec_tpu_torch.stats.run import run_scenario
+
+    files = _small_files(tmp_path)
+    cfg = G2VecConfig(expression_file=files["expression"],
+                      clinical_file=files["clinical"],
+                      network_file=files["network"],
+                      result_name=str(tmp_path / "s" / "out"), lenPath=20,
+                      numRepetition=3, sizeHiddenlayer=16, epoch=30,
+                      numBiomarker=10, seed=11, scenario="permutation",
+                      replicates=3)
+    pm.reset_launch_counts()
+    res = run_scenario(cfg, console=lambda s: None)
+    assert res.walk_stats["walked"] == 2
+    assert pm.packed_matmul_lanes_fwd.launches > 0
+    assert pm.packed_matmul_lanes_bwd.launches > 0
+    v = res.batch.variants[2]
+    solo = run(lane_config(dataclasses.replace(
+        cfg, result_name=str(tmp_path / "solo")), v), console=lambda s: None)
+    for a, b in zip(res.batch.lanes[2].output_files, solo.output_files):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read()
+
+
+def test_update_fine_tune_on_the_card_runs_the_solo_kernels(cuda,
+                                                            tmp_path):
+    """A bootstrap update on the card launches both solo kernels in its
+    fine-tune; a no-op update launches nothing and republishes the prior
+    arrays."""
+    from g2vec_tpu_torch.config import G2VecConfig
+    from g2vec_tpu_torch.incremental import run_update
+    from g2vec_tpu_torch.io.writers import write_inventory_bundle
+    from g2vec_tpu_torch.pipeline import run
+
+    files = _small_files(tmp_path)
+    cfg = G2VecConfig(expression_file=files["expression"],
+                      clinical_file=files["clinical"],
+                      network_file=files["network"],
+                      result_name=str(tmp_path / "cold"), lenPath=20,
+                      numRepetition=3, sizeHiddenlayer=16, epoch=30,
+                      numBiomarker=10, seed=11)
+    cold = run(cfg, console=lambda s: None)
+    bundle = str(tmp_path / "bundle")
+    write_inventory_bundle(bundle, cold.embeddings, list(cold.genes),
+                           cold.biomarker_scores, {})
+    pm.reset_launch_counts()
+    up = run_update(cfg, bundle)
+    assert up.stats["mode"] == "bootstrap"
+    assert pm.packed_matmul_fwd.launches > 0
+    assert pm.packed_matmul_bwd.launches > 0
+    assert np.isfinite(up.embeddings).all()
+    write_inventory_bundle(bundle, up.embeddings, up.genes,
+                           up.biomarker_scores, {}, extra_files={
+                               "delta_fingerprints.json": up.fingerprints})
+    pm.reset_launch_counts()
+    noop = run_update(cfg, bundle)
+    assert noop.stats["mode"] == "noop"
+    assert pm.packed_matmul_fwd.launches == pm.packed_matmul_bwd.launches \
+        == 0
+    assert noop.embeddings.tobytes() == up.embeddings.tobytes()

@@ -3,11 +3,12 @@
 - By AST: no module of g2vec_tpu_torch/, and not chip_smoke.py, imports
   jax, jaxlib, optax, ml_dtypes or g2vec_tpu.
 - At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
-  cpu``, full-batch and ``--train-mode streaming``) runs a tiny spec end
-  to end in a fresh interpreter, after which neither jax nor any
-  g2vec_tpu module is in ``sys.modules``; so do ``serve --help`` and the
-  router serving a job through a replica (both load no torch either),
-  and the serve daemon serving a job.
+  cpu``, full-batch, ``--train-mode streaming``, ``--seeds`` and
+  ``--scenario``) runs a tiny spec end to end in a fresh interpreter,
+  after which neither jax nor any g2vec_tpu module is in ``sys.modules``;
+  so do ``serve --help`` and the router serving a job through a replica
+  (both load no torch either), the serve daemon serving a job, and the
+  daemon serving an ``update`` of a bundle.
 - Without ``--device cpu`` on a machine with no card, the entry points
   raise instead of running on the CPU.
 """
@@ -123,6 +124,21 @@ def test_batch_cli_runs_without_jax_in_sys_modules(tmp_path):
     assert done["event"] == "done" and done["buckets"][0]["lanes"] == 2
 
 
+def test_scenario_cli_runs_without_jax_in_sys_modules(tmp_path):
+    """The scenario engine (plan, the lanes, the reducers, the stability
+    writer) is on this run's path."""
+    lines = _run_cli(tmp_path, "--scenario", "permutation", "--replicates",
+                     "2", "--metrics-jsonl", str(tmp_path / "m.jsonl"),
+                     names=("tiny.obs", "tiny.p000", "tiny.p001"),
+                     last_stage=">>> [batch] 7. Save results (per lane)")
+    assert any(line.startswith("scenario ") and "walked=2" in line
+               for line in lines)
+    assert (tmp_path / "tiny_stability.txt").exists()
+    events = [json.loads(line)["event"]
+              for line in open(tmp_path / "m.jsonl")]
+    assert events[0] == "scenario" and events[-1] == "stability"
+
+
 _SERVE_SCRIPT = r"""
 import json, runpy, sys, threading
 mode, out_dir = sys.argv[1], sys.argv[2]
@@ -183,9 +199,21 @@ else:
         lenPath=10, numRepetition=3, sizeHiddenlayer=8, epoch=4,
         numBiomarker=5, kmeans_iters=20, seeds=2), timeout=120)
     query = client.query(out_dir + "/s.sock", "list", timeout=30)
+    ok = True
+    if mode == "update":
+        # The incremental engine (incremental.py) on the first bundle.
+        jid = events[-1]["job_id"]
+        up = client.update_job(out_dir + "/s.sock", jid, dict(
+            expression_file=files["expression"],
+            clinical_file=files["clinical"], network_file=files["network"],
+            result_name=out_dir + "/tiny_u", lenPath=10, numRepetition=3,
+            sizeHiddenlayer=8, epoch=4, numBiomarker=5, kmeans_iters=20),
+            idem_key="u-1", variant="s0", timeout=120)
+        ok = (up[-1]["event"] == "job_done"
+              and up[-1]["stats"]["mode"] == "bootstrap")
     client.shutdown(out_dir + "/s.sock", timeout=30)
     t.join(timeout=120)
-    rc = 0 if (events[-1]["event"] == "job_done" and not t.is_alive()
+    rc = 0 if (ok and events[-1]["event"] == "job_done" and not t.is_alive()
                and len(query["bundles"]) == 2) else 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "ml_dtypes",
@@ -194,20 +222,21 @@ print(json.dumps({"rc": rc, "bad": bad, "torch": "torch" in sys.modules}))
 """
 
 
-@pytest.mark.parametrize("mode", ["help", "daemon", "router"])
+@pytest.mark.parametrize("mode", ["help", "daemon", "router", "update"])
 def test_serve_runs_without_jax_in_sys_modules(tmp_path, mode):
     """``python -m g2vec_tpu_torch serve --help`` loads neither jax nor
     torch; the daemon (admission, a joined batch, bundle publication, a
-    query, shutdown) loads no jax; the router (``serve --replicas 1``,
-    one routed job on its ``--device cpu`` replica, shutdown) loads
-    neither."""
+    query, shutdown; with ``update``, an update of a bundle) loads no jax;
+    the router (``serve --replicas 1``, one routed job on its ``--device
+    cpu`` replica, shutdown) loads neither."""
     proc = subprocess.run([sys.executable, "-c", _SERVE_SCRIPT, mode,
                            str(tmp_path)], capture_output=True, text=True,
                           env=dict(os.environ, PYTHONPATH=ROOT), timeout=300,
                           cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-2000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report == {"rc": 0, "bad": [], "torch": mode == "daemon"}, \
+    assert report == {"rc": 0, "bad": [],
+                      "torch": mode in ("daemon", "update")}, \
         proc.stderr[-2000:]
     if mode == "help":
         assert "--socket ADDR" in proc.stdout

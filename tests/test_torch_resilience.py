@@ -84,6 +84,42 @@ def test_reference_seam_the_port_lacks_is_refused(seam):
         G2VecConfig(fault_plan=f"stage=load;stage={seam}").validate()
 
 
+@pytest.mark.parametrize("kind", ["crash", "fatal"])
+def test_update_publish_fires_between_the_rename_and_the_pointer_flip(
+        kind, tmp_path):
+    """The ``update_publish`` seam, in both packages' writers: the new
+    generation is renamed in and the pointer still names the prior one;
+    the next publication goes past the orphan's serial."""
+    import numpy as np
+
+    from g2vec_tpu.io import writers as jwriters
+    from g2vec_tpu_torch.io import writers
+
+    emb = np.random.default_rng(0).standard_normal((6, 4)).astype(
+        np.float32)
+    genes = [f"G{i}" for i in range(6)]
+    states = []
+    for mod, fmod, sub in ((writers, faults, "port"),
+                           (jwriters, jfaults, "jax")):
+        root = str(tmp_path / sub)
+        mod.write_inventory_bundle(root, emb, genes, None, {})
+        fmod.install_plan(f"stage=update_publish,kind={kind}")
+        err = fmod.InjectedFatal if kind == "fatal" else \
+            fmod.InjectedFault
+        with pytest.raises(err):
+            mod.write_inventory_bundle(root, emb, genes, None, {})
+        fmod._reset_for_tests()
+        after = (mod.read_generation(root), sorted(os.listdir(root)))
+        last = mod.write_inventory_bundle(root, emb, genes, None, {})
+        states.append((after, os.path.basename(last),
+                       mod.read_generation(root)))
+    assert states[0] == states[1]
+    (pointer, listing), last, live = states[0]
+    assert pointer == "gen-000001"
+    assert "gen-000002" in listing
+    assert last == live == "gen-000003"
+
+
 def test_registry_is_the_reference_split_in_two():
     assert set(faults.SEAMS) | set(faults.NOT_PORTED) == set(jfaults.SEAMS)
     assert not set(faults.SEAMS) & set(faults.NOT_PORTED)

@@ -8,7 +8,8 @@ tests/test_query.py's tiny ``SyntheticSpec``, f32, native walker, on
 
 - Admission: bad payloads get the JAX daemon's rejection strings; the
   job schema is the JAX package's without the fields the port has no
-  counterpart for; an ``update`` op is refused as not ported yet.
+  counterpart for; an ``update`` op is admitted as the JAX daemon admits
+  it.
 - ``_FairQueue`` pops in the JAX queue's order for the same pushes.
 - Two compatible jobs join one engine batch and each variant's files are
   the port's solo run's bytes; their bundles are published and queryable.
@@ -214,14 +215,28 @@ def test_job_schema_is_the_jax_schema_without_unported_fields(tsv, tmp_path):
     assert cfg.device == "cpu" and cfg.lenPath == 8
 
 
-def test_update_op_is_refused_as_not_ported(daemons, tsv, tmp_path):
-    port, _, tmp = daemons
-    payload = {"op": "update", "job_id": "i123", "idem_key": "k",
+def test_update_op_rides_the_submit_pipeline(daemons, tsv, tmp_path):
+    """An ``update`` payload is admitted as the JAX daemon admits it (a
+    lane-less job under its idempotency key's id, over the connection
+    too); a keyless one gets the JAX rejection; the CLI routes an update
+    envelope to the op (exit 3: no daemon at that socket)."""
+    port, ref, tmp = daemons
+    payload = {"op": "update", "job_id": "i123", "idem_key": "k-up",
                "job": _job(tsv, tmp, "u")}
-    got = port.admit(payload)
-    assert got["event"] == "rejected" and got["error"] == "not_ported"
-    assert "not ported yet" in got["detail"]
-    assert _roundtrip(port, payload) == got
+    got, want = port.admit(dict(payload)), ref.admit(dict(payload))
+    for ack in (got, want):
+        ack.pop("state_dir")
+    assert got == want
+    assert got["event"] == "accepted" and got["n_lanes"] == 0
+    assert got["job_id"] == protocol.idem_job_id("k-up")
+    assert port._queue.remove(got["job_id"]).update_of == "i123"
+    ref._queue.remove(want["job_id"])
+    for d in (port, ref):                 # leave the fixture's state clean
+        os.unlink(os.path.join(d._jobs_dir, f"{got['job_id']}.json"))
+    keyless = {k: v for k, v in payload.items() if k != "idem_key"}
+    assert port.admit(dict(keyless)) == ref.admit(dict(keyless))
+    rej = _roundtrip(port, keyless)
+    assert rej["error"] == "bad_job" and "idem_key" in rej["detail"]
     assert port._queue.depth() == 0
     path = tmp_path / "update.json"
     path.write_text(json.dumps(payload))
@@ -230,8 +245,8 @@ def test_update_op_is_refused_as_not_ported(daemons, tsv, tmp_path):
          str(tmp_path / "none.sock"), "--submit", str(path)],
         capture_output=True, text=True, timeout=60,
         env=dict(os.environ, PYTHONPATH=ROOT))
-    assert proc.returncode == 4
-    assert json.loads(proc.stdout)["error"] == "not_ported"
+    assert proc.returncode == 3
+    assert "cannot reach daemon" in proc.stderr
 
 
 def test_router_flags_are_refused(tmp_path):
