@@ -16,9 +16,9 @@ Phase 3 runs with the stage overlap and the native reader on (their
 defaults) and with ``--metrics-jsonl``: it checks that the stream's
 ``done`` record holds the run's stage seconds and that the native parser
 read the input (a fallback warning fails it), then runs the CLI in fresh
-interpreters in turns (defaults and ``--no-overlap`` three times each,
-then ``--no-overlap --no-native-io``), prints each run's stage seconds
-and spans, and checks that all eight runs wrote byte-identical files;
+interpreters (defaults, ``--no-overlap``, then ``--no-overlap
+--no-native-io``), prints each run's stage seconds and spans, and checks
+that all four runs wrote byte-identical files;
 one more CLI run with ``--profile-dir`` (the same bytes) prints the
 trace's CUDA kernel time by kernel name and the device's idle share over
 stage ``train``.
@@ -419,15 +419,14 @@ def _check_metrics(path, result) -> None:
 def _cli_runs(files, tmp, epoch, flag_sets=None, tag="cli"):
     """The solo run through the CLI, each in a fresh interpreter (so each
     pays the process's first CUDA use), once per entry of ``flag_sets``;
-    by default in turns: defaults (overlap, the native reader) and
-    --no-overlap three times each, then --no-overlap --no-native-io.
+    by default: defaults (overlap, the native reader), --no-overlap, then
+    --no-overlap --no-native-io.
     Returns [(flags, stage seconds, overlap_saved_s, stage extras, output
     bytes, the metrics stream's done record)]."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
     if flag_sets is None:
-        flag_sets = (([], ["--no-overlap"]) * 3
-                     + (["--no-overlap", "--no-native-io"],))
+        flag_sets = ([], ["--no-overlap"], ["--no-overlap", "--no-native-io"])
     runs = []
     for i, flags in enumerate(flag_sets):
         out = os.path.join(tmp, f"{tag}{i}")
@@ -479,26 +478,36 @@ def _stage3_csr(cfg):
         device="cuda"), g) for i in range(2)]
 
 
-def _stream_shapes(torch, cfg):
+def _stream_shapes(torch, cfg, byte_range=None):
     """The streaming trainer's launch shapes on this input, built by its
     own helpers as it builds them: the train rows of the shard that keeps
     the most (each row padded once to the kernels' 4-byte stride), every
-    kept shard's train row count, and the full val buffer of
-    EVAL_ROWS_CAP rows gathered from the shards in order."""
+    kept shard's train row count, and the full val buffer of the run's
+    eval cap (EVAL_ROWS_CAP unless ``stream_eval_rows``) gathered from the
+    shards in order. ``--walk-starts`` picks the start genes as the
+    trainer does; ``byte_range`` keeps one rank's byte columns of each row
+    (an embed split's rows, padded at its local width)."""
     from g2vec_tpu_torch.ops.host_walker import plan_shards, walk_shard
+    from g2vec_tpu_torch.parallel.shard import subset_starts
     from g2vec_tpu_torch.train.stream import (EVAL_ROWS_CAP, _filter_rows,
                                               _shard_split)
     from g2vec_tpu_torch.train.trainer import _fused_rows
 
     g, csr = _stage3_csr(cfg)
-    plan = plan_shards(g, cfg.numRepetition, cfg.shard_paths,
+    starts = subset_starts(g, cfg.walk_starts)
+    plan = plan_shards(g if starts is None else len(starts),
+                       cfg.numRepetition, cfg.shard_paths,
                        len_path=cfg.lenPath)
     seed = cfg.seed if cfg.train_seed is None else cfg.train_seed
+    cap = cfg.stream_eval_rows or EVAL_ROWS_CAP
+    blo, bhi = byte_range or (0, (g + 7) // 8)
+    width = g if byte_range is None else (bhi - blo) * 8
     widest, train_rows, val, n_val = None, [], [], 0
     for si in range(plan.n_shards):
         x = np.concatenate([walk_shard(None, None, None, g, plan, si,
                                        seed=(cfg.seed << 1) | gi,
-                                       csr=csr[gi]) for gi in (0, 1)])
+                                       csr=csr[gi], starts=starts)
+                            for gi in (0, 1)])
         y = np.repeat(np.array([0, 1], np.int32), plan.group_rows(si))
         keep = _filter_rows(x, y)
         if not len(keep):
@@ -506,15 +515,17 @@ def _stream_shapes(torch, cfg):
         tr, vl = _shard_split(len(keep), seed, si, cfg.val_fraction)
         train_rows.append(len(tr))
         if widest is None or len(tr) > len(widest):
-            widest = x[keep][tr]
-        take = vl[:EVAL_ROWS_CAP - n_val]
-        val.append(x[keep][take])
+            widest = x[keep][tr][:, blo:bhi]
+        take = vl[:cap - n_val]
+        val.append(x[keep][take][:, blo:bhi])
         n_val += len(take)
     none = widest[:0]
-    return (torch.from_numpy(_fused_rows(widest, none, g)).cuda(),
+    return (torch.from_numpy(_fused_rows(widest, none, width)).cuda(),
             train_rows,
-            torch.from_numpy(_fused_rows(np.concatenate(val), none, g)).cuda(),
+            torch.from_numpy(_fused_rows(np.concatenate(val), none,
+                                         width)).cuda(),
             plan)
+
 
 def _forward_layouts(torch, pm, packed, g, h, gen, flush):
     """The forward at the main path's shape beside the other layouts it
@@ -2943,6 +2954,316 @@ def _update_drills(torch, pm, files, tmp):
     return walls, launches, stats
 
 
+# A rank (or the plain run) of phase 13, run through this wrapper instead
+# of ``python -m g2vec_tpu_torch``: the CLI's own entry point, with the
+# pipeline's result kept, and at exit its selections, its kernel wrappers'
+# launch counts and its peak device memory recorded (a SIGKILLed rank, or
+# one that exits through its failure path, records nothing).
+_RANK = r"""
+import atexit, hashlib, json, os, runpy, sys
+sys.argv = ["g2vec_tpu_torch", *sys.argv[1:]]
+import g2vec_tpu_torch.pipeline as pipeline
+kept = {}
+_run = pipeline.run
+
+
+def run(cfg, *args, **kwargs):
+    kept["result"] = res = _run(cfg, *args, **kwargs)
+    return res
+
+
+pipeline.run = run
+
+
+def report():
+    import torch
+    from g2vec_tpu_torch.ops import packed_matmul as pm
+
+    res = kept.get("result")
+    path = os.path.join(os.environ["G2V_SMOKE_REPORTS"], f"{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump({
+            "rank": int(os.environ.get("G2VEC_PROCESS_ID", "0")),
+            "packed_matmul_fwd": pm.packed_matmul_fwd.launches,
+            "packed_matmul_bwd": pm.packed_matmul_bwd.launches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "acc_val": None if res is None else float(res.acc_val),
+            "biomarkers": None if res is None else list(res.biomarkers),
+            "lgroups_sha": None if res is None else hashlib.sha256(
+                res.lgroup_idx.tobytes()).hexdigest(),
+            "n_paths": None if res is None else int(res.n_paths),
+            "epochs": None if res is None else len(res.train_history),
+            "rows": None if res is None else int(res.embeddings.shape[0]),
+            "output_files": None if res is None else list(res.output_files),
+            "stage_seconds": None if res is None else res.stage_seconds}, f)
+
+
+atexit.register(report)
+runpy.run_module("g2vec_tpu_torch", run_name="__main__")
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start_ranks(files, out, flags, reports, n_ranks=1, port=None):
+    """``n_ranks`` processes of the CLI (through ``_RANK``), the
+    ``G2VEC_*`` environment naming each one's rank when ``n_ranks > 1``;
+    returns the Popen objects, their output going to ``out.r<rank>.log``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    wrapper = os.path.join(reports, "rank.py")
+    if not os.path.exists(wrapper):
+        with open(wrapper, "w") as f:
+            f.write(_RANK)
+    procs = []
+    for rank in range(n_ranks):
+        env = dict(os.environ, PYTHONPATH=root, G2V_SMOKE_REPORTS=reports)
+        for name in ("G2VEC_COORDINATOR", "G2VEC_PROCESS_ID",
+                     "G2VEC_NUM_PROCESSES", "G2VEC_FAULT_PLAN"):
+            env.pop(name, None)
+        if n_ranks > 1:
+            env.update(G2VEC_COORDINATOR=f"127.0.0.1:{port}",
+                       G2VEC_PROCESS_ID=str(rank),
+                       G2VEC_NUM_PROCESSES=str(n_ranks))
+        log = open(f"{out}.r{rank}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, wrapper, files["expression"], files["clinical"],
+             files["network"], out, *flags], env=env, cwd=root,
+            stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    return procs
+
+
+def _wait_ranks(procs, out, timeout=400):
+    """Wait for every process; returns their exit codes and logs."""
+    t_end = time.monotonic() + timeout
+    rcs = []
+    try:
+        for p in procs:
+            rcs.append(p.wait(timeout=max(1.0, t_end - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = []
+    for rank in range(len(procs)):
+        with open(f"{out}.r{rank}.log") as f:
+            logs.append(f.read())
+    return rcs, logs
+
+
+def _rank_reports(reports):
+    out = []
+    for name in sorted(os.listdir(reports)):
+        if name.endswith(".json"):
+            with open(os.path.join(reports, name)) as f:
+                out.append(json.load(f))
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def _band_of(a_acc, a_bm, b_acc, b_bm):
+    return abs(a_acc - b_acc), len(set(a_bm) & set(b_bm)) / max(len(b_bm), 1)
+
+
+def _scale_phase(torch, pm, tmp):
+    """Phase 13: single-card scale and two ranks on the one card. Returns
+    the kernel line's ``scale`` entries of the two packed kernels."""
+    from g2vec_tpu_torch.data.synth import SynthGraphSpec, write_synth_graph
+    from g2vec_tpu_torch.parallel.shard import ShardSpec
+
+    t13 = time.perf_counter()
+    kernels = ("packed_matmul_fwd", "packed_matmul_bwd")
+    (tcga, big), secs = _timed(lambda: (
+        write_synth_graph(SynthGraphSpec(n_genes=20_000, seed=0),
+                          os.path.join(tmp, "tcga"), prefix="tcga"),
+        write_synth_graph(SynthGraphSpec(n_genes=262_144, n_good=8, n_poor=8,
+                                         seed=5),
+                          os.path.join(tmp, "big"), prefix="big")))
+    print(f"    inputs (data/synth.py): G {tcga['n_genes']} x "
+          f"{tcga['n_edges']} edges, 40 + 40 samples, seed 0; G "
+          f"{big['n_genes']} x {big['n_edges']} edges, 8 + 8 samples, seed "
+          f"5 ({secs:.1f} s to write both; expression files "
+          f"{os.path.getsize(tcga['expression'])} and "
+          f"{os.path.getsize(big['expression'])} bytes)")
+
+    # (a) The TCGA-scale single rank, in process.
+    a_cfg = _config(tcga, tmp, "cuda", epoch=30, train_mode="streaming",
+                    walk_starts=4096)
+    a_cfg.result_name += "_tcga"
+    pm.reset_launch_counts()
+    a_run, _ = _run_pipeline(a_cfg)
+    a_launches = {k: getattr(pm, k).launches for k in kernels}
+    st = a_run.stream_stats
+    print(f"    (a) G 20000 streaming, hidden 128, bf16, --walk-starts 4096: "
+          f"{a_run.n_paths} paths in {st['n_shards']} shards of "
+          f"{st['shard_rows']} rows, {len(a_run.train_history)} epochs, "
+          f"stop epoch {a_run.stop_epoch}, val acc {a_run.acc_val:.4f}; "
+          f"launches {a_launches}; stage seconds " + json.dumps(
+              {k: round(v, 3) for k, v in a_run.stage_seconds.items()}))
+    if a_run.embeddings.shape != (20_000, 128) or \
+            not np.isfinite(a_run.embeddings).all():
+        raise RuntimeError("(a): embeddings are not finite [G, 128]")
+    if not a_run.acc_val > 0.5:
+        raise RuntimeError(f"(a): val accuracy {a_run.acc_val} <= 0.5")
+    if not all(a_launches.values()):
+        raise RuntimeError(f"(a): a packed kernel never launched: "
+                           f"{a_launches}")
+    one_cfg = _config(tcga, tmp, "cuda", epoch=30, train_mode="streaming",
+                      walk_starts=4096, graph_shards=1, embed_shards=1)
+    one_cfg.result_name += "_tcga_1rank"
+    one, _ = _run_pipeline(one_cfg)
+    if _outputs(one) != _outputs(a_run):
+        raise RuntimeError("(a): --graph-shards 1 --embed-shards 1 wrote "
+                           "other bytes than the plain run")
+    print("    --graph-shards 1 --embed-shards 1: byte-identical files")
+
+    # (b) The scale-out spec, plain and on two ranks, and (c) the drill,
+    # all started together (five processes on the one card).
+    b_flags = ["-p", "12", "-r", "2", "-s", "256", "-e", "2",
+               "--stream-patience", "2", "--train-mode", "streaming",
+               "--walk-starts", "2048", "--shard-paths", "256",
+               "--stream-eval-rows", "256"]
+    fleet_flags = ["--distributed", "--graph-shards", "2", "--embed-shards",
+                   "2"]
+    runs = {}
+    t_b = time.perf_counter()
+    for name, files, flags, n in (
+            ("plain", big, b_flags, 1),
+            ("fleet", big, b_flags + fleet_flags
+             + ["--fleet-watchdog-deadline", "300"], 2),
+            ("drill", tcga, ["-e", "30", "--train-mode", "streaming",
+                             "--walk-starts", "4096", *fleet_flags,
+                             "--fleet-watchdog-deadline", "15",
+                             "--fault-plan", "process=1,stage=embed_allreduce,"
+                             "kind=sigkill,epoch=3"], 2)):
+        reports = os.path.join(tmp, f"{name}_reports")
+        os.makedirs(reports)
+        out = os.path.join(tmp, f"big_{name}")
+        runs[name] = (_start_ranks(files, out, flags, reports, n,
+                                   _free_port()), out, reports)
+    done = {name: _wait_ranks(procs, out) for name, (procs, out, _)
+            in runs.items()}
+    print(f"    (b, c) the plain run, the two ranks and the drill took "
+          f"{time.perf_counter() - t_b:.1f} s together")
+    for name in ("plain", "fleet"):
+        rcs, logs = done[name]
+        if any(rcs):
+            raise RuntimeError(f"(b) {name}: exit codes {rcs}:\n"
+                               + "\n".join(log[-3000:] for log in logs))
+    plain, = _rank_reports(runs["plain"][2])
+    ranks = _rank_reports(runs["fleet"][2])
+    if [r["rank"] for r in ranks] != [0, 1]:
+        raise RuntimeError(f"(b): rank reports {ranks}")
+    for key in ("biomarkers", "lgroups_sha", "acc_val", "n_paths"):
+        if ranks[0][key] != ranks[1][key]:
+            raise RuntimeError(f"(b): the ranks' {key} differ")
+    if ranks[1]["output_files"] or len(ranks[0]["output_files"]) != 3 \
+            or ranks[0]["rows"] + ranks[1]["rows"] != 262_144:
+        raise RuntimeError(f"(b): output files {ranks[0]['output_files']} "
+                           f"and {ranks[1]['output_files']}, rows "
+                           f"{ranks[0]['rows']} + {ranks[1]['rows']}")
+    with open(ranks[0]["output_files"][2]) as f:
+        n_lines = sum(1 for _ in f)
+    if n_lines != 262_145:
+        raise RuntimeError(f"(b): the vectors file has {n_lines} lines")
+    acc_gap, overlap = _band_of(ranks[0]["acc_val"], ranks[0]["biomarkers"],
+                                plain["acc_val"], plain["biomarkers"])
+    print(f"    (b) G 262144, hidden 256, 8 + 8 samples, -p 12 -r 2, "
+          f"--walk-starts 2048, --shard-paths 256, --stream-eval-rows 256, "
+          f"-e 2: plain val acc {plain['acc_val']:.4f}, {plain['n_paths']} "
+          f"paths, {plain['epochs']} epochs; two ranks val acc "
+          f"{ranks[0]['acc_val']:.4f}, {ranks[0]['n_paths']} paths, the same "
+          f"selections on both, rank 0 alone wrote; |dACC| {acc_gap:.4f} "
+          f"(band 0.20), top-N overlap {overlap:.3f} (floor 0.6)")
+    for r in (plain, *ranks):
+        print(f"    {'plain' if r is plain else 'rank %d' % r['rank']}: "
+              f"max_memory_allocated {r['max_memory_allocated']} bytes; "
+              f"launches fwd {r['packed_matmul_fwd']}, bwd "
+              f"{r['packed_matmul_bwd']}; stage seconds " + json.dumps(
+                  {k: round(v, 3) for k, v in r["stage_seconds"].items()}))
+    if acc_gap > 0.20 or overlap < 0.6:
+        raise RuntimeError("(b): the two ranks left the band of the plain "
+                           "run")
+    for r in ranks:
+        if not r["max_memory_allocated"] < plain["max_memory_allocated"]:
+            raise RuntimeError(f"(b): rank {r['rank']} peaked at "
+                               f"{r['max_memory_allocated']} bytes, the "
+                               f"plain run at "
+                               f"{plain['max_memory_allocated']}")
+        if not (r["packed_matmul_fwd"] and r["packed_matmul_bwd"]):
+            raise RuntimeError(f"(b): rank {r['rank']} launched {r}")
+    rcs, logs = done["drill"]
+    if rcs[1] != -9 or rcs[0] == 0 or "PeerTimeoutError" not in logs[0] \
+            or "missing rank(s): [1]" not in logs[0]:
+        raise RuntimeError(f"(c): exit codes {rcs}:\n{logs[0][-3000:]}")
+    print(f"    (c) --fault-plan process=1,stage=embed_allreduce,kind="
+          f"sigkill,epoch=3, --fleet-watchdog-deadline 15: rank 1 killed "
+          f"by signal 9, rank 0 exit {rcs[0]}: "
+          + next(ln for ln in logs[0].splitlines()
+                 if "missing rank(s): [1]" in ln).strip())
+
+    # The kernels at the scale launch shapes: (a)'s widest shard and eval
+    # buffer, and one rank's split step.
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    records = {k: {} for k in kernels}
+    shard_rows, _, val_rows, _ = _stream_shapes(torch, a_cfg)
+    print(f"    kernels at (a)'s streaming shapes: train rows "
+          f"M={shard_rows.shape[0]}, eval buffer M={val_rows.shape[0]}, "
+          f"G 20000, hidden 128")
+    rec = _compare_kernels(torch, pm, shard_rows, shard_rows.shape[0],
+                           20_000, 128, gen, flush, timed=True)
+    rec["eval_fwd"] = _compare_kernels(
+        torch, pm, val_rows, val_rows.shape[0], 20_000, 128, gen, flush,
+        timed=True, names=("packed_matmul_fwd",))["packed_matmul_fwd"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for k in kernels:
+        records[k]["tcga_streaming"] = {
+            "launches": a_launches[k], "shard": {
+                "m": int(shard_rows.shape[0]), **{x: rec[k][x] for x in keys}}}
+    records["packed_matmul_fwd"]["tcga_streaming"]["eval_buffer"] = {
+        "m": int(val_rows.shape[0]), **{x: rec["eval_fwd"][x] for x in keys}}
+    b_cfg = _config(big, tmp, "cuda", lenPath=12, numRepetition=2,
+                    sizeHiddenlayer=256, train_mode="streaming",
+                    walk_starts=2048, shard_paths=256, stream_eval_rows=256)
+    spec0 = ShardSpec(rank=0, n_ranks=2, n_genes=262_144, embed_shards=2)
+    g_local = (spec0.byte_range()[1] - spec0.byte_range()[0]) * 8
+    rows0, _, val0, _ = _stream_shapes(torch, b_cfg,
+                                       byte_range=spec0.byte_range())
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"    the split step at rank 0's launch shape: train rows "
+          f"M={rows0.shape[0]} of its {rows0.shape[1]}-byte rows, G_local "
+          f"{g_local}, hidden 256; "
+          + _forward_plan_line(pm, rows0.shape[0], g_local, 256, n_sms)
+          + "; " + _backward_plan_line(pm, rows0.shape[0], g_local, 256,
+                                       n_sms))
+    rec = _compare_kernels(torch, pm, rows0, rows0.shape[0], g_local, 256,
+                           gen, flush, timed=True)
+    rec["eval_fwd"] = _compare_kernels(
+        torch, pm, val0, val0.shape[0], g_local, 256, gen, flush, timed=True,
+        names=("packed_matmul_fwd",))["packed_matmul_fwd"]
+    for k in kernels:
+        records[k]["split"] = {
+            "launches": {f"rank{r['rank']}": r[k] for r in ranks},
+            "plain_run_launches": plain[k], "m": int(rows0.shape[0]),
+            "g_local": g_local, "h": 256, **{x: rec[k][x] for x in keys}}
+    records["packed_matmul_fwd"]["split"]["eval_buffer"] = {
+        "m": int(val0.shape[0]), **{x: rec["eval_fwd"][x] for x in keys}}
+    del flush
+    took = time.perf_counter() - t13
+    print(f"[13] phase 13 took {took:.1f} s")
+    if took > 150:
+        raise RuntimeError(f"phase 13 took {took:.1f} s (bound 150 s)")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3031,7 +3352,7 @@ def main() -> int:
                 raise RuntimeError(f"CLI {flags}: output files differ from "
                                    f"the in-process run's")
         print("    the three output files are byte-identical across the "
-              "in-process run and the seven CLI runs")
+              "in-process run and the three CLI runs")
         prof_dir = os.path.join(tmp, "profile")
         prof_run = _cli_runs(files, tmp, 30, tag="prof",
                              flag_sets=(["--profile-dir", prof_dir],))[0]
@@ -3288,6 +3609,13 @@ def main() -> int:
         if took > 150:
             raise RuntimeError(f"phase 12 took {took:.1f} s (bound 150 s)")
 
+        print("[13] scale: a TCGA-width synthetic graph streamed on one "
+              "rank with --walk-starts; the scale-out spec plain and on "
+              "two ranks sharing the card (--distributed --graph-shards 2 "
+              "--embed-shards 2); a SIGKILL drill; the split step's "
+              "kernels (bf16)")
+        scale = _scale_phase(torch, pm, tmp)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -3304,7 +3632,8 @@ def main() -> int:
             "replaces": pm.REPLACES[name], "launches": launches[name],
             **{k: rec[k] for k in keys}, "streaming": streaming,
             "update_launches": {mode: n[name] for mode, n in
-                                update_launches.items()}})
+                                update_launches.items()},
+            "scale": scale[name]})
     kernels.append(walk_rec)
     for name, rec in lane_records.items():
         kernels.append({

@@ -7,7 +7,9 @@ process holds no CUDA context; its children run the pipeline.
 ``--manifest``/``--seeds`` run the batch engine instead of the solo
 pipeline, and ``--scenario`` a scenario on it (stats/run.py). ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon,
 the router over its replicas (``--replicas N``) or one of the client ops
-(serve/cli.py).
+(serve/cli.py). ``--distributed`` joins a multi-process run
+(parallel/distributed.py) before the pipeline; a rank whose run fails
+exits 1 at once with its traceback.
 """
 from __future__ import annotations
 
@@ -51,7 +53,28 @@ def main(argv=None) -> int:
         return 0
     from g2vec_tpu_torch.pipeline import run
 
-    run(cfg)
+    if not cfg.distributed:
+        run(cfg)
+        return 0
+    from g2vec_tpu_torch.parallel import distributed
+
+    try:
+        distributed.initialize(cfg.coordinator, cfg.process_id,
+                               cfg.num_processes)
+        run(cfg)
+    except BaseException:
+        if isinstance(sys.exc_info()[1], (KeyboardInterrupt, SystemExit)):
+            raise
+        # A failed rank exits at once with its traceback (the one naming
+        # a dead peer, say): nothing at teardown may wait on the others.
+        import os
+        import traceback
+
+        traceback.print_exc()
+        sys.stderr.flush()
+        sys.stdout.flush()
+        os._exit(1)
+    distributed.shutdown()
     return 0
 
 

@@ -19,6 +19,11 @@ The contract is that every lane's files are its solo run's, so each lane
 runs the solo function on its own embeddings with its own k-means
 generator; only the lane-invariant t-scores are computed once for the
 lanes that share a cohort.
+
+The ``*_sharded`` functions are stages 5-6 over a gene-range-split
+embedding (``g2vec_tpu/analysis.py:290-360``): each rank holds its
+``[g_local, H]`` slice, and only per-cluster statistics, vote tallies and
+masked extrema cross ranks.
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from g2vec_tpu_torch.ops.kmeans import kmeans
-from g2vec_tpu_torch.ops.stats import dscores, masked_minmax, tscores
+from g2vec_tpu_torch.ops.kmeans import kmeans, kmeans_sharded
+from g2vec_tpu_torch.ops.stats import (dscores, masked_extrema, masked_minmax,
+                                       masked_rescale, tscores)
 
 
 def freq_index(genes: Sequence[str], gene_freq: Dict[str, int]) -> np.ndarray:
@@ -187,3 +193,58 @@ def top_biomarkers(scores2: np.ndarray, lgroup_idx: np.ndarray,
         detail["good" if group == 0 else "poor"] = scores
     return sorted(biomarkers), detail
 
+
+
+def find_lgroups_sharded(emb_local: torch.Tensor, freq_idx_local: np.ndarray,
+                         sctx, *, generator: torch.Generator, k: int = 3,
+                         compat_tiebreak: bool = False, n_init: int = 10,
+                         iters: int = 50, centers0=None) -> torch.Tensor:
+    """:func:`find_lgroups` over a gene-range-split embedding:
+    ``emb_local`` is this rank's ``[g_local, H]`` slice, ``freq_idx_local``
+    the same slice of the [G] vote vector and ``sctx`` a
+    :class:`~g2vec_tpu_torch.parallel.shard.ShardContext`. Returns the
+    local [g_local] L-groups (the writers gather them). The vote reduces
+    one [3, k] tally stack and then runs :func:`find_lgroups`'s host
+    arithmetic, so the decision is the same on every rank. One rank uses
+    :func:`find_lgroups` instead (byte identity)."""
+    if k < 3:
+        raise ValueError(f"find_lgroups needs k >= 3 (good/poor/other), got {k}")
+    km_idx, _, _ = kmeans_sharded(
+        emb_local, k, generator=generator, allreduce=sctx.allreduce,
+        gather=sctx.gather_concat, n_init=n_init, iters=iters,
+        centers0=centers0)
+    counts, good, poor = _vote_counts(
+        km_idx, torch.as_tensor(freq_idx_local, device=km_idx.device), k)
+    tallies = sctx.allreduce("lg_vote", np.stack([counts, good, poor]))
+    good_cluster, poor_cluster = _pick_clusters(
+        tallies[0], tallies[1], tallies[2], k, compat_tiebreak)
+    return _renumber(km_idx, good_cluster, poor_cluster)
+
+
+def biomarker_scores_sharded(emb_local: torch.Tensor,
+                             expr_good_local: torch.Tensor,
+                             expr_poor_local: torch.Tensor,
+                             lgroup_local: torch.Tensor, sctx,
+                             score_mix: float = 0.5) -> torch.Tensor:
+    """:func:`biomarker_scores` over the rank's gene range: a local
+    [2, g_local] score stack. d-scores are row-local and t-scores
+    column-local (``expr_*_local`` are the expression matrices' local gene
+    columns), so both are exact on slices; each group's masked extrema are
+    reduced across ranks (min and max do not depend on order, so they are
+    the unsplit call's bits) and fed to the rescale. The masked positions
+    of the concatenated slices are the unsplit [2, G] values."""
+    d_local = dscores(emb_local)
+    t_local = tscores(expr_good_local, expr_poor_local)
+    rows = []
+    for group in (0, 1):
+        mask = lgroup_local == group
+        parts = []
+        for name, s in (("d", d_local), ("t", t_local)):
+            lo, hi = masked_extrema(s, mask)
+            ext = np.array([float(lo), -float(hi)])
+            ext = sctx.allreduce(f"bm_ext/{group}/{name}", ext, op="min")
+            parts.append(masked_rescale(
+                s, torch.tensor(ext[0], dtype=torch.float32, device=s.device),
+                torch.tensor(-ext[1], dtype=torch.float32, device=s.device)))
+        rows.append(score_mix * parts[0] + (1.0 - score_mix) * parts[1])
+    return torch.stack(rows)

@@ -9,13 +9,19 @@ the patient cohort and permutation flags, the batch engine's
 ``--manifest``/``--seeds``/``--lanes``, the scenario engine's
 ``--scenario``/``--replicates``/``--folds``/``--scenario-seed``, and the
 query plane's
-``--emit-inventory``/``--ann-nlist``. It also holds the serve daemon's
+``--emit-inventory``/``--ann-nlist``, and the streaming run's scale
+flags: ``--walk-starts`` and the sharded run over R processes
+(``--graph-shards``/``--embed-shards``, ``--distributed`` with
+``--coordinator``/``--process-id``/``--num-processes``, and
+``--fleet-watchdog-deadline``, the collectives' deadline). It also holds
+the serve daemon's
 job schema (:data:`SERVE_JOB_KEYS`, :func:`config_from_job`,
 :func:`serve_join_key`).
 Defaults and validation are those of ``g2vec_tpu/config.py``; ``--device``
 is the port's own (``cuda`` unless the caller asks for ``cpu``). The port
 checkpoints in the single-file layout only: it takes no
-``--checkpoint-layout``.
+``--checkpoint-layout``; nor ``--edge-partition``, ``--mesh`` or the
+other ``--fleet-*`` flags.
 """
 from __future__ import annotations
 
@@ -113,6 +119,18 @@ class G2VecConfig:
                                      # full-batch first-dip rule)
     stream_eval_rows: int = 0        # streaming val/probe buffer row cap
                                      # (0 = 4096)
+    graph_shards: int = 0            # cut the streaming shard sequence into
+                                     # this many start-gene partitions, each
+                                     # walked by one rank and exchanged to
+                                     # the rest over the store (0 = every
+                                     # rank walks everything)
+    embed_shards: int = 0            # split the [G, H] embedding by a
+                                     # byte-aligned gene range per rank
+                                     # (must equal the process count; 0 =
+                                     # off)
+    walk_starts: int = 0             # cap the start genes a group at an
+                                     # evenly spaced subset (0 = every
+                                     # gene, the reference's walk volume)
     metrics_jsonl: Optional[str] = None  # structured per-stage/epoch records
     profile_dir: Optional[str] = None  # torch.profiler trace of the run
                                      # (CPU + CUDA) as DIR/trace.json
@@ -143,6 +161,16 @@ class G2VecConfig:
                                      # at every epoch boundary)
     resume: bool = False             # restore the newest verified
                                      # checkpoint under checkpoint_dir
+
+    # ---- multi-process (parallel/distributed.py) ----
+    distributed: bool = False        # join the multi-process run (rank 0
+                                     # hosts the store the collectives use)
+    coordinator: Optional[str] = None  # host:port of rank 0 (or env)
+    process_id: Optional[int] = None
+    num_processes: Optional[int] = None
+    fleet_watchdog_deadline: float = 0.0  # collective deadline, seconds
+                                     # (0 = block); a missed one names
+                                     # the rank that never published
 
     # ---- resilience (resilience/) ----
     supervise: bool = False          # wrap the run in the auto-resume
@@ -240,6 +268,55 @@ class G2VecConfig:
         if self.checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be >= 1, got {self.checkpoint_every}")
+        if self.train_mode == "streaming":
+            if self.walker_backend == "device" and (
+                    self.graph_shards or self.embed_shards):
+                raise ValueError(
+                    "sharded streaming (--graph-shards/--embed-shards) "
+                    "needs the native sampler's thread pool per rank; "
+                    "--walker-backend device does not compose")
+            if self.distributed and not (self.graph_shards
+                                         or self.embed_shards):
+                raise ValueError(
+                    "--train-mode streaming does not compose with "
+                    "--distributed yet — the streaming trainer is a "
+                    "single-device minibatch loop per rank "
+                    "(--graph-shards/--embed-shards is the multi-process "
+                    "form)")
+        for field in ("graph_shards", "embed_shards", "walk_starts"):
+            if getattr(self, field) < 0:
+                raise ValueError(
+                    f"{field} must be >= 0 (0 = off/default), "
+                    f"got {getattr(self, field)}")
+        if self.graph_shards or self.embed_shards:
+            if self.train_mode != "streaming":
+                raise ValueError(
+                    "--graph-shards/--embed-shards shard the STREAMING "
+                    "trainer; add --train-mode streaming")
+            if self.checkpoint_dir or self.resume:
+                raise ValueError(
+                    "sharded streaming does not compose with "
+                    "--checkpoint-dir/--resume yet — the cursor would have "
+                    "to be a consistent distributed snapshot")
+            if self.manifest or self.batch_seeds:
+                raise ValueError(
+                    "sharded streaming does not compose with the batch "
+                    "engine (--manifest/--seeds)")
+            if self.supervise:
+                raise ValueError(
+                    "sharded streaming does not compose with --supervise "
+                    "yet — a retried rank cannot rejoin the fleet's "
+                    "collectives mid-run")
+            if self.embed_shards and self.num_processes \
+                    and self.embed_shards != self.num_processes:
+                raise ValueError(
+                    f"--embed-shards ({self.embed_shards}) must equal "
+                    f"--num-processes ({self.num_processes}): the gene "
+                    f"range is split 1:1 across ranks")
+        if self.fleet_watchdog_deadline < 0.0:
+            raise ValueError(
+                f"fleet_watchdog_deadline must be >= 0, "
+                f"got {self.fleet_watchdog_deadline}")
         if self.supervise_retries < 0:
             raise ValueError(
                 f"supervise_retries must be >= 0, got {self.supervise_retries}")
@@ -331,7 +408,8 @@ class G2VecConfig:
                 "--manifest and --seeds are mutually exclusive (a manifest "
                 "already enumerates its variants)")
         if self.manifest or self.batch_seeds or self.scenario:
-            for flag, name in ((self.supervise, "--supervise"),
+            for flag, name in ((self.distributed, "--distributed"),
+                               (self.supervise, "--supervise"),
                                (self.checkpoint_dir, "--checkpoint-dir"),
                                (self.resume, "--resume"),
                                (self.profile_dir, "--profile-dir"),
@@ -575,6 +653,45 @@ def build_parser() -> argparse.ArgumentParser:
                         metavar="M",
                         help="Rows kept for the streaming val and probe "
                              "buffers (0 = 4096).")
+    parser.add_argument("--walk-starts", type=int, default=0, metavar="W",
+                        help="Cap the walk volume to W evenly spaced start "
+                             "genes instead of all G (0 = all genes, the "
+                             "previous behavior exactly). Graphs of 10^5+ "
+                             "genes need this: the full walk volume scales "
+                             "with G x reps x len.")
+    parser.add_argument("--graph-shards", type=int, default=0, metavar="N",
+                        help="Scale-out: partition walk sampling into N "
+                             "start-gene ranges; each walk shard is sampled "
+                             "once by its owner rank and published to peers "
+                             "over the store (0 = off, every rank samples "
+                             "everything). Requires --train-mode streaming; "
+                             "multi-rank runs also need --distributed.")
+    parser.add_argument("--embed-shards", type=int, default=0, metavar="R",
+                        help="Scale-out: shard the [G, H] embedding table "
+                             "across R ranks by byte-aligned gene range; "
+                             "the hidden activation is allreduced once per "
+                             "step and stages 5-6 run on the local slice "
+                             "(0 = off). R must equal the process count; "
+                             "single-rank sharded runs are byte-identical "
+                             "to unsharded ones.")
+    parser.add_argument("--distributed", action="store_true",
+                        help="Join a multi-process run: rank 0 hosts the "
+                             "store at --coordinator, the others connect "
+                             "(also from G2VEC_COORDINATOR, "
+                             "G2VEC_PROCESS_ID, G2VEC_NUM_PROCESSES). Only "
+                             "rank 0 writes the files.")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        metavar="HOST:PORT",
+                        help="Address of rank 0's store for --distributed.")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="This process's rank for --distributed.")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="The rank count for --distributed.")
+    parser.add_argument("--fleet-watchdog-deadline", type=float, default=0.0,
+                        metavar="SECONDS",
+                        help="Deadline of each host collective (0 = block); "
+                             "a missed one raises PeerTimeoutError naming "
+                             "the rank that never published.")
     parser.add_argument("--no-overlap", action="store_true",
                         help="Run the stages one after the other: walk the "
                              "groups in turn and warm nothing in the "
@@ -700,6 +817,14 @@ def config_from_args(argv=None) -> G2VecConfig:
         prefetch_depth=args.prefetch_depth,
         stream_patience=args.stream_patience,
         stream_eval_rows=args.stream_eval_rows,
+        graph_shards=args.graph_shards,
+        embed_shards=args.embed_shards,
+        walk_starts=args.walk_starts,
+        distributed=args.distributed,
+        coordinator=args.coordinator,
+        process_id=args.process_id,
+        num_processes=args.num_processes,
+        fleet_watchdog_deadline=args.fleet_watchdog_deadline,
         cache_dir=args.cache_dir,
         metrics_jsonl=args.metrics_jsonl,
         profile_dir=args.profile_dir,

@@ -7,7 +7,9 @@
   ALL genes in global (sorted-intersection) order.
 - ``<NAME>_vectors.txt`` (ref: G2Vec.py:203-215): header
   ``GeneSymbol\\tV0...V{h-1}`` then ``gene`` + ``\\t%.6f`` per dim for ALL
-  genes.
+  genes (formatted by integer numpy arithmetic, the bytes of Python's
+  ``%``, so that a table of 10^7-10^8 values takes seconds); under an
+  embed split rank 0 writes every rank's slice (:func:`write_vectors_sharded`).
 - ``<NAME>_stability.txt`` (the scenario engine's table,
   :func:`write_stability`): the JAX package's format byte for byte.
 - ``<NAME>_inventory/`` (the query plane's binary bundle, ``--emit-
@@ -22,6 +24,7 @@
 """
 from __future__ import annotations
 
+import io
 import os
 import shutil
 from typing import Optional, Sequence
@@ -105,6 +108,72 @@ def write_lgroups(result_name: str, lgroup_idx: np.ndarray,
     return path
 
 
+#: Rows of the vectors file formatted in one numpy pass.
+_VECTOR_ROWS_CHUNK = 4096
+#: "00".."99" as ASCII digit pairs, read as little-endian uint16 words.
+_DIGITS2 = np.array([[ord(c) for c in "%02d" % k] for k in range(100)],
+                    np.uint8).view("<u2").reshape(100)
+
+
+def _fixed6_block(genes: Sequence[str], vectors: np.ndarray
+                  ) -> Optional[str]:
+    """The vectors file's lines for ``genes`` and float32 ``vectors``: the
+    text that ``gene + "\\t%.6f" * H + "\\n"`` makes, built with numpy
+    instead of one Python call a value. None (the caller formats in
+    Python) unless every value is finite and rounds below 10, and every
+    gene name is ASCII.
+
+    Exact: ``float64(|v|) * 1e6`` is exact for a float32 ``v`` (24 + 14
+    mantissa bits), and ``np.rint`` rounds it half-even, as Python's
+    ``%.6f`` rounds the exact binary value."""
+    v = np.ascontiguousarray(vectors, dtype=np.float32)
+    if not np.isfinite(v).all():
+        return None
+    q = np.rint(np.abs(v.astype(np.float64)) * 1e6)
+    if q.size and q.max() >= 1e7:
+        return None
+    q = q.astype(np.int64)
+    try:
+        names = np.array([g.encode("ascii") for g in genes], dtype=bytes)
+    except UnicodeEncodeError:
+        return None
+    rows, h = v.shape
+    ip, fp = np.divmod(q, 10 ** 6)
+    # Ten bytes a value, five little-endian words: tab and sign (0 when
+    # positive, dropped below), integer digit and point, three digit pairs.
+    cells = np.empty((rows, h, 5), np.uint16)
+    cells[..., 0] = 9 | (np.signbit(v).astype(np.uint16) * 45) << 8
+    cells[..., 1] = (48 + ip).astype(np.uint16) | 46 << 8
+    hi, rest = np.divmod(fp, 10 ** 4)
+    mid, lo = np.divmod(rest, 100)
+    cells[..., 2] = _DIGITS2[hi]
+    cells[..., 3] = _DIGITS2[mid]
+    cells[..., 4] = _DIGITS2[lo]
+    width = max(names.dtype.itemsize, 1)
+    block = np.zeros((rows, width + h * 10 + 1), np.uint8)
+    block[:, :width] = names.view(np.uint8).reshape(rows, width)
+    block[:, width:-1] = cells.view(np.uint8).reshape(rows, h * 10)
+    block[:, -1] = ord("\n")
+    return block[block != 0].tobytes().decode("ascii")
+
+
+def _vector_lines(genes: Sequence[str], vectors: np.ndarray):
+    """The vectors file's rows for ``genes`` and float32 ``vectors``, in
+    chunks of text."""
+    for lo in range(0, vectors.shape[0], _VECTOR_ROWS_CHUNK):
+        part = vectors[lo:lo + _VECTOR_ROWS_CHUNK]
+        names = genes[lo:lo + _VECTOR_ROWS_CHUNK]
+        text = _fixed6_block(names, part)
+        if text is None:
+            text = "".join(g + "".join("\t%.6f" % val for val in vector)
+                           + "\n" for g, vector in zip(names, part))
+        yield text
+
+
+def _vectors_header(hidden: int) -> str:
+    return "GeneSymbol" + "".join("\tV%d" % i for i in range(hidden)) + "\n"
+
+
 def write_vectors(result_name: str, vectors: np.ndarray,
                   genes: Sequence[str]) -> str:
     path = result_name + "_vectors.txt"
@@ -113,15 +182,57 @@ def write_vectors(result_name: str, vectors: np.ndarray,
         raise ValueError(f"write_vectors: {len(genes)} genes vs "
                          f"{vectors.shape[0]} embedding rows")
     with open(path, "w") as fout:
-        fout.write("GeneSymbol")
-        for i in range(vectors.shape[1]):
-            fout.write("\tV%d" % i)
-        fout.write("\n")
-        for gene, vector in zip(genes, vectors):
-            fout.write(gene)
-            for val in vector:
-                fout.write("\t%.6f" % val)
-            fout.write("\n")
+        fout.write(_vectors_header(vectors.shape[1]))
+        for text in _vector_lines(genes, vectors):
+            fout.write(text)
+    return path
+
+
+def write_vectors_sharded(result_name: str, vectors_local: np.ndarray,
+                          genes: Sequence[str], sctx) -> str:
+    """:func:`write_vectors` for a gene-range-split embedding: every rank
+    publishes its ``[g_local, H]`` slice over the store, and rank 0 writes
+    the slices into the file in rank order (which is gene order: the
+    ranges are contiguous), holding one slice at a time, never the
+    ``[G, H]`` table. The bytes are :func:`write_vectors`'s.
+
+    COLLECTIVE over ``sctx``'s ranks: every rank calls it (the others
+    publish and return). ``genes`` is the full gene list; the path is
+    returned on every rank."""
+    from g2vec_tpu_torch.parallel import hostcomm
+
+    spec = sctx.spec
+    path = result_name + "_vectors.txt"
+    vectors_local = np.asarray(vectors_local, dtype=np.float32)
+    if spec.n_ranks == 1:
+        return write_vectors(result_name, vectors_local, genes)
+    lo, hi = spec.gene_range()
+    if vectors_local.shape[0] != hi - lo:
+        raise ValueError(
+            f"write_vectors_sharded: rank {spec.rank} has "
+            f"{vectors_local.shape[0]} rows for gene range [{lo}, {hi})")
+    buf = io.BytesIO()
+    np.save(buf, vectors_local, allow_pickle=False)
+    hostcomm.put_bytes_chunked(f"g2vec/xc/vectors/{spec.rank}",
+                               buf.getvalue())
+    if spec.rank != 0:
+        return path
+    with open(path, "w") as fout:
+        fout.write(_vectors_header(vectors_local.shape[1]))
+        for r in range(spec.n_ranks):
+            if r == 0:
+                part = vectors_local
+            else:
+                part = np.load(io.BytesIO(hostcomm.get_bytes_chunked(
+                    f"g2vec/xc/vectors/{r}", deadline=sctx.deadline,
+                    owner=r)), allow_pickle=False)
+            rlo, rhi = spec.gene_range(r)
+            if part.shape[0] != rhi - rlo:
+                raise ValueError(
+                    f"write_vectors_sharded: rank {r} published "
+                    f"{part.shape[0]} rows for gene range [{rlo}, {rhi})")
+            for text in _vector_lines(genes[rlo:rhi], part):
+                fout.write(text)
     return path
 
 

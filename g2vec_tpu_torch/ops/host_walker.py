@@ -132,20 +132,30 @@ def plan_shards(n_genes: int, reps: int, shard_paths: int, *,
 
 def walk_shard(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                n_genes: int, plan: ShardPlan, shard: int, *, seed: int,
-               n_threads: int = 0, csr: Optional[tuple] = None
-               ) -> np.ndarray:
+               n_threads: int = 0, csr: Optional[tuple] = None,
+               starts: Optional[np.ndarray] = None) -> np.ndarray:
     """One group's rows of shard ``shard`` -> [group_rows, ceil(G/8)]
     uint8 packed rows, not deduplicated, rep-major: rep ``r``'s block
     holds walkers ``[r*n_starts + lo, r*n_starts + hi)`` in walker order,
     each walker keyed by its global index, so every row is byte for byte
     the full-range call's row for that walker. A pure function of (plan,
-    shard, seed): the spool re-walks a shard that failed verification.
-    ``csr`` is the group's prebuilt :func:`edges_to_csr`.
+    shard, seed, starts): the spool re-walks a shard that failed
+    verification. ``csr`` is the group's prebuilt :func:`edges_to_csr`.
+    ``starts`` restricts the start genes to a subset (``--walk-starts``,
+    :func:`~g2vec_tpu_torch.parallel.shard.subset_starts`); the plan's
+    ``n_starts`` is then ``len(starts)`` and walker indices count into the
+    subset, as in the JAX package.
     """
     from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
 
+    if starts is not None and len(starts) != plan.n_starts:
+        raise ValueError(
+            f"plan.n_starts ({plan.n_starts}) must match len(starts) "
+            f"({len(starts)})")
     lo, hi = plan.start_range(shard)
-    starts = np.tile(np.arange(lo, hi, dtype=np.int32), plan.reps)
+    sub = (np.arange(lo, hi, dtype=np.int32) if starts is None
+           else np.ascontiguousarray(starts[lo:hi], dtype=np.int32))
+    starts = np.tile(sub, plan.reps)
     stream_ids = (np.arange(plan.reps, dtype=np.uint64)[:, None]
                   * np.uint64(plan.n_starts)
                   + np.arange(lo, hi, dtype=np.uint64)[None, :]).ravel()

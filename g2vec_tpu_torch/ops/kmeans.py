@@ -97,3 +97,92 @@ def kmeans(x: torch.Tensor, k: int, *, generator: torch.Generator,
     best = int(torch.argmin(inertia))
     labels = torch.argmin(_pairwise_sq_dists(x, centers[best]), dim=1)
     return labels, centers[best], inertia[best]
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded k-means: each rank holds [N_local, d] of the matrix.
+# ---------------------------------------------------------------------------
+
+#: Rows each rank gives the k-means++ seeding sample. Seeding must see the
+#: global geometry (a contiguous gene range is a biased slice of it), and
+#: 4096 evenly spaced rows a rank keep the gathered sample small at any N.
+SEED_SAMPLE_PER_RANK = 4096
+
+
+def _local_lloyd_stats(x: torch.Tensor, centers: torch.Tensor, k: int):
+    """One rank's Lloyd sufficient statistics: per-cluster counts [k], sums
+    [k, d] and the local inertia, the only values that cross ranks."""
+    d2 = _pairwise_sq_dists(x, centers)
+    onehot = F.one_hot(torch.argmin(d2, dim=1), k).to(x.dtype)
+    return onehot.sum(dim=0), onehot.T @ x, torch.sum(torch.amin(d2, dim=1))
+
+
+def kmeans_sharded(x_local: torch.Tensor, k: int, *,
+                   generator: torch.Generator, allreduce, gather,
+                   n_init: int = 10, iters: int = 50,
+                   centers0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """Lloyd over a row-sharded matrix: ``x_local`` is this rank's
+    disjoint ``[N_local, d]`` slice, and only per-cluster statistics cross
+    ranks. Returns ``(labels_local [N_local], centers [k, d], inertia)``;
+    the centres and the inertia are the same on every rank.
+
+    The collectives come in as callables, as in ``g2vec_tpu/ops/kmeans.py``:
+    ``allreduce(name, array) -> array`` sums same-shape host arrays in rank
+    order and ``gather(name, array) -> array`` concatenates per-rank arrays
+    in rank order on every rank (a
+    :class:`~g2vec_tpu_torch.parallel.shard.ShardContext`'s ``allreduce``
+    and ``gather_concat``).
+
+    The recipe of :func:`kmeans`: ``n_init`` k-means++ restarts drawn from
+    ``generator`` on one gathered sample of evenly spaced rows
+    (:data:`SEED_SAMPLE_PER_RANK` a rank), so every rank seeds the same
+    centres; ``iters`` Lloyd steps a restart, each one allreduce of the
+    ``[k, d + 1]`` sums and counts; empty clusters keep their centre; the
+    lowest inertia wins. ``centers0 [n_init, k, d]`` replaces the draws
+    (tests). At one rank callers use :func:`kmeans` (byte identity); at
+    more the sums add in another order, so it is not its bits.
+    """
+    import numpy as np
+
+    if k < 1:
+        raise ValueError(f"kmeans needs k >= 1, got {k}")
+    if x_local.dim() != 2 or x_local.shape[0] < 1:
+        raise ValueError(f"kmeans_sharded needs a non-empty [N_local, d] "
+                         f"matrix, got shape {tuple(x_local.shape)}")
+    x_local = x_local.float()
+    dev = x_local.device
+    if centers0 is None:
+        n_local = x_local.shape[0]
+        take = min(n_local, SEED_SAMPLE_PER_RANK)
+        idx = np.unique((np.arange(take, dtype=np.int64) * n_local) // take)
+        sample = torch.from_numpy(gather(
+            "km_seed_sample", x_local[torch.from_numpy(idx).to(dev)]
+            .cpu().numpy())).to(dev)
+        centers0 = [_kmeanspp_init(sample, k, generator)
+                    for _ in range(n_init)]
+    else:
+        centers0 = torch.as_tensor(centers0, dtype=torch.float32, device=dev)
+        if centers0.dim() != 3 or centers0.shape[1:] != (k, x_local.shape[1]):
+            raise ValueError(f"centers0 must be [n_init, {k}, "
+                             f"{x_local.shape[1]}], got "
+                             f"{tuple(centers0.shape)}")
+    best_inertia = best_centers = None
+    for i, centers in enumerate(centers0):
+        for _ in range(iters):
+            counts, sums, _ = _local_lloyd_stats(x_local, centers, k)
+            # Sums and counts ride one message a step.
+            packed = allreduce(f"km_stats/{i}", torch.cat(
+                [sums, counts[:, None]], dim=1).cpu().numpy())
+            packed = torch.from_numpy(np.ascontiguousarray(packed)).to(dev)
+            g_sums, g_counts = packed[:, :-1], packed[:, -1]
+            centers = torch.where(
+                g_counts[:, None] > 0,
+                g_sums / torch.clamp(g_counts, min=1.0)[:, None], centers)
+        _, _, local_inertia = _local_lloyd_stats(x_local, centers, k)
+        inertia = float(allreduce(f"km_inertia/{i}", np.asarray(
+            [float(local_inertia)], np.float32))[0])
+        if best_inertia is None or inertia < best_inertia:
+            best_inertia, best_centers = inertia, centers
+    labels = torch.argmin(_pairwise_sq_dists(x_local, best_centers), dim=1)
+    return labels, best_centers, best_inertia

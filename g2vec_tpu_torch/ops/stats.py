@@ -53,8 +53,23 @@ def masked_minmax(scores: torch.Tensor, mask: torch.Tensor,
     """:func:`minmax` over the ``mask``-selected subset without gathering:
     masked positions carry exactly the values the gathered call would;
     unmasked positions are rescaled values the caller never reads."""
-    old_min = torch.min(torch.where(mask, scores, torch.inf))
-    old_max = torch.max(torch.where(mask, scores, -torch.inf))
+    return masked_rescale(scores, *masked_extrema(scores, mask),
+                          new_min, new_max)
+
+
+def masked_extrema(scores: torch.Tensor, mask: torch.Tensor):
+    """(min, max) over the masked subset: +inf/-inf for an empty mask, the
+    identities of a cross-rank min/max reduction."""
+    return (torch.min(torch.where(mask, scores, torch.inf)),
+            torch.max(torch.where(mask, scores, -torch.inf)))
+
+
+def masked_rescale(scores: torch.Tensor, old_min, old_max,
+                   new_min: float = 0.0, new_max: float = 1.0
+                   ) -> torch.Tensor:
+    """:func:`masked_minmax`'s rescale half with the extrema given: with
+    the globally reduced extrema the masked positions of a rank's slice
+    carry exactly the values of the unsplit call."""
     return _rescale(scores, old_min, old_max, new_min, new_max)
 
 

@@ -43,6 +43,19 @@ again (or hits ``--cache-dir``) and then restores training; a resumed
 run's metrics stream is appended to, so the supervisor's ``retry`` and
 ``resume`` events and every attempt's records form one stream.
 
+Scale (``g2vec_tpu/pipeline.py:166-240, 399-440, 543, 819-935``):
+``--walk-starts`` caps a streaming run's start genes; ``--distributed``
+joins a multi-process run (:mod:`.parallel.distributed`) in which only
+rank 0 narrates, streams metrics and writes files; ``--graph-shards``/
+``--embed-shards`` build the shard context the streaming trainer takes
+(:mod:`.parallel.shard`). Under an embed split stages 5-6 run on the
+rank's gene range (``analysis.find_lgroups_sharded``/
+``biomarker_scores_sharded``), the score and L-group vectors are
+gathered at the writers, and the vectors file is written by rank 0 from
+every rank's slice (``io.writers.write_vectors_sharded``); the
+``[G, H]`` table never exists on one rank, so ``--emit-inventory`` is
+skipped there.
+
 The result carries stage 5's k-means centres and stage 6's ``[2, G]``
 score matrix for the query plane: ``--emit-inventory`` publishes them
 with the embeddings as ``<result_name>_inventory/`` at stage 7
@@ -285,12 +298,15 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     ``lifecycle(state, info)`` observes the streaming trainer's
     ``"checkpointed"`` and ``"resumed"`` transitions.
     """
-    from g2vec_tpu_torch.analysis import (biomarker_scores, find_lgroups,
+    from g2vec_tpu_torch.analysis import (biomarker_scores,
+                                          biomarker_scores_sharded,
+                                          find_lgroups, find_lgroups_sharded,
                                           freq_index, top_biomarkers)
     from g2vec_tpu_torch.cache import (NATIVE_FAMILY, resolve_cache_tiers,
                                        walk_cache_key)
     from g2vec_tpu_torch.io.writers import (write_biomarkers, write_lgroups,
-                                            write_vectors)
+                                            write_vectors,
+                                            write_vectors_sharded)
     from g2vec_tpu_torch.ops.backend import resolve_walker_backend
     from g2vec_tpu_torch.ops.device_walker import (build_walk_kernel,
                                                    generate_path_set_device)
@@ -312,6 +328,27 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         # Re-installing on an in-process retry keeps the once-only
         # entries that already fired fired.
         install_plan(cfg.fault_plan)
+    write_outputs = True
+    if cfg.distributed:
+        from g2vec_tpu_torch.parallel import distributed
+
+        # Idempotent when __main__ joined already.
+        distributed.initialize(cfg.coordinator, cfg.process_id,
+                               cfg.num_processes)
+        if distributed.process_count() > 1 and not (cfg.graph_shards
+                                                    or cfg.embed_shards):
+            raise ValueError(
+                f"--distributed with {distributed.process_count()} "
+                f"processes needs --graph-shards/--embed-shards; without "
+                f"them every process would redundantly train the full "
+                f"model")
+        write_outputs = distributed.is_coordinator()
+        if not write_outputs:
+            # The other ranks compute and hold shards, but neither narrate
+            # nor write: transcript, metrics, trace and files are rank 0's.
+            console = lambda s: None  # noqa: E731
+            cfg = dataclasses.replace(cfg, metrics_jsonl=None,
+                                      profile_dir=None)
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
     # A resumed run appends: its records continue the interrupted
@@ -323,12 +360,19 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     walker_backend = resolve_walker_backend(cfg)
     sampler_threads = (resolve_sampler_threads(cfg.sampler_threads)
                        if walker_backend == "native" else 0)
-    walk_cache = resolve_cache_tiers(cfg.cache_dir)
+    # The walk cache is per-host files: ranks would race identical writes,
+    # so a multi-process run walks uncached.
+    walk_cache = None if cfg.distributed else resolve_cache_tiers(
+        cfg.cache_dir)
     walk_cache_hits: List[str] = []
     profiler = _start_profile(on_card) if cfg.profile_dir else None
     timer = StageTimer(sync=(lambda: torch.cuda.synchronize(dev))
                        if on_card else None,
                        mark=_stage_range if profiler is not None else None)
+    if cfg.distributed:
+        for ev in distributed.drain_pending_events():
+            metrics.emit(ev.pop("event"), **ev)
+    shard_ctx = None
     try:
         console(">>> 0. Arguments")
         console(str(cfg))
@@ -382,6 +426,19 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
 
         if cfg.train_mode == "streaming":
             # ---- stages 3-4 merged: walk shards stream into the trainer ----
+            from g2vec_tpu_torch.parallel.shard import make_shard_context
+
+            # None with both axes off; one rank's context runs the plain
+            # code (byte identity).
+            shard_ctx = make_shard_context(
+                cfg.graph_shards, cfg.embed_shards, n_genes,
+                deadline=(cfg.fleet_watchdog_deadline or None))
+            if shard_ctx is not None:
+                console(f"    [shard] rank {shard_ctx.spec.rank}/"
+                        f"{shard_ctx.spec.n_ranks}: graph_shards="
+                        f"{cfg.graph_shards} embed_shards="
+                        f"{cfg.embed_shards} gene range "
+                        f"[{shard_ctx.spec.lo}, {shard_ctx.spec.hi})")
             fault_point("paths")
             with timer.stage("paths"):
                 group_edges = [thresholded_edges(
@@ -417,7 +474,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
                     checkpoint_every=cfg.checkpoint_every, console=console,
                     check=check, lifecycle=lifecycle,
-                    debug_nans=cfg.debug_nans)
+                    debug_nans=cfg.debug_nans, shard_ctx=shard_ctx,
+                    walk_starts=cfg.walk_starts)
             result = sres.train
             gene_freq = sres.gene_freq
             n_paths = sres.n_paths
@@ -549,14 +607,32 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
 
         console(">>> 5. Find L-groups")
         fault_point("lgroups")
-        emb = result.model.w_ih.detach().float()
-        with timer.stage("lgroups"):
-            lgroup_dev, km_centers = find_lgroups(
-                emb, freq_index(data.gene, gene_freq),
-                generator=torch.Generator().manual_seed(cfg.kmeans_seed),
-                k=cfg.n_lgroups, compat_tiebreak=cfg.compat_lgroup_tiebreak,
-                iters=cfg.kmeans_iters, centers0=kmeans_centers0)
-            km_centers = km_centers.cpu().numpy().astype(np.float32)
+        embed_sharded = shard_ctx is not None and shard_ctx.spec.embed_split
+        kmeans_gen = torch.Generator().manual_seed(cfg.kmeans_seed)
+        if embed_sharded:
+            # Stages 5-6 on this rank's gene range: only per-cluster
+            # statistics and masked extrema cross ranks, and the [G]
+            # score and L-group vectors exist only at the writers' gathers.
+            spec = shard_ctx.spec
+            emb = result.model.w_ih.detach()[:spec.g_local].float()
+            with timer.stage("lgroups"):
+                lgroup_dev = find_lgroups_sharded(
+                    emb, freq_index(data.gene, gene_freq)[spec.lo:spec.hi],
+                    shard_ctx, generator=kmeans_gen, k=cfg.n_lgroups,
+                    compat_tiebreak=cfg.compat_lgroup_tiebreak,
+                    iters=cfg.kmeans_iters, centers0=kmeans_centers0)
+            km_centers = None
+            expr = data.expr[:, spec.lo:spec.hi]
+        else:
+            emb = result.model.w_ih.detach().float()
+            with timer.stage("lgroups"):
+                lgroup_dev, km_centers = find_lgroups(
+                    emb, freq_index(data.gene, gene_freq),
+                    generator=kmeans_gen, k=cfg.n_lgroups,
+                    compat_tiebreak=cfg.compat_lgroup_tiebreak,
+                    iters=cfg.kmeans_iters, centers0=kmeans_centers0)
+                km_centers = km_centers.cpu().numpy().astype(np.float32)
+            expr = data.expr
 
         console(">>> 6. Select biomarkers with gene scores")
         fault_point("biomarkers")
@@ -565,26 +641,52 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             if cfg.permute_seed is not None:
                 console("    permutation null: stage-6 labels shuffled "
                         "(permute_seed=%d)" % cfg.permute_seed)
-            scores2 = biomarker_scores(
-                emb,
-                torch.as_tensor(data.expr[label == 0], device=dev),
-                torch.as_tensor(data.expr[label == 1], device=dev),
-                lgroup_dev, cfg.score_mix).cpu().numpy()
-            lgroup_idx = lgroup_dev.cpu().numpy()
+            expr_good = torch.as_tensor(expr[label == 0], device=dev)
+            expr_poor = torch.as_tensor(expr[label == 1], device=dev)
+            if embed_sharded:
+                scores2 = shard_ctx.gather_concat(
+                    "bm_scores", biomarker_scores_sharded(
+                        emb, expr_good, expr_poor, lgroup_dev, shard_ctx,
+                        cfg.score_mix).cpu().numpy(), axis=1)
+                lgroup_idx = shard_ctx.gather_concat(
+                    "lgroups", lgroup_dev.cpu().numpy(), axis=0)
+            else:
+                scores2 = biomarker_scores(
+                    emb, expr_good, expr_poor, lgroup_dev,
+                    cfg.score_mix).cpu().numpy()
+                lgroup_idx = lgroup_dev.cpu().numpy()
             biomarkers, _ = top_biomarkers(scores2, lgroup_idx, data.gene,
                                            cfg.numBiomarker)
 
         console(">>> 7. Save results")
         fault_point("save")
         with timer.stage("save"):
-            outputs = [
-                write_biomarkers(cfg.result_name, biomarkers),
-                write_lgroups(cfg.result_name, lgroup_idx, data.gene),
-                write_vectors(cfg.result_name, result.w_ih, data.gene),
-            ]
-            if cfg.emit_inventory:
-                _emit_inventory(cfg, result.w_ih, data.gene, scores2,
-                                km_centers, metrics, console)
+            outputs = []
+            if embed_sharded:
+                # Collective: every rank publishes its slice, rank 0
+                # writes them; biomarkers and L-groups are replicated.
+                vec_path = write_vectors_sharded(
+                    cfg.result_name, result.w_ih, data.gene, shard_ctx)
+                if write_outputs:
+                    outputs = [
+                        write_biomarkers(cfg.result_name, biomarkers),
+                        write_lgroups(cfg.result_name, lgroup_idx,
+                                      data.gene),
+                        vec_path,
+                    ]
+            elif write_outputs:
+                outputs = [
+                    write_biomarkers(cfg.result_name, biomarkers),
+                    write_lgroups(cfg.result_name, lgroup_idx, data.gene),
+                    write_vectors(cfg.result_name, result.w_ih, data.gene),
+                ]
+            if cfg.emit_inventory and write_outputs:
+                if embed_sharded:
+                    console("    --emit-inventory skipped: embedding is "
+                            "gene-range sharded")
+                else:
+                    _emit_inventory(cfg, result.w_ih, data.gene, scores2,
+                                    km_centers, metrics, console)
         for path in outputs:
             console("    %s" % path)
         overlap_saved = overlap.saved_seconds() if cfg.overlap else {}

@@ -28,7 +28,11 @@ Keys:
   ``path`` = the index's postings file, the seam for ``corrupt``).
   Incremental updates: ``update_publish`` (after a bundle's new
   generation is renamed in and before the pointer flips; ``path`` = the
-  pointer file).
+  pointer file). The sharded streaming run: ``allgather`` (a host
+  collective, before this rank publishes), ``shard_exchange`` (a walk
+  shard's owner, after the walk and before the publish; epoch = shard
+  index), ``embed_allreduce`` (before a split step's allreduce; epoch =
+  the step count).
 - ``epoch``: fire only once the hook reports an epoch >= this value.
 - ``kind``: ``crash`` (default) raises :class:`InjectedFault`
   (retryable); ``fatal`` raises :class:`InjectedFatal` (fatal);
@@ -37,8 +41,8 @@ Keys:
   raises :class:`InjectedFault`; ``corrupt`` flips bytes in the middle of
   the file the seam passes as ``path`` and returns (a torn write the
   writer believes succeeded, found only by verification).
-- ``process``: fire only on this rank; the rank is ``G2VEC_PROCESS_ID``
-  (0 when unset: the port runs one process).
+- ``process``: fire only on this rank; the rank is ``G2VEC_PROCESS_ID``,
+  else the rank of an initialized multi-process run, else 0.
 - ``times``: fire at most this many times (default 1).
 - ``skip``: let the first N matching hits pass (default 0).
 - ``seconds``: the stall's duration.
@@ -57,6 +61,7 @@ import dataclasses
 import json
 import os
 import signal
+import sys
 import time
 from typing import List, Optional
 
@@ -70,14 +75,11 @@ SEAMS = ("load", "preprocess", "paths", "train", "lgroups", "biomarkers",
          "save", "checkpoint_write", "checkpoint_finalize",
          "native_load", "native_walker_load", "device_walk", "walk_cache",
          "shard_ring", "prefetch", "stream_ckpt", "drain", "ann_build",
-         "update_publish")
+         "update_publish", "allgather", "shard_exchange", "embed_allreduce")
 
-#: The JAX package's other seams: the fleet and sharded scale-out. The
-#: port has no call site for them yet, so a plan that names one is
-#: refused.
-NOT_PORTED = ("allgather", "stage_barrier", "heartbeat",
-              "shard_exchange", "embed_allreduce", "walk_handoff",
-              "halo_build")
+#: The JAX package's other seams: its fleet and edge partition. The port
+#: has no call site for them yet, so a plan that names one is refused.
+NOT_PORTED = ("stage_barrier", "heartbeat", "walk_handoff", "halo_build")
 
 
 class FaultPlanError(ValueError):
@@ -252,14 +254,16 @@ def _fire(entry: _Entry, seam: str, epoch: Optional[int],
 
 def current_rank() -> int:
     """The process's rank for ``process=K`` entries: ``G2VEC_PROCESS_ID``,
-    else 0 (the port runs one process)."""
+    else the rank of an initialized multi-process run (never imported for
+    the purpose), else 0."""
     pid = os.environ.get("G2VEC_PROCESS_ID")
     if pid is not None:
         try:
             return int(pid)
         except ValueError:
             pass
-    return 0
+    dist = sys.modules.get("g2vec_tpu_torch.parallel.distributed")
+    return dist.process_index() if dist is not None else 0
 
 
 def fault_point(seam: str, *, epoch: Optional[int] = None,

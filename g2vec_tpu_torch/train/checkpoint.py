@@ -240,10 +240,12 @@ def _check_fingerprint(ckpt_path: str, manifest: Optional[dict],
               "--checkpoint-dir at a fresh directory")
 
 
-def _verify_single(ckpt_path: str) -> Optional[str]:
-    """None when ``ckpt_path`` passes manifest verification (or has no
-    manifest); else the human-readable failure reason."""
-    mpath = ckpt_path + MANIFEST_SUFFIX
+def _verify_single(ckpt_path: str, mpath: Optional[str] = None
+                   ) -> Optional[str]:
+    """None when ``ckpt_path`` passes verification against the manifest
+    ``mpath`` (by default its own; or it has none); else the
+    human-readable failure reason."""
+    mpath = mpath or ckpt_path + MANIFEST_SUFFIX
     if not os.path.exists(mpath):
         return None     # no manifest: nothing to verify against
     try:
@@ -259,10 +261,27 @@ def _verify_single(ckpt_path: str) -> Optional[str]:
     return None
 
 
-def _verify_leaves(ckpt_path: str, leaves: list) -> Optional[str]:
+def _verify_generation(cand: str, path: str
+                       ) -> Tuple[Optional[str], Optional[dict]]:
+    """``(reason, manifest)`` of the kept generation ``cand`` (``path`` or
+    its ``.prev`` twin): verified against its own manifest, else against
+    the other generation's. A death between :func:`_commit`'s two renames
+    leaves generation N's file at ``.prev`` beside N-1's manifest, while
+    N's manifest still has the latest's name; the file's sha256 picks the
+    manifest that describes it, so that death loses no generation."""
+    reason = _verify_single(cand)
+    if reason is None:
+        return None, _load_manifest(cand)
+    other = (path if cand != path else path + PREV_SUFFIX) + MANIFEST_SUFFIX
+    if os.path.exists(other) and _verify_single(cand, other) is None:
+        with open(other) as f:
+            return None, json.load(f)
+    return reason, None
+
+
+def _verify_leaves(man: Optional[dict], leaves: list) -> Optional[str]:
     """Per-leaf hash check against the manifest (behind the whole-file
     hash: it catches a stale manifest paired with the wrong npz)."""
-    man = _load_manifest(ckpt_path)
     if man is None:
         return None
     records = man.get("leaves", [])
@@ -303,9 +322,8 @@ def _read_single(directory: str, like_leaves,
     for cand in (path, path + PREV_SUFFIX):
         if not os.path.exists(cand):
             continue
-        reason = _verify_single(cand)
+        reason, man = _verify_generation(cand, path)
         if reason is None:
-            man = _load_manifest(cand)
             # Config drift is structural, not corruption: the .prev twin
             # was written under the same config, so it propagates.
             _check_fingerprint(cand, man, fingerprint)
@@ -316,7 +334,7 @@ def _read_single(directory: str, like_leaves,
             except Exception as e:  # noqa: BLE001 — corrupt zip
                 reason = f"unreadable ({type(e).__name__}: {e})"
             else:
-                reason = _verify_leaves(cand, leaves)
+                reason = _verify_leaves(man, leaves)
                 if reason is None:
                     if cand != path:
                         warnings.warn(
@@ -392,8 +410,7 @@ def load_stream_state(directory: str,
     for cand in (path, path + PREV_SUFFIX):
         if not os.path.exists(cand):
             continue
-        reason = _verify_single(cand)
-        man = _load_manifest(cand) if reason is None else None
+        reason, man = _verify_generation(cand, path)
         if reason is None and (man is None or "cursor" not in man):
             reason = "missing or cursor-less manifest"
         if reason is None:

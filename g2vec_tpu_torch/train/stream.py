@@ -82,13 +82,37 @@ a cursor at that point, so the serve daemon's drain resumes there),
 ``lifecycle(state, info)`` observes ``"checkpointed"`` after each cursor
 commits and ``"resumed"`` when a cursor is restored, and every run adds
 its counters to the process-wide :func:`stream_stats` totals (the batch
-engine's ``status()`` reads them). Not ported yet: sharded (multi-rank)
-streaming.
+engine's ``status()`` reads them).
+
+``walk_starts`` caps the start genes at an evenly spaced subset
+(:func:`~g2vec_tpu_torch.parallel.shard.subset_starts`; 0 or at least G:
+every gene, the bytes of a run without it).
+
+Scale-out over R processes (``shard_ctx``, a
+:class:`~g2vec_tpu_torch.parallel.shard.ShardContext`), as the JAX
+package's ``train_cbow_streaming`` does it:
+
+- graph sharding makes the producer an exchange: the rank that owns
+  shard ``si`` walks it and publishes the packed rows under ``walk/{si}``
+  over the store (the ``shard_exchange`` seam fires between the walk and
+  the publish); the others receive them instead of walking. Every rank
+  then spools and trains on every shard;
+- embed sharding swaps the step for the split step
+  (:mod:`.shard`): each rank uploads its byte columns of each shard,
+  padded once when staged, holds ``[G/R, H]`` of the embedding, and
+  allreduces the hidden activations once a step on the host
+  (``h_step``; the ``embed_allreduce`` seam fires before it, with the
+  step count as its epoch) and once an eval (``h_eval``). At bf16 the
+  split forward and backward are the packed kernels at the local width.
+
+At one rank both axes run exactly the code above (byte-identity). Sharded
+runs take no checkpoint and no device walker.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import os
 import shutil
 import tempfile
@@ -112,6 +136,7 @@ from g2vec_tpu_torch.ops.host_walker import (edges_to_csr, plan_shards,
                                              walk_shard)
 from g2vec_tpu_torch.ops.packed_matmul import (packed_matmul,
                                                padded_row_bytes, unpack_bits)
+from g2vec_tpu_torch.parallel.shard import subset_starts
 from g2vec_tpu_torch.resilience.faults import fault_point
 from g2vec_tpu_torch.resilience.lifecycle import DrainRequested
 from g2vec_tpu_torch.train.checkpoint import (RUN_COMPLETED,
@@ -211,6 +236,11 @@ class ShardRing:
                                   sum(s.nbytes for s in self._items))
             self._cv.notify_all()
         return True
+
+    @property
+    def cancelled(self) -> bool:
+        with self._cv:
+            return self._cancelled
 
     def get(self) -> Optional[Shard]:
         """Dequeue the next shard (emission order); blocks while empty.
@@ -492,7 +522,7 @@ def train_cbow_streaming(
         console: Callable[[str], None] = print,
         check: Optional[Callable[[], None]] = None,
         lifecycle: Optional[Callable[[str, dict], None]] = None,
-        debug_nans: bool = False,
+        debug_nans: bool = False, shard_ctx=None, walk_starts: int = 0,
         ) -> StreamTrainResult:
     """Stream walk shards from the sampler straight into minibatch SGD;
     returns the trained embeddings and the streaming twins of stage 3's
@@ -515,6 +545,10 @@ def train_cbow_streaming(
     docstring). ``console`` prints the resume line. ``check`` and
     ``lifecycle``: module docstring. ``debug_nans``: as
     :func:`~g2vec_tpu_torch.train.trainer.train_cbow`'s, per shard update.
+    ``shard_ctx`` and ``walk_starts``: module docstring. Under an embed
+    split the result's ``w_ih`` holds this rank's gene rows only
+    (``[g_local, H]``), and ``init`` is the full ``[G, H]`` init, of which
+    the rank takes its slice.
     """
     dev = resolve_device(device)
     if len(groups) != 2:
@@ -532,7 +566,28 @@ def train_cbow_streaming(
         raise ValueError(
             f"walker_backend must be native|device, got {walker_backend!r}")
 
-    plan = plan_shards(n_genes, reps, shard_paths, len_path=len_path)
+    # ---- sharding axes ----
+    spec = shard_ctx.spec if shard_ctx is not None else None
+    graph_multi = bool(spec and spec.graph_shards and spec.n_ranks > 1)
+    embed_multi = bool(spec and spec.embed_split)
+    if (graph_multi or embed_multi) and (checkpoint_dir or resume):
+        raise ValueError(
+            "sharded streaming (--graph-shards/--embed-shards at >1 "
+            "process) does not compose with checkpoint/resume yet — the "
+            "cursor would have to be a consistent distributed snapshot")
+    if spec is not None and spec.n_genes != n_genes:
+        raise ValueError(
+            f"shard context was built for {spec.n_genes} genes, trainer "
+            f"got {n_genes}")
+    if walker_backend == "device" and (graph_multi or embed_multi):
+        raise ValueError(
+            "the device walker does not compose with sharded streaming "
+            "yet — those producers exchange shards over host transports "
+            "keyed to the native pool")
+
+    starts = subset_starts(n_genes, walk_starts)
+    n_starts = n_genes if starts is None else len(starts)
+    plan = plan_shards(n_starts, reps, shard_paths, len_path=len_path)
     n_shards = plan.n_shards
     stats = StreamStats(n_shards=n_shards, rows_sampled=2 * plan.n_walkers,
                         shard_rows=plan.rows_per_shard,
@@ -557,7 +612,8 @@ def train_cbow_streaming(
             try:
                 return walk_shard_device_arrays(
                     None, None, None, n_genes, plan, shard_index,
-                    seed=(walk_seed << 1) | gi, csr=csr_dev[gi])[0]
+                    seed=(walk_seed << 1) | gi, csr=csr_dev[gi],
+                    starts=starts)[0]
             except Exception:
                 if attempt:
                     raise
@@ -568,7 +624,8 @@ def train_cbow_streaming(
             return np.concatenate([
                 walk_shard(None, None, None, n_genes, plan, shard_index,
                            seed=(walk_seed << 1) | gi,
-                           n_threads=sampler_threads, csr=csr[gi])
+                           n_threads=sampler_threads, csr=csr[gi],
+                           starts=starts)
                 for gi in (0, 1)], axis=0)
         return torch.cat([_device_walk_group(gi, shard_index)
                           for gi in (0, 1)]).cpu().numpy()
@@ -597,7 +654,7 @@ def train_cbow_streaming(
         "n_genes": n_genes, "len_path": len_path, "reps": reps,
         "n_shards": n_shards, "rows_per_shard": plan.rows_per_shard,
         "patience": patience, "eval_rows_cap": eval_rows_cap,
-        "max_epochs": max_epochs, "walk_starts": 0,
+        "max_epochs": max_epochs, "walk_starts": walk_starts,
     }
     # ---- resume: the newest verified cursor, read before the producer
     # starts: it decides where (and whether) sampling restarts ----
@@ -631,11 +688,62 @@ def train_cbow_streaming(
         for si in sorted(spool_futs):
             spool_futs.pop(si).result()
 
+    def _publish_rows(si: int, rows: np.ndarray, owner: int) -> None:
+        from g2vec_tpu_torch.parallel import hostcomm
+
+        buf = io.BytesIO()
+        np.save(buf, rows, allow_pickle=False)
+        hostcomm.exchange_bytes(f"walk/{si}", buf.getvalue(), owner)
+
+    def _recv_exchanged_rows(si: int, owner: int) -> Optional[np.ndarray]:
+        """The receiving side of ``walk/{si}``: waits in slices of at most
+        2 s, looking at the ring between them, so that a rank whose
+        trainer already stopped returns None instead of waiting out the
+        deadline on a publish that may never come."""
+        from g2vec_tpu_torch.parallel import hostcomm
+
+        budget = shard_ctx.deadline or hostcomm.DEFAULT_DEADLINE_S
+        t_end = time.monotonic() + budget
+        while True:
+            left = t_end - time.monotonic()
+            if left <= 0:
+                # The transport's own naming of the owner that never
+                # published.
+                return np.load(io.BytesIO(hostcomm.exchange_bytes(
+                    f"walk/{si}", None, owner, deadline=1e-3)),
+                    allow_pickle=False)
+            try:
+                raw = hostcomm.exchange_bytes(f"walk/{si}", None, owner,
+                                              deadline=min(2.0, left))
+                return np.load(io.BytesIO(raw), allow_pickle=False)
+            except hostcomm.PeerTimeoutError:
+                if ring.cancelled:
+                    return None
+
+    def _exchange_rows(si: int, owner: int) -> Optional[np.ndarray]:
+        """Shard ``si`` under graph sharding: its owner walks and
+        publishes it (on this producer thread, so under an explicit key),
+        the others receive it."""
+        if owner == spec.rank:
+            rows = _walk_shard_rows(si)
+            # The dead owner's seam: a sigkill here leaves the peers'
+            # reads waiting until their deadline names this rank.
+            fault_point("shard_exchange", epoch=si)
+            _publish_rows(si, rows, owner)
+            return rows
+        return _recv_exchanged_rows(si, owner)
+
     def _produce():
         t0 = time.perf_counter()
         try:
             for si in range(start_shard, n_shards):
-                shard = Shard(si, _walk_shard_rows(si), _shard_labels(si))
+                if graph_multi:
+                    rows = _exchange_rows(si, spec.shard_owner(si, n_shards))
+                    if rows is None:
+                        return      # consumer gone while waiting
+                else:
+                    rows = _walk_shard_rows(si)
+                shard = Shard(si, rows, _shard_labels(si))
                 path = spool.save(shard)
                 # The in-flight shard's seam: corrupt tears the spooled
                 # bytes (epoch 0 trains on the good copy in memory; the
@@ -670,6 +778,18 @@ def train_cbow_streaming(
     if tuple(init.w_ih.shape) != (n_genes, hidden):
         raise ValueError(f"init w_ih {tuple(init.w_ih.shape)} vs "
                          f"({n_genes}, {hidden})")
+    # The width of the rows a step reads and of W_ih: under an embed split
+    # the rank's byte columns and its slice of the table, padded to whole
+    # bytes with zero rows (walks set no bit past G, so the pad rows get
+    # no gradient and stay zero).
+    x_genes = n_genes
+    if embed_multi:
+        from g2vec_tpu_torch.train.shard import make_split_fns, split_params
+
+        blo, bhi = spec.byte_range()
+        x_genes = (bhi - blo) * 8
+        init = split_params(init, spec)
+        split = make_split_fns(compute_dtype, decision_threshold, x_genes)
     model = CBOW(init.w_ih.detach().to(device=dev, dtype=pdtype).clone(),
                  init.w_ho.detach().to(device=dev, dtype=pdtype).clone())
     params = [model.w_ih, model.w_ho]
@@ -690,6 +810,31 @@ def train_cbow_streaming(
                                    / (1.0 - decision_threshold)))
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
+    def _reduced_hidden(name: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's partial activations, allreduced over the host."""
+        h_part = split.partial_hidden(model.w_ih.detach(), x).cpu().numpy()
+        return torch.from_numpy(shard_ctx.allreduce(name, h_part)).to(dev)
+
+    step_count = [0]                 # split steps so far (the seam's epoch)
+
+    def _split_update(batch: _Batch) -> torch.Tensor:
+        x, y = batch.ready()
+        # The mid-step seam: a rank killed here leaves its peers' allreduce
+        # waiting until their deadline names it.
+        fault_point("embed_allreduce", epoch=step_count[0])
+        step_count[0] += 1
+        h = _reduced_hidden("h_step", x)
+        ones = torch.ones_like(y)
+        loss, dw_ho, dh = split.head_grads(model.w_ho, h, y, ones)
+        if debug_nans:
+            check_finite(loss, "loss (masked_bce_loss) of a shard update")
+        model.w_ih.grad = split.embed_grad(x, dh).to(pdtype)
+        model.w_ho.grad = dw_ho.to(pdtype)
+        if debug_nans:
+            check_gradients(params, "after a shard update")
+        adam.step(params)
+        return loss
+
     def _logits(x: torch.Tensor) -> torch.Tensor:
         if compute_dtype == "float32":
             return model(unpack_bits(x, n_genes, torch.float32), "float32")
@@ -697,6 +842,8 @@ def train_cbow_streaming(
         return output_logits(h, model.w_ho, compute_dtype)
 
     def _update(batch: _Batch) -> torch.Tensor:
+        if embed_multi:
+            return _split_update(batch)
         x, y = batch.ready()
         loss = masked_bce_loss(_logits(x), y, torch.ones_like(y))
         if debug_nans:
@@ -710,11 +857,17 @@ def train_cbow_streaming(
     @torch.no_grad()
     def _evaluate(batch: _Batch) -> float:
         x, y = batch.ready()
+        if embed_multi:
+            return float(split.head_eval(model.w_ho,
+                                         _reduced_hidden("h_eval", x), y,
+                                         torch.ones_like(y)))
         return float(accuracy_from_logits(_logits(x), y, torch.ones_like(y),
                                           logit_threshold))
 
     def _upload(x: np.ndarray, y: np.ndarray) -> _Batch:
-        return _Batch(x, y, n_genes, dev, copy_stream)
+        if embed_multi:
+            x = x[:, blo:bhi]     # copied, padded, once: when it is staged
+        return _Batch(x, y, x_genes, dev, copy_stream)
 
     # ---- epoch-0 byproducts, accumulated in shard order ----
     good_counts = np.zeros(n_genes, np.int64)
@@ -961,8 +1114,9 @@ def train_cbow_streaming(
             if fg or fp:
                 gene_freq[g] = 0 if fg > fp else (1 if fg < fp else 2)
         best = CBOW(*snapshot)
+        rows = spec.g_local if embed_multi else n_genes
         train = TrainResult(
-            w_ih=best.w_ih.detach().float().cpu().numpy(),
+            w_ih=best.w_ih.detach()[:rows].float().cpu().numpy(),
             stop_epoch=(best_epoch if stopped_early else stop_epoch),
             stopped_early=stopped_early, acc_val=best_val, acc_tr=best_tr,
             history=history, model=best)

@@ -293,6 +293,40 @@ def test_corrupt_latest_falls_back_to_prev_then_raises(tmp_path, layout):
             load()
 
 
+@pytest.mark.parametrize("layout", ["full", "stream"])
+def test_death_between_the_commit_renames_loses_no_generation(tmp_path,
+                                                             layout):
+    """A SIGKILL after the commit moved the latest file to ``.prev`` and
+    before it moved the manifest leaves generation N's file at ``.prev``
+    beside N-1's manifest and N's manifest at the latest's name, with no
+    latest file: the loader pairs the file with the manifest whose sha256
+    it matches and resumes at N (the reference's loader finds every kept
+    generation corrupt there)."""
+    p, opt, snap = _state(torch.float32)
+    d = str(tmp_path)
+    if layout == "full":
+        for epoch in (4, 9):
+            ck.save_state(d, p, opt, snap, epoch, 0.5, 0.6)
+        latest = os.path.join(d, ck.CKPT_NAME)
+
+        def load(mod):
+            return mod.load_state(d, *_LIKE)[3] if mod is ck else None
+    else:
+        for epoch in (4, 9):
+            ck.save_stream_state(d, {"x": np.arange(400.0) + epoch},
+                                 {"epoch": epoch})
+        latest = os.path.join(d, ck.STREAM_NAME)
+
+        def load(mod):
+            return mod.load_stream_state(d)[1]["epoch"]
+    os.replace(latest, latest + ck.PREV_SUFFIX)      # the commit's rename 1
+    with pytest.warns(RuntimeWarning, match="previous checkpoint"):
+        assert load(ck) == 9
+    if layout == "stream":
+        with pytest.raises(ValueError, match="every kept generation"):
+            load(jckpt)
+
+
 def test_no_checkpoint_loads_none(tmp_path):
     assert ck.load_state(str(tmp_path), *_LIKE) is None
     assert ck.load_stream_state(str(tmp_path)) is None

@@ -825,3 +825,122 @@ def test_update_fine_tune_on_the_card_runs_the_solo_kernels(cuda,
     assert pm.packed_matmul_fwd.launches == pm.packed_matmul_bwd.launches \
         == 0
     assert noop.embeddings.tobytes() == up.embeddings.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# The split step of the sharded run (train/shard.py) at ranks' widths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_genes,n_ranks,rank,m,h", [
+    (1003, 2, 0, 300, 32), (1003, 2, 1, 300, 32), (61, 2, 1, 37, 12),
+    (20_000, 2, 1, 2048, 128), (9999, 7, 6, 513, 256)])
+def test_split_step_kernels_match_plain_at_rank_widths(cuda, n_genes, n_ranks,
+                                                       rank, m, h):
+    """A rank's byte columns, staged as the trainer stages them (each row
+    padded once to the kernels' stride), at local widths that are no
+    multiple of the tiles: the split forward and backward launch the
+    kernels and agree with their plain versions on the same tensors."""
+    from g2vec_tpu_torch.parallel.shard import ShardSpec
+    from g2vec_tpu_torch.train.shard import make_split_fns
+
+    spec = ShardSpec(rank=rank, n_ranks=n_ranks, n_genes=n_genes,
+                     embed_shards=n_ranks)
+    blo, bhi = spec.byte_range()
+    g_local = (bhi - blo) * 8
+    rng = np.random.default_rng(n_genes + rank)
+    rows = np.packbits(rng.random((m, n_genes)) < 12 / n_genes, axis=1)
+    local = np.zeros((m, pm.padded_row_bytes(g_local)), np.uint8)
+    local[:, :bhi - blo] = spec.slice_packed(rows)
+    packed = torch.from_numpy(local).cuda()
+    w = torch.from_numpy(rng.standard_normal((g_local, h)).astype(np.float32)
+                         * 0.1).cuda()
+    w[spec.g_local:] = 0.0
+    dh = torch.from_numpy(rng.standard_normal((m, h)).astype(np.float32)
+                          ).cuda()
+    fns = make_split_fns("bfloat16", 0.5, g_local)
+    x = pm.unpack_bits(packed, g_local).float()
+    pm.reset_launch_counts()
+    _assert_close(fns.partial_hidden(w, packed),
+                  pm.packed_matmul_fwd_plain(packed, w),
+                  x @ w.bfloat16().float().abs())
+    dw = fns.embed_grad(packed, dh)
+    assert tuple(dw.shape) == (g_local, h)
+    _assert_close(dw, pm.packed_matmul_bwd_plain(packed, dh, g_local),
+                  x.T @ dh.bfloat16().float().abs())
+    assert (pm.packed_matmul_fwd.launches,
+            pm.packed_matmul_bwd.launches) == (1, 1)
+    assert not bool(dw[spec.g_local:].any())    # pad rows get no gradient
+
+
+_FLEET_RANK = r"""
+import json, os, sys
+from g2vec_tpu_torch.config import G2VecConfig
+from g2vec_tpu_torch.ops import packed_matmul as pm
+from g2vec_tpu_torch.parallel import distributed
+from g2vec_tpu_torch.pipeline import run
+cfg = G2VecConfig(**json.loads(sys.argv[1]))
+distributed.initialize()
+rank = distributed.process_index()
+res = run(cfg, console=lambda s: None)
+distributed.shutdown()
+print(json.dumps({"rank": rank, "acc_val": float(res.acc_val),
+                  "biomarkers": list(res.biomarkers),
+                  "fwd": pm.packed_matmul_fwd.launches,
+                  "bwd": pm.packed_matmul_bwd.launches,
+                  "files": list(res.output_files)}))
+"""
+
+
+def test_two_ranks_share_the_card_on_the_split_kernels(cuda, tmp_path):
+    """Two processes on the one card (--distributed --graph-shards 2
+    --embed-shards 2, bf16): both finish with the same selections, each
+    launched both kernels a step, rank 0 alone wrote, and the run holds
+    the band against the card's unsharded run."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from g2vec_tpu_torch.config import G2VecConfig
+    from g2vec_tpu_torch.data.synthetic import (SyntheticSpec,
+                                                write_synthetic_tsv)
+    from g2vec_tpu_torch.pipeline import run
+
+    files = write_synthetic_tsv(SyntheticSpec(
+        n_good=30, n_poor=26, module_size=16, shared_module_size=6,
+        n_background=24, n_expr_only=4, n_net_only=4, module_chords=3,
+        background_edges=40, noise=0.25, shift=1.4, seed=7), str(tmp_path))
+    base = dict(expression_file=files["expression"],
+                clinical_file=files["clinical"],
+                network_file=files["network"], lenPath=20, numRepetition=4,
+                sizeHiddenlayer=32, epoch=8, numBiomarker=10, seed=11,
+                train_mode="streaming", shard_paths=64, stream_patience=8,
+                walker_backend="native")
+    plain = run(G2VecConfig(result_name=str(tmp_path / "plain"), **base),
+                console=lambda s: None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = json.dumps(dict(base, result_name=str(tmp_path / "fleet"),
+                          distributed=True, graph_shards=2, embed_shards=2,
+                          fleet_watchdog_deadline=120.0))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _FLEET_RANK, cfg], text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env=dict(os.environ, PYTHONPATH=root,
+                 G2VEC_COORDINATOR=f"127.0.0.1:{port}",
+                 G2VEC_PROCESS_ID=str(r), G2VEC_NUM_PROCESSES="2"))
+        for r in range(2)]
+    out = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], out[0][1][-2000:]
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in out]
+    assert ranks[0]["biomarkers"] == ranks[1]["biomarkers"]
+    assert ranks[0]["acc_val"] == ranks[1]["acc_val"]
+    assert ranks[0]["files"] and not ranks[1]["files"]
+    for r in ranks:
+        assert r["fwd"] > r["bwd"] > 0
+    assert abs(ranks[0]["acc_val"] - plain.acc_val) <= 0.20
+    overlap = len(set(ranks[0]["biomarkers"]) & set(plain.biomarkers))
+    assert overlap / len(plain.biomarkers) >= 0.6

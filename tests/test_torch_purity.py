@@ -3,7 +3,9 @@
 - By AST: no module of g2vec_tpu_torch/, and not chip_smoke.py, imports
   jax, jaxlib, optax, ml_dtypes or g2vec_tpu.
 - At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
-  cpu``, full-batch, ``--train-mode streaming``, ``--seeds`` and
+  cpu``, full-batch, ``--train-mode streaming`` plain and under
+  ``--distributed --graph-shards 1 --embed-shards 1 --walk-starts``,
+  ``--seeds`` and
   ``--scenario``) runs a tiny spec end to end in a fresh interpreter,
   after which neither jax nor any g2vec_tpu module is in ``sys.modules``;
   so do ``serve --help`` and the router serving a job through a replica
@@ -110,6 +112,18 @@ def test_streaming_cli_runs_without_jax_in_sys_modules(tmp_path):
     events = [json.loads(line)["event"]
               for line in open(tmp_path / "m.jsonl")]
     assert "stream" in events and events[-1] == "done"
+
+
+def test_sharded_streaming_cli_runs_without_jax_in_sys_modules(tmp_path):
+    """The sharded run's modules (the shard context, the store transport,
+    the distributed runtime, the split step's module) are imported on this
+    path: one rank under --distributed with both axes and --walk-starts."""
+    lines = _run_cli(tmp_path, "--train-mode", "streaming", "--shard-paths",
+                     "16", "--distributed", "--graph-shards", "1",
+                     "--embed-shards", "1", "--walk-starts", "12",
+                     "--fleet-watchdog-deadline", "30")
+    assert any(line.startswith("    [shard] rank 0/1: graph_shards=1 "
+                               "embed_shards=1") for line in lines)
 
 
 def test_batch_cli_runs_without_jax_in_sys_modules(tmp_path):

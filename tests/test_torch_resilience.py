@@ -607,3 +607,70 @@ def test_every_seam_has_a_call_site_and_a_test():
     untested = [s for s in faults.SEAMS
                 if not re.search(r"\b%s\b" % re.escape(s), tests_text)]
     assert not untested, f"seams no port test names: {untested}"
+
+
+# ---------------------------------------------------------------------------
+# The sharded run's seams, each at its call site
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def two_rank_world(monkeypatch):
+    """This process as rank 0 of two, over a real store (no peer joins: a
+    seam that fires before its collective needs none)."""
+    import datetime
+
+    from torch.distributed import TCPStore
+
+    from g2vec_tpu_torch.parallel import distributed
+
+    store = TCPStore("127.0.0.1", 0, 2, True,
+                     timeout=datetime.timedelta(seconds=30),
+                     wait_for_workers=False)
+    monkeypatch.setattr(distributed, "_world", distributed._World(
+        0, 2, "127.0.0.1", store.port, store))
+    return store
+
+
+def _split_run(spec_kw):
+    import numpy as np
+
+    from g2vec_tpu_torch.parallel.shard import ShardContext, ShardSpec
+    from g2vec_tpu_torch.train.stream import train_cbow_streaming
+
+    rng = np.random.default_rng(0)
+    groups = []
+    for _ in range(2):
+        src = rng.integers(0, 40, 120)
+        dst = (src + 1 + rng.integers(0, 39, 120)) % 40
+        groups.append((src, dst, rng.random(120).astype(np.float32) + 0.5))
+    ctx = ShardContext(ShardSpec(rank=0, n_ranks=2, n_genes=40, **spec_kw),
+                       deadline=5.0)
+    return train_cbow_streaming(
+        groups=groups, n_genes=40, genes=[f"G{i}" for i in range(40)],
+        hidden=8, learning_rate=0.01, max_epochs=2, len_path=6, reps=2,
+        shard_paths=16, compute_dtype="float32", device="cpu",
+        shard_ctx=ctx)
+
+
+@pytest.mark.parametrize("seam", ["allgather", "shard_exchange",
+                                  "embed_allreduce"])
+def test_sharded_seam_fires_at_its_call_site(seam, two_rank_world):
+    """The three seams the sharded run brought out of NOT_PORTED: a crash
+    there raises where the seam stands, before anything is published."""
+    from g2vec_tpu_torch.parallel import hostcomm
+
+    faults.install_plan(f"stage={seam},kind=crash")
+    with pytest.raises(faults.InjectedFault, match=f"seam={seam}"):
+        if seam == "allgather":
+            hostcomm.allgather_bytes("h_step", b"payload", deadline=1.0)
+        elif seam == "shard_exchange":
+            # Rank 0 owns the first partition's shards: it walks shard 0,
+            # and the seam fires between the walk and the publish.
+            _split_run(dict(graph_shards=2))
+        else:
+            # The first split step, before its allreduce.
+            _split_run(dict(embed_shards=2))
+    published = [k for k in ("g2vec/xc/walk/0/n",)
+                 if two_rank_world.check([k])]
+    assert published == []
+    assert not two_rank_world.check(["g2vec/ag/0/h_step/0"])
