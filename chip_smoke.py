@@ -145,9 +145,26 @@ cold retrain printed; and on tests/test_update.py's spec, for seeds 0-3,
 the edge delta's accuracy held within 0.20 of a cold retrain's, its list
 overlap printed beside the two cold runs' own, and seed 0's update on
 the card held against the CPU's.
-It fails past 150 s. The lane kernels' records carry the scenarios'
+The lane kernels' records carry the scenarios'
 launches (``scenario_launches``), the solo ones the updates'
 (``update_launches``).
+Phase 13 runs the scale paths: a G 20,000 graph streamed with
+``--walk-starts`` on one rank (and ``--graph-shards 1 --embed-shards 1``
+writing its bytes), the scale-out spec (G 262,144) plain and on two ranks
+sharing the card, a SIGKILL drill at ``embed_allreduce``, and the packed
+kernels at the split step's shapes. Phase 14 runs the edge partition: the
+resumable walk kernel (``g2v_walk_states_kernel``) on one example group's
+walkers as walk states, advanced over half the genes and resumed over the
+other half and back until every walk ends, each advance bitwise the C++
+advance's and the plain version's and the packed rows ``walk_shard``'s,
+timed beside both; then the scale-out spec written partitioned
+(``write_synth_graph_streamed(..., partitions=2)``) and run with
+``--edge-partition handoff`` and ``halo`` on two ranks under
+``G2VEC_FORBID_FULL_NETWORK=1`` beside a plain run on the flat file: the
+two write the same bytes, hold the band against the plain run, and each
+rank holds fewer CSR bytes than the plain run; a rank SIGKILLed at
+``walk_handoff`` is named by the survivor. Phases 12, 13 and 14 each fail
+past 150 s.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -2954,17 +2971,23 @@ def _update_drills(torch, pm, files, tmp):
     return walls, launches, stats
 
 
-# A rank (or the plain run) of phase 13, run through this wrapper instead
-# of ``python -m g2vec_tpu_torch``: the CLI's own entry point, with the
-# pipeline's result kept, and at exit its selections, its kernel wrappers'
-# launch counts and its peak device memory recorded (a SIGKILLed rank, or
-# one that exits through its failure path, records nothing).
+# A rank (or the plain run) of phases 13 and 14, run through this wrapper
+# instead of ``python -m g2vec_tpu_torch``: the CLI's own entry point, with
+# the pipeline's result kept, the edge partition's metrics events as the
+# rank emits them (a rank other than 0 writes no metrics file), and the
+# edges and bytes of every whole-graph CSR the streaming trainer builds.
+# At exit it records those, its selections, its kernel wrappers' launch
+# counts and its peak device memory (a SIGKILLed rank, or one that exits
+# through its failure path, records nothing).
 _RANK = r"""
 import atexit, hashlib, json, os, runpy, sys
 sys.argv = ["g2vec_tpu_torch", *sys.argv[1:]]
 import g2vec_tpu_torch.pipeline as pipeline
-kept = {}
-_run = pipeline.run
+import g2vec_tpu_torch.train.stream as stream
+from g2vec_tpu_torch.utils.metrics import MetricsWriter
+kept = {"events": {}, "csrs": []}
+_run, _emit, _edges_to_csr = pipeline.run, MetricsWriter.emit, \
+    stream.edges_to_csr
 
 
 def run(cfg, *args, **kwargs):
@@ -2972,7 +2995,20 @@ def run(cfg, *args, **kwargs):
     return res
 
 
-pipeline.run = run
+def emit(self, event, **fields):
+    if event in ("edge_partition", "halo", "handoff"):
+        kept["events"][event] = fields
+    return _emit(self, event, **fields)
+
+
+def edges_to_csr(*args, **kwargs):
+    csr = _edges_to_csr(*args, **kwargs)
+    kept["csrs"].append([len(csr[1]), sum(a.nbytes for a in csr)])
+    return csr
+
+
+pipeline.run, MetricsWriter.emit, stream.edges_to_csr = (run, emit,
+                                                         edges_to_csr)
 
 
 def report():
@@ -2995,7 +3031,8 @@ def report():
             "epochs": None if res is None else len(res.train_history),
             "rows": None if res is None else int(res.embeddings.shape[0]),
             "output_files": None if res is None else list(res.output_files),
-            "stage_seconds": None if res is None else res.stage_seconds}, f)
+            "stage_seconds": None if res is None else res.stage_seconds,
+            "edge_events": kept["events"], "csrs": kept["csrs"]}, f)
 
 
 atexit.register(report)
@@ -3011,10 +3048,12 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _start_ranks(files, out, flags, reports, n_ranks=1, port=None):
+def _start_ranks(files, out, flags, reports, n_ranks=1, port=None,
+                 extra_env=None):
     """``n_ranks`` processes of the CLI (through ``_RANK``), the
-    ``G2VEC_*`` environment naming each one's rank when ``n_ranks > 1``;
-    returns the Popen objects, their output going to ``out.r<rank>.log``."""
+    ``G2VEC_*`` environment naming each one's rank when ``n_ranks > 1``
+    (and ``extra_env`` added); returns the Popen objects, their output
+    going to ``out.r<rank>.log``."""
     root = os.path.dirname(os.path.abspath(__file__))
     wrapper = os.path.join(reports, "rank.py")
     if not os.path.exists(wrapper):
@@ -3024,8 +3063,10 @@ def _start_ranks(files, out, flags, reports, n_ranks=1, port=None):
     for rank in range(n_ranks):
         env = dict(os.environ, PYTHONPATH=root, G2V_SMOKE_REPORTS=reports)
         for name in ("G2VEC_COORDINATOR", "G2VEC_PROCESS_ID",
-                     "G2VEC_NUM_PROCESSES", "G2VEC_FAULT_PLAN"):
+                     "G2VEC_NUM_PROCESSES", "G2VEC_FAULT_PLAN",
+                     "G2VEC_FORBID_FULL_NETWORK"):
             env.pop(name, None)
+        env.update(extra_env or {})
         if n_ranks > 1:
             env.update(G2VEC_COORDINATOR=f"127.0.0.1:{port}",
                        G2VEC_PROCESS_ID=str(rank),
@@ -3264,6 +3305,342 @@ def _scale_phase(torch, pm, tmp):
     return records
 
 
+def _states_bytes(pos_before, pos_after, csr, n_genes) -> int:
+    """The bytes one advance of these walkers needs to move through device
+    memory, each once, from the run's own positions before and after it:
+    a walker's cur, pos and rng read (16 B) and its path prefix
+    (``4 * pos_before``), its new entries written (``4 * (pos_after -
+    pos_before)``) with cur, pos, rng and status (17 B); the CSR and the
+    avail mask read."""
+    pos_before = pos_before.astype(np.int64)
+    pos_after = pos_after.astype(np.int64)
+    return int(16 * pos_before.size + 4 * pos_before.sum()
+               + 4 * (pos_after - pos_before).sum() + 17 * pos_before.size
+               + sum(a.nbytes for a in csr) + n_genes)
+
+
+def _states_dev(torch, states):
+    """A walk-state batch's four arrays as card tensors (rng as int64)."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+        states.cur, states.rng.view(np.int64), states.pos, states.paths)]
+
+
+def _time_states(torch, fn, pristine, work, flush, n=10):
+    """(median, min, max) device ms of ``fn()`` advancing ``work`` from
+    ``pristine`` (restored before each launch, outside the events), each
+    launch after an L2 flush and behind a sleep kernel."""
+    times = []
+    for _ in range(n + 1):
+        for w, p in zip(work, pristine):
+            w.copy_(p)
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times = sorted(times[1:])
+    return times[len(times) // 2], times[0], times[-1]
+
+
+def _hold_states(name, got, want, status, status_want):
+    for field in ("cur", "rng", "pos", "paths"):
+        if not np.array_equal(getattr(got, field), getattr(want, field)):
+            raise RuntimeError(f"walk states {name}: {field} differs")
+    if not np.array_equal(status, status_want):
+        raise RuntimeError(f"walk states {name}: status differs")
+
+
+def _walk_states_at_the_example(torch, dw, cfg):
+    """Phase 14 (a): one group's walkers as walk states, advanced on the
+    card over half the genes, then resumed over the other half and back
+    until none is suspended; each advance against the C++ one and the
+    plain version, bitwise, and the packed result against walk_shard's
+    rows. Returns the kernel line's record."""
+    import copy
+
+    from g2vec_tpu_torch.ops.host_walker import (advance_walk_states,
+                                                 pack_finished_paths,
+                                                 plan_shards,
+                                                 shard_walk_states,
+                                                 walk_shard)
+
+    g, csrs = _stage3_csr(cfg)
+    csr, seed, length = csrs[0], cfg.seed << 1, cfg.lenPath
+    plan = plan_shards(g, cfg.numRepetition, 2 * cfg.numRepetition * g,
+                       len_path=length)
+    if plan.n_shards != 1:
+        raise RuntimeError(f"(a): the plan has {plan.n_shards} shards")
+    first = np.zeros(g, np.uint8)
+    first[:g // 2] = 1
+    csr_dev = dw.upload_csr(csr, g, "cuda")
+    states = shard_walk_states(plan, 0, seed=seed)
+    pristine = copy.deepcopy(states)
+    todo = np.arange(len(states))
+    avail, advances, per_round = first, 0, []
+    dw.reset_launch_counts()
+    while todo.size:
+        part = states.take(todo)
+        native = copy.deepcopy(part)
+        plain = _states_dev(torch, part)
+        status = dw.advance_walk_states_device(part, csr_dev, g, avail,
+                                               length)
+        st_native = advance_walk_states(native, csr, g, avail, length,
+                                        n_threads=8)
+        st_plain = dw.walk_states_plain(
+            csr_dev.indptr, csr_dev.indices, csr_dev.weights,
+            torch.from_numpy(avail).cuda(), *plain, length).cpu().numpy()
+        plain_host = copy.deepcopy(part)
+        for field, t in zip(("cur", "rng", "pos", "paths"), plain):
+            arr = t.cpu().numpy()
+            getattr(plain_host, field)[:] = (arr.view(np.uint64)
+                                             if field == "rng" else arr)
+        _hold_states(f"advance {advances} (C++)", part, native, status,
+                     st_native)
+        _hold_states(f"advance {advances} (plain)", part, plain_host, status,
+                     st_plain)
+        if not advances:
+            pos_first = part.pos.copy()
+        for field in ("cur", "rng", "pos", "paths"):
+            getattr(states, field)[todo] = getattr(part, field)
+        per_round.append((int(todo.size), int(status.sum())))
+        todo = todo[status == 1]
+        avail = 1 - avail
+        advances += 1
+    launches = dw.device_walk_states.launches
+    rows = pack_finished_paths(states.paths, g)
+    want = walk_shard(None, None, None, g, plan, 0, seed=seed, csr=csr)
+    if rows.tobytes() != want.tobytes():
+        raise RuntimeError("(a): the resumed walks' rows are not "
+                           "walk_shard's")
+    print(f"    (a) group g at the example: {len(states)} walkers, len_path "
+          f"{length}, G {g}, {len(csr[1])} edges; genes [0, {g // 2}) held "
+          f"first, then the other half in turns: {advances} advances "
+          f"(walkers, suspended) {per_round}; each advance's cur, rng, pos, "
+          f"paths and status = the C++ advance's = the plain version's, "
+          f"bitwise; the packed rows = walk_shard's; kernel launches "
+          f"{launches}")
+    if launches != advances:
+        raise RuntimeError(f"(a): {launches} launches for {advances} "
+                           f"advances")
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    src = _states_dev(torch, pristine)
+    work = [t.clone() for t in src]
+    avail_t = torch.from_numpy(first).cuda()
+    csr_args = (csr_dev.indptr, csr_dev.indices, csr_dev.weights, avail_t)
+    rec = {}
+    for key, fn in (("ms", lambda: dw.device_walk_states(
+                        *csr_args, *work, length)),
+                    ("plain_ms", lambda: dw.walk_states_plain(
+                        *csr_args, *work, length))):
+        rec[key], lo, hi = _time_states(torch, fn, src, work, flush)
+        rec[key + "_spread"] = [lo, hi]
+    del flush
+    cpp = []
+    for _ in range(5):
+        part = copy.deepcopy(pristine)
+        t0 = time.perf_counter()
+        advance_walk_states(part, csr, g, first, length, n_threads=8)
+        cpp.append((time.perf_counter() - t0) * 1e3)
+    cpp.sort()
+    nbytes = _states_bytes(pristine.pos, pos_first, csr, g)
+    rec.update(cpp_ms=cpp[2], cpp_ms_spread=[cpp[0], cpp[-1]],
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+               bound_bytes=nbytes)
+    print(f"    the first advance: kernel {_spread((rec['ms'], *rec['ms_spread']))}"
+          f", plain {_spread((rec['plain_ms'], *rec['plain_ms_spread']))}, "
+          f"C++ advance (8 host threads, median of 5) {rec['cpp_ms']:.4f} ms "
+          f"[{cpp[0]:.4f}, {cpp[-1]:.4f}]; byte bound {rec['bound_ms']:.6f} "
+          f"ms ({nbytes} bytes: {len(pristine)} walkers from {int(pristine.pos.sum())} "
+          f"to {int(pos_first.sum())} path entries in all)")
+    return {"name": "device_walk_states", "route": "cuda",
+            "source": "g2vec_tpu_torch/csrc/device_walker.cu",
+            "replaces": dw.REPLACES_STATES, "launches": launches,
+            "max_abs_err": 0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+            "bound_bytes": nbytes, "library_ms": None, "cpp_ms": rec["cpp_ms"],
+            "shape": f"{len(pristine)} walkers, len_path {length}, G {g} "
+                     f"(group g), first advance over genes [0, {g // 2})",
+            "advances": advances}
+
+
+def _edge_phase(torch, dw, cfg, tmp):
+    """Phase 14: the resumable walk kernel at the example, and the edge
+    partition at the scale-out spec on two ranks sharing the card, with
+    its drill. Returns the kernel line's ``device_walk_states`` record."""
+    from g2vec_tpu_torch.data.synth import (SynthGraphSpec,
+                                            write_synth_graph_streamed)
+    from g2vec_tpu_torch.io.readers import FORBID_FULL_NETWORK_ENV
+
+    t14 = time.perf_counter()
+    rec = _walk_states_at_the_example(torch, dw, cfg)
+    print(f"    (a) took {time.perf_counter() - t14:.1f} s")
+
+    spec = SynthGraphSpec(n_genes=262_144, n_good=8, n_poor=8, seed=5)
+    (part, flat), secs = _timed(lambda: (
+        write_synth_graph_streamed(spec, os.path.join(tmp, "edge"),
+                                   prefix="edge", partitions=2),
+        write_synth_graph_streamed(spec, os.path.join(tmp, "flat"),
+                                   prefix="flat")))
+    print(f"    inputs (write_synth_graph_streamed, G 262144, 8 + 8 samples, "
+          f"seed 5): {part['n_edges']} edges in 2 parts and the flat file "
+          f"({secs:.1f} s to write both)")
+    b_flags = ["-p", "12", "-r", "2", "-s", "256", "-e", "2",
+               "--stream-patience", "2", "--train-mode", "streaming",
+               "--walk-starts", "2048", "--shard-paths", "256",
+               "--stream-eval-rows", "256"]
+    fleet = b_flags + ["--distributed", "--graph-shards", "2",
+                       "--embed-shards", "2"]
+    pin = {FORBID_FULL_NETWORK_ENV: "1"}
+    runs = {}
+    t_b = time.perf_counter()
+    for name, files, flags, n, env in (
+            ("handoff", part, fleet + ["--edge-partition", "handoff",
+                                       "--fleet-watchdog-deadline", "300"],
+             2, pin),
+            ("halo", part, fleet + ["--edge-partition", "halo",
+                                    "--fleet-watchdog-deadline", "300"],
+             2, pin),
+            ("plain", flat, b_flags, 1, None),
+            ("off", flat, fleet + ["--fleet-watchdog-deadline", "300"], 2,
+             None),
+            ("drill", part, fleet + [
+                "--edge-partition", "handoff",
+                "--fleet-watchdog-deadline", "15", "--fault-plan",
+                "process=1,stage=walk_handoff,kind=sigkill"], 2, pin)):
+        reports = os.path.join(tmp, f"edge_{name}_reports")
+        os.makedirs(reports)
+        out = os.path.join(tmp, f"edge_{name}")
+        runs[name] = (_start_ranks(files, out, flags, reports, n,
+                                   _free_port(), extra_env=env),
+                      out, reports)
+    done = {name: _wait_ranks(procs, out) for name, (procs, out, _)
+            in runs.items()}
+    print(f"    (b, c) the two partitioned runs, the same two ranks "
+          f"unpartitioned, the plain run and the drill took "
+          f"{time.perf_counter() - t_b:.1f} s together")
+    for name in ("handoff", "halo", "off", "plain"):
+        rcs, logs = done[name]
+        if any(rcs):
+            raise RuntimeError(f"(b) {name}: exit codes {rcs}:\n"
+                               + "\n".join(log[-3000:] for log in logs))
+    plain, = _rank_reports(runs["plain"][2])
+    fleets = {m: _rank_reports(runs[m][2])
+              for m in ("handoff", "halo", "off")}
+    outputs = {}
+    for mode, ranks in fleets.items():
+        if [r["rank"] for r in ranks] != [0, 1]:
+            raise RuntimeError(f"(b) {mode}: rank reports {ranks}")
+        if ranks[1]["output_files"] or len(ranks[0]["output_files"]) != 3:
+            raise RuntimeError(f"(b) {mode}: output files "
+                               f"{ranks[0]['output_files']} and "
+                               f"{ranks[1]['output_files']}")
+        outputs[mode] = []
+        for path in ranks[0]["output_files"]:
+            with open(path, "rb") as f:
+                outputs[mode].append(f.read())
+        for key in ("biomarkers", "acc_val", "n_paths"):
+            if ranks[0][key] != ranks[1][key]:
+                raise RuntimeError(f"(b) {mode}: the ranks' {key} differ")
+    if outputs["handoff"] != outputs["halo"]:
+        raise RuntimeError("(b): handoff and halo wrote other bytes")
+    if outputs["handoff"] != outputs["off"]:
+        raise RuntimeError("(b): handoff wrote other bytes than the same "
+                           "two ranks unpartitioned")
+    h0 = fleets["handoff"][0]
+    for mode in ("halo", "off"):
+        if (fleets[mode][0]["acc_val"], fleets[mode][0]["n_paths"]) != \
+                (h0["acc_val"], h0["n_paths"]):
+            raise RuntimeError(f"(b): handoff and {mode} differ in acc_val "
+                               f"or n_paths")
+    acc_gap, overlap = _band_of(h0["acc_val"], h0["biomarkers"],
+                                plain["acc_val"], plain["biomarkers"])
+    # The plain run's two whole-graph CSRs, as its trainer built them.
+    plain_edges = sum(e for e, _ in plain["csrs"])
+    plain_csr = sum(b for _, b in plain["csrs"])
+    if len(plain["csrs"]) != 2:
+        raise RuntimeError(f"(b): the plain run built CSRs {plain['csrs']}")
+    print(f"    (b) G 262144, hidden 256, -p 12 -r 2, --walk-starts 2048, "
+          f"--shard-paths 256, bf16, --graph-shards 2 --embed-shards 2: "
+          f"handoff and halo under {FORBID_FULL_NETWORK_ENV}=1 wrote the "
+          f"same bytes as the same two ranks unpartitioned on the flat "
+          f"file, val acc {h0['acc_val']:.4f}, {h0['n_paths']} paths, rank "
+          f"0 alone wrote; the plain run on the flat file val acc "
+          f"{plain['acc_val']:.4f}, {plain['n_paths']} paths; |dACC| "
+          f"{acc_gap:.4f} (band 0.20), top-N overlap {overlap:.3f} (floor "
+          f"0.6); the plain run's CSRs {plain_edges} edges, {plain_csr} "
+          f"bytes (measured)")
+    for r in fleets["off"]:
+        if r["csrs"] != plain["csrs"]:
+            raise RuntimeError(f"(b) off rank {r['rank']}: CSRs {r['csrs']}, "
+                               f"the plain run's {plain['csrs']}")
+    for mode in ("handoff", "halo"):
+        ranks = fleets[mode]
+        owned = sum(r["edge_events"]["edge_partition"]["owned_edges"]
+                    for r in ranks)
+        if owned != plain_edges:
+            raise RuntimeError(f"(b) {mode}: the ranks own {owned} edges, "
+                               f"the plain run's CSRs hold {plain_edges}")
+        for r in ranks:
+            ev = r["edge_events"]
+            e = {**ev["edge_partition"], **ev.get("halo", {}),
+                 **ev["handoff"]}
+            if r["csrs"]:
+                raise RuntimeError(f"(b) {mode} rank {r['rank']} built a "
+                                   f"whole-graph CSR: {r['csrs']}")
+            print(f"    {mode} rank {r['rank']}: genes [{e['gene_lo']}, "
+                  f"{e['gene_hi']}), csr_bytes {e['csr_bytes']}, "
+                  f"owned_edges {e['owned_edges']}, halo edges "
+                  f"{e.get('halo_edges', 0)}, overhead_ratio "
+                  f"{e.get('overhead_ratio', 0.0):.4f}; handoff rounds "
+                  f"{e['rounds']}, states_sent {e['states_sent']}, batches "
+                  f"{e['batches']}, peak_in_flight {e['peak_in_flight']} "
+                  f"over {e['shards']} shard-groups; launches fwd "
+                  f"{r['packed_matmul_fwd']}, bwd {r['packed_matmul_bwd']}; "
+                  f"stage seconds " + json.dumps(
+                      {k: round(v, 3) for k, v in r["stage_seconds"].items()}))
+            if not e["csr_bytes"] < plain_csr:
+                raise RuntimeError(f"(b) {mode} rank {r['rank']}: "
+                                   f"{e['csr_bytes']} CSR bytes, the plain "
+                                   f"run {plain_csr}")
+            if not (r["packed_matmul_fwd"] and r["packed_matmul_bwd"]):
+                raise RuntimeError(f"(b) {mode} rank {r['rank']}: "
+                                   f"launches {r}")
+    for name, r in (("off rank 0", fleets["off"][0]),
+                    ("off rank 1", fleets["off"][1]), ("plain", plain)):
+        print(f"    {name}: launches fwd {r['packed_matmul_fwd']}, bwd "
+              f"{r['packed_matmul_bwd']}; stage seconds " + json.dumps(
+                  {k: round(v, 3) for k, v in r["stage_seconds"].items()}))
+    if acc_gap > 0.20 or overlap < 0.6:
+        raise RuntimeError("(b): the partitioned runs left the band of the "
+                           "plain run")
+    rcs, logs = done["drill"]
+    if rcs[1] != -9 or rcs[0] == 0 or "PeerTimeoutError" not in logs[0] \
+            or "missing rank(s): [1]" not in logs[0]:
+        raise RuntimeError(f"(c): exit codes {rcs}:\n{logs[0][-3000:]}")
+    print(f"    (c) --fault-plan process=1,stage=walk_handoff,kind=sigkill, "
+          f"--fleet-watchdog-deadline 15: rank 1 killed by signal 9, rank 0 "
+          f"exit {rcs[0]}: " + next(ln for ln in logs[0].splitlines()
+                                     if "missing rank(s): [1]" in ln).strip())
+    rec["edge_partition"] = {
+        mode: {f"rank{r['rank']}": {
+            **{k: v for ev in r["edge_events"].values()
+               for k, v in ev.items()}, "launches": {
+                k: r[k] for k in ("packed_matmul_fwd", "packed_matmul_bwd")}}
+            for r in fleets[mode]} for mode in ("handoff", "halo")}
+    rec["edge_partition"]["plain_csr"] = {"edges": plain_edges,
+                                          "bytes": plain_csr}
+    took = time.perf_counter() - t14
+    print(f"[14] phase 14 took {took:.1f} s")
+    if took > 150:
+        raise RuntimeError(f"phase 14 took {took:.1f} s (bound 150 s)")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3298,6 +3675,7 @@ def main() -> int:
         if "Compiling entry function" in line:
             kernel = next((w for w in ("pm_fwd_kernel", "pm_fwd_lanes_kernel",
                                        "pm_bwd_kernel", "pm_bwd_sum_kernel",
+                                       "g2v_walk_states_kernel",
                                        "g2v_walk_kernel") if w in line),
                           line.split("'")[1] if "'" in line else "?")
         elif "registers" in line or "spill" in line:
@@ -3616,6 +3994,13 @@ def main() -> int:
               "kernels (bf16)")
         scale = _scale_phase(torch, pm, tmp)
 
+        print("[14] the edge partition: the resumable walk kernel at the "
+              "example against the C++ advance and its plain version; "
+              "--edge-partition handoff|halo at the scale-out spec on two "
+              "ranks sharing the card, against a plain run; a SIGKILL "
+              "drill at walk_handoff")
+        states_rec = _edge_phase(torch, dw, cfg, tmp)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -3635,6 +4020,7 @@ def main() -> int:
                                 update_launches.items()},
             "scale": scale[name]})
     kernels.append(walk_rec)
+    kernels.append(states_rec)
     for name, rec in lane_records.items():
         kernels.append({
             "name": name, "route": "cuda",

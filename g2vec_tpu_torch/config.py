@@ -13,15 +13,17 @@ query plane's
 flags: ``--walk-starts`` and the sharded run over R processes
 (``--graph-shards``/``--embed-shards``, ``--distributed`` with
 ``--coordinator``/``--process-id``/``--num-processes``, and
-``--fleet-watchdog-deadline``, the collectives' deadline). It also holds
+``--fleet-watchdog-deadline``, the collectives' deadline), with the edge
+partition of its graph (``--edge-partition off|handoff|halo``). It also
+holds
 the serve daemon's
 job schema (:data:`SERVE_JOB_KEYS`, :func:`config_from_job`,
 :func:`serve_join_key`).
 Defaults and validation are those of ``g2vec_tpu/config.py``; ``--device``
 is the port's own (``cuda`` unless the caller asks for ``cpu``). The port
 checkpoints in the single-file layout only: it takes no
-``--checkpoint-layout``; nor ``--edge-partition``, ``--mesh`` or the
-other ``--fleet-*`` flags.
+``--checkpoint-layout``; nor ``--mesh`` or the other ``--fleet-*``
+flags.
 """
 from __future__ import annotations
 
@@ -131,6 +133,15 @@ class G2VecConfig:
     walk_starts: int = 0             # cap the start genes a group at an
                                      # evenly spaced subset (0 = every
                                      # gene, the reference's walk volume)
+    edge_partition: str = "off"      # partition the CSR itself by gene
+                                     # range (parallel/shard.py): a rank
+                                     # reads and holds only its own rows'
+                                     # edges. Walks that leave the range:
+                                     # "handoff" ships the suspended walk
+                                     # state to the rank holding the row;
+                                     # "halo" also replicates the 1-hop
+                                     # boundary rows. The same bytes either
+                                     # way; "off" = every rank holds all
     metrics_jsonl: Optional[str] = None  # structured per-stage/epoch records
     profile_dir: Optional[str] = None  # torch.profiler trace of the run
                                      # (CPU + CUDA) as DIR/trace.json
@@ -313,6 +324,32 @@ class G2VecConfig:
                     f"--embed-shards ({self.embed_shards}) must equal "
                     f"--num-processes ({self.num_processes}): the gene "
                     f"range is split 1:1 across ranks")
+        if self.edge_partition not in ("off", "handoff", "halo"):
+            raise ValueError(
+                f"edge_partition must be off|handoff|halo, "
+                f"got {self.edge_partition}")
+        if self.edge_partition != "off":
+            if self.train_mode != "streaming":
+                raise ValueError(
+                    "--edge-partition partitions the STREAMING trainer's "
+                    "walk graph; add --train-mode streaming")
+            if self.walker_backend == "device":
+                raise ValueError(
+                    "--edge-partition's owner-range handoff transport "
+                    "still drives the native partial walker; "
+                    "--walker-backend device (and --device-feed) are "
+                    "refused until the handoff transport is ported to "
+                    "the device sampler's suspend/resume states")
+            if self.num_processes and self.num_processes > 1 \
+                    and not self.graph_shards:
+                raise ValueError(
+                    "multi-rank --edge-partition rides the graph-sharded "
+                    "producer's shard exchange; add --graph-shards")
+            if self.checkpoint_dir or self.resume:
+                raise ValueError(
+                    "--edge-partition does not compose with "
+                    "--checkpoint-dir/--resume yet — suspended cross-rank "
+                    "walk state is not checkpointable")
         if self.fleet_watchdog_deadline < 0.0:
             raise ValueError(
                 f"fleet_watchdog_deadline must be >= 0, "
@@ -447,7 +484,10 @@ SERVE_JOB_KEYS = (
     # Streaming trainer: a tenant may pick the mode and its shard/ring
     # geometry; the daemon still owns the device. Jobs with different
     # train_mode never join (serve_join_key), so a streaming job cannot
-    # be folded into a full-batch bucket.
+    # be folded into a full-batch bucket. graph_shards/embed_shards/
+    # walk_starts/edge_partition/stream_eval_rows are absent on purpose:
+    # the sharded mode spans processes, and the fleet's shape is the
+    # daemon's infrastructure, not a job's knob.
     "train_mode", "shard_paths", "prefetch_depth", "stream_patience",
     # Streaming checkpoint cadence (shards between cursor writes). The
     # daemon owns where checkpoints go (its state dir); a job may only
@@ -659,6 +699,19 @@ def build_parser() -> argparse.ArgumentParser:
                              "previous behavior exactly). Graphs of 10^5+ "
                              "genes need this: the full walk volume scales "
                              "with G x reps x len.")
+    parser.add_argument("--edge-partition", type=str, default="off",
+                        choices=("off", "handoff", "halo"),
+                        help="Partition the CSR itself by owner gene range: "
+                             "each rank streams only its own rows' edges "
+                             "from disk (never the full edge list; the "
+                             "network may be a --partitions manifest). "
+                             "Boundary-crossing walks: 'handoff' ships the "
+                             "suspended walk state to the owner rank; "
+                             "'halo' also replicates 1-hop boundary rows "
+                             "so most walks finish locally. Outputs are "
+                             "byte-identical either way. Requires "
+                             "--train-mode streaming; multi-rank runs also "
+                             "need --graph-shards (default off).")
     parser.add_argument("--graph-shards", type=int, default=0, metavar="N",
                         help="Scale-out: partition walk sampling into N "
                              "start-gene ranges; each walk shard is sampled "
@@ -820,6 +873,7 @@ def config_from_args(argv=None) -> G2VecConfig:
         graph_shards=args.graph_shards,
         embed_shards=args.embed_shards,
         walk_starts=args.walk_starts,
+        edge_partition=args.edge_partition,
         distributed=args.distributed,
         coordinator=args.coordinator,
         process_id=args.process_id,

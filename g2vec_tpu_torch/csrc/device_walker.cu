@@ -1,5 +1,6 @@
-// Hopper kernel for stage 3's random walks: one weighted no-revisit walk per
-// walker over a CSR graph, written straight into np.packbits rows.
+// Hopper kernels for stage 3's random walks over a CSR graph: one weighted
+// no-revisit walk per walker, written straight into np.packbits rows, and
+// the resumable walk states of the edge partition.
 //
 //   g2v_walk_kernel: out[W, nbytes] uint8, row w = the genes walker w visits
 //   (gene g in bit 7-(g&7) of byte g>>3, MSB of byte 0 = gene 0).
@@ -47,6 +48,35 @@
 // 39x under the kernel's 0.51 ms on an H100 SXM at 700 W (PERF.md section 6).
 // 58,500 threads are 229 blocks of 256, all resident at once on 132 SMs, so
 // the launch lasts about as long as its longest walk's chain of loads.
+//
+//   g2v_walk_states_kernel: advances explicit walk states in place over an
+//   availability-masked CSR (the edge partition's resumable walks):
+//   cur/pos [W] int32, rng [W] uint64, paths [W, len_path] int32 in and out,
+//   status [W] uint8 out (0 finished, 1 suspended on a gene whose row is not
+//   held: avail[cur] == 0).
+//     replaces g2vec_tpu/ops/device_walker.py _get_walk_fn (:186) as
+//     _run_states (:332) drives it for advance_walk_states_device (:375),
+//     and computes what g2vec_tpu_torch/native/walker.cpp
+//     walk_partial_range computes: for the same states, CSR bytes and avail
+//     mask, the four state arrays and the status are bitwise the C++ ones,
+//     the frozen stream of a walker that suspends or dead-ends included.
+//
+// The step is g2v_walk_kernel's (the same pass-1 sum, draw, pass-2 pick and
+// last-eligible fallback), behind the C++ gates in their order: a full path
+// finishes first (even on an unavailable gene), then an unavailable gene
+// suspends, then the scan, then the draw. The visited test cannot be a bit
+// of an output row here: a packed row at G 262,144 is 32 KB a walker, and
+// the state carries no mask. So a candidate is tested against the walker's
+// own path prefix, as the reference does (device_walker.py:221): a scan of
+// at most len_path int32s of the row of `paths` the thread owns, which
+// stays in L1 across the steps. One thread owns one walker and its row, so
+// there are no races and nothing to zero.
+//
+// What bounds it: the same chains of dependent loads, now with a prefix scan
+// of up to len_path words for each candidate. The bytes it must move, each
+// once: the state read and written (paths 58,500 x 80 x 4 B each way on the
+// example, plus cur, pos, rng and status), the CSR and the mask: about 38 MB,
+// 0.011 ms at 3.35 TB/s. PERF.md section 6 has its time beside that bound.
 
 #include <cstdint>
 
@@ -118,6 +148,67 @@ g2v_walk_kernel(const int32_t* __restrict__ indptr,
     }
 }
 
+__device__ __forceinline__ bool on_path(const int32_t* path, int32_t plen,
+                                        int32_t n) {
+    for (int32_t i = 0; i < plen; ++i)
+        if (path[i] == n) return true;
+    return false;
+}
+
+__global__ void __launch_bounds__(kThreads)
+g2v_walk_states_kernel(const int32_t* __restrict__ indptr,
+                       const int32_t* __restrict__ indices,
+                       const float* __restrict__ weights,
+                       const uint8_t* __restrict__ avail, int32_t* cur,
+                       uint64_t* rng, int32_t* pos, int32_t* paths,
+                       uint8_t* status, int64_t n_walkers,
+                       int32_t len_path) {
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    if (w >= n_walkers) return;
+    int32_t* path = paths + w * len_path;
+    int32_t plen = pos[w];
+    int32_t c = cur[w];
+    uint64_t st = rng[w];
+    uint8_t suspended = 0;
+    while (plen < len_path) {
+        if (!__ldg(avail + c)) {  // the row of c is not held here
+            suspended = 1;
+            break;
+        }
+        const int32_t b = __ldg(indptr + c), e = __ldg(indptr + c + 1);
+        int32_t m = 0;
+        double total = 0.0;
+        for (int32_t k = b; k < e; ++k) {
+            const float wk = __ldg(weights + k);
+            if (wk > 0.0f && !on_path(path, plen, __ldg(indices + k))) {
+                total = __dadd_rn(total, static_cast<double>(wk));
+                ++m;
+            }
+        }
+        if (m == 0 || total <= 0.0) break;  // dead end
+        const double u =
+            static_cast<double>(splitmix64(st) >> 11) * 0x1.0p-53;
+        const double target = __dmul_rn(u, total);
+        int32_t nxt = -1;
+        double cum = 0.0;
+        for (int32_t k = b; k < e; ++k) {
+            const float wk = __ldg(weights + k);
+            const int32_t t = __ldg(indices + k);
+            if (wk > 0.0f && !on_path(path, plen, t)) {
+                cum = __dadd_rn(cum, static_cast<double>(wk));
+                nxt = t;
+                if (target < cum) break;
+            }
+        }
+        path[plen++] = nxt;
+        c = nxt;
+    }
+    cur[w] = c;
+    rng[w] = st;
+    pos[w] = plen;
+    status[w] = suspended;
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,6 +235,34 @@ int g2v_walk_device(const void* indptr, const void* indices,
         static_cast<const int32_t*>(starts),
         static_cast<const uint64_t*>(stream_ids), n_walkers, len_path, seed,
         static_cast<uint8_t*>(out), nbytes);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Preconditions, checked by the Python wrapper and its callers: indptr
+// [G+1] int32 a valid CSR row-pointer array over indices/weights [E]
+// (int32 in [0, G), float32); avail [G] uint8; cur [n_walkers] int32 in
+// [0, G); pos [n_walkers] int32 in [1, len_path]; rng [n_walkers] uint64;
+// paths [n_walkers, len_path] int32 holding each walker's prefix of pos
+// genes, -1 after it; status [n_walkers] uint8; every pointer on the
+// device of `stream`.
+int g2v_walk_states_device(const void* indptr, const void* indices,
+                           const void* weights, const void* avail,
+                           void* cur, void* rng, void* pos, void* paths,
+                           void* status, int64_t n_walkers,
+                           int32_t len_path, void* stream) {
+    if (n_walkers <= 0 || len_path <= 0) return 0;
+    const unsigned blocks =
+        static_cast<unsigned>((n_walkers + kThreads - 1) / kThreads);
+    g2v_walk_states_kernel<<<blocks, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(indptr),
+        static_cast<const int32_t*>(indices),
+        static_cast<const float*>(weights),
+        static_cast<const uint8_t*>(avail), static_cast<int32_t*>(cur),
+        static_cast<uint64_t*>(rng), static_cast<int32_t*>(pos),
+        static_cast<int32_t*>(paths), static_cast<uint8_t*>(status),
+        n_walkers, len_path);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,17 @@ skipped.
   edge per row; edges keep file order and direction; the gene set is the
   set of all endpoints.
 
+Under ``--edge-partition`` the edge list never exists whole on a rank
+(``g2vec_tpu/io/readers.py:135-290``): :func:`scan_network_genes` streams
+the endpoint names (O(G) strings, which the sorted common-gene list
+needs) and :func:`load_network_range` streams the edges again, keeping
+those whose source index lies in the rank's range. Both read the plain
+network file and the pre-partitioned layout that
+``make_synth_graph --partitions R`` writes (part files, a genes file and
+a manifest of sha256s, checked before a part is read). With
+:data:`FORBID_FULL_NETWORK_ENV` set, :func:`load_network` raises: the pin
+that such a run never reads the whole list.
+
 Malformed input raises ``ValueError`` naming the file and line. The
 expression matrix is parsed by the port's C++ reader
 (:mod:`g2vec_tpu_torch.native.tsv_bindings`) unless the caller asks for
@@ -22,10 +33,17 @@ warns once and parses in Python (``g2vec_tpu/io/readers.py:69-86``).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import warnings
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+#: When set, :func:`load_network` refuses to run: an ``--edge-partition``
+#: run must never read the whole edge list (the tests and the chip smoke
+#: set it in every rank's environment).
+FORBID_FULL_NETWORK_ENV = "G2VEC_FORBID_FULL_NETWORK"
 
 
 @dataclasses.dataclass
@@ -131,6 +149,11 @@ def load_clinical(path: str) -> Dict[str, int]:
 
 def load_network(path: str) -> NetworkData:
     """Read a directed gene-interaction edge list (ref: G2Vec.py:455-476 contract)."""
+    if os.environ.get(FORBID_FULL_NETWORK_ENV):
+        raise RuntimeError(
+            f"load_network({path!r}) reached with {FORBID_FULL_NETWORK_ENV} "
+            "set — an --edge-partition run tried to materialize the full "
+            "edge list; use scan_network_genes + load_network_range")
     rows = _read_tsv_lines(path)
     if len(rows) < 1:
         raise ValueError(f"{path}: network file needs a header row")
@@ -143,3 +166,131 @@ def load_network(path: str) -> NetworkData:
         genes.add(row[0])
         genes.add(row[1])
     return NetworkData(edges=edges, genes=genes)
+
+
+# ---------------------------------------------------------------------------
+# Range-filtered reads (--edge-partition)
+# ---------------------------------------------------------------------------
+
+def _iter_network_rows(path: str):
+    """Stream (lineno, src, dst) from a network TSV without holding the
+    file; the tolerance (rstrip, blank lines) of :func:`load_network`."""
+    with open(path) as fin:
+        header = fin.readline()
+        if not header:
+            raise ValueError(f"{path}: network file needs a header row")
+        for ln, line in enumerate(fin, start=2):
+            row = line.rstrip().split("\t")
+            if row == [""]:
+                continue
+            if len(row) < 2:
+                raise ValueError(
+                    f"{path}:{ln}: expected 'src\\tdest', got {row!r}")
+            yield ln, row[0], row[1]
+
+
+def scan_network_genes(path: str) -> set:
+    """The endpoint gene set of a network TSV, streamed (the edges are
+    dropped as they are read), or of a partition manifest (its genes
+    file): ``load_network(path).genes`` without the edge list."""
+    if path.endswith(".json"):
+        manifest = read_partition_manifest(path)
+        base = os.path.dirname(os.path.abspath(path))
+        with open(os.path.join(base, manifest["genes_file"])) as f:
+            return {line.rstrip("\n") for line in f if line.rstrip("\n")}
+    genes: set = set()
+    for _, a, b in _iter_network_rows(path):
+        genes.add(a)
+        genes.add(b)
+    return genes
+
+
+def load_network_range(path: str, gene2idx: Dict[str, int], lo: int,
+                       hi: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Streamed ``restrict_network`` + ``edges_to_indices`` + a source
+    range filter in one pass: (src, dst) int32 arrays of the directed
+    edges whose ends are both in ``gene2idx`` and whose source index lies
+    in [lo, hi), in file order.
+
+    The order contract: dropping the edges whose source lies outside the
+    range commutes with the |PCC| threshold's first-occurrence dedup (its
+    key holds the source) and with ``edges_to_csr``'s stable sort by
+    source (a row's order is the file order of its source's edges, all
+    in this range), so the owned rows of the partitioned CSR are the
+    bytes of the same rows of the whole CSR.
+    """
+    if path.endswith(".json"):
+        return _load_partitioned_range(path, gene2idx, lo, hi)
+    src: List[int] = []
+    dst: List[int] = []
+    for _, a, b in _iter_network_rows(path):
+        si = gene2idx.get(a)
+        if si is None or not (lo <= si < hi):
+            continue
+        di = gene2idx.get(b)
+        if di is None:
+            continue
+        src.append(si)
+        dst.append(di)
+    return (np.array(src, dtype=np.int32), np.array(dst, dtype=np.int32))
+
+
+def read_partition_manifest(path: str) -> dict:
+    """Load a ``--partitions`` manifest (written by
+    :func:`~g2vec_tpu_torch.data.synth.write_synth_graph_streamed`) and
+    check its schema."""
+    with open(path) as f:
+        manifest = json.load(f)
+    for key in ("format", "partitions", "genes_file", "files"):
+        if key not in manifest:
+            raise ValueError(f"{path}: partition manifest missing {key!r}")
+    if manifest["format"] != "g2vec-network-partitions-v1":
+        raise ValueError(
+            f"{path}: unknown partition manifest format "
+            f"{manifest['format']!r}")
+    if len(manifest["files"]) != manifest["partitions"]:
+        raise ValueError(
+            f"{path}: manifest lists {len(manifest['files'])} files for "
+            f"{manifest['partitions']} partitions")
+    for entry in manifest["files"]:
+        for key in ("name", "sha256", "n_edges", "gene_lo", "gene_hi"):
+            if key not in entry:
+                raise ValueError(
+                    f"{path}: manifest file entry missing {key!r}")
+    return manifest
+
+
+def _load_partitioned_range(manifest_path: str, gene2idx: Dict[str, int],
+                            lo: int, hi: int
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`load_network_range` over the part files: only the parts
+    whose source-name range meets the requested one are opened (an index
+    range of the sorted common genes is a contiguous name range), and
+    each one's sha256 is checked against the manifest before it is
+    read."""
+    from g2vec_tpu_torch.utils.integrity import sha256_file
+
+    manifest = read_partition_manifest(manifest_path)
+    base = os.path.dirname(os.path.abspath(manifest_path))
+    if hi <= lo:
+        return (np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32))
+    by_idx = sorted(gene2idx, key=gene2idx.get)
+    name_lo, name_hi = by_idx[lo], by_idx[hi - 1]
+    src_parts: List[np.ndarray] = []
+    dst_parts: List[np.ndarray] = []
+    for entry in manifest["files"]:
+        # A part holds the sources named in [gene_lo, gene_hi].
+        if entry["gene_hi"] < name_lo or entry["gene_lo"] > name_hi:
+            continue
+        part = os.path.join(base, entry["name"])
+        digest = sha256_file(part)
+        if digest != entry["sha256"]:
+            raise ValueError(
+                f"{part}: sha256 mismatch vs manifest ({digest} != "
+                f"{entry['sha256']}) — partition file corrupt or stale")
+        s, d = load_network_range(part, gene2idx, lo, hi)
+        src_parts.append(s)
+        dst_parts.append(d)
+    if not src_parts:
+        return (np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32))
+    return np.concatenate(src_parts), np.concatenate(dst_parts)

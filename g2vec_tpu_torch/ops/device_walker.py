@@ -14,7 +14,9 @@ stream) or raises; a CPU tensor takes :func:`device_walk_plain`, the
 reference's lock-step walk in torch. There is no fallback from one to the
 other. It counts its kernel launches in ``.launches``.
 
-The plain version (the reference's ``run``, :195-275): every walker
+The plain version (the reference's ``run``, :195-275,
+:func:`walk_states_plain`; the one-shot walk starts it from each walker's
+first state with every row held): every walker
 advances one step per trip; a step gathers each walker's CSR row at a
 static width of degree slots padded to a power of two, masks the visited
 targets by path replay and the weights that are not > 0, accumulates the
@@ -24,6 +26,20 @@ picks the first eligible slot whose running sum exceeds the target. The
 splitmix64 state is carried as two 32-bit halves in int64 tensors (torch
 has no uint64 shifts), with 16-bit limb products, so every op is exact.
 The rows are packed by a bit scatter at the end.
+
+The resumable walk of the edge partition (the reference's
+``advance_walk_states_device``, :375, on ``_run_states``, :332):
+:func:`device_walk_states` advances explicit walk states (current gene,
+raw stream, position, path prefix) in place over an availability-masked
+CSR and returns each walker's status (0 finished, 1 suspended on a gene
+whose row is not held). A CUDA tensor launches ``g2v_walk_states_kernel``
+of the same source, a CPU tensor takes :func:`walk_states_plain`, the
+reference's lock-step advance in torch; its launches are counted in
+``device_walk_states.launches``. :func:`advance_walk_states_device` is
+its entry point on a host
+:class:`~g2vec_tpu_torch.ops.host_walker.WalkStateBatch`: the C++
+advance's states and status, bitwise. No CLI path launches it: the edge
+partition refuses ``--walker-backend device``, as the reference does.
 
 The entry points mirror the reference's signatures and byte contracts:
 :func:`walk_packed_rows_device`, :func:`walk_shard_device_arrays` (the
@@ -45,15 +61,18 @@ import torch
 
 from g2vec_tpu_torch.device import resolve_device
 from g2vec_tpu_torch.native._build import build, load
+from g2vec_tpu_torch.native.walker_bindings import check_walk_states
 from g2vec_tpu_torch.ops.host_walker import ShardPlan, edges_to_csr
 from g2vec_tpu_torch.resilience.faults import fault_point
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "csrc", "device_walker.cu")
 
-#: The device computation this kernel replaces (file:line of the reference's
-#: jitted step scan; its bit packer ``_get_pack_fn`` is at :278).
+#: The device computation each kernel replaces (file:line of the reference's
+#: jitted step scan, which packs with ``_get_pack_fn`` at :278 for the one-
+#: shot walk and which ``_run_states`` at :332 drives for the resumable one).
 REPLACES = "g2vec_tpu/ops/device_walker.py:186"
+REPLACES_STATES = "g2vec_tpu/ops/device_walker.py:186 (_run_states :332)"
 
 # The splitmix64 constants (Steele et al.; native/walker.cpp uses the same).
 GOLDEN = 0x9E3779B97F4A7C15
@@ -78,6 +97,9 @@ def _configure(lib: ctypes.CDLL) -> None:
                                     ctypes.c_int32, ctypes.c_uint64, ptr,
                                     i64, ptr]
     lib.g2v_walk_device.restype = ctypes.c_int
+    lib.g2v_walk_states_device.argtypes = [ptr] * 9 + [i64, ctypes.c_int32,
+                                                       ptr]
+    lib.g2v_walk_states_device.restype = ctypes.c_int
 
 
 def build_walk_kernel():
@@ -197,53 +219,19 @@ def walk_paths_plain(indptr: torch.Tensor, indices: torch.Tensor,
                      stream_ids: torch.Tensor, len_path: int,
                      seed: int) -> torch.Tensor:
     """Every walker's path -> [n, len_path] int64 gene ids in visit
-    order, -1 past its end."""
+    order, -1 past its end: :func:`walk_states_plain` from each walker's
+    first state over a mask that holds every row."""
     dev = indptr.device
     n = starts.shape[0]
-    deg = indptr[1:] - indptr[:-1]
-    d_slots = _pow2(max(1, int(deg.max())) if deg.numel() else 1)
-    slots = torch.arange(d_slots, device=dev)
-    idx_pad = torch.cat([indices.long(),
-                         torch.zeros(d_slots, dtype=torch.int64, device=dev)])
-    w_pad = torch.cat([weights, torch.zeros(d_slots, dtype=weights.dtype,
-                                            device=dev)])
-    ptr = indptr.long()
-    sh, sl = init_state_lanes(seed, stream_ids)
-    cur = starts.long()
-    paths = torch.full((n, len_path), -1, dtype=torch.int64, device=dev)
+    cur = starts.to(torch.int32).clone()
+    rng = _u64_of_halves(*init_state_lanes(seed, stream_ids))
+    pos = torch.ones(n, dtype=torch.int32, device=dev)
+    paths = torch.full((n, len_path), -1, dtype=torch.int32, device=dev)
     paths[:, 0] = cur
-    live = torch.ones(n, dtype=torch.bool, device=dev)
-    for step in range(1, len_path):
-        off = ptr[cur]
-        cols = off[:, None] + slots
-        cand = idx_pad[cols]
-        wrow = w_pad[cols]
-        seen = (paths[:, :step, None] == cand[:, None, :]).any(dim=1)
-        elig = (slots < (ptr[cur + 1] - off)[:, None]) & ~seen & (wrow > 0.0)
-        mass = torch.where(elig, wrow.double(), 0.0)
-        total = torch.zeros(n, dtype=torch.float64, device=dev)
-        cum = []
-        for j in range(d_slots):
-            total = total + mass[:, j]
-            cum.append(total)
-        cum = torch.stack(cum, dim=1)
-        m = elig.sum(dim=1)
-        draw = live & (m > 0) & (total > 0.0)
-        nsh, nsl, zh, zl = splitmix64_lanes(sh, sl)
-        sh, sl = torch.where(draw, nsh, sh), torch.where(draw, nsl, sl)
-        target = uniform01_lanes(zh, zl) * total
-        # The first eligible slot with target < cum = the count of eligible
-        # slots with cum <= target; rounding may leave none: the last.
-        j = torch.minimum((elig & (cum <= target[:, None])).sum(dim=1),
-                          (m - 1).clamp(min=0))
-        sel = elig & ((elig.long().cumsum(dim=1) - 1) == j[:, None])
-        nxt = torch.where(sel, cand, 0).sum(dim=1)
-        paths[:, step] = torch.where(draw, nxt, -1)
-        cur = torch.where(draw, nxt, cur)
-        live = draw
-        if not bool(live.any()):
-            break
-    return paths
+    avail = torch.ones(indptr.shape[0] - 1, dtype=torch.uint8, device=dev)
+    walk_states_plain(indptr, indices, weights, avail, cur, rng, pos, paths,
+                      len_path)
+    return paths.long()
 
 
 _BITS = (128, 64, 32, 16, 8, 4, 2, 1)
@@ -336,8 +324,156 @@ def device_walk(indptr: torch.Tensor, indices: torch.Tensor,
 device_walk.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The resumable walk: explicit walk states over an availability-masked CSR
+# (the edge partition's; the reference's advance_walk_states_device, :375).
+# ---------------------------------------------------------------------------
+
+def _u64_of_halves(h: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) 32-bit halves -> the uint64 bits as int64, with no op that
+    overflows int64 (hi is taken as signed first)."""
+    h = torch.where(h >= 2 ** 31, h - 2 ** 32, h)
+    return h * 2 ** 32 + lo
+
+
+def walk_states_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                      weights: torch.Tensor, avail: torch.Tensor,
+                      cur: torch.Tensor, rng: torch.Tensor, pos: torch.Tensor,
+                      paths: torch.Tensor, len_path: int) -> torch.Tensor:
+    """The plain version of :func:`device_walk_states`: the reference's
+    lock-step advance (``run``, :195-275) on the halves of each walker's
+    stream. ``cur``/``rng``/``pos``/``paths`` are updated in place; returns
+    the [n] uint8 status. Every walker takes one step a trip: a full path
+    stops, an unavailable gene suspends, a row with no eligible slot ends
+    the walk; only a walker that draws moves its stream."""
+    dev = indptr.device
+    n = cur.shape[0]
+    deg = indptr[1:] - indptr[:-1]
+    d_slots = _pow2(max(1, int(deg.max())) if deg.numel() else 1)
+    slots = torch.arange(d_slots, device=dev)
+    idx_pad = torch.cat([indices.long(),
+                         torch.zeros(d_slots, dtype=torch.int64, device=dev)])
+    w_pad = torch.cat([weights, torch.zeros(d_slots, dtype=weights.dtype,
+                                            device=dev)])
+    ptr = indptr.long()
+    held = avail != 0
+    sh, sl = (rng >> 32) & _M32, rng & _M32
+    c, p, walked = cur.long(), pos.long(), paths.long()
+    lanes = torch.arange(len_path, device=dev)
+    susp = torch.zeros(n, dtype=torch.bool, device=dev)
+    dead = torch.zeros(n, dtype=torch.bool, device=dev)
+    for _ in range(len_path):
+        live = ~susp & ~dead & (p < len_path)
+        if not bool(live.any()):
+            break
+        here = held[c]
+        susp = susp | (live & ~here)
+        active = live & here
+        off = ptr[c]
+        cols = off[:, None] + slots
+        cand = idx_pad[cols]
+        wrow = w_pad[cols]
+        # The visited test replays the prefix; -1 after it matches no gene.
+        seen = (walked[:, :, None] == cand[:, None, :]).any(dim=1)
+        elig = (slots < (ptr[c + 1] - off)[:, None]) & ~seen & (wrow > 0.0)
+        mass = torch.where(elig, wrow.double(), 0.0)
+        total = torch.zeros(n, dtype=torch.float64, device=dev)
+        cum = []
+        for j in range(d_slots):
+            total = total + mass[:, j]
+            cum.append(total)
+        cum = torch.stack(cum, dim=1)
+        m = elig.sum(dim=1)
+        dead_now = active & ((m == 0) | (total <= 0.0))
+        draw = active & ~dead_now
+        nsh, nsl, zh, zl = splitmix64_lanes(sh, sl)
+        sh, sl = torch.where(draw, nsh, sh), torch.where(draw, nsl, sl)
+        target = uniform01_lanes(zh, zl) * total
+        j = torch.minimum((elig & (cum <= target[:, None])).sum(dim=1),
+                          (m - 1).clamp(min=0))
+        sel = elig & ((elig.long().cumsum(dim=1) - 1) == j[:, None])
+        nxt = torch.where(sel, cand, 0).sum(dim=1)
+        walked = torch.where(draw[:, None] & (lanes == p[:, None]),
+                             nxt[:, None], walked)
+        p = p + draw.long()
+        c = torch.where(draw, nxt, c)
+        dead = dead | dead_now
+    cur.copy_(c)
+    rng.copy_(_u64_of_halves(sh, sl))
+    pos.copy_(p)
+    paths.copy_(walked)
+    return susp.to(torch.uint8)
+
+
+def _check_states(indptr, indices, weights, avail, cur, rng, pos, paths,
+                  len_path) -> None:
+    want = ((indptr, torch.int32, "indptr"), (indices, torch.int32, "indices"),
+            (weights, torch.float32, "weights"), (avail, torch.uint8, "avail"),
+            (cur, torch.int32, "cur"), (rng, torch.int64, "rng"),
+            (pos, torch.int32, "pos"))
+    for t, dtype, name in want:
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.device != indptr.device:
+            raise ValueError(f"{name} on {t.device}, indptr on "
+                             f"{indptr.device}")
+    if len_path < 1:
+        raise ValueError(f"len_path must be >= 1, got {len_path}")
+    n = cur.shape[0]
+    if paths.dtype != torch.int32 or tuple(paths.shape) != (n, len_path) \
+            or not paths.is_contiguous() or paths.device != indptr.device:
+        raise ValueError(f"paths must be a contiguous int32 [{n}, "
+                         f"{len_path}] tensor on {indptr.device}, got "
+                         f"{paths.dtype} {tuple(paths.shape)}")
+    if rng.shape != cur.shape or pos.shape != cur.shape:
+        raise ValueError(f"cur, rng and pos must have one entry a walker, "
+                         f"got {cur.shape[0]}, {rng.shape[0]}, "
+                         f"{pos.shape[0]}")
+    if weights.shape != indices.shape:
+        raise ValueError(f"weights has {weights.shape[0]} entries for "
+                         f"{indices.shape[0]} edges")
+    if avail.shape[0] != indptr.shape[0] - 1:
+        raise ValueError(f"avail has {avail.shape[0]} entries for "
+                         f"{indptr.shape[0] - 1} genes")
+
+
+def device_walk_states(indptr: torch.Tensor, indices: torch.Tensor,
+                       weights: torch.Tensor, avail: torch.Tensor,
+                       cur: torch.Tensor, rng: torch.Tensor,
+                       pos: torch.Tensor, paths: torch.Tensor,
+                       len_path: int) -> torch.Tensor:
+    """Advance walk states in place over an availability-masked CSR ->
+    [n] uint8 status (0 finished, 1 suspended) on the tensors' device.
+    ``rng`` holds each walker's raw splitmix64 state as int64 bits. The
+    CSR must be valid, ``cur`` in [0, G) and ``pos`` in [1, len_path]:
+    :func:`advance_walk_states_device` checks them on the host. A CUDA
+    tensor launches ``g2v_walk_states_kernel``, a CPU tensor takes
+    :func:`walk_states_plain`."""
+    _check_states(indptr, indices, weights, avail, cur, rng, pos, paths,
+                  len_path)
+    if indptr.device.type == "cpu":
+        return walk_states_plain(indptr, indices, weights, avail, cur, rng,
+                                 pos, paths, len_path)
+    if indptr.device.type != "cuda":
+        raise ValueError(f"no kernel for device {indptr.device}")
+    from g2vec_tpu_torch.ops.packed_matmul import _launch
+
+    n = cur.shape[0]
+    status = torch.empty(n, dtype=torch.uint8, device=indptr.device)
+    if n:
+        _launch(_lib().g2v_walk_states_device, indptr, indices, weights,
+                avail, cur, rng, pos, paths, status, n, len_path)
+        device_walk_states.launches += 1
+    return status
+
+
+device_walk_states.launches = 0
+
+
 def reset_launch_counts() -> None:
     device_walk.launches = 0
+    device_walk_states.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -490,3 +626,41 @@ def generate_path_set_device(src, dst, w, n_genes: int, *, len_path: int,
                                      reps=reps, seed=seed, starts=starts,
                                      csr=csr, device=device)
     return {row.tobytes() for row in packed}
+
+
+def advance_walk_states_device(states, csr, n_genes: int, avail: np.ndarray,
+                               len_path: int, n_threads: int = 0,
+                               device="cuda") -> np.ndarray:
+    """:func:`~g2vec_tpu_torch.ops.host_walker.advance_walk_states` on
+    ``device``: advance every walk of the
+    :class:`~g2vec_tpu_torch.ops.host_walker.WalkStateBatch` in place over
+    an availability-masked CSR until it finishes or suspends; returns the
+    [M] uint8 status (0 finished, 1 suspended). Bitwise the C++ advance for
+    the same states, the frozen stream of a suspended or dead-ended walker
+    included. ``csr`` is a host CSR or a :class:`DeviceCSR` on ``device``.
+    ``n_threads`` is ignored (one card thread owns one walker); it is
+    accepted so that a call written for the C++ advance, or for the JAX
+    package's ``advance_walk_states_device``, which takes it too, runs
+    here with its arguments unchanged."""
+    if len_path < 1:
+        raise ValueError(f"len_path must be >= 1, got {len_path}")
+    csr = _group_csr(None, None, None, n_genes, csr, device)
+    dev = csr.indptr.device
+    avail = np.ascontiguousarray(avail, dtype=np.uint8)
+    if avail.shape != (n_genes,):
+        raise ValueError(
+            f"avail has {avail.shape[0]} entries for {n_genes} genes")
+    check_walk_states(states.cur, states.rng, states.pos, states.paths,
+                      n_genes, len_path)
+    t = {name: torch.from_numpy(arr).to(dev).clone() for name, arr in (
+        ("cur", states.cur), ("rng", states.rng.view(np.int64)),
+        ("pos", states.pos), ("paths", states.paths))}
+    status = device_walk_states(
+        csr.indptr, csr.indices, csr.weights,
+        torch.from_numpy(avail).to(dev), t["cur"], t["rng"], t["pos"],
+        t["paths"], len_path)
+    states.cur[:] = t["cur"].cpu().numpy()
+    states.rng.view(np.int64)[:] = t["rng"].cpu().numpy()
+    states.pos[:] = t["pos"].cpu().numpy()
+    states.paths[:] = t["paths"].cpu().numpy()
+    return status.cpu().numpy()

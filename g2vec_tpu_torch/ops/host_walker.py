@@ -164,3 +164,103 @@ def walk_shard(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
     return walk_paths_packed(*csr, n_genes, starts, stream_ids,
                              plan.len_path, seed,
                              n_threads=resolve_sampler_threads(n_threads))
+
+
+@dataclass
+class WalkStateBatch:
+    """Explicit, relocatable state of a batch of walkers: the resumable
+    form of the state a walker keeps inside the C++ sampler
+    (``g2vec_tpu/ops/host_walker.py:334``).
+
+    ``row`` is the walker's row in its shard-group block (rep-major,
+    :func:`walk_shard`'s layout), ``rng`` its raw splitmix64 state, and
+    the visited set is the path prefix. So a walk writes the same bytes
+    on whichever rank, and in however many pieces, it runs: the edge
+    partition (:mod:`..parallel.shard`) suspends walkers at the edge of a
+    rank's rows, ships them to the rank holding the row, and resumes them
+    there.
+    """
+
+    row: np.ndarray      # int32 [M] row within the shard-group block
+    cur: np.ndarray      # int32 [M] current gene (the path's tail)
+    rng: np.ndarray      # uint64 [M] raw splitmix64 state
+    pos: np.ndarray      # int32 [M] genes taken so far (>= 1)
+    paths: np.ndarray    # int32 [M, len_path] path prefix, -1 after it
+
+    def __len__(self) -> int:
+        return self.row.shape[0]
+
+    def take(self, idx: np.ndarray) -> "WalkStateBatch":
+        return WalkStateBatch(
+            row=np.ascontiguousarray(self.row[idx]),
+            cur=np.ascontiguousarray(self.cur[idx]),
+            rng=np.ascontiguousarray(self.rng[idx]),
+            pos=np.ascontiguousarray(self.pos[idx]),
+            paths=np.ascontiguousarray(self.paths[idx]))
+
+    @staticmethod
+    def concat(batches: "list[WalkStateBatch]") -> "WalkStateBatch":
+        return WalkStateBatch(
+            row=np.concatenate([b.row for b in batches]),
+            cur=np.concatenate([b.cur for b in batches]),
+            rng=np.concatenate([b.rng for b in batches]),
+            pos=np.concatenate([b.pos for b in batches]),
+            paths=np.concatenate([b.paths for b in batches], axis=0))
+
+    @staticmethod
+    def empty(len_path: int) -> "WalkStateBatch":
+        return WalkStateBatch(
+            row=np.zeros(0, np.int32), cur=np.zeros(0, np.int32),
+            rng=np.zeros(0, np.uint64), pos=np.zeros(0, np.int32),
+            paths=np.zeros((0, len_path), np.int32))
+
+
+def shard_walk_states(plan: ShardPlan, shard: int, *, seed: int,
+                      starts: Optional[np.ndarray] = None) -> WalkStateBatch:
+    """The first :class:`WalkStateBatch` of every walker of one group's
+    shard ``shard``: :func:`walk_shard`'s row order and streams, so the
+    states advanced to their ends and packed are :func:`walk_shard`'s
+    rows, byte for byte."""
+    from g2vec_tpu_torch.native.walker_bindings import init_walk_state
+
+    if starts is not None and len(starts) != plan.n_starts:
+        raise ValueError(
+            f"plan.n_starts ({plan.n_starts}) must match len(starts) "
+            f"({len(starts)})")
+    lo, hi = plan.start_range(shard)
+    sub = (np.arange(lo, hi, dtype=np.int32) if starts is None
+           else np.ascontiguousarray(starts[lo:hi], dtype=np.int32))
+    start_col = np.tile(sub, plan.reps)
+    wids = (np.arange(plan.reps, dtype=np.uint64)[:, None]
+            * np.uint64(plan.n_starts)
+            + np.arange(lo, hi, dtype=np.uint64)[None, :]).ravel()
+    n = start_col.shape[0]
+    paths = np.full((n, plan.len_path), -1, np.int32)
+    paths[:, 0] = start_col
+    return WalkStateBatch(row=np.arange(n, dtype=np.int32),
+                          cur=np.ascontiguousarray(start_col),
+                          rng=init_walk_state(seed, wids),
+                          pos=np.ones(n, np.int32), paths=paths)
+
+
+def advance_walk_states(states: WalkStateBatch, csr: tuple, n_genes: int,
+                        avail: np.ndarray, len_path: int,
+                        n_threads: int = 0) -> np.ndarray:
+    """Advance every walk of ``states`` in place on the C++ sampler over
+    an availability-masked CSR, until it finishes (full length or dead
+    end) or suspends on a gene whose row is not held here. Returns the
+    [M] uint8 status (0 finished, 1 suspended)."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_partial
+
+    indptr, indices, weights = csr
+    return walk_partial(indptr, indices, weights, n_genes, avail,
+                        states.cur, states.rng, states.pos, states.paths,
+                        len_path, n_threads=resolve_sampler_threads(n_threads))
+
+
+def pack_finished_paths(paths: np.ndarray, n_genes: int,
+                        out: Optional[np.ndarray] = None) -> np.ndarray:
+    """[M, len_path] finished paths -> :func:`walk_shard`'s packed rows."""
+    from g2vec_tpu_torch.native.walker_bindings import pack_paths
+
+    return pack_paths(paths, n_genes, out=out)

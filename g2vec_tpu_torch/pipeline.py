@@ -56,6 +56,17 @@ every rank's slice (``io.writers.write_vectors_sharded``); the
 ``[G, H]`` table never exists on one rank, so ``--emit-inventory`` is
 skipped there.
 
+The edge partition (``--edge-partition handoff|halo``, streaming only;
+``g2vec_tpu/pipeline.py:261-339, 450-508``): stage 1 reads the network's
+gene names alone, stage 2 reads the edges whose source lies in this
+rank's range of the common genes (:func:`preprocess_range`), and stage 3
+builds each group's partial CSR from its thresholded owned edges, with
+the halo rows in halo mode (:func:`build_edge_partition`). At more than
+one rank the streaming trainer walks every shard as a collective over
+them; at one rank the range is the whole graph and the run writes the
+plain run's bytes. The ``edge_partition``, ``halo`` and ``handoff``
+events report it.
+
 The result carries stage 5's k-means centres and stage 6's ``[2, G]``
 score matrix for the query plane: ``--emit-inventory`` publishes them
 with the embeddings as ``<result_name>_inventory/`` at stage 7
@@ -77,7 +88,8 @@ import torch
 from g2vec_tpu_torch.config import G2VecConfig
 from g2vec_tpu_torch.device import resolve_device
 from g2vec_tpu_torch.io.readers import (load_clinical, load_expression,
-                                        load_network)
+                                        load_network, load_network_range,
+                                        scan_network_genes)
 from g2vec_tpu_torch.preprocess import (edges_to_indices, find_common_genes,
                                         make_gene2idx, match_labels,
                                         permute_labels, restrict_data,
@@ -179,11 +191,14 @@ class _EpochReporter:
 
 
 def read_inputs(cfg: G2VecConfig, overlap=None,
-                while_parsing: Optional[Callable[[], None]] = None):
+                while_parsing: Optional[Callable[[], None]] = None,
+                genes_only: bool = False):
     """Stage 1: the expression, clinical and network files. With an
     overlap scheduler and the native reader, the C++ parse of the
     expression file runs on a scheduler thread while this thread runs
-    ``while_parsing()`` and reads the other two files."""
+    ``while_parsing()`` and reads the other two files. ``genes_only``
+    (``--edge-partition``) reads only the network's endpoint names, as a
+    set: the edges are read at stage 2, range-filtered."""
     def expression():
         return load_expression(cfg.expression_file,
                                use_native=cfg.use_native_io)
@@ -194,7 +209,8 @@ def read_inputs(cfg: G2VecConfig, overlap=None,
     if while_parsing is not None:
         while_parsing()
     clinical = load_clinical(cfg.clinical_file)
-    network = load_network(cfg.network_file)
+    network = (scan_network_genes(cfg.network_file) if genes_only
+               else load_network(cfg.network_file))
     data = overlap.result("read_expression") if background else expression()
     return data, clinical, network
 
@@ -209,6 +225,71 @@ def preprocess_inputs(data, clinical, network):
     data = restrict_data(data, common)
     src, dst = edges_to_indices(network, make_gene2idx(data.gene))
     return data, src, dst
+
+
+def preprocess_range(data, clinical, genes: set, network_file: str,
+                     rank: int, n_ranks: int):
+    """Stage 2 under ``--edge-partition`` (``g2vec_tpu/pipeline.py:
+    308-323``): labels matched, the expression restricted to the common
+    genes, and only the edges whose source lies in this rank's range of
+    them read from ``network_file``. Returns ``(data, src, dst, (lo,
+    hi))``; the edges are the same arrays :func:`preprocess_inputs`
+    gives, restricted to that range (the readers' order contract)."""
+    from g2vec_tpu_torch.parallel.shard import edge_range
+
+    data.label = match_labels(clinical, data.sample)
+    common = find_common_genes(genes, data.gene)
+    data = restrict_data(data, common)
+    lo, hi = edge_range(rank, n_ranks, len(common))
+    src, dst = load_network_range(network_file, make_gene2idx(data.gene),
+                                  lo, hi)
+    return data, src, dst, (lo, hi)
+
+
+def build_edge_partition(cfg, group_edges, n_genes: int, rank: int,
+                         n_ranks: int, gene_range, shard_ctx, metrics,
+                         console):
+    """Stage 3's edge partition (``g2vec_tpu/pipeline.py:450-508``): each
+    group's owned-range CSR from its thresholded edges, and in halo mode
+    the halo rows, a collective of the ranks. Emits the ``edge_partition``
+    (and ``halo``) events; returns the edge context, or None at one
+    rank: one rank's range is the whole graph, so its trainer takes the
+    plain paths."""
+    from g2vec_tpu_torch.parallel.shard import (EdgeContext, EdgeWalkStats,
+                                                build_halo_csr,
+                                                build_partitioned_csr)
+
+    if n_ranks > 1 and (shard_ctx is None or not shard_ctx.spec.graph_shards):
+        raise ValueError(
+            "multi-rank --edge-partition needs --graph-shards "
+            "(the shard exchange distributes finished rows)")
+    lo, hi = gene_range
+    pcsrs = []
+    for gi, (s_k, d_k, w_k) in enumerate(group_edges):
+        p = build_partitioned_csr(s_k, d_k, w_k, n_genes, lo, hi)
+        if cfg.edge_partition == "halo" and n_ranks > 1:
+            p = build_halo_csr(
+                p, rank=rank, n_ranks=n_ranks, group=gi,
+                deadline=(cfg.fleet_watchdog_deadline or None))
+        pcsrs.append(p)
+    csr_bytes = sum(p.csr_bytes for p in pcsrs)
+    owned_edges = sum(p.owned_edges for p in pcsrs)
+    halo_edges = sum(p.halo_edges for p in pcsrs)
+    halo_bytes = sum(p.halo_bytes for p in pcsrs)
+    console(f"    [edge] {cfg.edge_partition}: rank {rank}/{n_ranks} owns "
+            f"genes [{lo}, {hi}) — {owned_edges} owned edges, {csr_bytes} "
+            f"CSR bytes"
+            + (f", {halo_edges} halo edges"
+               if cfg.edge_partition == "halo" else ""))
+    metrics.emit("edge_partition", mode=cfg.edge_partition, rank=rank,
+                 n_ranks=n_ranks, gene_lo=lo, gene_hi=hi,
+                 owned_edges=owned_edges, csr_bytes=csr_bytes)
+    if cfg.edge_partition == "halo":
+        metrics.emit("halo", halo_edges=halo_edges, halo_bytes=halo_bytes,
+                     halo_genes=sum(len(p.halo_genes) for p in pcsrs),
+                     overhead_ratio=halo_bytes / max(1, 8 * owned_edges))
+    return (EdgeContext(mode=cfg.edge_partition, pcsrs=pcsrs,
+                        stats=EdgeWalkStats()) if n_ranks > 1 else None)
 
 
 def cohort_line(cfg, n_kept: int, n_before: int) -> Optional[str]:
@@ -373,6 +454,12 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         for ev in distributed.drain_pending_events():
             metrics.emit(ev.pop("event"), **ev)
     shard_ctx = None
+    # The edge partition: this rank's place on its axis.
+    edge_on = cfg.edge_partition != "off"
+    ep_rank, ep_ranks = ((distributed.process_index(),
+                          distributed.process_count())
+                         if cfg.distributed else (0, 1))
+    edge_ctx = None
     try:
         console(">>> 0. Arguments")
         console(str(cfg))
@@ -392,13 +479,19 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         with timer.stage("load"):
             data, clinical, network = read_inputs(
                 cfg, overlap if cfg.overlap else None,
-                cuda_context if cfg.overlap and on_card else None)
+                cuda_context if cfg.overlap and on_card else None,
+                genes_only=edge_on)
         timer.annotate("load", expression_parser=data.parser)
 
         console(">>> 2. Preprocess data")
         fault_point("preprocess")
         with timer.stage("preprocess"):
-            data, src, dst = preprocess_inputs(data, clinical, network)
+            if edge_on:
+                data, src, dst, ep_range = preprocess_range(
+                    data, clinical, network, cfg.network_file, ep_rank,
+                    ep_ranks)
+            else:
+                data, src, dst = preprocess_inputs(data, clinical, network)
             n_before = data.expr.shape[0]
             data = select_cohort(data, cfg)
         line = cohort_line(cfg, data.expr.shape[0], n_before)
@@ -408,7 +501,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         n_edges = len(src)
         console("    n_samples: %d" % n_samples)
         console("    n_genes  : %d\t(common genes in both EXPRESSION and NETWORK)" % n_genes)
-        console("    n_edges  : %d\t(edges with the common genes)" % n_edges)
+        console("    n_edges  : %d\t(%s)" % (
+            n_edges, "edges of this rank's owned gene range" if edge_on
+            else "edges with the common genes"))
         metrics.emit("preprocess", n_samples=n_samples, n_genes=n_genes,
                      n_edges=n_edges)
 
@@ -445,6 +540,10 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     data.expr[data.label == i], src, dst,
                     threshold=cfg.pcc_threshold, device=dev)
                     for i in range(2)]
+                if edge_on:
+                    edge_ctx = build_edge_partition(
+                        cfg, group_edges, n_genes, ep_rank, ep_ranks,
+                        ep_range, shard_ctx, metrics, console)
             console("    [stream] walk shards stream from the sampler; "
                     "stage 4 overlaps stage 3")
             console(">>> 4. Compute distributed representations using "
@@ -475,7 +574,13 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     checkpoint_every=cfg.checkpoint_every, console=console,
                     check=check, lifecycle=lifecycle,
                     debug_nans=cfg.debug_nans, shard_ctx=shard_ctx,
-                    walk_starts=cfg.walk_starts)
+                    walk_starts=cfg.walk_starts, edge_ctx=edge_ctx)
+            if edge_ctx is not None:
+                st = edge_ctx.stats
+                metrics.emit("handoff", mode=edge_ctx.mode,
+                             shards=st.shards, rounds=st.rounds,
+                             states_sent=st.states_sent, batches=st.batches,
+                             peak_in_flight=st.peak_in_flight)
             result = sres.train
             gene_freq = sres.gene_freq
             n_paths = sres.n_paths

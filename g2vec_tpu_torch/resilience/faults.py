@@ -32,7 +32,10 @@ Keys:
   collective, before this rank publishes), ``shard_exchange`` (a walk
   shard's owner, after the walk and before the publish; epoch = shard
   index), ``embed_allreduce`` (before a split step's allreduce; epoch =
-  the step count).
+  the step count). The edge partition: ``walk_handoff`` (each round of
+  the collective walk, before this rank publishes its suspended states;
+  epoch = shard index), ``halo_build`` (between the halo want lists and
+  the row payloads; epoch = group index).
 - ``epoch``: fire only once the hook reports an epoch >= this value.
 - ``kind``: ``crash`` (default) raises :class:`InjectedFault`
   (retryable); ``fatal`` raises :class:`InjectedFatal` (fatal);
@@ -75,11 +78,12 @@ SEAMS = ("load", "preprocess", "paths", "train", "lgroups", "biomarkers",
          "save", "checkpoint_write", "checkpoint_finalize",
          "native_load", "native_walker_load", "device_walk", "walk_cache",
          "shard_ring", "prefetch", "stream_ckpt", "drain", "ann_build",
-         "update_publish", "allgather", "shard_exchange", "embed_allreduce")
+         "update_publish", "allgather", "shard_exchange", "embed_allreduce",
+         "walk_handoff", "halo_build")
 
-#: The JAX package's other seams: its fleet and edge partition. The port
-#: has no call site for them yet, so a plan that names one is refused.
-NOT_PORTED = ("stage_barrier", "heartbeat", "walk_handoff", "halo_build")
+#: The JAX package's other seams: its fleet's. The port has no call site
+#: for them yet, so a plan that names one is refused.
+NOT_PORTED = ("stage_barrier", "heartbeat")
 
 
 class FaultPlanError(ValueError):

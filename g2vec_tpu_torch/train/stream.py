@@ -107,6 +107,18 @@ package's ``train_cbow_streaming`` does it:
 
 At one rank both axes run exactly the code above (byte-identity). Sharded
 runs take no checkpoint and no device walker.
+
+The edge partition (``edge_ctx``, a
+:class:`~g2vec_tpu_torch.parallel.shard.EdgeContext`, at more than one
+rank and with graph sharding) turns the graph-sharded producer's walk
+into a collective, as ``g2vec_tpu/train/stream.py:717-745`` does: each
+rank holds only its gene range's CSR rows (and the halo's), every rank
+joins :func:`~g2vec_tpu_torch.parallel.shard.run_edge_walk` for every
+shard and group, and the shard's owner publishes the assembled rows over
+the same ``walk/{si}`` exchange, so nothing downstream changes and the
+rows are the whole CSR's bytes. A spooled shard that fails verification
+cannot be re-walked by one rank there: the run raises
+:class:`SpoolIntegrityError` instead.
 """
 from __future__ import annotations
 
@@ -523,7 +535,7 @@ def train_cbow_streaming(
         check: Optional[Callable[[], None]] = None,
         lifecycle: Optional[Callable[[str, dict], None]] = None,
         debug_nans: bool = False, shard_ctx=None, walk_starts: int = 0,
-        ) -> StreamTrainResult:
+        edge_ctx=None) -> StreamTrainResult:
     """Stream walk shards from the sampler straight into minibatch SGD;
     returns the trained embeddings and the streaming twins of stage 3's
     byproducts (gene votes, path count).
@@ -545,7 +557,8 @@ def train_cbow_streaming(
     docstring). ``console`` prints the resume line. ``check`` and
     ``lifecycle``: module docstring. ``debug_nans``: as
     :func:`~g2vec_tpu_torch.train.trainer.train_cbow`'s, per shard update.
-    ``shard_ctx`` and ``walk_starts``: module docstring. Under an embed
+    ``shard_ctx``, ``walk_starts`` and ``edge_ctx``: module docstring.
+    Under an embed
     split the result's ``w_ih`` holds this rank's gene rows only
     (``[g_local, H]``), and ``init`` is the full ``[G, H]`` init, of which
     the rank takes its slice.
@@ -579,6 +592,12 @@ def train_cbow_streaming(
         raise ValueError(
             f"shard context was built for {spec.n_genes} genes, trainer "
             f"got {n_genes}")
+    edge_multi = edge_ctx is not None
+    if edge_multi and not graph_multi:
+        raise ValueError(
+            "edge_ctx (multi-rank --edge-partition) rides the "
+            "graph-sharded producer's shard exchange; pass a multi-rank "
+            "graph-sharded shard_ctx or None")
     if walker_backend == "device" and (graph_multi or embed_multi):
         raise ValueError(
             "the device walker does not compose with sharded streaming "
@@ -592,11 +611,17 @@ def train_cbow_streaming(
     stats = StreamStats(n_shards=n_shards, rows_sampled=2 * plan.n_walkers,
                         shard_rows=plan.rows_per_shard,
                         ring_depth=prefetch_depth)
-    csr = []
-    for s, d, w in groups:
-        s, d, w = np.asarray(s), np.asarray(d), np.asarray(w)
-        _check_group_edges(s, d, n_genes)
-        csr.append(edges_to_csr(s, d, w, n_genes))
+    if edge_multi:
+        # The rank's partial per-group CSRs, built (and in halo mode
+        # halo-merged) by the pipeline: the groups' edges cover only the
+        # owned gene range, so no full-width CSR is built from them.
+        csr = [p.csr for p in edge_ctx.pcsrs]
+    else:
+        csr = []
+        for s, d, w in groups:
+            s, d, w = np.asarray(s), np.asarray(d), np.asarray(w)
+            _check_group_edges(s, d, n_genes)
+            csr.append(edges_to_csr(s, d, w, n_genes))
 
     # The device walker reads each group's CSR from the card, uploaded
     # once.
@@ -629,6 +654,18 @@ def train_cbow_streaming(
                 for gi in (0, 1)], axis=0)
         return torch.cat([_device_walk_group(gi, shard_index)
                           for gi in (0, 1)]).cpu().numpy()
+
+    def _rewalk(shard_index: int) -> np.ndarray:
+        """The spool's re-walk of a shard that failed verification. An
+        edge-partitioned rank holds part of the CSR and the collective has
+        moved on, so there the failure is final."""
+        if edge_multi:
+            raise SpoolIntegrityError(
+                f"shard {shard_index}: spooled bytes failed verification "
+                "and this rank holds only a partial CSR under "
+                "--edge-partition; re-walking needs the whole fleet — "
+                "restart the run")
+        return _walk_shard_rows(shard_index)
 
     def _shard_labels(shard_index: int) -> np.ndarray:
         n = plan.group_rows(shard_index)
@@ -733,12 +770,42 @@ def train_cbow_streaming(
             return rows
         return _recv_exchanged_rows(si, owner)
 
+    def _edge_rows(si: int, owner: int) -> Optional[np.ndarray]:
+        """Shard ``si`` under the edge partition: every rank joins the
+        collective walk of each group (partial walks on its rows, the
+        suspended states handed to the ranks holding their rows, one
+        termination round; explicit keys, so safe on this thread), then
+        the owner publishes the assembled rows over ``walk/{si}`` as
+        :func:`_exchange_rows` does."""
+        from g2vec_tpu_torch.parallel.shard import run_edge_walk
+
+        parts = []
+        for gi in (0, 1):
+            rows_g = run_edge_walk(
+                edge_ctx.pcsrs[gi], plan, si,
+                seed=(walk_seed << 1) | gi, owner=owner,
+                rank=spec.rank, n_ranks=spec.n_ranks, starts=starts,
+                n_threads=sampler_threads, deadline=shard_ctx.deadline,
+                key_prefix=f"edgewalk/g{gi}",
+                cancelled=lambda: ring.cancelled, stats=edge_ctx.stats)
+            if rows_g is None and spec.rank == owner:
+                return None          # the consumer is gone
+            parts.append(rows_g)
+        if owner == spec.rank:
+            rows = np.concatenate(parts, axis=0)
+            fault_point("shard_exchange", epoch=si)
+            _publish_rows(si, rows, owner)
+            return rows
+        return _recv_exchanged_rows(si, owner)
+
     def _produce():
         t0 = time.perf_counter()
         try:
             for si in range(start_shard, n_shards):
                 if graph_multi:
-                    rows = _exchange_rows(si, spec.shard_owner(si, n_shards))
+                    owner = spec.shard_owner(si, n_shards)
+                    rows = (_edge_rows(si, owner) if edge_multi
+                            else _exchange_rows(si, owner))
                     if rows is None:
                         return      # consumer gone while waiting
                 else:
@@ -943,7 +1010,7 @@ def train_cbow_streaming(
     def _replay_iter(start: int) -> Iterator[Shard]:
         for si in range(start, n_shards):
             fault_point("prefetch", epoch=si)
-            yield Shard(si, spool.load(si, _walk_shard_rows),
+            yield Shard(si, spool.load(si, _rewalk),
                         _shard_labels(si))
 
     def _device_feed(shards: Iterator[Shard], epoch0: bool):

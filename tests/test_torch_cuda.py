@@ -484,6 +484,68 @@ def test_walker_counts_card_launches_only(cuda):
     assert dw.device_walk.launches == 1
 
 
+@pytest.mark.parametrize("m,len_path", [(1, 5), (257, 20), (1001, 80)])
+def test_walk_states_kernel_matches_plain_and_cpp(cuda, m, len_path):
+    """The resumable walk kernel against its plain version and the C++
+    advance, bitwise, at a ragged walker count; the first avail mask
+    holds none of the starts, so every walker suspends on its first step
+    with its stream untouched, and the resumes over the other half and
+    back run each walk to its end: the packed rows are the one-shot
+    C++ walk's."""
+    from g2vec_tpu_torch.native.walker_bindings import (init_walk_state,
+                                                        walk_paths_packed)
+    from g2vec_tpu_torch.ops import device_walker as dw
+    from g2vec_tpu_torch.ops import host_walker as thw
+
+    g = 300
+    csr = _walk_graph(g, 2000, m + len_path)
+    dev_csr = dw.upload_csr(csr, g, cuda)
+    rng = np.random.default_rng(m)
+    starts = rng.integers(0, g, m).astype(np.int32)
+    ids = np.arange(m, dtype=np.uint64)
+    paths = np.full((m, len_path), -1, np.int32)
+    paths[:, 0] = starts
+    states = thw.WalkStateBatch(
+        row=np.arange(m, dtype=np.int32), cur=starts.copy(),
+        rng=init_walk_state(7, ids), pos=np.ones(m, np.int32), paths=paths)
+    avail = np.ones(g, np.uint8)
+    avail[starts] = 0
+    first = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        states.cur, states.rng.view(np.int64), states.pos, states.paths)]
+    plain = [t.clone() for t in first]
+    csr_t = (dev_csr.indptr, dev_csr.indices, dev_csr.weights,
+             torch.from_numpy(avail).to(cuda))
+    dw.reset_launch_counts()
+    status = dw.device_walk_states(*csr_t, *first, len_path)
+    torch.cuda.synchronize()
+    assert dw.device_walk_states.launches == 1
+    assert torch.equal(status, dw.walk_states_plain(*csr_t, *plain,
+                                                    len_path))
+    for got, want in zip(first, plain):
+        assert torch.equal(got, want)
+    assert bool((status == 1).all()) and bool((first[2] == 1).all())
+    assert torch.equal(first[1].cpu(),
+                       torch.from_numpy(states.rng.view(np.int64)))
+    todo = np.arange(m)
+    while todo.size:
+        part = states.take(todo)
+        native = thw.WalkStateBatch(*(np.copy(getattr(part, f)) for f in (
+            "row", "cur", "rng", "pos", "paths")))
+        st = dw.advance_walk_states_device(part, dev_csr, g, avail,
+                                           len_path)
+        np.testing.assert_array_equal(
+            st, thw.advance_walk_states(native, csr, g, avail, len_path))
+        for f in ("cur", "rng", "pos", "paths"):
+            np.testing.assert_array_equal(getattr(part, f),
+                                          getattr(native, f))
+            getattr(states, f)[todo] = getattr(part, f)
+        todo = todo[st == 1]
+        avail = 1 - avail
+    want = walk_paths_packed(*csr, g, starts, ids, len_path, 7)
+    assert thw.pack_finished_paths(states.paths, g).tobytes() == \
+        want.tobytes()
+
+
 def _lane_inputs(b, m, g, h, density, seed):
     rng = np.random.default_rng(seed)
     x = rng.random((b, m, g)) < density
