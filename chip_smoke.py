@@ -44,18 +44,23 @@ them at the streaming launch shapes (the widest shard's train rows, the
 full eval buffer). Phase 7 holds the device walker's kernel
 (``csrc/device_walker.cu``) against its plain version on the card and the
 C++ walker, byte for byte: on both example groups over all their
-walkers, on every shard of the example's streaming plan, and on a ragged
-set (``len_path`` 1 and 2, a subset of the starts, a walker range not at
-0, a graph with duplicate edges, zero and negative weights and dead
-ends); times the kernel (CUDA events, median of 10 after an L2 flush),
-its plain version, the copy of its rows to the host and the C++ walker on
-the same inputs; runs the example in process with ``walker_backend=
-"device"`` (the counts read after it are the kernel line's launches, and
-the packed kernels' counts must be phase 3's) and through the CLI with
-and without ``--walker-backend device`` in turns, three each, all writing
-phase 3's bytes; runs the CLI three times with one ``--cache-dir`` (the
-second run and a ``--walker-backend device`` run hit both groups'
-entries); and streams the example with the device walker, which trains
+walkers, on every shard of the example's streaming plan, on a ragged set
+(``len_path`` 1 and 2, a subset of the starts, a walker range not at 0, a
+graph with duplicate edges, zero and negative weights and dead ends) and
+on hub graphs (rows of 1 to 1,000 slots) under every instance its launch
+plan can choose from the shapes (8 or 16 lanes a walker by the widest
+row; the masks in shared memory, or in the rows at G 262,144); prints
+each plan's shared memory (the ptxas lines give each instance's
+registers); times the kernel (CUDA events, median of 10 after an L2
+flush), its plain version, the copy of its rows to the host and the C++
+walker on the same inputs, and each streaming shard's launch, the
+slowest also by the host clock; runs the example in process with
+``walker_backend="device"`` (the counts read after it are the kernel
+line's launches, and the packed kernels' counts must be phase 3's) and
+through the CLI with and without ``--walker-backend device``, once each,
+both writing phase 3's bytes; runs the CLI three times with one
+``--cache-dir`` (the second run and a ``--walker-backend device`` run hit
+both groups' entries); and streams the example with the device walker, which trains
 epoch 0 where it walks: ``W_ih`` must be phase 6's bytes and the packed
 kernels' counts phase 6's, with no shard through the ring. Phase 8 runs
 the durable-run drills, each under a fault plan that must fire (the
@@ -212,6 +217,20 @@ def _nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def _ptxas_kernel(line) -> str:
+    """The kernel a ptxas "Compiling entry function" line names; for the
+    walker's kernels, with their template arguments (lanes; the masks in
+    shared memory or in the rows)."""
+    from g2vec_tpu_torch.ops.device_walker_probe import kernel_of
+
+    walker = kernel_of(line)
+    if walker:
+        return walker
+    return next((w for w in ("pm_fwd_kernel", "pm_fwd_lanes_kernel",
+                             "pm_bwd_kernel", "pm_bwd_sum_kernel")
+                 if w in line), line.split("'")[1] if "'" in line else "?")
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     return fn(), time.perf_counter() - t0
@@ -225,6 +244,23 @@ def _time_ms(fn, flush):
     from g2vec_tpu_torch.ops.packed_matmul_probe import time_ms
 
     return time_ms(fn, flush)
+
+
+def _host_ms(torch, fn, n=20) -> float:
+    """The median host time of ``fn()`` over ``n`` calls, each made while
+    a sleep kernel keeps the card busy (so that the host never waits for
+    it): what a launch costs the calling thread."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        torch.cuda._sleep(2_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    times.sort()
+    return times[n // 2]
 
 
 def _spread(t) -> str:
@@ -665,7 +701,7 @@ def _hold_walks(torch, dw, name, csr, csr_dev, starts, ids, len_path, seed,
     from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
 
     args = _walk_args(torch, csr_dev, starts, ids, len_path, seed)
-    got = dw.device_walk(*args).cpu().numpy()
+    got = dw.device_walk(*args, max_degree=csr_dev.max_degree).cpu().numpy()
     want = {"C++": walk_paths_packed(*csr, csr_dev.n_genes, starts, ids,
                                      len_path, seed)}
     if plain:
@@ -688,8 +724,8 @@ def _ragged_walks(torch, dw):
     """The kernel against the C++ walker and its plain version on a graph
     with duplicate edges, zero and negative weights and dead ends, at
     ``len_path`` 1, 2 and 80, on a subset of the starts and on a walker
-    range that does not begin at 0. Returns the largest byte
-    difference."""
+    range that does not begin at 0, then on the hub graph
+    (:func:`_hub_walks`). Returns the largest byte difference."""
     from g2vec_tpu_torch.ops.host_walker import edges_to_csr
 
     rng = np.random.default_rng(12)
@@ -725,7 +761,63 @@ def _ragged_walks(torch, dw):
           f"weights, {int(dead.sum())} dead ends: "
           + ", ".join(c[0] for c in cases)
           + ": kernel = plain = C++, byte for byte")
+    return max(err, _hub_walks(torch, dw))
+
+
+def _walk_graphs():
+    """``tests/walk_graphs.py``, the hub graphs the card tests walk too."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "walk_graphs.py")
+    spec = importlib.util.spec_from_file_location("walk_graphs", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _hub_walks(torch, dw):
+    """The kernel on hub graphs under every instance the plan can choose
+    from the shapes: at G 1,003 (the masks in shared memory) and G
+    262,144 (in the rows, where no block's masks fit), each with rows of
+    at most 7 slots (8 lanes a walker) and of up to 1,000 (16 lanes,
+    chunks), at ``len_path`` 80 (and 1 and 2 at G 1,003); each against
+    the C++ walker and the plain version, byte for byte, on a ragged
+    walker count. Returns the largest byte difference."""
+    from g2vec_tpu_torch.ops.host_walker import edges_to_csr
+
+    wg = _walk_graphs()
+    err, seen = 0, set()
+    for g, lengths in ((1003, (1, 2, 80)), (262_144, (80,))):
+        for max_hub in (7, 1000):
+            degrees = tuple(d for d in wg.HUB_DEGREES if d <= max_hub)
+            csr = edges_to_csr(*wg.hub_graph(g, degrees, g + max_hub), g)
+            csr_dev = dw.upload_csr(csr, g, "cuda")
+            rng = np.random.default_rng(g)
+            starts = rng.integers(0, g, 3001).astype(np.int32)
+            starts[:len(degrees)] = np.arange(len(degrees))
+            ids = np.arange(3001, dtype=np.uint64)
+            plan = dw.walk_plan(g, csr_dev.max_degree)
+            seen.add((plan.group, plan.shared))
+            for length in lengths:
+                err = max(err, _hold_walks(
+                    torch, dw, f"hub G {g} len_path {length} {plan}", csr,
+                    csr_dev, starts, ids, length, 0xB0B)[1])
+    print(f"    hub graphs (out-degrees up to 7 and {wg.HUB_DEGREES}, "
+          f"duplicates, zero and negative weights, dead ends; 3,001 "
+          f"walkers): G 1,003 at len_path 1, 2 and 80 and G 262,144 at 80; "
+          f"instances (lanes, masks in shared memory) launched: "
+          f"{sorted(seen)}: kernel = plain = C++, byte for byte")
+    if seen != {(k, sh) for k in dw.GROUPS for sh in (True, False)}:
+        raise RuntimeError(f"the hub walks launched {sorted(seen)}")
     return err
+
+
+def _walk_plan_line(plan) -> str:
+    return (f"{plan.group} lanes a walker, masks "
+            + (f"in shared memory ({plan.stride} bytes each, "
+               f"{plan.smem_bytes} bytes a block)" if plan.shared
+               else "in the rows"))
 
 
 def _walk_bytes(args) -> int:
@@ -745,10 +837,12 @@ def _time_walks(torch, dw, csr, args, flush):
     same inputs by the host clock (median of 5)."""
     from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
 
+    max_degree = int(np.diff(csr[0]).max(initial=0))
     starts, ids = args[3].cpu().numpy(), args[4].cpu().numpy().view(
         np.uint64)
     rec = {}
-    for key, fn in (("ms", lambda: dw.device_walk(*args)),
+    for key, fn in (("ms", lambda: dw.device_walk(*args,
+                                                  max_degree=max_degree)),
                     ("plain_ms", lambda: dw.device_walk_plain(*args))):
         rec[key], lo, hi = _time_ms(fn, flush)
         rec[key + "_spread"] = [lo, hi]
@@ -814,7 +908,35 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     timed = [_time_walks(torch, dw, csrs[gi], args[gi], flush)
              for gi in (0, 1)]
+    max_deg = csr_dev[0].max_degree
+    g_plan = dw.walk_plan(g, max_deg)
+    print(f"    group g's plan: " + _walk_plan_line(g_plan))
+    # One streaming shard's launch: every shard of group g, each timed.
+    shard_ms = []
+    for si in range(plan.n_shards):
+        sh_starts, sh_ids = dw._shard_init(plan, si)
+        sh_args = _walk_args(torch, csr_dev[0], sh_starts, sh_ids, length,
+                             s_cfg.seed << 1)
+        shard_ms.append(_time_ms(lambda: dw.device_walk(
+            *sh_args, max_degree=max_deg), flush)[0])
+    widest = int(np.argmax(shard_ms))
+    sh_starts, sh_ids = dw._shard_init(plan, widest)
+    sh_args = _walk_args(torch, csr_dev[0], sh_starts, sh_ids, length,
+                         s_cfg.seed << 1)
+    shard = _time_walks(torch, dw, csrs[0], sh_args, flush)
+    shard["host_ms"] = _host_ms(torch, lambda: dw.device_walk(
+        *sh_args, max_degree=max_deg))
     del flush
+    print(f"    the {plan.n_shards} streaming shards' launches of group g "
+          f"(median ms of 10 each): sum {sum(shard_ms):.4f}, median "
+          f"{float(np.median(shard_ms)):.4f}, the slowest (shard {widest}, "
+          f"{len(sh_starts)} walkers): kernel "
+          f"{_spread((shard['ms'], *shard['ms_spread']))}, bound "
+          f"{shard['bound_ms']:.4f} ms ({shard['bound_bytes']} bytes), plain "
+          f"{_spread((shard['plain_ms'], *shard['plain_ms_spread']))}, C++ "
+          f"walker {shard['cpp_ms']:.4f} ms; the wrapper's call by the host "
+          f"clock (median of 20, the card kept busy) "
+          f"{shard['host_ms']:.4f} ms")
     for name, rec in zip("gp", timed):
         print(f"    group {name}: kernel {_spread((rec['ms'], *rec['ms_spread']))}"
               f", bound {rec['bound_ms']:.4f} ms ({rec['bound_bytes']} bytes), "
@@ -853,7 +975,7 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
                d_res.stage_extras["paths"]["span_s"].items()}))
 
     for flags, secs, _, extras, outputs, _ in _cli_runs(
-            files, tmp, 30, ([], ["--walker-backend", "device"]) * 3,
+            files, tmp, 30, ([], ["--walker-backend", "device"]),
             tag="cli_walker"):
         if outputs != main_outputs:
             raise RuntimeError(f"CLI {flags}: output files differ from [3]'s")
@@ -862,7 +984,7 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
               + f" (total {sum(secs.values()):.3f}); paths spans "
               + json.dumps({k: round(v, 3) for k, v in
                             extras["paths"]["span_s"].items()}))
-    print("    the three files of the six CLI runs are byte-identical to "
+    print("    the three files of both CLI runs are byte-identical to "
           "[3]'s")
 
     cache = os.path.join(tmp, "walk_cache")
@@ -929,7 +1051,12 @@ def _device_walker_phase(torch, dw, pm, cfg, s_cfg, files, tmp, main_outputs,
         "shape": f"{n} walkers, len_path {length}, G {g} (group g)",
         "group_p": {k: timed[1][k] for k in
                     ("ms", "plain_ms", "bound_ms", "cpp_ms", "d2h_ms")},
-        "streaming": {"launches": stream_walks}}
+        "plan": g_plan._asdict(),
+        "streaming": {"launches": stream_walks, "shards_ms": shard_ms,
+                      "shard": {"index": widest, "walkers": len(sh_starts),
+                                **{k: shard[k] for k in (
+                                    "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "cpp_ms", "host_ms")}}}}
 
 
 # A supervised child, run through this wrapper instead of ``python -m
@@ -3434,12 +3561,16 @@ def _walk_states_at_the_example(torch, dw, cfg):
     csr_args = (csr_dev.indptr, csr_dev.indices, csr_dev.weights, avail_t)
     rec = {}
     for key, fn in (("ms", lambda: dw.device_walk_states(
-                        *csr_args, *work, length)),
+                        *csr_args, *work, length,
+                        max_degree=csr_dev.max_degree)),
                     ("plain_ms", lambda: dw.walk_states_plain(
                         *csr_args, *work, length))):
         rec[key], lo, hi = _time_states(torch, fn, src, work, flush)
         rec[key + "_spread"] = [lo, hi]
     del flush
+    group = dw.group_for(csr_dev.max_degree)
+    print(f"    the states kernel: {group} lanes a walker (largest "
+          f"out-degree {csr_dev.max_degree}), prefixes in `paths`")
     cpp = []
     for _ in range(5):
         part = copy.deepcopy(pristine)
@@ -3465,7 +3596,7 @@ def _walk_states_at_the_example(torch, dw, cfg):
             "bound_bytes": nbytes, "library_ms": None, "cpp_ms": rec["cpp_ms"],
             "shape": f"{len(pristine)} walkers, len_path {length}, G {g} "
                      f"(group g), first advance over genes [0, {g // 2})",
-            "advances": advances}
+            "advances": advances, "group": group}
 
 
 def _edge_phase(torch, dw, cfg, tmp):
@@ -3673,11 +3804,7 @@ def main() -> int:
     kernel = "?"
     for line in (log + walk_log).splitlines():
         if "Compiling entry function" in line:
-            kernel = next((w for w in ("pm_fwd_kernel", "pm_fwd_lanes_kernel",
-                                       "pm_bwd_kernel", "pm_bwd_sum_kernel",
-                                       "g2v_walk_states_kernel",
-                                       "g2v_walk_kernel") if w in line),
-                          line.split("'")[1] if "'" in line else "?")
+            kernel = _ptxas_kernel(line)
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
 

@@ -8,11 +8,15 @@ entries (``cache.NATIVE_FAMILY``) are shared between the backends.
 
 :func:`device_walk` is the kernel's wrapper. It dispatches on the device
 of the tensors it is given: a CUDA tensor launches the hand-written kernel
-of ``csrc/device_walker.cu`` (one thread per walker, built with nvcc for
-sm_90a at first use, bound with ctypes, launched on torch's current
+of ``csrc/device_walker.cu`` (a group of lanes per walker, built with nvcc
+for sm_90a at first use, bound with ctypes, launched on torch's current
 stream) or raises; a CPU tensor takes :func:`device_walk_plain`, the
 reference's lock-step walk in torch. There is no fallback from one to the
-other. It counts its kernel launches in ``.launches``.
+other. It counts its kernel launches in ``.launches``. Its launch plan,
+:func:`walk_plan`, is a plain function of the shapes: 8 or 16 lanes a
+walker from the CSR's largest out-degree (:func:`group_for`, which the
+resumable walk's wrapper takes too), and whether a block's visited masks
+fit shared memory or stay in the rows.
 
 The plain version (the reference's ``run``, :195-275,
 :func:`walk_states_plain`; the one-shot walk starts it from each walker's
@@ -92,12 +96,15 @@ def nvcc_command() -> list:
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.g2v_walk_device.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
-                                    ctypes.c_int32, ctypes.c_uint64, ptr,
-                                    i64, ptr]
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    flag = ctypes.c_int
+    # ... the wide group, the masks in shared memory, the walker counter,
+    # the stream
+    lib.g2v_walk_device.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i32,
+                                    ctypes.c_uint64, ptr, i64, flag, flag,
+                                    ptr, ptr]
     lib.g2v_walk_device.restype = ctypes.c_int
-    lib.g2v_walk_states_device.argtypes = [ptr] * 9 + [i64, ctypes.c_int32,
+    lib.g2v_walk_states_device.argtypes = [ptr] * 9 + [i64, i32, flag, ptr,
                                                        ptr]
     lib.g2v_walk_states_device.restype = ctypes.c_int
 
@@ -110,6 +117,71 @@ def build_walk_kernel():
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     return load(SRC, nvcc_command(), _configure)
+
+
+# ---------------------------------------------------------------------------
+# The launch plan: a plain function of the shapes.
+# ---------------------------------------------------------------------------
+
+#: Lanes that walk one walker: the narrow group where every row of the CSR
+#: fits it, else the wide one; threads a block. The .cu's ``kNarrow``,
+#: ``kWide`` and ``kThreads`` (a CPU test holds them equal).
+GROUPS = (8, 16)
+BLOCK_THREADS = 256
+#: Shared memory one block may use on Hopper (227 KB of the SM's 256 KB).
+SMEM_LIMIT = 232_448
+#: A walker's mask in shared memory starts on a 16-byte boundary (it is
+#: zeroed in 16-byte words).
+SMEM_ALIGN = 16
+
+
+class WalkPlan(NamedTuple):
+    """How ``g2v_walk_kernel`` is launched for one set of shapes."""
+
+    group: int       # lanes that walk one walker (one of GROUPS)
+    shared: bool     # the visited masks in shared memory, else in the rows
+    stride: int      # bytes of one walker's mask in shared memory
+    smem_bytes: int  # dynamic shared memory a block (0: in the rows)
+
+
+def group_for(max_degree: int) -> int:
+    """The lanes a walker: 8 where every row fits 8 slots, else 16 (16
+    ran faster than 8 on every graph with wider rows, and 8 faster than
+    16 where every row fits 8: PERF.md section 6)."""
+    return GROUPS[0] if max_degree <= GROUPS[0] else GROUPS[1]
+
+
+def walk_plan(n_genes: int, max_degree: int) -> WalkPlan:
+    """``g2v_walk_kernel``'s plan: the group from the CSR's largest
+    out-degree; a walker's mask is its packed row, ``ceil(n_genes/8)``
+    bytes, and a block's masks go to shared memory exactly where they fit
+    the 227 KB, else they stay in the rows."""
+    group = group_for(max_degree)
+    walks = BLOCK_THREADS // group
+    stride = -(-((n_genes + 7) // 8) // SMEM_ALIGN) * SMEM_ALIGN
+    shared = walks * stride <= SMEM_LIMIT
+    return WalkPlan(group, shared, stride, walks * stride if shared else 0)
+
+
+#: One walker counter a stream: ``{(device index, stream): tensor}``.
+_COUNTERS: dict = {}
+
+
+def _counter(device) -> torch.Tensor:
+    """The kernels' walker counter on torch's current stream of
+    ``device``: the walkers the groups take after the grid's own (a launch
+    zeroes it on its stream where the grid leaves any to it). Made at the
+    stream's first launch and kept."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS.setdefault(
+            key, torch.empty(1, dtype=torch.int64, device=device))
+    return counter
+
+
+def _max_degree(indptr: torch.Tensor) -> int:
+    return int((indptr[1:] - indptr[:-1]).max()) if indptr.numel() > 1 else 0
 
 
 # ---------------------------------------------------------------------------
@@ -296,12 +368,16 @@ def _check(indptr, indices, weights, starts, stream_ids, len_path,
 def device_walk(indptr: torch.Tensor, indices: torch.Tensor,
                 weights: torch.Tensor, starts: torch.Tensor,
                 stream_ids: torch.Tensor, len_path: int, seed: int,
-                n_genes: int) -> torch.Tensor:
+                n_genes: int, *,
+                max_degree: Optional[int] = None) -> torch.Tensor:
     """One walk per entry of ``starts`` -> [n, ceil(n_genes/8)] uint8
     packed rows on the tensors' device. ``stream_ids`` holds each walker's
     uint64 stream id as int64 bits. The CSR must be valid and ``starts``
     and ``indices`` in [0, n_genes): :func:`upload_csr` and the entry
-    points check them on the host before the upload."""
+    points check them on the host before the upload. On the card the
+    launch follows :func:`walk_plan` of the shapes and ``max_degree``,
+    the CSR's largest out-degree (:class:`DeviceCSR` carries it; read
+    from ``indptr`` when not given)."""
     _check(indptr, indices, weights, starts, stream_ids, len_path, n_genes)
     seed &= _MASK64
     if indptr.device.type == "cpu":
@@ -313,10 +389,15 @@ def device_walk(indptr: torch.Tensor, indices: torch.Tensor,
 
     nbytes = (n_genes + 7) // 8
     n = starts.shape[0]
-    out = torch.zeros((n, nbytes), dtype=torch.uint8, device=indptr.device)
+    # Every byte of a row is written by its walker's group.
+    out = torch.empty((n, nbytes), dtype=torch.uint8, device=indptr.device)
     if n:
+        plan = walk_plan(n_genes, _max_degree(indptr)
+                         if max_degree is None else max_degree)
         _launch(_lib().g2v_walk_device, indptr, indices, weights, starts,
-                stream_ids, n, len_path, seed, out, nbytes)
+                stream_ids, n, len_path, seed, out, nbytes,
+                int(plan.group == GROUPS[1]), int(plan.shared),
+                _counter(indptr.device))
         device_walk.launches += 1
     return out
 
@@ -442,14 +523,16 @@ def device_walk_states(indptr: torch.Tensor, indices: torch.Tensor,
                        weights: torch.Tensor, avail: torch.Tensor,
                        cur: torch.Tensor, rng: torch.Tensor,
                        pos: torch.Tensor, paths: torch.Tensor,
-                       len_path: int) -> torch.Tensor:
+                       len_path: int, *,
+                       max_degree: Optional[int] = None) -> torch.Tensor:
     """Advance walk states in place over an availability-masked CSR ->
     [n] uint8 status (0 finished, 1 suspended) on the tensors' device.
     ``rng`` holds each walker's raw splitmix64 state as int64 bits. The
     CSR must be valid, ``cur`` in [0, G) and ``pos`` in [1, len_path]:
     :func:`advance_walk_states_device` checks them on the host. A CUDA
-    tensor launches ``g2v_walk_states_kernel``, a CPU tensor takes
-    :func:`walk_states_plain`."""
+    tensor launches ``g2v_walk_states_kernel`` with the lanes of
+    :func:`group_for` (``max_degree`` as in :func:`device_walk`), a CPU
+    tensor takes :func:`walk_states_plain`."""
     _check_states(indptr, indices, weights, avail, cur, rng, pos, paths,
                   len_path)
     if indptr.device.type == "cpu":
@@ -462,8 +545,11 @@ def device_walk_states(indptr: torch.Tensor, indices: torch.Tensor,
     n = cur.shape[0]
     status = torch.empty(n, dtype=torch.uint8, device=indptr.device)
     if n:
+        group = group_for(_max_degree(indptr)
+                          if max_degree is None else max_degree)
         _launch(_lib().g2v_walk_states_device, indptr, indices, weights,
-                avail, cur, rng, pos, paths, status, n, len_path)
+                avail, cur, rng, pos, paths, status, n, len_path,
+                int(group == GROUPS[1]), _counter(indptr.device))
         device_walk_states.launches += 1
     return status
 
@@ -487,6 +573,7 @@ class DeviceCSR(NamedTuple):
     indices: torch.Tensor    # [E] int32
     weights: torch.Tensor    # [E] float32
     n_genes: int
+    max_degree: int          # the largest out-degree (for the launch plan)
 
 
 def upload_csr(csr, n_genes: int, device="cuda") -> DeviceCSR:
@@ -508,7 +595,8 @@ def upload_csr(csr, n_genes: int, device="cuda") -> DeviceCSR:
             or np.any(np.diff(indptr) < 0):
         raise ValueError("indptr is not a valid CSR row-pointer array")
     return DeviceCSR(*(torch.from_numpy(a).to(dev)
-                       for a in (indptr, indices, weights)), n_genes)
+                       for a in (indptr, indices, weights)), n_genes,
+                     int(np.diff(indptr).max(initial=0)))
 
 
 def _group_csr(src, dst, w, n_genes: int, csr, device) -> DeviceCSR:
@@ -537,7 +625,7 @@ def _walk(csr: DeviceCSR, starts: np.ndarray, stream_ids: np.ndarray,
     return device_walk(csr.indptr, csr.indices, csr.weights,
                        torch.from_numpy(starts).to(dev),
                        torch.from_numpy(ids).to(dev), len_path, seed,
-                       csr.n_genes)
+                       csr.n_genes, max_degree=csr.max_degree)
 
 
 def _shard_init(plan: ShardPlan, shard: int,
@@ -638,7 +726,7 @@ def advance_walk_states_device(states, csr, n_genes: int, avail: np.ndarray,
     [M] uint8 status (0 finished, 1 suspended). Bitwise the C++ advance for
     the same states, the frozen stream of a suspended or dead-ended walker
     included. ``csr`` is a host CSR or a :class:`DeviceCSR` on ``device``.
-    ``n_threads`` is ignored (one card thread owns one walker); it is
+    ``n_threads`` is ignored (a group of card lanes owns one walker); it is
     accepted so that a call written for the C++ advance, or for the JAX
     package's ``advance_walk_states_device``, which takes it too, runs
     here with its arguments unchanged."""
@@ -658,7 +746,7 @@ def advance_walk_states_device(states, csr, n_genes: int, avail: np.ndarray,
     status = device_walk_states(
         csr.indptr, csr.indices, csr.weights,
         torch.from_numpy(avail).to(dev), t["cur"], t["rng"], t["pos"],
-        t["paths"], len_path)
+        t["paths"], len_path, max_degree=csr.max_degree)
     states.cur[:] = t["cur"].cpu().numpy()
     states.rng.view(np.int64)[:] = t["rng"].cpu().numpy()
     states.pos[:] = t["pos"].cpu().numpy()

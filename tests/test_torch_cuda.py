@@ -546,6 +546,204 @@ def test_walk_states_kernel_matches_plain_and_cpp(cuda, m, len_path):
         want.tobytes()
 
 
+def _hub_walk(cuda, n_genes, max_hub, n_starts, len_path, seed):
+    """A hub graph (tests/walk_graphs.py) on the card and ``n_starts``
+    walkers over it (every hub among the starts): the wrapper's
+    arguments, the host CSR and the walkers' starts and stream ids."""
+    from g2vec_tpu_torch.ops import device_walker as dw
+    from g2vec_tpu_torch.ops.host_walker import edges_to_csr
+    from walk_graphs import HUB_DEGREES, hub_graph
+
+    degrees = tuple(d for d in HUB_DEGREES if d <= max_hub)
+    csr = edges_to_csr(*hub_graph(n_genes, degrees, seed), n_genes)
+    dev_csr = dw.upload_csr(csr, n_genes, cuda)
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, n_genes, n_starts).astype(np.int32)
+    starts[:len(degrees)] = np.arange(len(degrees))
+    ids = np.arange(7, 7 + n_starts, dtype=np.uint64)
+    args = (dev_csr.indptr, dev_csr.indices, dev_csr.weights,
+            torch.from_numpy(starts).to(cuda),
+            torch.from_numpy(ids.view(np.int64)).to(cuda), len_path, seed,
+            n_genes)
+    return dev_csr, csr, starts, ids, args
+
+
+@pytest.mark.parametrize("len_path", [1, 2, 80])
+@pytest.mark.parametrize("max_hub", [1, 7, 8, 9, 15, 16, 17, 31, 32, 33,
+                                     257, 1000])
+def test_walk_kernel_on_hub_graphs_matches_plain_and_cpp(cuda, max_hub,
+                                                         len_path):
+    """The plan's own group for each largest degree (8 lanes up to 8
+    slots, 16 above; one chunk or many), bitwise."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+    from g2vec_tpu_torch.ops import device_walker as dw
+
+    dev_csr, csr, starts, ids, args = _hub_walk(cuda, 1500, max_hub, 3001,
+                                                len_path, max_hub)
+    plan = dw.walk_plan(1500, dev_csr.max_degree)
+    assert plan.group == dw.group_for(max(max_hub, 3)) and plan.shared
+    got = dw.device_walk(*args, max_degree=dev_csr.max_degree)
+    torch.cuda.synchronize()
+    want = walk_paths_packed(*csr, 1500, starts, ids, len_path, max_hub)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+    assert torch.equal(got, dw.device_walk_plain(*args))
+
+
+@pytest.mark.parametrize("g, max_hub, instance", [
+    (1003, 7, (8, True)), (1024, 1000, (16, True)), (58_112, 7, (8, True)),
+    (58_113, 7, (8, False)), (116_224, 33, (16, True)),
+    (116_225, 1000, (16, False))])
+def test_every_walk_instance_matches_cpp(cuda, g, max_hub, instance):
+    """Every instance the plan can choose, (lanes, masks in shared
+    memory), reached through the shapes alone: 1,003 genes (rows not a
+    multiple of 4 bytes: byte copies), 1,024 (16-byte copies), the most
+    genes a block's masks fit for each group (58,112 and 116,224) and one
+    more (the masks in the rows); on hub graphs, a ragged walker
+    count."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+    from g2vec_tpu_torch.ops import device_walker as dw
+
+    dev_csr, csr, starts, ids, args = _hub_walk(cuda, g, max_hub, 2017, 80,
+                                                g)
+    plan = dw.walk_plan(g, dev_csr.max_degree)
+    assert (plan.group, plan.shared) == instance
+    dw.reset_launch_counts()
+    got = dw.device_walk(*args, max_degree=dev_csr.max_degree)
+    torch.cuda.synchronize()
+    assert dw.device_walk.launches == 1
+    want = walk_paths_packed(*csr, g, starts, ids, 80, g)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+def test_walk_kernel_keeps_the_masks_in_the_rows_above_the_threshold(cuda):
+    """At G 262,144 no block's masks fit shared memory: the plan keeps
+    them in the rows, and the rows are the C++ sampler's and the plain
+    version's."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+    from g2vec_tpu_torch.ops import device_walker as dw
+
+    g = 262_144
+    dev_csr, csr, starts, ids, args = _hub_walk(cuda, g, 1000, 2001, 80, 5)
+    plan = dw.walk_plan(g, dev_csr.max_degree)
+    assert not plan.shared and plan.smem_bytes == 0 and plan.group == 16
+    dw.reset_launch_counts()
+    got = dw.device_walk(*args)
+    torch.cuda.synchronize()
+    assert dw.device_walk.launches == 1
+    want = walk_paths_packed(*csr, g, starts, ids, 80, 5)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+    assert torch.equal(got, dw.device_walk_plain(*args))
+
+
+@pytest.mark.parametrize("g, max_hub", [(1003, 7), (1003, 257),
+                                        (58_113, 7), (116_225, 257)])
+def test_walk_kernel_hands_out_walkers_past_the_grid(cuda, g, max_hub):
+    """More walkers than the card holds at once (the groups take the rest
+    from the counter), twice on one stream (the counter is kept and
+    zeroed again), in each instance."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+    from g2vec_tpu_torch.ops import device_walker as dw
+
+    dev_csr, csr, starts, ids, args = _hub_walk(cuda, g, max_hub, 100_003,
+                                                80, g + 1)
+    want = walk_paths_packed(*csr, g, starts, ids, 80, g + 1)
+    for _ in range(2):
+        got = dw.device_walk(*args, max_degree=dev_csr.max_degree)
+        torch.cuda.synchronize()
+        assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+def test_walk_kernel_refuses_masks_that_do_not_fit(cuda):
+    """Masks in shared memory at a G whose block does not hold them: the
+    library refuses the launch (the plan never asks for it)."""
+    from g2vec_tpu_torch.ops import device_walker as dw
+    from g2vec_tpu_torch.ops.packed_matmul import _launch
+
+    g = 58_113
+    _, _, _, _, args = _hub_walk(cuda, g, 1, 33, 8, 1)
+    out = torch.empty((33, (g + 7) // 8), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch(dw._lib().g2v_walk_device, *args[:5], 33, 8, 1, out,
+                (g + 7) // 8, 0, 1, dw._counter(out.device))
+
+
+def _states_run(cuda, dev_csr, csr, starts, len_path):
+    """Advance walk states from ``starts`` over alternate halves of the
+    genes on the card until none is suspended, each advance held bitwise
+    against the plain version and the C++ advance; returns the finished
+    paths."""
+    from g2vec_tpu_torch.native.walker_bindings import init_walk_state
+    from g2vec_tpu_torch.ops import device_walker as dw
+    from g2vec_tpu_torch.ops import host_walker as thw
+
+    g, m = dev_csr.n_genes, starts.size
+    paths = np.full((m, len_path), -1, np.int32)
+    paths[:, 0] = starts
+    states = thw.WalkStateBatch(
+        row=np.arange(m, dtype=np.int32), cur=starts.copy(),
+        rng=init_walk_state(11, np.arange(m, dtype=np.uint64)),
+        pos=np.ones(m, np.int32), paths=paths)
+    avail = (np.arange(g) < g // 2).astype(np.uint8)
+    todo, advances = np.arange(m), 0
+    dw.reset_launch_counts()
+    while todo.size:
+        part = states.take(todo)
+        native = thw.WalkStateBatch(*(np.copy(getattr(part, f)) for f in (
+            "row", "cur", "rng", "pos", "paths")))
+        got = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+            part.cur, part.rng.view(np.int64), part.pos, part.paths)]
+        plain = [t.clone() for t in got]
+        csr_t = (dev_csr.indptr, dev_csr.indices, dev_csr.weights,
+                 torch.from_numpy(avail).to(cuda))
+        status = dw.device_walk_states(*csr_t, *got, len_path,
+                                       max_degree=dev_csr.max_degree)
+        torch.cuda.synchronize()
+        assert torch.equal(status, dw.walk_states_plain(*csr_t, *plain,
+                                                        len_path))
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+        st = thw.advance_walk_states(native, csr, g, avail, len_path)
+        np.testing.assert_array_equal(status.cpu().numpy(), st)
+        for f, t in zip(("cur", "rng", "pos", "paths"), got):
+            arr = t.cpu().numpy()
+            np.testing.assert_array_equal(
+                arr.view(np.uint64) if f == "rng" else arr,
+                getattr(native, f))
+            getattr(states, f)[todo] = getattr(native, f)
+        todo = todo[st == 1]
+        avail = 1 - avail
+        advances += 1
+    assert dw.device_walk_states.launches == advances >= 2
+    return states.paths
+
+
+@pytest.mark.parametrize("m, max_hub", [(33, 1000), (1001, 1000), (1001, 7),
+                                        (60_001, 7), (60_001, 33)])
+def test_every_states_instance_matches_plain_and_cpp(cuda, m, max_hub):
+    """Both instances of the resumable walk kernel (8 lanes for rows up
+    to 8 slots, 16 above) on hub graphs, at ragged walker counts: under
+    one warp, a few blocks, and more than the card holds at once (the
+    groups take the rest from the counter; rows up to 33 slots there,
+    which keeps the plain version's padded rows small); the finished
+    paths pack to the one-shot C++ walk's rows."""
+    from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
+    from g2vec_tpu_torch.ops import host_walker as thw
+
+    dev_csr, csr, starts, ids, _ = _hub_walk(cuda, 1003, max_hub, m, 80, m)
+    paths = _states_run(cuda, dev_csr, csr, starts, 80)
+    want = walk_paths_packed(*csr, 1003, starts,
+                             np.arange(m, dtype=np.uint64), 80, 11)
+    assert thw.pack_finished_paths(paths, 1003).tobytes() == want.tobytes()
+
+
+def test_states_kernel_keeps_long_prefixes_in_device_memory(cuda):
+    """At len_path 1,000 each walker's prefix holds up to 4,000 bytes; the
+    kernel scans it in `paths`."""
+    dev_csr, csr, starts, _, _ = _hub_walk(cuda, 4000, 1, 999, 1000, 3)
+    assert int(np.diff(csr[0]).max()) == 3
+    _states_run(cuda, dev_csr, csr, starts, 1000)
+
+
 def _lane_inputs(b, m, g, h, density, seed):
     rng = np.random.default_rng(seed)
     x = rng.random((b, m, g)) < density

@@ -20,6 +20,7 @@ both of the reference's samplers, on the CPU.
   a tensor on a device without a kernel raises; bad arguments raise.
 """
 import os
+import re
 
 import jax
 import numpy as np
@@ -269,11 +270,12 @@ def test_upload_csr_refuses_a_bad_csr():
 def test_kernel_is_built_without_contraction():
     """The walk's float64 sums and draw must round as the C++ sampler's
     do: the build passes -fmad=false, the source adds and multiplies with
-    the round-to-nearest intrinsics and writes its rows without atomics."""
+    the round-to-nearest intrinsics and writes its rows without atomics:
+    its one atomic takes the next walker from the groups' counter."""
     assert "-fmad=false" in dw.nvcc_command()
     assert "sm_90a" in " ".join(dw.nvcc_command())
     with open(dw.SRC) as f:
         src = f.read()
     assert "__dadd_rn" in src and "__dmul_rn" in src
-    assert "atomic" not in src
+    assert re.findall(r"atomic\w*\(([^,)]*)", src) == ["next"]
     assert os.path.basename(dw.SRC) == "device_walker.cu"
