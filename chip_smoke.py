@@ -15,10 +15,12 @@ helper, rows padded once to a multiple of 4 bytes) and times both.
 Phase 3 runs with the stage overlap and the native reader on (their
 defaults) and with ``--metrics-jsonl``: it checks that the stream's
 ``done`` record holds the run's stage seconds and that the native parser
-read the input (a fallback warning fails it), then runs the CLI in fresh
-interpreters (defaults, ``--no-overlap``, then ``--no-overlap
---no-native-io``), prints each run's stage seconds and spans, and checks
-that all four runs wrote byte-identical files;
+read the input (a fallback warning fails it), then runs the CLI once in a
+fresh interpreter (defaults), and the run again in process with
+``--no-overlap`` (the sequential stage schedule) and with ``--no-overlap
+--no-native-io`` (the Python parser), prints each run's stage seconds
+(and the CLI's spans), and checks that all of them wrote byte-identical
+files;
 one more CLI run with ``--profile-dir`` (the same bytes) prints the
 trace's CUDA kernel time by kernel name and the device's idle share over
 stage ``train``.
@@ -168,8 +170,18 @@ timed beside both; then the scale-out spec written partitioned
 ``G2VEC_FORBID_FULL_NETWORK=1`` beside a plain run on the flat file: the
 two write the same bytes, hold the band against the plain run, and each
 rank holds fewer CSR bytes than the plain run; a rank SIGKILLed at
-``walk_handoff`` is named by the survivor. Phases 12, 13 and 14 each fail
-past 150 s.
+``walk_handoff`` is named by the survivor. Phase 15 runs the fleet at
+the example: ``--distributed --mesh 2x1`` on two ranks sharing the card
+writes phase 3's bytes, each rank launching twice phase 3's forwards
+(fused eval is off under a mesh) and its backwards; a ``--fleet-size 2
+--checkpoint-layout sharded`` run whose rank 1 is SIGKILLed at
+``checkpoint_finalize`` at epoch 5 (at ``-l 0.0002``, where the example
+trains 16 epochs) re-plans 2x1 to 1x1, resumes and writes its unfaulted
+run's bytes (the launcher's children run through a wrapper that records
+when the fault fired and, at exit, the launches), beside one sharded and
+one single save's host time; and a rank SIGKILLed mid-stage under
+``--fleet-watchdog-deadline 5`` is named by its peer with its phase and
+last collective. Phases 12, 13, 14 and 15 each fail past 150 s.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -469,17 +481,13 @@ def _check_metrics(path, result) -> None:
                            f"differ from the run's")
 
 
-def _cli_runs(files, tmp, epoch, flag_sets=None, tag="cli"):
+def _cli_runs(files, tmp, epoch, flag_sets, tag="cli"):
     """The solo run through the CLI, each in a fresh interpreter (so each
-    pays the process's first CUDA use), once per entry of ``flag_sets``;
-    by default: defaults (overlap, the native reader), --no-overlap, then
-    --no-overlap --no-native-io.
+    pays the process's first CUDA use), once per entry of ``flag_sets``.
     Returns [(flags, stage seconds, overlap_saved_s, stage extras, output
     bytes, the metrics stream's done record)]."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
-    if flag_sets is None:
-        flag_sets = ([], ["--no-overlap"], ["--no-overlap", "--no-native-io"])
     runs = []
     for i, flags in enumerate(flag_sets):
         out = os.path.join(tmp, f"{tag}{i}")
@@ -3772,6 +3780,278 @@ def _edge_phase(torch, dw, cfg, tmp):
     return rec
 
 
+# A rank of phase 15's supervised fleet: started by the launcher as its
+# ``sys.executable`` (a shell wrapper running this file with the launcher's
+# ``-m g2vec_tpu_torch ...``). It records when a fault plan entry fires
+# (before the fault acts), and at exit its rank, the packed kernels'
+# launches and its peak device memory (a SIGKILLed rank, or one that exits
+# through its failure path, records nothing at exit).
+_FLEET_CHILD = r"""
+import atexit, json, os, runpy, sys, time
+sys.argv = ["g2vec_tpu_torch", *sys.argv[3:]]     # drop "-m g2vec_tpu_torch"
+from g2vec_tpu_torch.resilience import faults
+reports = os.environ["G2V_SMOKE_REPORTS"]
+rank = int(os.environ.get("G2VEC_PROCESS_ID", "0"))
+nproc = int(os.environ.get("G2VEC_NUM_PROCESSES", "1"))
+_fire = faults._fire
+
+
+def fire(entry, seam, epoch, path):
+    with open(os.path.join(reports, f"fired.{os.getpid()}.json"), "w") as f:
+        json.dump({"rank": rank, "seam": seam, "epoch": epoch,
+                   "t": time.time()}, f)
+    return _fire(entry, seam, epoch, path)
+
+
+faults._fire = fire
+
+
+def report():
+    import torch
+    from g2vec_tpu_torch.ops import packed_matmul as pm
+
+    with open(os.path.join(reports, f"{os.getpid()}.json"), "w") as f:
+        json.dump({"rank": rank, "ranks": nproc,
+                   "packed_matmul_fwd": pm.packed_matmul_fwd.launches,
+                   "packed_matmul_bwd": pm.packed_matmul_bwd.launches,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "t": time.time()}, f)
+
+
+atexit.register(report)
+runpy.run_module("g2vec_tpu_torch", run_name="__main__")
+"""
+
+
+def _ckpt_state(torch, result):
+    """A trainer state at phase 3's shapes, on the card: params, Adam's
+    count and moments, and the snapshot."""
+    w_ih = torch.as_tensor(result.embeddings, device="cuda")
+    w_ho = torch.randn(w_ih.shape[1], 1, device="cuda")
+    p = [w_ih, w_ho]
+    return p, (30, [x * 0.5 for x in p], [x * x for x in p]), p
+
+
+def _save_times(torch, ck, result, tmp):
+    """One sharded save's and one single save's host milliseconds (median
+    of 5 each, in turns) and bytes on disk, at phase 3's state."""
+    p, opt, snap = _ckpt_state(torch, result)
+    times = {"single": [], "sharded": []}
+    for i in range(5):
+        for layout in ("single", "sharded"):
+            d = os.path.join(tmp, f"p15_save_{layout}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ck.save_state(d, p, opt, snap, i, 0.5, 0.6,
+                                 layout=layout)
+            times[layout].append((time.perf_counter() - t0) * 1e3)
+    sizes = {"single": os.path.getsize(os.path.join(
+        tmp, "p15_save_single", ck.CKPT_NAME))}
+    sizes["sharded"] = sum(
+        os.path.getsize(os.path.join(root, n))
+        for root, _, names in os.walk(path) for n in names)
+    return {k: (float(np.median(v)), sizes[k]) for k, v in times.items()}
+
+
+def _fleet_phase(torch, pm, ck, files, tmp, result, main_outputs,
+                 main_launches):
+    """Phase 15: the fleet at the example (hidden 128, bf16, epoch cap
+    30). Returns the kernel line's ``fleet`` entries of the two packed
+    kernels."""
+    t15 = time.perf_counter()
+    kernels = ("packed_matmul_fwd", "packed_matmul_bwd")
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    # (a) --distributed --mesh 2x1 on two ranks sharing the card.
+    reports = os.path.join(tmp, "p15_mesh_reports")
+    os.makedirs(reports)
+    out = os.path.join(tmp, "p15_mesh")
+    t_a = time.perf_counter()
+    rcs, logs = _wait_ranks(_start_ranks(
+        files, out, ["-e", "30", "--distributed", "--mesh", "2x1"], reports,
+        2, _free_port()), out)
+    wall_a = time.perf_counter() - t_a
+    if any(rcs):
+        raise RuntimeError(f"(a): exit codes {rcs}:\n"
+                           + "\n".join(log[-3000:] for log in logs))
+    ranks = _rank_reports(reports)
+    outputs = []
+    for path in ranks[0]["output_files"]:
+        with open(path, "rb") as f:
+            outputs.append(f.read())
+    if outputs != main_outputs or ranks[1]["output_files"]:
+        raise RuntimeError("(a): the mesh run's files differ from phase 3's "
+                           "(or rank 1 wrote)")
+    print(f"    (a) --distributed --mesh 2x1, two ranks on the card "
+          f"({wall_a:.1f} s wall): rank 0 wrote phase 3's three files byte "
+          f"for byte; phase 3's launches {main_launches}")
+    for r in ranks:
+        print(f"    rank {r['rank']}: max_memory_allocated "
+              f"{r['max_memory_allocated']} bytes; launches fwd "
+              f"{r['packed_matmul_fwd']}, bwd {r['packed_matmul_bwd']}; "
+              f"stage seconds " + json.dumps(
+                  {k: round(v, 3) for k, v in r["stage_seconds"].items()}))
+        # Fused eval is off under a mesh: a forward launch for the val rows.
+        if r["packed_matmul_fwd"] != 2 * main_launches["packed_matmul_fwd"] \
+                or r["packed_matmul_bwd"] != \
+                main_launches["packed_matmul_bwd"]:
+            raise RuntimeError(f"(a): rank {r['rank']} launched {r}, want "
+                               f"twice phase 3's forwards and its "
+                               f"backwards")
+    records = {k: {"mesh_launches": {f"rank{r['rank']}": r[k]
+                                     for r in ranks}} for k in kernels}
+
+    # (b) --fleet-size 2 with a SIGKILL of rank 1 at checkpoint_finalize.
+    # At the default rate the example stops at epoch 0; at -l 0.0002 it
+    # trains 16 epochs, so a kill at epoch 5 leaves the resumed rank
+    # epochs to train. Its unfaulted run: in process, the same flags.
+    b_cfg = _config(files, tmp, "cuda", epoch=30, learningRate=0.0002)
+    b_cfg.result_name += "_lr"
+    pm.reset_launch_counts()
+    b_solo, _ = _run_pipeline(b_cfg)
+    b_launches = {k: getattr(pm, k).launches for k in kernels}
+    b_outputs = _outputs(b_solo)
+    print(f"    (b)'s unfaulted run (-l 0.0002, in process): "
+          f"{len(b_solo.train_history)} epochs, stop epoch "
+          f"{b_solo.stop_epoch}, launches {b_launches}")
+    saves = _save_times(torch, ck, result, tmp)
+    print("    one save at phase 3's state (w_ih [%d, %d] f32, Adam, "
+          "snapshot), median of 5 host ms: single %.3f ms (%d bytes), "
+          "sharded %.3f ms (%d bytes)" % (
+              *result.embeddings.shape, saves["single"][0],
+              saves["single"][1], saves["sharded"][0], saves["sharded"][1]))
+    reports = os.path.join(tmp, "p15_fleet_reports")
+    os.makedirs(reports)
+    child = os.path.join(reports, "child.py")
+    with open(child, "w") as f:
+        f.write(_FLEET_CHILD)
+    wrapper = os.path.join(reports, "python-child")
+    with open(wrapper, "w") as f:
+        # The ranks (-m g2vec_tpu_torch) through the recorder; anything
+        # else the launcher runs (its card-count probe) as it is.
+        f.write(f'#!/bin/sh\nif [ "$1" = "-m" ]; then exec '
+                f'"{sys.executable}" "{child}" "$@"; fi\n'
+                f'exec "{sys.executable}" "$@"\n')
+    os.chmod(wrapper, 0o755)
+    out = os.path.join(tmp, "p15_fleet")
+    metrics = out + ".jsonl"
+    env = dict(os.environ, PYTHONPATH=root, G2V_SMOKE_REPORTS=reports)
+    for name in ("G2VEC_COORDINATOR", "G2VEC_PROCESS_ID",
+                 "G2VEC_NUM_PROCESSES", "G2VEC_FAULT_PLAN",
+                 "G2VEC_FAULT_STATE"):
+        env.pop(name, None)
+    t_b = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUPERVISOR, wrapper, files["expression"],
+         files["clinical"], files["network"], out, "-e", "30", "-l",
+         "0.0002", "--fleet-size", "2", "--checkpoint-dir", out + "_ckpt",
+         "--checkpoint-layout", "sharded", "--checkpoint-every", "3",
+         "--fleet-watchdog-deadline", "5", "--fleet-liveness-dir",
+         out + "_live", "--metrics-jsonl", metrics, "--supervise-backoff",
+         "0", "--fault-plan",
+         "process=1,stage=checkpoint_finalize,epoch=5,kind=sigkill"],
+        capture_output=True, text=True, env=env, cwd=root, timeout=300)
+    wall_b = time.perf_counter() - t_b
+    if proc.returncode != 0:
+        raise RuntimeError(f"(b): the fleet exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    events = _read_metrics(metrics)
+    fleet_events = [e for e in events if e["event"].startswith("fleet_")]
+    names = [e["event"] for e in fleet_events]
+    for name in ("fleet_peer_death", "fleet_replan", "fleet_launch",
+                 "fleet_done"):
+        if name not in names:
+            raise RuntimeError(f"(b): no {name} in {names}")
+    replan = fleet_events[names.index("fleet_replan")]
+    death = fleet_events[names.index("fleet_peer_death")]
+    if (replan["old_mesh"], replan["new_mesh"]) != ([2, 1], [1, 1]) \
+            or death["dead_ranks"] != [1]:
+        raise RuntimeError(f"(b): {death} {replan}")
+    outputs = []
+    for path in events[[e["event"] for e in events].index("done")][
+            "outputs"]:
+        with open(path, "rb") as f:
+            outputs.append(f.read())
+    if outputs != b_outputs:
+        raise RuntimeError("(b): the fleet's files differ from its "
+                           "unfaulted run's")
+    fired = []
+    for name in os.listdir(reports):
+        if name.startswith("fired."):
+            with open(os.path.join(reports, name)) as f:
+                fired.append(json.load(f))
+    if len(fired) != 1 or fired[0]["rank"] != 1:
+        raise RuntimeError(f"(b): fired {fired}")
+    done = fleet_events[names.index("fleet_done")]
+    resumed = [json.load(open(os.path.join(reports, n)))
+               for n in os.listdir(reports)
+               if n.endswith(".json") and not n.startswith("fired.")]
+    if len(resumed) != 1 or resumed[0]["ranks"] != 1 or not (
+            resumed[0]["packed_matmul_fwd"]
+            and resumed[0]["packed_matmul_bwd"]):
+        raise RuntimeError(f"(b): reports of the ranks that exited "
+                           f"normally: {resumed}")
+    for e in fleet_events:
+        print("    " + json.dumps({k: v for k, v in e.items()
+                                   if k not in ("seq", "ts")}))
+    print(f"    (b) --fleet-size 2 --checkpoint-layout sharded, rank 1 "
+          f"SIGKILLed at checkpoint_finalize epoch {fired[0]['epoch']} "
+          f"({wall_b:.1f} s wall): kill to fleet_done "
+          f"{done['ts'] - fired[0]['t']:.2f} s, kill to fleet_peer_death "
+          f"{death['ts'] - fired[0]['t']:.2f} s; the unfaulted run's three "
+          f"files byte for byte; the resumed rank launched fwd "
+          f"{resumed[0]['packed_matmul_fwd']}, bwd "
+          f"{resumed[0]['packed_matmul_bwd']}, max_memory_allocated "
+          f"{resumed[0]['max_memory_allocated']} bytes")
+    for k in kernels:
+        records[k]["resumed_launches"] = resumed[0][k]
+
+    # (c) A rank SIGKILLed mid-stage under the watchdog.
+    reports = os.path.join(tmp, "p15_drill_reports")
+    os.makedirs(reports)
+    out = os.path.join(tmp, "p15_drill")
+    live = out + "_live"
+    procs = _start_ranks(files, out, [
+        "-e", "30", "--distributed", "--mesh", "2x1",
+        "--fleet-watchdog-deadline", "5", "--fleet-liveness-dir", live,
+        "--fleet-heartbeat-interval", "0.1"], reports, 2, _free_port())
+    from g2vec_tpu_torch.resilience.fleet import read_liveness
+
+    t_end = time.monotonic() + 120
+    phase = None
+    while time.monotonic() < t_end and procs[1].poll() is None:
+        rec = read_liveness(live, 1)
+        phase = rec and rec.get("phase")
+        if phase in ("paths", "train", "lgroups", "biomarkers", "save"):
+            break
+        time.sleep(0.02)
+    if procs[1].poll() is not None:
+        raise RuntimeError(f"(c): rank 1 exited {procs[1].returncode} "
+                           f"before the kill")
+    procs[1].kill()
+    t_kill = time.perf_counter()
+    procs[0].wait(timeout=120)
+    to_exit = time.perf_counter() - t_kill
+    rcs, logs = _wait_ranks(procs, out)
+    line = next((ln for ln in logs[0].splitlines()
+                 if "PeerTimeoutError" in ln and "missing rank(s): [1]" in ln),
+                None)
+    if rcs[1] != -9 or rcs[0] != 1 or line is None \
+            or "rank 1: heartbeat" not in line or "phase=" not in line \
+            or "last collective=" not in line:
+        raise RuntimeError(f"(c): exit codes {rcs}:\n{logs[0][-3000:]}")
+    print(f"    (c) --fleet-watchdog-deadline 5: rank 1 SIGKILLed in phase "
+          f"{phase!r}; rank 0 exited {rcs[0]} {to_exit:.2f} s after the "
+          f"kill: " + line.strip())
+    took = time.perf_counter() - t15
+    print(f"[15] phase 15 took {took:.1f} s")
+    if took > 150:
+        raise RuntimeError(f"phase 15 took {took:.1f} s (bound 150 s)")
+    records["packed_matmul_fwd"]["save_ms"] = {
+        k: round(v[0], 3) for k, v in saves.items()}
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -3843,8 +4123,8 @@ def main() -> int:
         for path in result.output_files[1:]:
             with open(path, "rb") as f:
                 main_outputs.append(f.read())
-        for flags, secs, saved, extras, outputs, _ in _cli_runs(files, tmp,
-                                                                30):
+        for flags, secs, saved, extras, outputs, _ in _cli_runs(
+                files, tmp, 30, flag_sets=([],)):
             spans = {stage: {k: round(v, 3) for k, v in e["span_s"].items()}
                      for stage, e in extras.items() if "span_s" in e}
             print(f"    CLI {' '.join(flags) or '(defaults)'}: stage seconds "
@@ -3856,8 +4136,34 @@ def main() -> int:
             if outputs != main_outputs:
                 raise RuntimeError(f"CLI {flags}: output files differ from "
                                    f"the in-process run's")
+        import dataclasses
+        for flags, overrides, want_parser in (
+                ("--no-overlap", {"overlap": False}, "native"),
+                ("--no-overlap --no-native-io",
+                 {"overlap": False, "use_native_io": False}, "python")):
+            seq, _ = _run_pipeline(dataclasses.replace(
+                cfg, metrics_jsonl=None, **overrides,
+                result_name=os.path.join(tmp, "run_" + "_".join(overrides))))
+            parser = seq.stage_extras["load"]["expression_parser"]
+            print(f"    in process {flags}: stage seconds "
+                  + json.dumps({k: round(v, 3)
+                                for k, v in seq.stage_seconds.items()})
+                  + f" (total {sum(seq.stage_seconds.values()):.3f}); "
+                  f"overlap saved {json.dumps(seq.overlap_saved_s)}; "
+                  f"parser {parser}")
+            if parser != want_parser:
+                raise RuntimeError(f"{flags}: stage 1 read the expression "
+                                   f"file with the {parser} parser")
+            outputs = []
+            for path in seq.output_files:
+                with open(path, "rb") as f:
+                    outputs.append(f.read())
+            if outputs != main_outputs:
+                raise RuntimeError(f"in process {flags}: output files "
+                                   f"differ from the defaults' run's")
         print("    the three output files are byte-identical across the "
-              "in-process run and the three CLI runs")
+              "in-process runs (defaults, --no-overlap, --no-overlap "
+              "--no-native-io) and the CLI run")
         prof_dir = os.path.join(tmp, "profile")
         prof_run = _cli_runs(files, tmp, 30, tag="prof",
                              flag_sets=(["--profile-dir", prof_dir],))[0]
@@ -4128,6 +4434,16 @@ def main() -> int:
               "drill at walk_handoff")
         states_rec = _edge_phase(torch, dw, cfg, tmp)
 
+        print("[15] the fleet at the example (hidden 128, bf16, epoch cap "
+              "30): --distributed --mesh 2x1 on two ranks sharing the card; "
+              "--fleet-size 2 --checkpoint-layout sharded losing rank 1 at "
+              "checkpoint_finalize; a rank SIGKILLed mid-stage under "
+              "--fleet-watchdog-deadline")
+        from g2vec_tpu_torch.train import checkpoint as ck
+
+        fleet = _fleet_phase(torch, pm, ck, files, tmp, result, main_outputs,
+                             launches)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -4145,7 +4461,7 @@ def main() -> int:
             **{k: rec[k] for k in keys}, "streaming": streaming,
             "update_launches": {mode: n[name] for mode, n in
                                 update_launches.items()},
-            "scale": scale[name]})
+            "scale": scale[name], "fleet": fleet[name]})
     kernels.append(walk_rec)
     kernels.append(states_rec)
     for name, rec in lane_records.items():

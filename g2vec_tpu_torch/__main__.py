@@ -2,8 +2,9 @@
 
 Same invocation shape as the reference (``python G2Vec.py ...``) and as
 ``python -m g2vec_tpu``; runs on the card unless ``--device cpu``.
-``--supervise`` is handled before torch is imported, so the supervisor
-process holds no CUDA context; its children run the pipeline.
+``--fleet-size`` and ``--supervise`` are handled before torch is
+imported, so the launcher and the supervisor hold no CUDA context; their
+children run the pipeline.
 ``--manifest``/``--seeds`` run the batch engine instead of the solo
 pipeline, and ``--scenario`` a scenario on it (stats/run.py). ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon,
 the router over its replicas (``--replicas N``) or one of the client ops
@@ -28,6 +29,13 @@ def main(argv=None) -> int:
     from g2vec_tpu_torch.config import config_from_args
 
     cfg = config_from_args(argv)
+    if cfg.fleet_size:
+        # The fleet launcher starts one child a rank (without the
+        # launcher's flags), watches them, and when ranks die re-plans the
+        # mesh over the survivors and relaunches with --resume.
+        from g2vec_tpu_torch.resilience.fleet import supervise_fleet
+
+        return supervise_fleet(cfg, argv)
     if cfg.supervise:
         # The supervisor re-runs this module (without its own flags, with
         # --resume) so that even a SIGKILLed child is restarted from its

@@ -14,16 +14,19 @@ flags: ``--walk-starts`` and the sharded run over R processes
 (``--graph-shards``/``--embed-shards``, ``--distributed`` with
 ``--coordinator``/``--process-id``/``--num-processes``, and
 ``--fleet-watchdog-deadline``, the collectives' deadline), with the edge
-partition of its graph (``--edge-partition off|handoff|halo``). It also
+partition of its graph (``--edge-partition off|handoff|halo``), and the
+fleet: ``--mesh DATAxMODEL`` over ranks that share the card,
+``--checkpoint-layout single|sharded``, and the launcher and liveness
+flags ``--fleet-size``, ``--fleet-devices-per-rank``,
+``--fleet-liveness-dir``, ``--fleet-heartbeat-interval`` and
+``--fleet-straggler-factor``. It also
 holds
 the serve daemon's
 job schema (:data:`SERVE_JOB_KEYS`, :func:`config_from_job`,
 :func:`serve_join_key`).
 Defaults and validation are those of ``g2vec_tpu/config.py``; ``--device``
-is the port's own (``cuda`` unless the caller asks for ``cpu``). The port
-checkpoints in the single-file layout only: it takes no
-``--checkpoint-layout``; nor ``--mesh`` or the other ``--fleet-*``
-flags.
+is the port's own (``cuda`` unless the caller asks for ``cpu``), and a
+fleet's ranks inherit it.
 """
 from __future__ import annotations
 
@@ -182,6 +185,27 @@ class G2VecConfig:
     fleet_watchdog_deadline: float = 0.0  # collective deadline, seconds
                                      # (0 = block); a missed one names
                                      # the rank that never published
+    mesh_shape: Optional[Tuple[int, int]] = None  # (data, model); None =
+                                     # no mesh. Over R processes the
+                                     # global plan holds R devices (the
+                                     # ranks share the card), each rank a
+                                     # replicated 1x1 local mesh
+    # "single": one npz (rank 0 writes; a multi-process restore is rank 0's
+    # read, broadcast). "sharded": numbered directories of npz leaves with
+    # a LATEST pointer and the previous generation kept (the fleet's
+    # resume layout).
+    checkpoint_layout: str = "single"
+
+    # ---- fleet (resilience/fleet.py) ----
+    fleet_size: int = 0              # >0: launch and supervise this many
+                                     # ranks with degraded-mesh resume
+    fleet_devices_per_rank: int = 0  # devices each rank holds (0 = mesh
+                                     # size / fleet size; at most what one
+                                     # rank sees)
+    fleet_liveness_dir: Optional[str] = None  # heartbeat/liveness files
+    fleet_heartbeat_interval: float = 1.0  # seconds between beats
+    fleet_straggler_factor: float = 0.0    # warn when a rank exceeds this
+                                     # x the median stage time (0 = off)
 
     # ---- resilience (resilience/) ----
     supervise: bool = False          # wrap the run in the auto-resume
@@ -225,6 +249,8 @@ class G2VecConfig:
             raise ValueError(f"learningRate must be > 0, got {self.learningRate}")
         if self.numBiomarker < 1:
             raise ValueError(f"numBiomarker must be >= 1, got {self.numBiomarker}")
+        if self.mesh_shape is not None and any(d < 1 for d in self.mesh_shape):
+            raise ValueError(f"mesh axes must be >= 1, got {self.mesh_shape}")
         if self.n_lgroups < 3:
             raise ValueError(
                 f"n_lgroups must be >= 3 (good/poor/other), got {self.n_lgroups}")
@@ -286,14 +312,24 @@ class G2VecConfig:
                     "sharded streaming (--graph-shards/--embed-shards) "
                     "needs the native sampler's thread pool per rank; "
                     "--walker-backend device does not compose")
-            if self.distributed and not (self.graph_shards
-                                         or self.embed_shards):
+            # The sharded mode is streaming x distributed: --graph-shards/
+            # --embed-shards open that gate; fleet and mesh stay closed.
+            gates = [(self.fleet_size, "--fleet-size"),
+                     (self.mesh_shape, "--mesh")]
+            if not (self.graph_shards or self.embed_shards):
+                gates.insert(0, (self.distributed, "--distributed"))
+            for flag, name in gates:
+                if flag:
+                    raise ValueError(
+                        f"--train-mode streaming does not compose with "
+                        f"{name} yet — the streaming trainer is a "
+                        f"single-device minibatch loop per rank "
+                        f"(--graph-shards/--embed-shards is the "
+                        f"multi-process form)")
+            if self.checkpoint_dir and self.checkpoint_layout != "single":
                 raise ValueError(
-                    "--train-mode streaming does not compose with "
-                    "--distributed yet — the streaming trainer is a "
-                    "single-device minibatch loop per rank "
-                    "(--graph-shards/--embed-shards is the multi-process "
-                    "form)")
+                    "--train-mode streaming checkpoints use the single-file "
+                    "layout only (--checkpoint-layout single)")
         for field in ("graph_shards", "embed_shards", "walk_starts"):
             if getattr(self, field) < 0:
                 raise ValueError(
@@ -350,16 +386,50 @@ class G2VecConfig:
                     "--edge-partition does not compose with "
                     "--checkpoint-dir/--resume yet — suspended cross-rank "
                     "walk state is not checkpointable")
-        if self.fleet_watchdog_deadline < 0.0:
+        if self.checkpoint_layout not in ("single", "sharded"):
             raise ValueError(
-                f"fleet_watchdog_deadline must be >= 0, "
-                f"got {self.fleet_watchdog_deadline}")
+                f"checkpoint_layout must be single|sharded, "
+                f"got {self.checkpoint_layout}")
         if self.supervise_retries < 0:
             raise ValueError(
                 f"supervise_retries must be >= 0, got {self.supervise_retries}")
         if self.supervise_backoff < 0.0:
             raise ValueError(
                 f"supervise_backoff must be >= 0, got {self.supervise_backoff}")
+        if self.fleet_size < 0 or self.fleet_size == 1:
+            raise ValueError(
+                f"fleet_size must be 0 (off) or >= 2, got {self.fleet_size}")
+        if self.fleet_devices_per_rank < 0:
+            raise ValueError(
+                f"fleet_devices_per_rank must be >= 0, "
+                f"got {self.fleet_devices_per_rank}")
+        if self.fleet_heartbeat_interval <= 0.0:
+            raise ValueError(
+                f"fleet_heartbeat_interval must be > 0, "
+                f"got {self.fleet_heartbeat_interval}")
+        if self.fleet_watchdog_deadline < 0.0:
+            raise ValueError(
+                f"fleet_watchdog_deadline must be >= 0, "
+                f"got {self.fleet_watchdog_deadline}")
+        if self.fleet_straggler_factor < 0.0:
+            raise ValueError(
+                f"fleet_straggler_factor must be >= 0, "
+                f"got {self.fleet_straggler_factor}")
+        if self.fleet_size and self.checkpoint_dir \
+                and self.checkpoint_layout != "sharded":
+            raise ValueError(
+                "--fleet-size with --checkpoint-dir requires "
+                "--checkpoint-layout sharded: degraded-mesh resume reads the "
+                "sharded layout (rank 0 reads, the survivors receive its "
+                "leaves)")
+        if self.fleet_size and self.mesh_shape:
+            total = self.mesh_shape[0] * self.mesh_shape[1]
+            per = self.fleet_devices_per_rank or total // self.fleet_size
+            if per * self.fleet_size != total:
+                raise ValueError(
+                    f"--fleet-size {self.fleet_size} cannot evenly host the "
+                    f"{total}-device mesh {self.mesh_shape} "
+                    f"({per} devices/rank)")
         if not (0.0 <= self.patient_subsample <= 1.0):
             raise ValueError(
                 f"patient_subsample must be 0 (off) or in (0,1], "
@@ -446,6 +516,7 @@ class G2VecConfig:
                 "already enumerates its variants)")
         if self.manifest or self.batch_seeds or self.scenario:
             for flag, name in ((self.distributed, "--distributed"),
+                               (self.fleet_size, "--fleet-size"),
                                (self.supervise, "--supervise"),
                                (self.checkpoint_dir, "--checkpoint-dir"),
                                (self.resume, "--resume"),
@@ -745,6 +816,45 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Deadline of each host collective (0 = block); "
                              "a missed one raises PeerTimeoutError naming "
                              "the rank that never published.")
+    parser.add_argument("--mesh", type=str, default=None,
+                        metavar="DATAxMODEL",
+                        help="Device mesh shape, e.g. 2x1 (data x model). "
+                             "With --distributed over R processes that "
+                             "share the card the global plan holds R "
+                             "devices; each rank trains replicated on a 1x1 "
+                             "local mesh and the native walks are split "
+                             "over the ranks.")
+    parser.add_argument("--checkpoint-layout", type=str, default="single",
+                        choices=("single", "sharded"),
+                        help="single: one npz (rank 0 writes, a "
+                             "multi-process restore is rank 0's read "
+                             "broadcast); sharded: numbered directories of "
+                             "npz leaves with a LATEST pointer (dir shared "
+                             "by the ranks).")
+    parser.add_argument("--fleet-size", type=int, default=0, metavar="N",
+                        help="Launch and supervise an N-rank fleet with "
+                             "degraded-mesh resume: on peer death the mesh "
+                             "is re-planned over the surviving devices and "
+                             "the fleet relaunches with --resume from the "
+                             "sharded checkpoint (0 = off).")
+    parser.add_argument("--fleet-devices-per-rank", type=int, default=0,
+                        help="Devices each fleet rank holds (0 = mesh size "
+                             "/ fleet size); refused above what one rank "
+                             "sees (the ranks share this host's card).")
+    parser.add_argument("--fleet-liveness-dir", type=str, default=None,
+                        metavar="DIR",
+                        help="Shared dir for per-rank heartbeat/liveness "
+                             "files; enables the heartbeat thread and "
+                             "names a timed-out peer's phase and last "
+                             "collective (the fleet launcher creates one "
+                             "when unset).")
+    parser.add_argument("--fleet-heartbeat-interval", type=float,
+                        default=1.0,
+                        help="Seconds between liveness beats (default 1).")
+    parser.add_argument("--fleet-straggler-factor", type=float, default=0.0,
+                        help="Warn (straggler_warning metrics event) when "
+                             "a rank's stage time exceeds this multiple of "
+                             "the fleet median; 0 disables.")
     parser.add_argument("--no-overlap", action="store_true",
                         help="Run the stages one after the other: walk the "
                              "groups in turn and warm nothing in the "
@@ -823,6 +933,16 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def parse_mesh(spec: Optional[str]) -> Optional[Tuple[int, int]]:
+    if spec is None:
+        return None
+    try:
+        d, m = spec.lower().split("x")
+        return (int(d), int(m))
+    except Exception as e:
+        raise ValueError(f"--mesh must look like 4x2, got {spec!r}") from e
+
+
 def config_from_args(argv=None) -> G2VecConfig:
     args = build_parser().parse_args(argv)
     cfg = G2VecConfig(
@@ -879,6 +999,13 @@ def config_from_args(argv=None) -> G2VecConfig:
         process_id=args.process_id,
         num_processes=args.num_processes,
         fleet_watchdog_deadline=args.fleet_watchdog_deadline,
+        mesh_shape=parse_mesh(args.mesh),
+        checkpoint_layout=args.checkpoint_layout,
+        fleet_size=args.fleet_size,
+        fleet_devices_per_rank=args.fleet_devices_per_rank,
+        fleet_liveness_dir=args.fleet_liveness_dir,
+        fleet_heartbeat_interval=args.fleet_heartbeat_interval,
+        fleet_straggler_factor=args.fleet_straggler_factor,
         cache_dir=args.cache_dir,
         metrics_jsonl=args.metrics_jsonl,
         profile_dir=args.profile_dir,

@@ -40,19 +40,30 @@ def edges_to_csr(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
 
 def walk_packed_rows(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                      n_genes: int, *, len_path: int, reps: int, seed: int,
-                     n_threads: int = 0) -> np.ndarray:
-    """All-sources x reps walks -> [n_genes * reps, ceil(G/8)] uint8 packed
-    multi-hot rows in walker order (rep-major), NOT deduplicated."""
+                     n_threads: int = 0, walker_lo: int = 0,
+                     walker_hi: Optional[int] = None) -> np.ndarray:
+    """The walks of the walker range ``[walker_lo, walker_hi)`` of the
+    flat all-sources x reps axis (rep-major; default: all of it) ->
+    [n, ceil(G/8)] uint8 packed multi-hot rows in walker order, NOT
+    deduplicated. A walker's stream is keyed by its global index, so any
+    split of the axis (a rank's range, ``parallel.distributed.
+    sharded_native_path_set``) gives the rows the whole call gives."""
     from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
 
     for name, arr in (("dst", dst), ("src", src)):
         if arr.size and (arr.min() < 0 or arr.max() >= n_genes):
             raise ValueError(
                 f"{name} contains node ids outside [0, {n_genes})")
-    starts = np.tile(np.arange(n_genes, dtype=np.int32), reps)
+    total = n_genes * reps
+    walker_hi = total if walker_hi is None else walker_hi
+    if not 0 <= walker_lo <= walker_hi <= total:
+        raise ValueError(
+            f"walker range [{walker_lo}, {walker_hi}) outside [0, {total}]")
+    starts = np.tile(np.arange(n_genes, dtype=np.int32),
+                     reps)[walker_lo:walker_hi]
     # Stream identity = rep * n_genes + start index: adding repetitions
     # extends the stream family and never re-keys an existing walker.
-    stream_ids = np.arange(starts.shape[0], dtype=np.uint64)
+    stream_ids = np.arange(walker_lo, walker_hi, dtype=np.uint64)
     indptr, indices, weights = edges_to_csr(src, dst, w, n_genes)
     return walk_paths_packed(indptr, indices, weights, n_genes, starts,
                              stream_ids, len_path, seed,

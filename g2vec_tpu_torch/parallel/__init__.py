@@ -1,4 +1,4 @@
-"""Host-side concurrency of the port: the stage-overlap scheduler, and the
-multi-process runtime of the sharded streaming run (``distributed``, its
-store collectives ``hostcomm`` and the partitioning arithmetic
-``shard``)."""
+"""Host-side concurrency of the port: the stage-overlap scheduler, the
+multi-process runtime (``distributed``, its store collectives
+``hostcomm``), the ``--mesh`` context (``mesh``) and the partitioning
+arithmetic of the sharded streaming run (``shard``)."""

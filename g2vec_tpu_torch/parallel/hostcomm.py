@@ -27,7 +27,16 @@ threads drawing from one counter would interleave nondeterministically.
 Each thread talks to the store over a connection of its own
 (:func:`kv_client`), so a blocking read on one thread never holds up
 another's. Payloads travel in chunks of at most :data:`KV_CHUNK_BYTES`,
-the count key written last.
+the count key written last. The store refuses a value over 8 MiB, so the
+sequence-numbered collectives frame theirs: a payload up to
+:data:`KV_CHUNK_BYTES` inline, a larger one in chunks with a marker set
+last (a mesh run's walked rows are ~21 MB a rank at the example).
+
+With the fleet on (:mod:`g2vec_tpu_torch.resilience.fleet`), each
+sequence-numbered collective records its (name, seq) in this rank's
+liveness file as it enters, and every timeout's message ends with what
+the missing ranks' liveness files say: the phase and the last
+collective each reached.
 """
 from __future__ import annotations
 
@@ -38,6 +47,11 @@ import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from g2vec_tpu_torch.resilience import fleet
+# The error's home is the fleet module, as in the reference; callers that
+# catch it as ``hostcomm.PeerTimeoutError`` get the same class.
+from g2vec_tpu_torch.resilience.fleet import PeerTimeoutError
 
 #: Deadline used when the caller passes 0/None: effectively "block", but
 #: still bounded, so that a wedged run surfaces an error at last.
@@ -50,19 +64,6 @@ _seq = itertools.count()
 #: Keys this process published in sequence-numbered collectives and no
 #: allgather has shown every peer past yet.
 _own_keys: List[str] = []
-
-
-class PeerTimeoutError(RuntimeError):
-    """A collective missed its deadline; ``suspects`` holds the rank(s)
-    that never published (empty when no rank could be named). A
-    RuntimeError, as in the reference: peer death is preemption-shaped,
-    so a supervisor would retry it."""
-
-    def __init__(self, message: str, *, collective: Optional[str] = None,
-                 suspects: Tuple[int, ...] = ()):
-        super().__init__(message)
-        self.collective = collective
-        self.suspects = suspects
 
 
 def kv_client():
@@ -109,6 +110,32 @@ def _deadline_end(deadline: Optional[float]) -> Tuple[float, float]:
     return budget, time.monotonic() + budget
 
 
+_INLINE, _CHUNKED = b"\x00", b"\x01"
+
+
+def _publish(client, key: str, payload: bytes) -> List[str]:
+    """Set ``key`` to ``payload``: inline up to :data:`KV_CHUNK_BYTES`,
+    else in chunks under ``key/x`` with the marker set last. Returns the
+    keys written."""
+    if len(payload) <= KV_CHUNK_BYTES:
+        client.set(key, _INLINE + payload)
+        return [key]
+    n = put_bytes_chunked(f"{key}/x", payload, client=client)
+    client.set(key, _CHUNKED)
+    return [key, f"{key}/x/n"] + [f"{key}/x/c{i}" for i in range(n)]
+
+
+def _fetch(client, key: str, t_end: float) -> bytes:
+    """What :func:`_publish` set under ``key``, waiting until ``t_end``
+    (the store raises on expiry)."""
+    raw = _blocking_get(client, key, _left(t_end))
+    if raw[:1] == _INLINE:
+        return raw[1:]
+    n = int(_blocking_get(client, f"{key}/x/n", _left(t_end)))
+    return b"".join(_blocking_get(client, f"{key}/x/c{i}", _left(t_end))
+                    for i in range(n))
+
+
 def _retire_own_keys(client) -> None:
     """Every peer has published the current allgather, so each has read
     all this process published before it: delete those values."""
@@ -132,8 +159,9 @@ def allgather_bytes(name: str, payload: bytes, *,
     fault_point("allgather")
     client = _need(None, f"host collective {name!r}")
     seq = next(_seq)
+    fleet.note_collective(name, seq)
     key = f"g2vec/ag/{seq}/{name}"
-    client.set(f"{key}/{rank}", payload)
+    mine = _publish(client, f"{key}/{rank}", payload)
     budget, t_end = _deadline_end(deadline)
     out: List[Optional[bytes]] = [None] * nproc
     out[rank] = payload
@@ -142,7 +170,7 @@ def allgather_bytes(name: str, payload: bytes, *,
         if peer == rank:
             continue
         try:
-            out[peer] = _blocking_get(client, f"{key}/{peer}", _left(t_end))
+            out[peer] = _fetch(client, f"{key}/{peer}", t_end)
         except Exception as e:  # noqa: BLE001 — classify, don't swallow
             if not _is_deadline_error(e):
                 raise
@@ -150,10 +178,11 @@ def allgather_bytes(name: str, payload: bytes, *,
     if missing:
         raise PeerTimeoutError(
             f"collective {name!r} (seq {seq}) exceeded its {budget:.1f}s "
-            f"deadline; missing rank(s): {missing}",
+            f"deadline; missing rank(s): {missing}"
+            f"{fleet.describe_ranks(missing)}",
             collective=name, suspects=tuple(missing))
     _retire_own_keys(client)
-    _own_keys.append(f"{key}/{rank}")
+    _own_keys.extend(mine)
     return out  # type: ignore[return-value] — no None left past the raise
 
 
@@ -188,22 +217,22 @@ def broadcast_bytes(name: str, payload: Optional[bytes], *,
     fault_point("allgather")
     client = _need(None, f"host broadcast {name!r}")
     seq = next(_seq)
+    fleet.note_collective(name, seq)
     key = f"g2vec/bc/{seq}/{name}"
     if rank == 0:
         if payload is None:
             raise ValueError(f"broadcast {name!r}: rank 0 payload is None")
-        client.set(key, payload)
-        _own_keys.append(key)
+        _own_keys.extend(_publish(client, key, payload))
         return payload
     budget, t_end = _deadline_end(deadline)
     try:
-        return _blocking_get(client, key, _left(t_end))
+        return _fetch(client, key, t_end)
     except Exception as e:  # noqa: BLE001
         if not _is_deadline_error(e):
             raise
         raise PeerTimeoutError(
             f"broadcast {name!r} (seq {seq}) exceeded its {budget:.1f}s "
-            f"deadline; missing rank(s): [0]",
+            f"deadline; missing rank(s): [0]{fleet.describe_ranks([0])}",
             collective=name, suspects=(0,)) from e
 
 
@@ -245,7 +274,7 @@ def get_bytes_chunked(key: str, *, deadline: Optional[float] = None,
         who: Sequence[int] = [] if owner is None else [owner]
         raise PeerTimeoutError(
             f"chunked get {key!r} exceeded its {budget:.1f}s deadline; "
-            f"missing rank(s): {list(who)}",
+            f"missing rank(s): {list(who)}{fleet.describe_ranks(who)}",
             collective=key, suspects=tuple(who)) from e
     return b"".join(parts)
 

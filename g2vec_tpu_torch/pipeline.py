@@ -56,6 +56,17 @@ every rank's slice (``io.writers.write_vectors_sharded``); the
 ``[G, H]`` table never exists on one rank, so ``--emit-inventory`` is
 skipped there.
 
+The fleet (``g2vec_tpu/pipeline.py:166-239, 345-366, 644-656``): the
+``--fleet-*`` flags configure ``resilience/fleet.py``; the heartbeat runs
+for the whole run, each stage notes its phase, and under
+``--distributed`` a stage barrier follows each stage, so a rank that
+died mid-stage is named at the next stage edge. ``--distributed --mesh``
+over R processes that share the card trains replicated, one 1x1 local
+mesh a rank (:func:`_mesh_context`), splits the native walks over the
+ranks (``parallel.distributed.sharded_native_path_set``), and writes the
+single-process run's bytes from rank 0; the trainer then runs without
+fused eval, and ``--checkpoint-layout`` picks its checkpoints' layout.
+
 The edge partition (``--edge-partition handoff|halo``, streaming only;
 ``g2vec_tpu/pipeline.py:261-339, 450-508``): stage 1 reads the network's
 gene names alone, stage 2 reads the edges whose source lies in this
@@ -94,6 +105,7 @@ from g2vec_tpu_torch.preprocess import (edges_to_indices, find_common_genes,
                                         make_gene2idx, match_labels,
                                         permute_labels, restrict_data,
                                         restrict_network, select_cohort)
+from g2vec_tpu_torch.resilience import fleet
 from g2vec_tpu_torch.resilience.faults import fault_point, install_plan
 
 
@@ -356,6 +368,32 @@ def _nan_watch(on: bool):
             else contextlib.nullcontext())
 
 
+def _mesh_context(cfg: G2VecConfig, dev, console):
+    """The run's ``--mesh`` context (``g2vec_tpu/pipeline.py:345-366``):
+    None without ``--mesh``; over R > 1 processes, the global plan held
+    to R devices and each rank's replicated 1x1 local mesh on its one
+    device (the ranks share the card); otherwise the mesh over this
+    process's visible devices."""
+    if not cfg.mesh_shape:
+        return None
+    from g2vec_tpu_torch.parallel.mesh import (make_mesh_context,
+                                               visible_devices)
+
+    if not cfg.distributed:
+        return make_mesh_context(cfg.mesh_shape,
+                                 devices=visible_devices(dev))
+    from g2vec_tpu_torch.parallel import distributed
+
+    global_ctx = distributed.make_global_mesh(cfg.mesh_shape, dev)
+    if not distributed.shared_card_fleet():
+        return global_ctx
+    local = fleet.plan_mesh(1, prefer_model=cfg.mesh_shape[1])
+    console(f"    [fleet] shared card: replicated local mesh "
+            f"{local[0]}x{local[1]} per rank (global plan "
+            f"{tuple(cfg.mesh_shape)})")
+    return make_mesh_context(local, devices=[dev])
+
+
 def _join_kernel_build(overlap, name: str = "build_kernels") -> None:
     """Wait for the background nvcc build ``name`` (if one was started),
     re-raising its error, before the first launch of its kernels."""
@@ -409,6 +447,10 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         # Re-installing on an in-process retry keeps the once-only
         # entries that already fired fired.
         install_plan(cfg.fault_plan)
+    fleet.configure(liveness_dir=cfg.fleet_liveness_dir,
+                    heartbeat_interval=cfg.fleet_heartbeat_interval,
+                    watchdog_deadline=cfg.fleet_watchdog_deadline,
+                    straggler_factor=cfg.fleet_straggler_factor)
     write_outputs = True
     if cfg.distributed:
         from g2vec_tpu_torch.parallel import distributed
@@ -416,13 +458,14 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         # Idempotent when __main__ joined already.
         distributed.initialize(cfg.coordinator, cfg.process_id,
                                cfg.num_processes)
-        if distributed.process_count() > 1 and not (cfg.graph_shards
-                                                    or cfg.embed_shards):
+        if distributed.process_count() > 1 and not cfg.mesh_shape \
+                and not (cfg.graph_shards or cfg.embed_shards):
             raise ValueError(
                 f"--distributed with {distributed.process_count()} "
-                f"processes needs --graph-shards/--embed-shards; without "
-                f"them every process would redundantly train the full "
-                f"model")
+                "processes needs --mesh (e.g. --mesh 8x1) or "
+                "--graph-shards/--embed-shards; without either every "
+                "process would redundantly train the full model on one "
+                "local device")
         write_outputs = distributed.is_coordinator()
         if not write_outputs:
             # The other ranks compute and hold shards, but neither narrate
@@ -453,6 +496,16 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     if cfg.distributed:
         for ev in distributed.drain_pending_events():
             metrics.emit(ev.pop("event"), **ev)
+    # The liveness beacon and the stage barriers: no-ops unless the
+    # --fleet-* flags turn them on (resilience/fleet.py).
+    fleet.start_heartbeat(metrics)
+
+    def _stage_edge(name: str) -> None:
+        # A rank that died mid-stage is named here, at the stage edge.
+        if cfg.distributed:
+            fleet.stage_barrier(name, timer.as_dict().get(name, 0.0),
+                                metrics, console)
+
     shard_ctx = None
     # The edge partition: this rank's place on its axis.
     edge_on = cfg.edge_partition != "off"
@@ -476,15 +529,18 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
 
         console(">>> 1. Load data")
         fault_point("load")
+        fleet.note_phase("load")
         with timer.stage("load"):
             data, clinical, network = read_inputs(
                 cfg, overlap if cfg.overlap else None,
                 cuda_context if cfg.overlap and on_card else None,
                 genes_only=edge_on)
         timer.annotate("load", expression_parser=data.parser)
+        _stage_edge("load")
 
         console(">>> 2. Preprocess data")
         fault_point("preprocess")
+        fleet.note_phase("preprocess")
         with timer.stage("preprocess"):
             if edge_on:
                 data, src, dst, ep_range = preprocess_range(
@@ -494,6 +550,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                 data, src, dst = preprocess_inputs(data, clinical, network)
             n_before = data.expr.shape[0]
             data = select_cohort(data, cfg)
+        _stage_edge("preprocess")
         line = cohort_line(cfg, data.expr.shape[0], n_before)
         if line:
             console(line)
@@ -509,6 +566,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
 
         console(">>> 3. Generate random paths from each group")
         console("    *** most time consuming step ***")
+        mesh_ctx = _mesh_context(cfg, dev, console)
         if walker_backend == "native":
             console(f"    [sampler] native C++ CSR sampler, "
                     f"{sampler_threads} host thread(s)")
@@ -535,6 +593,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                         f"{cfg.embed_shards} gene range "
                         f"[{shard_ctx.spec.lo}, {shard_ctx.spec.hi})")
             fault_point("paths")
+            fleet.note_phase("paths")
             with timer.stage("paths"):
                 group_edges = [thresholded_edges(
                     data.expr[data.label == i], src, dst,
@@ -544,6 +603,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     edge_ctx = build_edge_partition(
                         cfg, group_edges, n_genes, ep_rank, ep_ranks,
                         ep_range, shard_ctx, metrics, console)
+            _stage_edge("paths")
             console("    [stream] walk shards stream from the sampler; "
                     "stage 4 overlaps stage 3")
             console(">>> 4. Compute distributed representations using "
@@ -551,6 +611,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             console("     Start training the modified CBOW with early "
                     "stopping")
             fault_point("train")
+            fleet.note_phase("train")
             with timer.stage("train"), _nan_watch(cfg.debug_nans):
                 _join_kernel_build(overlap)
                 _join_kernel_build(overlap, "build_walk_kernel")
@@ -581,6 +642,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                              shards=st.shards, rounds=st.rounds,
                              states_sent=st.states_sent, batches=st.batches,
                              peak_in_flight=st.peak_in_flight)
+            _stage_edge("train")
             result = sres.train
             gene_freq = sres.gene_freq
             n_paths = sres.n_paths
@@ -613,6 +675,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             timer.annotate("train", train_mode="streaming", **stream_stats)
         else:
             fault_point("paths")
+            fleet.note_phase("paths")
             with timer.stage("paths"):
                 path_sets = []
                 for i, group in enumerate(("g", "p")):
@@ -651,6 +714,16 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                                 s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
                                 reps=cfg.numRepetition, seed=seed,
                                 device=dev))
+                        elif cfg.distributed:
+                            # Each rank walks its range of the walker
+                            # axis; the rows are allgathered (a
+                            # collective; one process: the plain call).
+                            path_sets.append(
+                                distributed.sharded_native_path_set(
+                                    s_k, d_k, w_k, n_genes,
+                                    len_path=cfg.lenPath,
+                                    reps=cfg.numRepetition, seed=seed,
+                                    n_threads=sampler_threads))
                         else:
                             path_sets.append(generate_path_set_native(
                                 s_k, d_k, w_k, n_genes, len_path=cfg.lenPath,
@@ -664,6 +737,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                         path_sets[0], path_sets[1], n_genes)
                 with timer.span("paths", "gene_freq"):
                     gene_freq = count_gene_freq(paths, labels, data.gene)
+            _stage_edge("paths")
             n_paths = paths.shape[0]
             if n_paths < 2:
                 raise ValueError(
@@ -689,6 +763,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             console("     Start training the modified CBOW with early "
                     "stopping")
             fault_point("train")
+            fleet.note_phase("train")
             with timer.stage("train"), _nan_watch(cfg.debug_nans):
                 _join_kernel_build(overlap)
                 result = train_cbow(
@@ -702,7 +777,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     device=dev, on_epoch=on_epoch, init=init_model,
                     checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
                     checkpoint_every=cfg.checkpoint_every, check=check,
-                    debug_nans=cfg.debug_nans)
+                    debug_nans=cfg.debug_nans, mesh_ctx=mesh_ctx,
+                    checkpoint_layout=cfg.checkpoint_layout)
+            _stage_edge("train")
         if result.stopped_early:
             reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)
         console("    Optimization Finish")
@@ -712,6 +789,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
 
         console(">>> 5. Find L-groups")
         fault_point("lgroups")
+        fleet.note_phase("lgroups")
         embed_sharded = shard_ctx is not None and shard_ctx.spec.embed_split
         kmeans_gen = torch.Generator().manual_seed(cfg.kmeans_seed)
         if embed_sharded:
@@ -739,8 +817,11 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                 km_centers = km_centers.cpu().numpy().astype(np.float32)
             expr = data.expr
 
+        _stage_edge("lgroups")
+
         console(">>> 6. Select biomarkers with gene scores")
         fault_point("biomarkers")
+        fleet.note_phase("biomarkers")
         with timer.stage("biomarkers"):
             label = scoring_labels(data.label, cfg.permute_seed)
             if cfg.permute_seed is not None:
@@ -763,8 +844,11 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             biomarkers, _ = top_biomarkers(scores2, lgroup_idx, data.gene,
                                            cfg.numBiomarker)
 
+        _stage_edge("biomarkers")
+
         console(">>> 7. Save results")
         fault_point("save")
+        fleet.note_phase("save")
         with timer.stage("save"):
             outputs = []
             if embed_sharded:
@@ -792,6 +876,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                 else:
                     _emit_inventory(cfg, result.w_ih, data.gene, scores2,
                                     km_centers, metrics, console)
+        _stage_edge("save")
         for path in outputs:
             console("    %s" % path)
         overlap_saved = overlap.saved_seconds() if cfg.overlap else {}
@@ -823,6 +908,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
         # the caller must see; a background failure either surfaced at a
         # join already or belongs to a stage the run never reached.
         overlap.close()
+        fleet.stop_heartbeat()
         if profiler is not None:
             _stop_profile(profiler, cfg.profile_dir)
         metrics.close()

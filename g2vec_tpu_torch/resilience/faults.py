@@ -50,11 +50,9 @@ Keys:
 - ``skip``: let the first N matching hits pass (default 0).
 - ``seconds``: the stall's duration.
 
-A plan naming a seam of the JAX package that the port does not call yet
-(:data:`NOT_PORTED`) is refused when it is installed, so that it cannot
-silently never fire. Fired entries are recorded in ``G2VEC_FAULT_STATE``
-(a JSON file) when that variable is set, so a one-shot fault stays one
-shot across process restarts; the supervisor sets it when it sees a plan
+The port calls every seam of the JAX package. Fired entries are
+recorded in ``G2VEC_FAULT_STATE`` (a JSON file) when that variable is
+set, so a one-shot fault stays one shot across process restarts; the supervisor sets it when it sees a plan
 and no state path. With no plan installed and none in the environment,
 :func:`fault_point` is one falsy check and a return.
 """
@@ -73,17 +71,13 @@ ENV_STATE = "G2VEC_FAULT_STATE"
 
 KINDS = ("crash", "fatal", "sigkill", "stall", "corrupt")
 
-#: The seams the port calls (each name is one of the JAX package's).
+#: The seams the port calls: the JAX package's.
 SEAMS = ("load", "preprocess", "paths", "train", "lgroups", "biomarkers",
          "save", "checkpoint_write", "checkpoint_finalize",
          "native_load", "native_walker_load", "device_walk", "walk_cache",
          "shard_ring", "prefetch", "stream_ckpt", "drain", "ann_build",
          "update_publish", "allgather", "shard_exchange", "embed_allreduce",
-         "walk_handoff", "halo_build")
-
-#: The JAX package's other seams: its fleet's. The port has no call site
-#: for them yet, so a plan that names one is refused.
-NOT_PORTED = ("stage_barrier", "heartbeat")
+         "walk_handoff", "halo_build", "stage_barrier", "heartbeat")
 
 
 class FaultPlanError(ValueError):
@@ -147,11 +141,6 @@ def parse_plan(spec: str) -> List[_Entry]:
                 "(want stage/kind/epoch/times/skip/seconds/process)")
         if "stage" not in fields:
             raise FaultPlanError(f"fault plan entry {part!r} needs stage=")
-        if fields["stage"] in NOT_PORTED:
-            raise FaultPlanError(
-                f"fault seam {fields['stage']!r} is not ported yet: "
-                f"g2vec_tpu_torch has no call site for it; seams: "
-                f"{', '.join(SEAMS)}")
         if fields["stage"] not in SEAMS:
             raise FaultPlanError(
                 f"unknown fault seam {fields['stage']!r}; seams: "

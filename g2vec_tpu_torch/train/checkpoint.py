@@ -1,11 +1,29 @@
-"""Checkpoint / resume for the port's trainers (single-file layout).
+"""Checkpoint / resume for the port's trainers.
 
-The port's copy of ``g2vec_tpu/train/checkpoint.py``'s single layout,
-on one process. The full-batch trainer's state (params, Adam state, the
-early-stop snapshot and accuracy pair, the epoch) round-trips through
-one atomic ``cbow_state.npz`` (:func:`save_state`, :func:`load_state`);
-the streaming trainer's through ``stream_state.npz`` with its (epoch,
-shard) cursor (:func:`save_stream_state`, :func:`load_stream_state`).
+The port's copy of ``g2vec_tpu/train/checkpoint.py``. The full-batch
+trainer's state (params, Adam state, the early-stop snapshot and accuracy
+pair, the epoch) round-trips through :func:`save_state`/
+:func:`load_state` in one of two layouts; the streaming trainer's through
+``stream_state.npz`` with its (epoch, shard) cursor
+(:func:`save_stream_state`, :func:`load_stream_state`).
+
+- ``layout="single"``: one atomic ``cbow_state.npz``. In a multi-process
+  run rank 0 writes it, and a restore is rank 0's read broadcast over the
+  store (:func:`_broadcast_from_coordinator`): every rank gets the same
+  leaves, or the same refusal.
+- ``layout="sharded"`` (the fleet's resume layout,
+  ``g2vec_tpu/train/checkpoint.py:291-563``): each save goes to a fresh
+  numbered directory ``cbow_state_sharded.N`` and a ``.LATEST`` pointer
+  flips to it atomically; the previous generation is kept and older ones
+  pruned; a sibling ``<dir>.manifest.json`` holds each file's size and
+  sha256. A load verifies the pointed directory and falls back to the kept
+  one. The reference's leaves are orbax OCDBT shards; the port imports no
+  orbax, so its leaves are an npz of host arrays, and a reference
+  ``cbow_state_ocdbt.*`` directory is refused by name. The port's ranks
+  share one card and hold the whole replicated state, so in a
+  multi-process run rank 0 writes and the others wait at a store barrier
+  (:func:`_save_sharded_fleet`); every rank reads the shared directory
+  itself. A resume in the other layout than the checkpoint's is refused.
 
 The files and manifests are the JAX package's:
 
@@ -52,6 +70,10 @@ from g2vec_tpu_torch.utils.integrity import (sha256_array as _sha256_array,
                                              write_json_atomic as _write_json_atomic)
 
 CKPT_NAME = "cbow_state.npz"
+#: The sharded layout's numbered directories (the port's own name).
+SHARDED_NAME = "cbow_state_sharded"
+#: The JAX package's orbax OCDBT directories, which the port cannot read.
+REFERENCE_SHARDED_NAME = "cbow_state_ocdbt"
 STREAM_NAME = "stream_state.npz"
 MANIFEST_SUFFIX = ".manifest.json"
 PREV_SUFFIX = ".prev"
@@ -148,15 +170,31 @@ def _savez(path: str, arrays: dict) -> str:
 def save_state(directory: str, params: Sequence, opt_state, snapshot: Sequence,
                epoch: int, before_val: float, before_tr: float,
                done: int = RUN_IN_PROGRESS,
-               fingerprint: Optional[dict] = None) -> str:
+               fingerprint: Optional[dict] = None,
+               layout: str = "single") -> str:
     """Atomically write the full-batch trainer's state under
-    ``directory``; returns the checkpoint's path. ``fingerprint`` (a flat
-    dict of config scalars) is recorded in the manifest and checked on
-    resume."""
+    ``directory`` in ``layout``; returns the checkpoint's path.
+    ``fingerprint`` (a flat dict of config scalars) is recorded in the
+    manifest and checked on resume. Every rank of a multi-process run
+    calls it; rank 0 writes."""
+    from g2vec_tpu_torch.parallel import distributed
+
     meta = np.array([float(epoch), before_val, before_tr, float(done)])
-    arrays, dtypes = _state_arrays(flatten_state(params, opt_state, snapshot))
+    # Only rank 0 writes: the others skip the copy to the host.
+    arrays, dtypes = (
+        _state_arrays(flatten_state(params, opt_state, snapshot))
+        if distributed.process_index() == 0 else ({}, []))
+    if layout == "sharded":
+        if distributed.shared_card_fleet():
+            return _save_sharded_fleet(directory, arrays, dtypes, meta,
+                                       fingerprint)
+        return _save_sharded(directory, arrays, dtypes, meta, fingerprint)
+    if layout != "single":
+        raise ValueError(f"unknown checkpoint layout {layout!r}")
     arrays["meta"] = meta
     path = os.path.join(directory, CKPT_NAME)
+    if distributed.process_index() != 0:
+        return path
     os.makedirs(directory, exist_ok=True)
     fault_point("checkpoint_write", path=path, epoch=epoch)
     written = _savez(path, arrays)
@@ -206,6 +244,246 @@ def save_stream_state(directory: str, arrays: dict, cursor: dict,
     fault_point("checkpoint_finalize", path=path, epoch=epoch)
     fault_point("stream_ckpt", path=path, epoch=epoch)
     return path
+
+
+# ---------------------------------------------------------------------------
+# The sharded layout
+# ---------------------------------------------------------------------------
+
+_LATEST_NAME = SHARDED_NAME + ".LATEST"
+#: The npz inside a numbered directory: leaf_i, meta, and the manifest
+#: dtype of each leaf (bfloat16 leaves are stored as their uint16 bits).
+SHARDED_LEAVES = "state.npz"
+
+
+def _numbered(base: str) -> List[int]:
+    if not os.path.isdir(base):
+        return []
+    return [int(n.rsplit(".", 1)[1]) for n in os.listdir(base)
+            if n.startswith(SHARDED_NAME + ".")
+            and n.rsplit(".", 1)[1].isdigit()]
+
+
+def _write_sharded_manifest(path: str, meta: np.ndarray,
+                            fingerprint: Optional[dict]) -> None:
+    """The manifest of one numbered directory: every file with its size
+    and sha256, beside the directory as ``<dir>.manifest.json``."""
+    files = {}
+    for root, _, names in os.walk(path):
+        for n in sorted(names):
+            fp = os.path.join(root, n)
+            files[os.path.relpath(fp, path)] = {
+                "size": os.path.getsize(fp), "sha256": _sha256_file(fp)}
+    _write_json_atomic(path + MANIFEST_SUFFIX, {
+        "schema": SCHEMA_VERSION, "layout": "sharded", "files": files,
+        "meta": [float(x) for x in meta], "fingerprint": fingerprint,
+        "written_unix": int(time.time())})
+
+
+def _save_sharded(directory: str, arrays: dict, dtypes: List[str],
+                  meta: np.ndarray, fingerprint: Optional[dict] = None
+                  ) -> str:
+    """Keep-previous atomic save: the leaves go to a fresh numbered
+    directory (written under ``.tmp`` and renamed in), its manifest is
+    written, the LATEST pointer flips atomically, and every generation
+    but the new one and the newest previous is pruned. A death mid-save
+    leaves the previous checkpoint whole."""
+    import shutil
+
+    base = os.path.abspath(directory)
+    os.makedirs(base, exist_ok=True)
+    existing = _numbered(base)
+    name = f"{SHARDED_NAME}.{max(existing, default=-1) + 1}"
+    path = os.path.join(base, name)
+    fault_point("checkpoint_write", path=path, epoch=int(meta[0]))
+    tmp = path + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, SHARDED_LEAVES), meta=meta,
+             dtypes=np.array(dtypes), **arrays)
+    os.replace(tmp, path)
+    _write_sharded_manifest(path, meta, fingerprint)
+    pointer = os.path.join(base, _LATEST_NAME)
+    with open(pointer + ".tmp", "w") as f:
+        f.write(name)
+    os.replace(pointer + ".tmp", pointer)
+    for idx in sorted(existing)[:-1]:
+        stale = os.path.join(base, f"{SHARDED_NAME}.{idx}")
+        shutil.rmtree(stale, ignore_errors=True)
+        if os.path.exists(stale + MANIFEST_SUFFIX):
+            os.unlink(stale + MANIFEST_SUFFIX)
+    fault_point("checkpoint_finalize", path=_largest_file(path),
+                epoch=int(meta[0]))
+    return path
+
+
+def _save_sharded_fleet(directory: str, arrays: dict, dtypes: List[str],
+                        meta: np.ndarray,
+                        fingerprint: Optional[dict] = None) -> str:
+    """The sharded save of a multi-process run. The ranks hold the same
+    replicated state, so rank 0 alone writes it into the shared
+    directory and the others wait at a store barrier, so that none runs
+    ahead of a durable save. Every rank then passes the
+    ``checkpoint_finalize`` seam (rank 0 inside :func:`_save_sharded`):
+    a ``process=K`` fault there lands after the save committed."""
+    from g2vec_tpu_torch.parallel import distributed, hostcomm
+    from g2vec_tpu_torch.resilience import fleet
+
+    path = directory
+    if distributed.process_index() == 0:
+        path = _save_sharded(directory, arrays, dtypes, meta, fingerprint)
+    hostcomm.barrier("checkpoint_save",
+                     deadline=fleet.config().watchdog_deadline or None)
+    if distributed.process_index() != 0:
+        fault_point("checkpoint_finalize", epoch=int(meta[0]))
+    return path
+
+
+def _largest_file(dirpath: str) -> Optional[str]:
+    """The biggest file under ``dirpath``: the ``corrupt`` fault's target
+    in the sharded layout."""
+    best, best_size = None, -1
+    for root, _, names in os.walk(dirpath):
+        for n in names:
+            fp = os.path.join(root, n)
+            size = os.path.getsize(fp)
+            if size > best_size:
+                best, best_size = fp, size
+    return best
+
+
+def _verify_sharded(dirpath: str) -> Optional[str]:
+    """None when ``dirpath`` passes its manifest (or has none); else the
+    reason it fails."""
+    mpath = dirpath + MANIFEST_SUFFIX
+    if not os.path.exists(mpath):
+        return None
+    try:
+        with open(mpath) as f:
+            man = json.load(f)
+    except (OSError, ValueError) as e:
+        return f"manifest unreadable ({type(e).__name__}: {e})"
+    if man.get("schema") != SCHEMA_VERSION:
+        return f"unknown manifest schema {man.get('schema')!r}"
+    for rel, want in man.get("files", {}).items():
+        fp = os.path.join(dirpath, rel)
+        if not os.path.exists(fp):
+            return f"missing shard file {rel}"
+        if os.path.getsize(fp) != want.get("size"):
+            return (f"shard file {rel} is {os.path.getsize(fp)} bytes, "
+                    f"manifest says {want.get('size')} (torn write)")
+        if want.get("sha256") and _sha256_file(fp) != want["sha256"]:
+            return f"shard file {rel} sha256 mismatch (corrupted bytes)"
+    return None
+
+
+def _latest_sharded_dir(directory: str) -> Optional[str]:
+    pointer = os.path.join(os.path.abspath(directory), _LATEST_NAME)
+    if not os.path.exists(pointer):
+        return None
+    with open(pointer) as f:
+        target = f.read().strip()
+    path = os.path.join(os.path.abspath(directory), target)
+    return path if os.path.isdir(path) else None
+
+
+def _reference_sharded(directory: str) -> Optional[str]:
+    """The newest entry of the JAX package's orbax OCDBT layout (its
+    numbered directories or their pointer) under ``directory``, or None."""
+    base = os.path.abspath(directory)
+    if not os.path.isdir(base):
+        return None
+    names = sorted(n for n in os.listdir(base)
+                   if n.startswith(REFERENCE_SHARDED_NAME + "."))
+    return os.path.join(base, names[-1]) if names else None
+
+
+def _sharded_candidates(directory: str) -> List[str]:
+    """Restore candidates, best first: the LATEST pointer's directory,
+    then the other numbered directories newest first."""
+    base = os.path.abspath(directory)
+    ordered = []
+    pointed = _latest_sharded_dir(directory)
+    if pointed is not None:
+        ordered.append(pointed)
+    for idx in sorted(_numbered(base), reverse=True):
+        p = os.path.join(base, f"{SHARDED_NAME}.{idx}")
+        if p != pointed and os.path.isdir(p):
+            ordered.append(p)
+    found = None if ordered else _reference_sharded(directory)
+    if found:
+        raise ValueError(
+            f"{found} is of {REFERENCE_SHARDED_NAME!r}: the JAX package's "
+            f"orbax OCDBT sharded layout, which g2vec_tpu_torch does not "
+            f"read (its sharded leaves are npz files under "
+            f"{SHARDED_NAME}.N) — point --checkpoint-dir at a fresh "
+            f"directory")
+    return ordered
+
+
+def _load_sharded(directory: str, like_leaves,
+                  fingerprint: Optional[dict] = None
+                  ) -> Optional[Tuple[list, np.ndarray, List[str]]]:
+    """Restore the newest numbered directory that verifies: a candidate
+    failing its manifest is skipped with a warning and the previous one
+    tried; every candidate failing raises."""
+    candidates = _sharded_candidates(directory)
+    if not candidates:
+        return None
+    path, failures = None, []
+    for cand in candidates:
+        reason = _verify_sharded(cand)
+        if reason is None:
+            path = cand
+            break
+        failures.append(f"{os.path.basename(cand)}: {reason}")
+        warnings.warn(
+            f"checkpoint {cand} failed integrity verification ({reason}); "
+            "trying the previous numbered checkpoint", RuntimeWarning)
+    if path is None:
+        raise ValueError(
+            f"no intact sharded checkpoint under {directory} — "
+            + "; ".join(failures)
+            + " — every kept generation is corrupt; restart without "
+              "--resume to retrain from scratch")
+    if path != candidates[0]:
+        warnings.warn(
+            f"resuming from the previous checkpoint {path} (the latest "
+            "failed verification) — at most one checkpoint interval of "
+            "progress is repeated", RuntimeWarning)
+    _check_fingerprint(path, _load_manifest(path), fingerprint)
+    return _restore_sharded_dir(path, like_leaves)
+
+
+def _restore_sharded_dir(path: str, like_leaves
+                         ) -> Tuple[list, np.ndarray, List[str]]:
+    with np.load(os.path.join(path, SHARDED_LEAVES)) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(len(like_leaves))]
+        meta, dtypes = data["meta"], [str(d) for d in data["dtypes"]]
+    for i, (got, want) in enumerate(zip(leaves, like_leaves)):
+        if tuple(got.shape) != tuple(np.shape(want)):
+            raise ValueError(
+                f"checkpoint {path}: leaf {i} has shape {got.shape}, "
+                f"current model expects {tuple(np.shape(want))} — was the "
+                "config changed between save and resume?")
+    return leaves, meta, dtypes
+
+
+def _refuse_other_layout(directory: str, layout: str) -> None:
+    """A resume that finds the other layout's checkpoint (and none of its
+    own) raises: starting over would skip the terminal guard."""
+    if layout == "single" and (_latest_sharded_dir(directory)
+                               or _reference_sharded(directory)):
+        raise ValueError(
+            f"{directory} holds a 'sharded' checkpoint but the resume "
+            "asked for layout 'single' — pass --checkpoint-layout "
+            "sharded (or the matching checkpoint_layout argument)")
+    if layout == "sharded" and os.path.exists(os.path.join(directory,
+                                                           CKPT_NAME)):
+        raise ValueError(
+            f"{directory} holds a 'single' checkpoint but the resume "
+            "asked for layout 'sharded' — pass --checkpoint-layout "
+            "single (or the matching checkpoint_layout argument)")
 
 
 def _load_manifest(ckpt_path: str) -> Optional[dict]:
@@ -355,10 +633,15 @@ def _read_single(directory: str, like_leaves,
     return None
 
 
-def _leaf_tensor(arr: np.ndarray, like: torch.Tensor, man: Optional[dict],
-                 i: int) -> torch.Tensor:
+def _manifest_dtypes(man: Optional[dict], leaves: list) -> List[str]:
+    """Each leaf's stored dtype: the manifest's, else the array's own."""
     records = (man or {}).get("leaves", [])
-    stored = records[i].get("dtype") if i < len(records) else str(arr.dtype)
+    return [records[i].get("dtype") if i < len(records) else str(a.dtype)
+            for i, a in enumerate(leaves)]
+
+
+def _leaf_tensor(arr: np.ndarray, like: torch.Tensor, stored: str,
+                 i: int) -> torch.Tensor:
     want = "bfloat16" if like.dtype == torch.bfloat16 else \
         str(like.dtype).replace("torch.", "")
     if stored != want:
@@ -367,25 +650,84 @@ def _leaf_tensor(arr: np.ndarray, like: torch.Tensor, man: Optional[dict],
     return to_tensor(arr, want)
 
 
+def _broadcast_from_coordinator(directory: str, like_leaves,
+                                fingerprint: Optional[dict] = None
+                                ) -> Optional[Tuple[list, np.ndarray,
+                                                    List[str]]]:
+    """Rank 0 reads the single layout (verification and the ``.prev``
+    fallback included) and every rank receives the same state over the
+    store: status 0 (no checkpoint), 1 (the leaves) or 2 (rank 0's
+    error, which every rank then raises), so a failed read never leaves
+    the other ranks in a half-entered collective."""
+    import io
+
+    from g2vec_tpu_torch.parallel import distributed, hostcomm
+    from g2vec_tpu_torch.resilience import fleet
+
+    payload = None
+    if distributed.process_index() == 0:
+        status, arrays, err = 0, {}, ""
+        try:
+            loaded = _read_single(directory, like_leaves, fingerprint)
+            if loaded is not None:
+                leaves, meta, man = loaded
+                status = 1
+                arrays = {f"leaf_{i}": a for i, a in enumerate(leaves)}
+                arrays.update(meta=meta, dtypes=np.array(
+                    _manifest_dtypes(man, leaves)))
+        # Broad on purpose: any failed read must reach the broadcast.
+        except Exception as e:  # noqa: BLE001
+            status, arrays, err = 2, {}, f"{type(e).__name__}: {e}"
+        buf = io.BytesIO()
+        np.savez(buf, status=np.int32(status), err=np.array(err), **arrays)
+        payload = buf.getvalue()
+    payload = hostcomm.broadcast_bytes(
+        "checkpoint_restore", payload,
+        deadline=fleet.config().watchdog_deadline or None)
+    with np.load(io.BytesIO(payload)) as data:
+        status, err = int(data["status"]), str(data["err"])
+        if status == 0:
+            return None
+        if status == 2:
+            raise ValueError(f"checkpoint restore failed on the "
+                             f"coordinator: {err or '(see rank 0 logs)'}")
+        leaves = [data[f"leaf_{i}"] for i in range(len(like_leaves))]
+        return leaves, data["meta"], [str(d) for d in data["dtypes"]]
+
+
 def load_state(directory: str, params_like: Sequence, opt_state_like,
-               fingerprint: Optional[dict] = None):
+               fingerprint: Optional[dict] = None, layout: str = "single"):
     """Restore ``(params, opt_state, snapshot, epoch, before_val,
     before_tr, done)`` as CPU tensors, in the shapes of
     :func:`flatten_state`'s arguments (``params_like``/``opt_state_like``
     are the fresh init's tensors: their shapes and dtypes are checked).
     Returns None when no checkpoint exists; raises ``ValueError`` on a
-    fingerprint, shape or dtype mismatch and when every generation is
-    corrupt."""
+    fingerprint, shape or dtype mismatch, when every generation is
+    corrupt, and when the directory holds the other layout's checkpoint.
+    Every rank of a multi-process run calls it."""
+    from g2vec_tpu_torch.parallel import distributed
+
     like = flatten_state(params_like, opt_state_like, params_like)
     like = [torch.as_tensor(x) if not isinstance(x, torch.Tensor) else x
             for x in like]
     like[2] = torch.zeros((), dtype=torch.int32)     # the step count
-    loaded = _read_single(directory, like, fingerprint)
+    if layout == "sharded":
+        loaded = _load_sharded(directory, like, fingerprint)
+    elif layout != "single":
+        raise ValueError(f"unknown checkpoint layout {layout!r}")
+    elif distributed.process_count() > 1:
+        loaded = _broadcast_from_coordinator(directory, like, fingerprint)
+    else:
+        loaded = _read_single(directory, like, fingerprint)
+        if loaded is not None:
+            leaves, meta, man = loaded
+            loaded = leaves, meta, _manifest_dtypes(man, leaves)
     if loaded is None:
+        _refuse_other_layout(directory, layout)
         return None
-    leaves, meta, man = loaded
-    tensors = [_leaf_tensor(a, w, man, i)
-               for i, (a, w) in enumerate(zip(leaves, like))]
+    leaves, meta, dtypes = loaded
+    tensors = [_leaf_tensor(a, w, d, i)
+               for i, (a, w, d) in enumerate(zip(leaves, like, dtypes))]
     params, opt_state, snapshot = unflatten_state(tensors)
     done = int(meta[3]) if meta.shape[0] > 3 else RUN_IN_PROGRESS
     return (params, opt_state, snapshot,

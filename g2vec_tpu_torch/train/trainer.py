@@ -36,6 +36,16 @@ k+1 (after the report and the dip test, before update k+1), so the
 checkpoint is cut there; a resumed run's first iteration re-runs that
 forward for its loss only, and Adam's step count comes back with its
 moments. Resumed and uninterrupted runs give the same bytes.
+``checkpoint_layout`` picks the file layout (``train/checkpoint.py``).
+
+Under a mesh (``mesh_ctx``, ``--mesh``) the JAX package turns fused eval
+off (``g2vec_tpu/train/trainer.py:1005``), and so does the port: the val
+rows take a forward launch of their own, so an epoch is two forward
+launches and one backward. The forward is bitwise M-invariant, so the
+outputs do not change. The port trains on one device: a multi-process
+mesh run gives each rank a 1x1 local mesh (``parallel/distributed.py``),
+on which the shard-even padding is the identity; a mesh over several
+devices in one process is refused.
 
 :func:`train_cbow_lanes` trains a bucket of B lanes of one path-matrix
 shape (the batch engine's runs that differ in seeds and data) as the
@@ -176,7 +186,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                checkpoint_dir: Optional[str] = None, resume: bool = False,
                checkpoint_every: int = 25,
                check: Optional[Callable[[], None]] = None,
-               debug_nans: bool = False) -> TrainResult:
+               debug_nans: bool = False, mesh_ctx=None,
+               checkpoint_layout: str = "single") -> TrainResult:
     """Train the modified CBOW; returns the embedding table and history.
 
     ``paths``: [n_paths, ceil(n_genes/8)] uint8 bit-packed multi-hot rows
@@ -185,12 +196,21 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     (the tests pass the JAX package's init through
     :func:`g2vec_tpu_torch.weights.params_from_jax`); it is copied, never
     modified. ``on_epoch(step, acc_val, acc_tr, secs)`` fires every epoch.
-    ``checkpoint_dir``/``resume``/``checkpoint_every``: module docstring.
+    ``checkpoint_dir``/``resume``/``checkpoint_every``/
+    ``checkpoint_layout``: module docstring.
     ``check()`` runs before each epoch; an exception it raises stops the
     run there. ``debug_nans`` (``--debug-nans``) raises at the first
-    non-finite loss or gradient (:func:`check_finite`).
+    non-finite loss or gradient (:func:`check_finite`). ``mesh_ctx`` (a
+    ``parallel.mesh.MeshContext``) is the run's mesh: one device, and
+    fused eval off.
     """
     dev = resolve_device(device)
+    fused = mesh_ctx is None or mesh_ctx.mesh is None
+    if mesh_ctx is not None and mesh_ctx.n_devices > 1:
+        raise NotImplementedError(
+            f"mesh {mesh_ctx.shape} spans {mesh_ctx.n_devices} devices in "
+            f"one process; the port trains on one device (a multi-process "
+            f"--distributed --mesh run gives each rank a 1x1 local mesh)")
     if checkpoint_every < 1:
         raise ValueError(
             f"checkpoint_every must be >= 1, got {checkpoint_every}")
@@ -235,8 +255,15 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
             with torch.no_grad():
                 logits_val = model(x_val, compute_dtype)
             return logits_tr, logits_val
-        h = packed_matmul(x_all, model.w_ih.to(torch.bfloat16),
-                          grad_rows=n_tr)
+        w16 = model.w_ih.to(torch.bfloat16)
+        if not fused:
+            # The val rows in a launch of their own.
+            h_tr = packed_matmul(x_all[:n_tr], w16)
+            with torch.no_grad():
+                h_val = packed_matmul(x_all[n_tr:], w16)
+            return (output_logits(h_tr, model.w_ho, compute_dtype),
+                    output_logits(h_val, model.w_ho, compute_dtype))
+        h = packed_matmul(x_all, w16, grad_rows=n_tr)
         logits = output_logits(h, model.w_ho, compute_dtype)
         return logits[:n_tr], logits[n_tr:]
 
@@ -261,7 +288,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     }
     if checkpoint_dir and resume:
         restored = load_state(checkpoint_dir, params, adam.state(),
-                              fingerprint=fingerprint)
+                              fingerprint=fingerprint,
+                              layout=checkpoint_layout)
         if restored is not None:
             (w_params, opt_state, w_snap, last_epoch, before_val, before_tr,
              done) = restored
@@ -286,7 +314,8 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
 
     def save(epoch: int, done: int = RUN_IN_PROGRESS) -> None:
         save_state(checkpoint_dir, params, adam.state(), snapshot, epoch,
-                   before_val, before_tr, done=done, fingerprint=fingerprint)
+                   before_val, before_tr, done=done, fingerprint=fingerprint,
+                   layout=checkpoint_layout)
 
     t0 = time.perf_counter()
     # Iteration e runs epoch e's forward at its entry weights; for e past

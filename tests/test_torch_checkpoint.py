@@ -417,3 +417,143 @@ def test_jax_checkpoint_at_a_padded_width_is_refused(tmp_path):
                                          "current=299"):
         ttrainer.train_cbow(packed, labels, n_genes=299, device="cpu",
                             checkpoint_dir=d, resume=True, **common)
+
+
+# ---------------------------------------------------------------------------
+# The sharded layout (``g2vec_tpu/train/checkpoint.py:291-563``)
+# ---------------------------------------------------------------------------
+
+def _sharded_like():
+    like = [torch.zeros(12, 4), torch.zeros(4, 1)]
+    return like, (0, like, like)
+
+
+@pytest.mark.parametrize("crash_epoch", [2, 7])
+def test_sharded_resume_matches_uninterrupted_bytes(tmp_path, crash_epoch):
+    packed, labels, _, _ = _problem()
+    clean = _train(packed, labels, 296)
+    d = str(tmp_path / "ck")
+    kw = dict(checkpoint_dir=d, checkpoint_every=3,
+              checkpoint_layout="sharded")
+    faults.install_plan(f"stage=train,epoch={crash_epoch},kind=crash")
+    with pytest.raises(faults.InjectedFault):
+        _train(packed, labels, 296, **kw)
+    faults._reset_for_tests()
+    assert not os.path.exists(os.path.join(d, ck.CKPT_NAME))
+    res = _train(packed, labels, 296, resume=True, **kw)
+    first = (crash_epoch // 3) * 3
+    assert [h["epoch"] for h in res.history][0] == first
+    assert res.w_ih.tobytes() == clean.w_ih.tobytes()
+    assert (res.stop_epoch, res.stopped_early, res.acc_val) == (
+        clean.stop_epoch, clean.stopped_early, clean.acc_val)
+
+
+@pytest.mark.parametrize("case", ["early_stop", "completed"])
+def test_sharded_terminal_state_resumes_without_training(tmp_path,
+                                                        monkeypatch, case):
+    packed, labels, _, _ = _problem()
+    kw = (dict(learning_rate=0.02, max_epochs=40) if case == "early_stop"
+          else dict(max_epochs=6))
+    kw.update(checkpoint_dir=str(tmp_path / "ck"),
+              checkpoint_layout="sharded")
+    first = _train(packed, labels, 296, **kw)
+    assert first.stopped_early == (case == "early_stop")
+
+    def no_step(*a, **k):
+        raise AssertionError("a finished run trained again")
+
+    monkeypatch.setattr(ttrainer._Adam, "step", no_step)
+    again = _train(packed, labels, 296, resume=True, **kw)
+    assert again.history == []
+    assert again.w_ih.tobytes() == first.w_ih.tobytes()
+    assert (again.stop_epoch, again.stopped_early, again.acc_val) == (
+        first.stop_epoch, first.stopped_early, first.acc_val)
+
+
+def test_sharded_shape_mismatch_and_cross_layout_are_refused(tmp_path):
+    packed, labels, _, _ = _problem()
+    d = str(tmp_path / "ck")
+    kw = dict(checkpoint_dir=d, max_epochs=3)
+    _train(packed, labels, 296, checkpoint_layout="sharded", **kw)
+    with pytest.raises(ValueError, match="shape"):
+        _train(packed, labels, 296, hidden=8, checkpoint_layout="sharded",
+               resume=True, **kw)
+    with pytest.raises(ValueError, match="leaf 0 has shape"):
+        ck.load_state(d, [torch.zeros(296, 8), torch.zeros(8, 1)],
+                      (0, [torch.zeros(296, 8), torch.zeros(8, 1)],
+                       [torch.zeros(296, 8), torch.zeros(8, 1)]),
+                      layout="sharded")
+    with pytest.raises(ValueError, match="checkpoint-layout sharded"):
+        _train(packed, labels, 296, checkpoint_layout="single", resume=True,
+               **kw)
+    d2 = str(tmp_path / "ck2")
+    _train(packed, labels, 296, checkpoint_dir=d2, max_epochs=3)
+    with pytest.raises(ValueError, match="checkpoint-layout single"):
+        _train(packed, labels, 296, checkpoint_dir=d2, max_epochs=3,
+               checkpoint_layout="sharded", resume=True)
+
+
+@pytest.mark.parametrize("damage", ["corrupt", "torn", "manifest"])
+def test_sharded_keeps_previous_and_falls_back_to_it(tmp_path, damage):
+    p, opt, snap = _state(torch.float32)
+    d = str(tmp_path)
+    for epoch in (3, 6, 9):
+        ck.save_state(d, p, opt, snap, epoch, 0.5, 0.6, layout="sharded")
+    names = sorted(os.listdir(d))
+    assert names == [ck.SHARDED_NAME + ".1",
+                     ck.SHARDED_NAME + ".1" + ck.MANIFEST_SUFFIX,
+                     ck.SHARDED_NAME + ".2",
+                     ck.SHARDED_NAME + ".2" + ck.MANIFEST_SUFFIX,
+                     ck.SHARDED_NAME + ".LATEST"]
+    with open(os.path.join(d, ck.SHARDED_NAME + ".LATEST")) as f:
+        assert f.read() == ck.SHARDED_NAME + ".2"
+    like, opt_like = _sharded_like()
+    assert ck.load_state(d, like, opt_like, layout="sharded")[3] == 9
+    latest = os.path.join(d, ck.SHARDED_NAME + ".2")
+    leaves = os.path.join(latest, ck.SHARDED_LEAVES)
+    if damage == "corrupt":
+        faults._corrupt_file(leaves)
+        reason = "sha256 mismatch"
+    elif damage == "torn":
+        with open(leaves, "r+b") as f:
+            f.truncate(os.path.getsize(leaves) // 2)
+        reason = "torn write"
+    else:
+        with open(latest + ck.MANIFEST_SUFFIX, "w") as f:
+            f.write("{not json")
+        reason = "manifest unreadable"
+    with pytest.warns(RuntimeWarning, match=reason):
+        assert ck.load_state(d, like, opt_like, layout="sharded")[3] == 6
+    faults._corrupt_file(os.path.join(d, ck.SHARDED_NAME + ".1",
+                                      ck.SHARDED_LEAVES))
+    with pytest.warns(RuntimeWarning):
+        with pytest.raises(ValueError, match="no intact sharded"):
+            ck.load_state(d, like, opt_like, layout="sharded")
+
+
+def test_sharded_manifest_is_the_references_and_ocdbt_is_refused(tmp_path):
+    """The port's sharded manifest has the JAX package's fields; a
+    directory the JAX package wrote (orbax OCDBT) is refused by name, in
+    either layout."""
+    import jax.numpy as jnp
+
+    p, opt, snap = _state(torch.float32)
+    port = ck.save_state(str(tmp_path / "port"), p, opt, snap, 4, 0.5, 0.6,
+                         fingerprint={"hidden": 4}, layout="sharded")
+    jp = [jnp.asarray(x.numpy()) for x in p]
+    jdir = str(tmp_path / "jax")
+    ref = jckpt.save_state(jdir, jp, (jnp.int32(7), jp, jp), jp, 4, 0.5,
+                           0.6, fingerprint={"hidden": 4}, layout="sharded")
+    man = [json.load(open(x + ck.MANIFEST_SUFFIX)) for x in (port, ref)]
+    assert sorted(man[0]) == sorted(man[1])
+    assert man[0]["layout"] == man[1]["layout"] == "sharded"
+    assert man[0]["meta"] == man[1]["meta"]
+    assert man[0]["fingerprint"] == man[1]["fingerprint"]
+    for rec in man[0]["files"].values():
+        assert sorted(rec) == ["sha256", "size"]
+    assert os.path.basename(ref).startswith(ck.REFERENCE_SHARDED_NAME)
+    like, opt_like = _sharded_like()
+    with pytest.raises(ValueError, match="orbax OCDBT"):
+        ck.load_state(jdir, like, opt_like, layout="sharded")
+    with pytest.raises(ValueError, match="checkpoint-layout sharded"):
+        ck.load_state(jdir, like, opt_like)

@@ -540,7 +540,7 @@ def test_edge_seams_fire_where_they_stand(seam, monkeypatch):
     assert f"seam={seam}" in str(got[1])
     assert isinstance(got[0], _port_error())
     assert "missing rank(s): [1]" in str(got[0])
-    assert seam in faults.SEAMS and seam not in faults.NOT_PORTED
+    assert seam in faults.SEAMS
 
 
 # ---------------------------------------------------------------------------

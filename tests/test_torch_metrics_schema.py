@@ -77,6 +77,7 @@ def test_every_port_emit_matches_the_schema():
     files = {path for path, _ in sites}
     assert "g2vec_tpu_torch/serve/router.py" in files
     assert "g2vec_tpu_torch/serve/daemon.py" in files
+    assert "g2vec_tpu_torch/resilience/fleet.py" in files
     assert len(sites) > 100
     bad = [f"{path}:{node.lineno}: {msg}" for path, node in sites
            for msg in _problems(node.args[0].value, node, schemas)]
@@ -103,3 +104,19 @@ def test_the_lint_finds_what_the_jax_checker_finds():
         assert len(got) == len(want), (src, got)
         for g, w in zip(got, want):
             assert w in g, (src, got)
+
+
+@pytest.mark.parametrize("kind", ["heartbeat", "straggler_warning",
+                                  "fleet_launch", "fleet_peer_death",
+                                  "fleet_replan", "fleet_done", "gave_up"])
+def test_the_fleet_emits_each_event_within_the_schema(kind):
+    """The fleet's events (``g2vec_tpu/utils/metrics_schema.py``:
+    ``heartbeat``, ``straggler_warning``, ``fleet_*``) are emitted by the
+    port's fleet module, each site within its declared fields."""
+    schemas = _schemas()
+    sites = [node for path, node in _emit_sites()
+             if path == "g2vec_tpu_torch/resilience/fleet.py"
+             and node.args[0].value == kind]
+    assert sites, f"the port's fleet never emits {kind!r}"
+    for node in sites:
+        assert not _problems(kind, node, schemas)

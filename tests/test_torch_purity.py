@@ -5,12 +5,14 @@
 - At run time: the port's CLI (``python -m g2vec_tpu_torch ... --device
   cpu``, full-batch, ``--train-mode streaming`` plain and under
   ``--distributed --graph-shards 1 --embed-shards 1 --walk-starts``,
+  ``--distributed --mesh 1x1`` with the sharded checkpoint layout,
   ``--seeds`` and
   ``--scenario``) runs a tiny spec end to end in a fresh interpreter,
   after which neither jax nor any g2vec_tpu module is in ``sys.modules``;
   so do ``serve --help`` and the router serving a job through a replica
   (both load no torch either), the serve daemon serving a job, and the
   daemon serving an ``update`` of a bundle.
+- The ``--fleet-size`` launcher imports no torch; its ranks run the CLI.
 - Without ``--device cpu`` on a machine with no card, the entry points
   raise instead of running on the CPU.
 """
@@ -124,6 +126,53 @@ def test_sharded_streaming_cli_runs_without_jax_in_sys_modules(tmp_path):
                      "--fleet-watchdog-deadline", "30")
     assert any(line.startswith("    [shard] rank 0/1: graph_shards=1 "
                                "embed_shards=1") for line in lines)
+
+
+def test_mesh_cli_runs_without_jax_in_sys_modules(tmp_path):
+    """The fleet, the mesh context, the mesh half of the runtime and the
+    sharded checkpoint layout are on this run's path: one rank under
+    --distributed --mesh 1x1 with the liveness flags."""
+    _run_cli(tmp_path, "--distributed", "--mesh", "1x1", "--checkpoint-dir",
+             str(tmp_path / "ck"), "--checkpoint-layout", "sharded",
+             "--fleet-liveness-dir", str(tmp_path / "L"),
+             "--fleet-watchdog-deadline", "30")
+    assert (tmp_path / "L" / "rank_0.json").exists()
+    assert any(n.startswith("cbow_state_sharded.")
+               for n in os.listdir(tmp_path / "ck"))
+
+
+_LAUNCHER_SCRIPT = r"""
+import json, sys
+from g2vec_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_tsv
+from g2vec_tpu_torch.__main__ import main
+out_dir = sys.argv[1]
+files = write_synthetic_tsv(SyntheticSpec(
+    n_good=12, n_poor=10, module_size=8, n_background=10, n_expr_only=2,
+    n_net_only=2, module_chords=2, background_edges=15, seed=3), out_dir)
+rc = main([files["expression"], files["clinical"], files["network"],
+           out_dir + "/tiny", "-p", "10", "-r", "3", "-s", "8", "-e", "4",
+           "-n", "5", "--kmeans-iters", "20", "--device", "cpu",
+           "--fleet-size", "2", "--sampler-threads", "1"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "g2vec_tpu"))
+print(json.dumps({"rc": rc, "bad": bad}))
+"""
+
+
+def test_fleet_launcher_loads_no_torch(tmp_path):
+    """``--fleet-size`` runs before any CUDA initialisation: the launcher
+    imports no torch (and no JAX); its two ranks write the files."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("G2VEC_")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", _LAUNCHER_SCRIPT,
+                           str(tmp_path)], capture_output=True, text=True,
+                          env=env, timeout=300, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "rc": 0, "bad": []}
+    for suffix in ("biomarkers", "lgroups", "vectors"):
+        assert (tmp_path / f"tiny_{suffix}.txt").exists()
 
 
 def test_batch_cli_runs_without_jax_in_sys_modules(tmp_path):

@@ -75,13 +75,15 @@ def test_plan_rejects_bad_specs(spec, match):
         jfaults.parse_plan(spec)
 
 
-@pytest.mark.parametrize("seam", faults.NOT_PORTED)
+@pytest.mark.parametrize("seam", ["stage_barrier", "heartbeat"])
 def test_reference_seam_the_port_lacks_is_refused(seam):
+    """The fleet's two seams were the last the port lacked; a plan naming
+    one is now accepted by both packages and fires."""
     jfaults.parse_plan(f"stage={seam},kind=crash")      # the JAX package's
-    with pytest.raises(faults.FaultPlanError, match="not ported yet"):
-        faults.install_plan(f"stage={seam},kind=crash")
-    with pytest.raises(ValueError, match="not ported yet"):
-        G2VecConfig(fault_plan=f"stage=load;stage={seam}").validate()
+    faults.install_plan(f"stage={seam},kind=crash")
+    G2VecConfig(fault_plan=f"stage=load;stage={seam}").validate()
+    with pytest.raises(faults.InjectedFault, match=f"seam={seam}"):
+        faults.fault_point(seam)
 
 
 @pytest.mark.parametrize("kind", ["crash", "fatal"])
@@ -121,8 +123,9 @@ def test_update_publish_fires_between_the_rename_and_the_pointer_flip(
 
 
 def test_registry_is_the_reference_split_in_two():
-    assert set(faults.SEAMS) | set(faults.NOT_PORTED) == set(jfaults.SEAMS)
-    assert not set(faults.SEAMS) & set(faults.NOT_PORTED)
+    assert set(faults.SEAMS) == set(jfaults.SEAMS)
+    assert len(faults.SEAMS) == len(set(faults.SEAMS))
+    assert not hasattr(faults, "NOT_PORTED")
     assert faults.KINDS == jfaults.KINDS
     assert (faults.ENV_PLAN, faults.ENV_STATE) == (jfaults.ENV_PLAN,
                                                    jfaults.ENV_STATE)
@@ -282,10 +285,13 @@ def test_cli_flags_and_validation():
     assert (cfg.checkpoint_dir, cfg.checkpoint_every, cfg.resume,
             cfg.supervise, cfg.supervise_retries, cfg.supervise_backoff,
             cfg.fault_plan) == ("d", 4, True, True, 2, 0.5, "stage=train")
-    # The port checkpoints in the single layout only.
+    # Two layouts, as in the reference; argparse refuses any other.
+    for layout in ("single", "sharded"):
+        assert config_from_args(["e", "c", "n", "r", "--checkpoint-layout",
+                                 layout]).checkpoint_layout == layout
     with pytest.raises(SystemExit):
         config_from_args(["e", "c", "n", "r", "--checkpoint-layout",
-                          "single"])
+                          "ocdbt"])
     for over, match in ((dict(checkpoint_every=0), "checkpoint_every"),
                         (dict(supervise_retries=-1), "supervise_retries"),
                         (dict(supervise_backoff=-0.5), "supervise_backoff"),

@@ -223,7 +223,8 @@ def _join_as_rank_1(port):
     store = TCPStore("127.0.0.1", port, 2, False,
                      timeout=datetime.timedelta(seconds=30),
                      wait_for_workers=False)
-    store.set("g2vec/ag/0/barrier/initialize/1", b"")
+    # Rank 1's half of the join barrier: an empty payload, framed inline.
+    store.set("g2vec/ag/0/barrier/initialize/1", b"\x00")
     store.wait(["g2vec/ag/0/barrier/initialize/0"])
 
 
@@ -630,7 +631,10 @@ def test_cli_parses_the_scale_flags():
             cfg.distributed, cfg.coordinator, cfg.process_id,
             cfg.num_processes, cfg.fleet_watchdog_deadline) == (
         4096, 2, 2, True, "127.0.0.1:5000", 1, 2, 15.0)
-    for flag in ("--edge-partition", "--mesh", "--checkpoint-layout",
+    for flag in ("--edge-partition", "--checkpoint-layout",
                  "--fleet-size"):
         with pytest.raises(SystemExit):
             build_parser().parse_args(["e", "c", "n", "r", flag, "x"])
+    # --mesh parses as the reference's does: DATAxMODEL, else ValueError.
+    with pytest.raises(ValueError, match="--mesh must look like 4x2"):
+        config_from_args(["e", "c", "n", "r", "--mesh", "x"])
