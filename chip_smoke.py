@@ -26,10 +26,14 @@ trace's CUDA kernel time by kernel name and the device's idle share over
 stage ``train``.
 Phase 4 goes on with: the forward's grid, its waves, the bytes of W it
 streams from L2 and its tensor-core ceiling beside the backward's split;
-the forward beside the other layouts it was chosen from (built from
-copies of its source with other constexprs) and the backward under
-several splits of its rows, each held against the plain version and
-timed; both kernels at the reference's 7,523 genes; one ragged shape; the
+the tile planner's sweep there (``--kernel-autotune``): every forward
+layout of the tiles library (``csrc/packed_matmul_tiles.cu``), bitwise
+the shipped kernel, and every backward slice count, each held against the
+plain version and timed beside the dense library call, and the planner's
+own entries at the trainer's two launch shapes, each in the direction the
+trainer launches there (the table is reset
+after, so the later phases run the heuristic plan); both kernels at the
+reference's 7,523 genes; one ragged shape; the
 ragged edges of both kernels; and the forward's M-invariance, bitwise,
 across the edges of a wave. Phase 5 runs a small input at hidden width 10
 on ``cuda`` and on the CPU. Phase 6 runs the example with ``--train-mode
@@ -89,9 +93,8 @@ launch, timed beside 8 solo launches and ``torch.bmm`` on the dense bf16
 stack; ``--seeds 8 --lanes 8`` in process on one ``ResidentEngine``
 (the lane kernels' launch counts are read over this run; a second
 ``execute`` must find the dataset resident, hit the walk memo and write
-the same bytes); the same through the CLI against half the lanes' solo CLI
-runs and the other half's solo runs in process, byte for byte, with both
-runs/hour; a mixed manifest (two
+the same bytes); the same through the CLI, and every lane's solo run in
+process, byte for byte, with both runs/hour; a mixed manifest (two
 subsamples, a CV fold, a permutation null: several buckets, one-lane
 buckets among them), each lane against its solo run, and its distinct
 walk products timed in turn (as the engine walks them) and on a pool;
@@ -181,7 +184,20 @@ run's bytes (the launcher's children run through a wrapper that records
 when the fault fired and, at exit, the launches), beside one sharded and
 one single save's host time; and a rank SIGKILLed mid-stage under
 ``--fleet-watchdog-deadline 5`` is named by its peer with its phase and
-last collective. Phases 12, 13, 14 and 15 each fail past 150 s.
+last collective. Phase 16 runs the tile planner: its sweep (as in phase
+4) at the launch shapes where the forward loses to the library (the
+streaming shard and eval buffer, the G 20,000 shard, the split rank),
+beside the library's time; two CLI runs with ``--kernel-autotune
+--cache-dir D``, the first sweeping both launch shapes and the second
+loading the plan (no sweep) and writing the first's bytes, val accuracy
+above 0.5; a run in process under a plan installed by hand (the forward
+on a layout that is not the shipped one, the backward at an S off the
+heuristic's); and a ``--mesh 2x1 --kernel-autotune`` run whose two ranks
+launch rank 0's plan, only rank 0 sweeping and writing. Each of these
+runs is held against phase 3's untuned run: its files byte for byte where
+its backward S is the heuristic's (every forward layout is bitwise the
+shipped one), else ``W_ih`` within 1e-4.
+Phases 12, 13, 14, 15 and 16 each fail past 150 s.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -279,14 +295,15 @@ def _spread(t) -> str:
     return f"{t[0]:.4f} ms [{t[1]:.4f}, {t[2]:.4f}]"
 
 
-def _check_close(torch, name, got, want, abs_sum) -> float:
+def _check_close(torch, name, got, want, abs_sum, verbose=True) -> float:
     err = (got - want).abs()
     tol = RTOL * want.abs() + ULPS * 2.0 ** -24 * abs_sum
     bad = int((err > tol).sum())
     max_err = float(err.max()) if err.numel() else 0.0
-    print(f"    {name}: max_abs_err={max_err:.3e} "
-          f"max_tol={float(tol.max()) if tol.numel() else 0.0:.3e} "
-          f"violations={bad}")
+    if verbose or bad:
+        print(f"    {name}: max_abs_err={max_err:.3e} "
+              f"max_tol={float(tol.max()) if tol.numel() else 0.0:.3e} "
+              f"violations={bad}")
     if bad or not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return max_err
@@ -404,32 +421,6 @@ def _backward_edges(torch, pm, gen, n_genes):
                      + (" (forced split)" if forced else ""), dw,
                      pm.packed_matmul_bwd_plain(packed, g_out, g),
                      x.T @ g_out.float().abs())
-
-
-def _backward_splits(torch, pm, packed, g, h, gen, flush):
-    """The backward at the main path's shape under the slice counts that
-    fill one, two and three waves of resident blocks, one slice past a
-    wave, and no split, each held against the plain version and timed:
-    the evidence for the planned count."""
-    m = packed.shape[0]
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    g16 = torch.randn((m, h), device="cuda", generator=gen).to(torch.bfloat16)
-    want = pm.packed_matmul_bwd_plain(packed, g16, g)
-    abs_sum = pm.unpack_bits(packed, g).float().T @ g16.float().abs()
-    planned = pm._bwd_slices(m, g, h, n_sms)
-    tiles = -(-g // pm.BWD_BLOCK_GENES) * -(-h // pm.BWD_BLOCK_COLS)
-    per_wave = pm.BWD_BLOCKS_PER_SM * n_sms // tiles
-    for n in sorted({1, per_wave, per_wave + 1, 2 * per_wave + 1,
-                     3 * per_wave + 2, planned.n_slices}):
-        plan = pm._bwd_split(m, n, g, h)
-        _check_close(torch, f"packed_matmul_bwd S={plan.n_slices}",
-                     pm._bwd_on_card(packed, g16, g, plan), want, abs_sum)
-        ms, lo, hi = _time_ms(lambda: pm._bwd_on_card(
-            packed, g16, g, plan), flush)
-        waves = plan.n_slices * tiles / (pm.BWD_BLOCKS_PER_SM * n_sms)
-        print(f"    split S={plan.n_slices} ({waves:.2f} waves, "
-              f"{plan.rows} rows a slice{', planned' if plan == planned else ''}"
-              f"): {ms:.4f} ms [{lo:.4f}, {hi:.4f}]")
 
 
 def _forward_plan_line(pm, m, g, h, n_sms) -> str:
@@ -588,33 +579,103 @@ def _stream_shapes(torch, cfg, byte_range=None):
             plan)
 
 
-def _forward_layouts(torch, pm, packed, g, h, gen, flush):
-    """The forward at the main path's shape beside the other layouts it
-    was chosen from (``packed_matmul_probe.LAYOUTS``: warps along the
-    columns and the ring, each built from a copy of the source with those
-    constexprs changed), each held against the plain version and timed:
-    the evidence for the shipped layout."""
-    from g2vec_tpu_torch.ops import packed_matmul_probe as probe
-
-    src = probe.source()
-    shipped = probe.layout_of(src)
-    libs = probe.build_all({layout: probe.with_layout(src, layout)
-                            for layout in probe.LAYOUTS if layout != shipped})
-    libs[shipped] = (None, "as built in [2]")
+def _planner_sweep(torch, pm, packed, n_bwd, g, h, gen, flush, label):
+    """The tile planner's candidates at one shape, on ``packed``'s rows:
+    every forward layout (bitwise the shipped kernel, which
+    ``pm.time_fwd_layouts`` checks, and within the kernel tolerance of
+    the plain version) and every backward slice count on the first
+    ``n_bwd`` rows (within the tolerance), each timed (median of 10 by
+    CUDA events after the L2 flush) beside the dense bf16 library call.
+    Returns the times and the heuristic's choices."""
     m = packed.shape[0]
-    w16 = (torch.randn((g, h), device="cuda", generator=gen) * 0.09
-           ).to(torch.bfloat16)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w16 = pm._pad_cols((torch.randn((g, h), device="cuda", generator=gen)
+                        * 0.09).to(torch.bfloat16), 8)
+    g16 = pm._pad_cols(torch.randn((n_bwd, h), device="cuda", generator=gen
+                                   ).to(torch.bfloat16), 8)
+    x = pm.unpack_bits(packed, g).float()
+    fwd_c = pm.tile_candidates(m, g, h)["fwd"]
+    bwd_c = pm.tile_candidates(n_bwd, g, h)["bwd"]
     want = pm.packed_matmul_fwd_plain(packed, w16)
-    abs_sum = pm.unpack_bits(packed, g).float() @ w16.float().abs()
-    for layout in probe.LAYOUTS:
-        lib, report = libs[layout]
-        name = probe.layout_name(layout)
-        _check_close(torch, f"packed_matmul_fwd M={m}, {name}",
-                     pm._fwd_on_card(packed, w16, lib), want, abs_sum)
-        t = _time_ms(lambda: pm._fwd_on_card(packed, w16, lib), flush)
-        print(f"    M={m}, {name}{', shipped' if layout == shipped else ''} "
-              f"({pm.fwd_occupancy(lib)} resident blocks an SM; ptxas "
-              f"{report}): {_spread(t)}")
+    abs_sum = x @ w16.float().abs()
+    err_f = max(_check_close(torch, f"{label} forward {layout}",
+                             pm.run_fwd_layout(packed, w16, layout), want,
+                             abs_sum, verbose=False) for layout in fwd_c)
+    want = pm.packed_matmul_bwd_plain(packed[:n_bwd], g16, g)
+    abs_sum = x[:n_bwd].T @ g16.float().abs()
+    err_b = max(_check_close(torch, f"{label} backward S={n}",
+                             pm.run_bwd_slices(packed[:n_bwd], g16, g, n),
+                             want, abs_sum, verbose=False) for n in bwd_c)
+    del want, abs_sum
+    fwd = pm.time_fwd_layouts(packed, w16, fwd_c, 10, flush)
+    bwd = pm.time_bwd_slices(packed[:n_bwd], g16, g, bwd_c, 10, flush)
+    x16 = x.to(torch.bfloat16)
+    del x
+    x16_t = x16[:n_bwd].T.contiguous()
+    lib_f = _time_ms(lambda: torch.matmul(x16, w16), flush)
+    lib_b = _time_ms(lambda: torch.matmul(x16_t, g16), flush)
+    del x16, x16_t
+    heur_s = pm._bwd_slices(n_bwd, g, h, n_sms).n_slices
+    best_f = min(fwd, key=lambda k: fwd[k][0])
+    best_b = min(bwd, key=lambda k: bwd[k][0])
+    print(f"    {label}: forward M={m} G={g} H={h}, every layout bitwise "
+          f"the shipped kernel, max_abs_err {err_f:.1e}:")
+    for layout, t in fwd.items():
+        resident = pm.fwd_occupancy(layout=layout)
+        if resident != pm.fwd_layout_info(layout).blocks_per_sm:
+            raise RuntimeError(f"layout {layout} keeps {resident} blocks "
+                               f"resident, not the ones its waves count")
+        grid = pm._fwd_grid(m, h, n_sms, layout)
+        print(f"      {layout}{' shipped' if layout == pm.FWD_SHIPPED else ''}"
+              f": {_spread(t)}, {resident} resident blocks an SM, "
+              f"{grid.blocks} blocks ({grid.waves:.2f} waves)")
+    print(f"      fastest {best_f} {fwd[best_f][0]:.4f} ms against the "
+          f"heuristic's (shipped) {fwd[pm.FWD_SHIPPED][0]:.4f}; library "
+          f"(dense bf16 matmul) {_spread(lib_f)}")
+    print(f"    {label}: backward M={n_bwd}, S in {bwd_c[0]}..{bwd_c[-1]} "
+          f"({len(bwd_c)} counts), max_abs_err {err_b:.1e}: "
+          + ", ".join(f"S={n} {t[0]:.4f}" for n, t in bwd.items()))
+    print(f"      fastest S={best_b} {_spread(bwd[best_b])} against the "
+          f"heuristic's S={heur_s} {_spread(bwd[heur_s])}; library "
+          f"{_spread(lib_b)}")
+    return {"fwd": fwd, "bwd": bwd, "library_fwd": lib_f[0],
+            "library_bwd": lib_b[0], "heuristic_s": heur_s,
+            "best_fwd": best_f, "best_bwd": best_b}
+
+
+def _planner_entries(pm, m_all, n_tr, g, tmp):
+    """The planner's own sweep (median of 10 by CUDA events, no flush) at
+    the trainer's two launch shapes, each in the direction the trainer
+    launches there (the fused forward at ``m_all`` rows, the backward at
+    ``n_tr``), written to a file of its own; prints the entries written
+    and returns them. The table is reset after: the phases after this one
+    run the heuristic plan, as a run without the flag does."""
+    path = os.path.join(tmp, "p4_autotune", "packed_matmul_cuda.json")
+    entries, t0 = {}, time.perf_counter()
+    for m, direction in ((m_all, "fwd"), (n_tr, "bwd")):
+        ent = pm._autotune(m, g, 128, (direction,), device="cuda", iters=10,
+                           cache_path=path)
+        if ent["source"] != "measured":
+            raise RuntimeError(f"the planner's first sweep at M={m} was a "
+                               f"{ent['source']} hit")
+        entries[m] = ent
+    took = time.perf_counter() - t0
+    pm.reset_tuned()
+    with open(path) as f:
+        written = json.load(f)["entries"]
+    for key, ent in written.items():
+        heur, ms = ent["heuristic"], ent["ms"]
+        if "fwd" in ent:
+            print(f"    entry written: {key}: fwd {ent['fwd']} "
+                  f"({ms['fwd:best_ms']} ms; heuristic {heur['fwd']} "
+                  f"{ms['fwd:' + pm._layout_suffix(heur['fwd'])]} ms)")
+        if "bwd" in ent:
+            print(f"    entry written: {key}: bwd S={ent['bwd']} "
+                  f"({ms['bwd:best_ms']} ms; heuristic S={heur['bwd']} "
+                  f"{ms['bwd:S' + str(heur['bwd'])]} ms)")
+    print(f"    the planner's two sweeps took {took:.2f} s (the tiles "
+          f"library already built in [2])")
+    return entries
 
 
 def _forward_edges(torch, pm, gen, n_genes):
@@ -1728,42 +1789,28 @@ def _lanes_phase(torch, pm, result, cfg, files, tmp, smi):
         raise RuntimeError("the resident engine's second execute was not "
                            "served from memory with the same bytes")
 
-    # Half the lanes against solo CLI runs (the runs/hour yardstick), the
-    # other half against solo runs in process: a fresh interpreter costs
-    # several seconds, and the script's time is budgeted.
-    n_solo = n_lanes // 2
-    print(f"    the batch CLI and {n_solo} lanes' solo CLI runs, fresh "
-          f"interpreters; the other lanes' solo runs in process:")
+    # The batch through the CLI; every lane against its solo run in
+    # process (a fresh interpreter a run costs several seconds, and the
+    # script's time is budgeted).
+    print(f"    the batch CLI, a fresh interpreter; the {n_lanes} lanes' solo "
+          f"runs in process:")
     batch_secs, done, cli_lanes = _batch_cli(
         files, os.path.join(tmp, "cli_lanes", "run"),
         ["--seeds", str(n_lanes), "--lanes", str(n_lanes)])
-    variants = plan_variants(b_cfg)
-    flag_sets = [["--train-seed", str(v.train_seed), "--kmeans-seed",
-                  str(v.kmeans_seed)] for v in variants[:n_solo]]
-    solo_runs, solo_secs = _timed(lambda: _cli_runs(
-        files, tmp, 30, flag_sets=flag_sets, tag="lane_solo"))
-    for v, lane, (_, secs, _, _, outputs, _) in zip(variants, first.lanes,
-                                                     solo_runs):
-        if cli_lanes[v.tag()] != outputs or _outputs(lane) != outputs:
-            raise RuntimeError(f"lane {v.name!r}: the batch's files differ "
-                               f"from its solo CLI run's")
-    for v, lane in zip(variants[n_solo:], first.lanes[n_solo:]):
+    for v, lane in zip(plan_variants(b_cfg), first.lanes):
         if cli_lanes[v.tag()] != _outputs(lane):
             raise RuntimeError(f"lane {v.name!r}: the batch CLI's files "
                                f"differ from the in-process batch's")
-    _solo_lane_runs(SimpleNamespace(variants=first.variants[n_solo:],
-                                    lanes=first.lanes[n_solo:]),
-                    b_cfg, tmp, "lanes_rest")
-    solo_stage = sum(sum(r[1].values()) for r in solo_runs)
+    _, solo_secs = _timed(lambda: _solo_lane_runs(first, b_cfg, tmp,
+                                                  "lanes_solo"))
     print(f"    batch CLI: {batch_secs:.3f} s process wall, engine "
           f"{done['wall_seconds']} s, {done['runs_per_hour']} runs/hour "
           f"(engine wall), {n_lanes / batch_secs * 3600:.1f} runs/hour "
           f"(process wall); stage seconds {done['stage_seconds']}")
-    print(f"    {n_solo} solo CLI runs: {solo_secs:.3f} s process wall "
-          f"({n_solo / solo_secs * 3600:.1f} runs/hour), stage seconds "
-          f"summed {solo_stage:.3f} s ({n_solo / solo_stage * 3600:.1f} "
-          f"runs/hour); every lane's three files byte-identical to the "
-          f"batch CLI's and to its solo run (CLI or in process); {smi}")
+    print(f"    {n_lanes} solo runs in process: {solo_secs:.3f} s wall "
+          f"({n_lanes / solo_secs * 3600:.1f} runs/hour); every lane's "
+          f"three files byte-identical to the batch CLI's and to its solo "
+          f"run; {smi}")
 
     print("    a mixed manifest (two subsamples, a CV fold, a permutation "
           "null):")
@@ -3112,8 +3159,10 @@ def _update_drills(torch, pm, files, tmp):
 # rank emits them (a rank other than 0 writes no metrics file), and the
 # edges and bytes of every whole-graph CSR the streaming trainer builds.
 # At exit it records those, its selections, its kernel wrappers' launch
-# counts and its peak device memory (a SIGKILLed rank, or one that exits
-# through its failure path, records nothing).
+# counts (the forward's by tuned layout too), the tile planner's table and
+# autotune events, and its peak device memory, and with
+# G2V_SMOKE_KEEP_W_IH set its embeddings (a SIGKILLed rank, or one that
+# exits through its failure path, records nothing).
 _RANK = r"""
 import atexit, hashlib, json, os, runpy, sys
 sys.argv = ["g2vec_tpu_torch", *sys.argv[1:]]
@@ -3147,11 +3196,15 @@ pipeline.run, MetricsWriter.emit, stream.edges_to_csr = (run, emit,
 
 
 def report():
+    import numpy as np
     import torch
+    from g2vec_tpu_torch.cache import cache_stats
     from g2vec_tpu_torch.ops import packed_matmul as pm
 
     res = kept.get("result")
     path = os.path.join(os.environ["G2V_SMOKE_REPORTS"], f"{os.getpid()}.json")
+    if res is not None and os.environ.get("G2V_SMOKE_KEEP_W_IH"):
+        np.save(path[:-5] + "_w_ih.npy", res.embeddings)
     with open(path, "w") as f:
         json.dump({
             "rank": int(os.environ.get("G2VEC_PROCESS_ID", "0")),
@@ -3167,7 +3220,15 @@ def report():
             "rows": None if res is None else int(res.embeddings.shape[0]),
             "output_files": None if res is None else list(res.output_files),
             "stage_seconds": None if res is None else res.stage_seconds,
-            "edge_events": kept["events"], "csrs": kept["csrs"]}, f)
+            "stage_extras": None if res is None else res.stage_extras,
+            "edge_events": kept["events"], "csrs": kept["csrs"],
+            "tuned": {",".join(map(str, k)): {
+                d: list(p) if d == "fwd" else p for d, p in v.items()}
+                for k, v in pm._TUNED.items()},
+            "autotune_events": cache_stats()["autotune"],
+            "fwd_layout_launches": {
+                "_".join(map(str, k)): n for k, n in
+                pm.packed_matmul_fwd.layout_launches.items()}}, f)
 
 
 atexit.register(report)
@@ -4052,6 +4113,248 @@ def _fleet_phase(torch, pm, ck, files, tmp, result, main_outputs,
     return records
 
 
+def _planner_record(pm, direction, sweep, planner, entries) -> dict:
+    """The kernel line's ``planner`` entry of one direction: each
+    candidate's time at the full-batch shape (the forward's layouts from
+    ``csrc/packed_matmul_tiles.cu``, with their launches in phase 16
+    (c)'s first tuned run), the planner's choice there, and the fastest
+    candidate against the library at phase 16 (b)'s shapes."""
+    times = sweep[direction]
+    rec = {"full_batch_ms": {("_".join(map(str, k)) if direction == "fwd"
+                              else f"S{k}"): round(t[0], 4)
+                             for k, t in times.items()},
+           "entries": {str(m): e[direction] for m, e in entries.items()
+                       if direction in e},
+           "small_shapes": {label: {
+               "fastest": ("_".join(map(str, r[f"best_{direction}"]))
+                           if direction == "fwd"
+                           else f"S{r['best_bwd']}"),
+               "ms": round(r[direction][r[f"best_{direction}"]][0], 4),
+               "library_ms": round(r[f"library_{direction}"], 4)}
+               for label, r in planner["small"].items()}}
+    if direction == "fwd":
+        rec["source"] = "g2vec_tpu_torch/csrc/packed_matmul_tiles.cu"
+        rec["tuned_launches"] = planner["cli_launches"]
+    return rec
+
+
+#: Phase 16 (b): launch shapes where the forward loses to the library
+#: (PERF.md, section 6): the example's widest streaming shard and its eval
+#: buffer, phase 13 (a)'s widest G 20,000 shard, and phase 13 (b)'s split
+#: rank (rank 0 of 2 at G 262,144, hidden 256).
+SMALL_SHAPES = (("(b) streaming shard", 2205, 5850, 128),
+                ("(b) eval buffer", 4096, 5850, 128),
+                ("(b) G 20,000 shard", 1818, 20000, 128),
+                ("(b) split rank", 182, 131072, 256))
+
+
+def _rank_w_ih(reports, rank):
+    """The embeddings a rank of ``_start_ranks`` kept
+    (``G2V_SMOKE_KEEP_W_IH``)."""
+    for name in os.listdir(reports):
+        if name.endswith(".json"):
+            with open(os.path.join(reports, name)) as f:
+                if json.load(f)["rank"] == rank:
+                    return np.load(os.path.join(reports,
+                                                name[:-5] + "_w_ih.npy"))
+    raise RuntimeError(f"rank {rank} kept no embeddings")
+
+
+def _held_to_phase3(pm, what, bwd_rows, s, w_ih, outputs, result,
+                    main_outputs):
+    """Hold a tuned run against phase 3's untuned one. Every forward
+    layout is bitwise the shipped one, so where the run's backward S at
+    ``bwd_rows`` is the heuristic's its three files are phase 3's byte
+    for byte (the vectors file's six decimals hold W_ih to under 1e-6);
+    else W_ih is within 1e-4 of phase 3's (tests/test_torch_cuda.py's
+    bound for the card against the CPU; a step moves a weight by up to
+    the learning rate, 50 times that). Returns the line that says which
+    held."""
+    n_genes = result.embeddings.shape[0]
+    heur = pm._bwd_slices(bwd_rows, n_genes, 128, pm._sm_count(0)).n_slices
+    gap = float(np.abs(w_ih - result.embeddings).max())
+    if s == heur:
+        if outputs != main_outputs:
+            raise RuntimeError(f"{what}: S={s} is the heuristic's, yet the "
+                               f"run's files differ from phase 3's (W_ih "
+                               f"max |gap| {gap:.3e})")
+        return (f"S={s} at M={bwd_rows} is the heuristic's: phase 3's three "
+                f"files byte for byte, W_ih max |gap| {gap:.3e}")
+    if gap > 1e-4:
+        raise RuntimeError(f"{what}: W_ih {gap:.3e} from phase 3's under "
+                           f"S={s} (heuristic {heur}; atol 1e-4)")
+    return (f"S={s} at M={bwd_rows} against the heuristic's {heur}: W_ih "
+            f"max |gap| to phase 3's {gap:.3e} (atol 1e-4)")
+
+
+def _bwd_plan(plans):
+    """(rows, S) of the one backward shape in a run's tile plans."""
+    ((rows, s),) = [(int(m), p["bwd"]) for m, p in plans.items()
+                    if "bwd" in p]
+    return rows, s
+
+
+def _planner_phase(torch, pm, files, tmp, result, main_outputs,
+                   cli_train_s):
+    """Phase 16: the tile planner. (b) the sweep at SMALL_SHAPES, measured
+    only; (c) two CLI runs with ``--kernel-autotune --cache-dir D``: the
+    first sweeps, the second loads the plan and writes the first's bytes,
+    both held against phase 3 (:func:`_held_to_phase3`) and above 0.5 val
+    accuracy, then a run in process under a plan installed by hand (a
+    forward layout that is not the shipped one, an S off the heuristic's)
+    held the same way; (d) a ``--mesh 2x1 --kernel-autotune`` run: both
+    ranks launch rank 0's plan, only rank 0 sweeps and writes, and its
+    files and W_ih are held against phase 3. Returns the kernel line's
+    ``planner`` entries."""
+    from g2vec_tpu_torch.cache import autotune_cache_path
+
+    t16 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    small = {}
+    for label, m, g, h in SMALL_SHAPES:
+        packed = _random_packed(torch, m, g, 80 / g, gen)
+        small[label] = _planner_sweep(torch, pm, packed, m, g, h, gen, flush,
+                                      label)
+        del packed
+    del flush
+    print(f"    (b) took {time.perf_counter() - t16:.1f} s")
+
+    # (c) two CLI runs sharing one cache root, through the rank wrapper
+    # (the CLI's own entry point in a fresh interpreter) for its report.
+    cache = os.path.join(tmp, "p16_cache")
+    tune_file = autotune_cache_path(cache)
+    runs = []
+    for i in range(2):
+        out = os.path.join(tmp, f"p16_cli{i}")
+        reports = os.path.join(tmp, f"p16_cli{i}_reports")
+        os.makedirs(reports)
+        rcs, logs = _wait_ranks(_start_ranks(
+            files, out, ["-e", "30", "--kernel-autotune", "--cache-dir",
+                         cache], reports, 1,
+            extra_env={"G2V_SMOKE_KEEP_W_IH": "1"}), out, timeout=300)
+        if rcs[0]:
+            raise RuntimeError(f"(c) run {i + 1} exited {rcs[0]}:\n"
+                               f"{logs[0][-3000:]}")
+        (rep,) = _rank_reports(reports)
+        w_ih = np.load(next(os.path.join(reports, n) for n in
+                            os.listdir(reports) if n.endswith("_w_ih.npy")))
+        outputs = []
+        for path in rep["output_files"]:
+            with open(path, "rb") as f:
+                outputs.append(f.read())
+        with open(tune_file, "rb") as f:
+            runs.append((rep, outputs, f.read(), w_ih))
+    (first, out1, file1, w1), (second, out2, file2, w2) = runs
+    for i, (rep, *_rest) in enumerate(runs):
+        plans = rep["stage_extras"]["train"]["autotune"]
+        print(f"    (c) CLI run {i + 1} --kernel-autotune --cache-dir: "
+              f"autotune events {rep['autotune_events']}, plans "
+              f"{json.dumps(plans['plans'])}; launches fwd "
+              f"{rep['packed_matmul_fwd']} (tuned layouts "
+              f"{rep['fwd_layout_launches']}), bwd "
+              f"{rep['packed_matmul_bwd']}; val acc {rep['acc_val']:.4f}; "
+              f"stage train {rep['stage_seconds']['train']:.3f} s (phase "
+              f"3's CLI run {cli_train_s:.3f} s)")
+        if not rep["acc_val"] > 0.5:
+            raise RuntimeError(f"(c) run {i + 1}: val accuracy "
+                               f"{rep['acc_val']} <= 0.5")
+    if first["autotune_events"] != {"miss": 2, "sweep": 2} \
+            or second["autotune_events"] != {"hit": 2}:
+        raise RuntimeError("(c): the first run did not sweep both shapes, "
+                           "or the second did not load both")
+    if out2 != out1 or file2 != file1 or first["tuned"] != second["tuned"] \
+            or w2.tobytes() != w1.tobytes():
+        raise RuntimeError("(c): the second run's files, W_ih, plan or "
+                           "record differ from the first's")
+    plans = first["stage_extras"]["train"]["autotune"]["plans"]
+    bwd_rows, s_tuned = _bwd_plan(plans)
+    held = _held_to_phase3(pm, "(c)", bwd_rows, s_tuned, w1, out1, result,
+                           main_outputs)
+    print(f"    (c) the second run loaded the plan, launched it and wrote "
+          f"the first run's three files and W_ih and left the record "
+          f"({len(file1)} bytes) as it was; against phase 3's untuned "
+          f"run: {held}")
+
+    # A plan the sweep did not choose, installed by hand, in process: the
+    # fused forward on (2, 2, 64, 4) and the backward at an S off the
+    # heuristic's.
+    (fwd_rows,) = [int(m) for m, p in plans.items() if "fwd" in p]
+    n_genes = result.embeddings.shape[0]
+    heur = pm._bwd_slices(bwd_rows, n_genes, 128, pm._sm_count(0)).n_slices
+    s_hand = max(s for s in pm.tile_candidates(bwd_rows, n_genes, 128)["bwd"]
+                 if s != heur and s <= 2 * heur)
+    tag = pm._autotune_backend_tag("cuda")
+    pm.reset_tuned()
+    pm._install_tuned(fwd_rows, n_genes, 128, {"fwd": (2, 2, 64, 4)}, tag)
+    pm._install_tuned(bwd_rows, n_genes, 128, {"bwd": s_hand}, tag)
+    out = os.path.join(tmp, "p16_hand")
+    os.makedirs(out)
+    pm.reset_launch_counts()
+    try:
+        hand, _ = _run_pipeline(_config(files, out, "cuda", epoch=30))
+        fwd_n = pm.packed_matmul_fwd.launches
+        layouts = dict(pm.packed_matmul_fwd.layout_launches)
+    finally:
+        pm.reset_tuned()
+    if layouts != {(2, 2, 64, 4): fwd_n} or fwd_n < 1:
+        raise RuntimeError(f"(c) hand plan: forward launches {fwd_n}, by "
+                           f"layout {layouts}")
+    held = _held_to_phase3(pm, "(c) hand plan", bwd_rows, s_hand,
+                           hand.embeddings, _outputs(hand), result,
+                           main_outputs)
+    print(f"    (c) in process under a plan installed by hand, the forward "
+          f"on (2, 2, 64, 4) ({fwd_n} launches) and {held}")
+
+    # (d) a mesh over two ranks sharing the card.
+    cache = os.path.join(tmp, "p16_mesh_cache")
+    reports = os.path.join(tmp, "p16_mesh_reports")
+    os.makedirs(reports)
+    out = os.path.join(tmp, "p16_mesh")
+    rcs, logs = _wait_ranks(_start_ranks(
+        files, out, ["-e", "30", "--distributed", "--mesh", "2x1",
+                     "--kernel-autotune", "--cache-dir", cache], reports, 2,
+        _free_port(), extra_env={"G2V_SMOKE_KEEP_W_IH": "1"}), out)
+    if any(rcs):
+        raise RuntimeError(f"(d): exit codes {rcs}:\n"
+                           + "\n".join(log[-3000:] for log in logs))
+    ranks = _rank_reports(reports)
+    for r in ranks:
+        print(f"    (d) --mesh 2x1 --kernel-autotune, rank {r['rank']}: "
+              f"autotune events {r['autotune_events']}, plans "
+              f"{r['tuned']}; launches fwd {r['packed_matmul_fwd']} (tuned "
+              f"layouts {r['fwd_layout_launches']}), bwd "
+              f"{r['packed_matmul_bwd']}")
+    sources = {p["source"] for p in ranks[1]["stage_extras"]["train"]
+               ["autotune"]["plans"].values()}
+    if not ranks[0]["tuned"] or ranks[0]["tuned"] != ranks[1]["tuned"] \
+            or ranks[0]["fwd_layout_launches"] != \
+            ranks[1]["fwd_layout_launches"] \
+            or ranks[0]["autotune_events"] != {"miss": 2, "sweep": 2} \
+            or ranks[1]["autotune_events"] != {} \
+            or sources != {"broadcast"} \
+            or not os.path.exists(autotune_cache_path(cache)):
+        raise RuntimeError("(d): the ranks did not launch rank 0's plan, "
+                           "or a rank other than 0 swept or wrote")
+    outputs = []
+    for path in ranks[0]["output_files"]:
+        with open(path, "rb") as f:
+            outputs.append(f.read())
+    held = _held_to_phase3(
+        pm, "(d)", *_bwd_plan(ranks[0]["stage_extras"]["train"]["autotune"]
+                              ["plans"]),
+        _rank_w_ih(reports, 0), outputs, result, main_outputs)
+    print(f"    (d) both ranks installed and launched rank 0's plan; rank 1 "
+          f"swept, loaded and wrote nothing (its plans came by broadcast); "
+          f"rank 0 against phase 3's untuned run: {held}")
+    took = time.perf_counter() - t16
+    print(f"[16] phase 16 took {took:.1f} s")
+    if took > 150:
+        raise RuntimeError(f"phase 16 took {took:.1f} s (bound 150 s)")
+    return {"small": small, "cli_launches": first["fwd_layout_launches"],
+            "cli_plans": first["tuned"]}
+
+
 def main() -> int:
     import torch
 
@@ -4073,20 +4376,29 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # One build a source, all started together.
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(_timed, fn) for fn in
-                  (pm.build_kernels, dw.build_walk_kernel, build_walker)]
+                  (pm.build_kernels, dw.build_walk_kernel, build_walker,
+                   pm.build_tile_kernels)]
         ((so, log), secs), ((walk_so, walk_log), walk_secs), \
-            (_, walker_secs) = [f.result() for f in builds]
+            (_, walker_secs), ((tiles_so, tiles_log), tiles_secs) = [
+                f.result() for f in builds]
     print(f"[2] built at once: kernels in {secs:.1f} s ({so}), the walker "
           f"kernel in {walk_secs:.1f} s ({walk_so}), the C++ walker in "
-          f"{walker_secs:.1f} s")
+          f"{walker_secs:.1f} s, the planner's tiles library (the forward "
+          f"under {len(pm.FWD_LAYOUTS)} layouts) in {tiles_secs:.1f} s "
+          f"({tiles_so})")
     kernel = "?"
     for line in (log + walk_log).splitlines():
         if "Compiling entry function" in line:
             kernel = _ptxas_kernel(line)
         elif "registers" in line or "spill" in line:
             print(f"    ptxas {kernel}: {line.split(' : ')[-1].strip()}")
+    from g2vec_tpu_torch.ops.packed_matmul_probe import ptxas_report
+    tiles_ptxas = ptxas_report(tiles_log)
+    for layout in pm.FWD_LAYOUTS:
+        print(f"    ptxas forward layout {layout}: "
+              f"{tiles_ptxas.get(layout, '?')}")
 
     with tempfile.TemporaryDirectory() as tmp:
         print("[3] example-scale solo run on cuda (hidden 128, -p 80 -r 10, "
@@ -4125,6 +4437,7 @@ def main() -> int:
                 main_outputs.append(f.read())
         for flags, secs, saved, extras, outputs, _ in _cli_runs(
                 files, tmp, 30, flag_sets=([],)):
+            cli_train_s = secs["train"]
             spans = {stage: {k: round(v, 3) for k, v in e["span_s"].items()}
                      for stage, e in extras.items() if "span_s" in e}
             print(f"    CLI {' '.join(flags) or '(defaults)'}: stage seconds "
@@ -4214,9 +4527,12 @@ def main() -> int:
                                           128, n_sms))
         records = _compare_kernels(torch, pm, packed_all, n_tr, n_genes, 128,
                                    gen, flush, timed=True)
-        _forward_layouts(torch, pm, packed_all, n_genes, 128, gen, flush)
-        _backward_splits(torch, pm, packed_all[:n_tr], n_genes, 128, gen,
-                         flush)
+        print("    the tile planner (--kernel-autotune) at the full-batch "
+              "shapes:")
+        sweep = _planner_sweep(torch, pm, packed_all, n_tr, n_genes, 128,
+                               gen, flush, "(a) full batch")
+        tuned_entries = _planner_entries(pm, packed_all.shape[0], n_tr,
+                                         n_genes, tmp)
         _at_reference_genes(torch, pm, packed_all.shape[0], n_tr, 128, gen,
                             flush)
         ragged = _random_packed(torch, 1001, 1003, 0.02, gen)
@@ -4444,6 +4760,13 @@ def main() -> int:
         fleet = _fleet_phase(torch, pm, ck, files, tmp, result, main_outputs,
                              launches)
 
+        print("[16] the tile planner (--kernel-autotune) at the example "
+              "(hidden 128, bf16, epoch cap 30): the sweep at the shapes "
+              "where the forward loses to the library; two CLI runs sharing "
+              "a --cache-dir; --mesh 2x1 on two ranks sharing the card")
+        planner = _planner_phase(torch, pm, files, tmp, result, main_outputs,
+                                 cli_train_s)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -4454,6 +4777,7 @@ def main() -> int:
         if name == "packed_matmul_fwd":
             streaming["eval_buffer"] = {
                 "m": m_val, **{k: s_records["eval_fwd"][k] for k in keys}}
+        direction = "fwd" if name == "packed_matmul_fwd" else "bwd"
         kernels.append({
             "name": name, "route": "cuda",
             "source": "g2vec_tpu_torch/csrc/packed_matmul.cu",
@@ -4461,7 +4785,9 @@ def main() -> int:
             **{k: rec[k] for k in keys}, "streaming": streaming,
             "update_launches": {mode: n[name] for mode, n in
                                 update_launches.items()},
-            "scale": scale[name], "fleet": fleet[name]})
+            "scale": scale[name], "fleet": fleet[name],
+            "planner": _planner_record(pm, direction, sweep, planner,
+                                       tuned_entries)})
     kernels.append(walk_rec)
     kernels.append(states_rec)
     for name, rec in lane_records.items():

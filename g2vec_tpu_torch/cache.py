@@ -20,7 +20,9 @@ overwrites the bad entry. A cache can make a run faster, never wrong.
 
 The port has no compile cache, so :func:`resolve_cache_tiers` returns
 the walk tier only. The batch engine stacks :class:`SharedWalkTier`, an
-in-process memo, above it.
+in-process memo, above it. ``--kernel-autotune`` keeps its measured tile
+plans beside the walks, in a file of the port's own
+(:func:`autotune_cache_path`).
 """
 from __future__ import annotations
 
@@ -61,10 +63,12 @@ def record_cache_event(tier: str, outcome: str, n: int = 1) -> None:
 
 def cache_stats() -> Dict[str, Dict[str, int]]:
     """Every tier's counters since the process started (the walk tier's
-    outcomes: disk_hit, miss, verify_failed, store)."""
+    outcomes: disk_hit, miss, verify_failed, store; the autotune tier's:
+    hit, miss, sweep)."""
     with _STATS_LOCK:
         snap = {t: dict(c) for t, c in _TIER_STATS.items()}
     snap.setdefault("walk", {})
+    snap.setdefault("autotune", {})
     return snap
 
 
@@ -217,3 +221,15 @@ def resolve_cache_tiers(cache_dir: Optional[str]) -> Optional[WalkCache]:
     if cache_dir:
         return WalkCache(os.path.join(cache_dir, "walks"))
     return None
+
+
+def autotune_cache_path(cache_dir: Optional[str]) -> Optional[str]:
+    """The kernel-autotune tier's record under ``--cache-dir``: measured
+    tile plans of the packed kernels, keyed inside the file by exact shape,
+    backend and schema (``ops/packed_matmul.py`` owns the format and its
+    staleness rules). A file of the port's own, so a cache root shared
+    with the reference keeps the reference's ``packed_matmul.json`` as it
+    is. None without a cache root: a sweep then lives in memory only."""
+    if not cache_dir:
+        return None
+    return os.path.join(cache_dir, "autotune", "packed_matmul_cuda.json")

@@ -152,6 +152,12 @@ class G2VecConfig:
                                      # or gradient, naming it
     cache_dir: Optional[str] = None  # walk cache root: stage-3 path sets
                                      # under <dir>/walks (cache.py)
+    kernel_autotune: bool = False    # measure the packed kernels' tile
+                                     # plans (forward layout, backward
+                                     # slice count) at this run's exact
+                                     # shapes on the card instead of
+                                     # trusting the heuristic (persisted
+                                     # under --cache-dir's autotune tier)
     emit_inventory: bool = False     # also publish the binary query-plane
                                      # bundle <RESULT_NAME>_inventory/
                                      # (float32 embeddings + norms +
@@ -865,6 +871,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "sets under DIR/walks; a repeat run at the "
                              "same inputs and walk parameters skips the "
                              "walks.")
+    parser.add_argument("--kernel-autotune", action="store_true",
+                        help="Time the packed kernels' candidate plans (the "
+                             "forward's layouts, the backward's slice "
+                             "counts) on the card at this run's exact "
+                             "matmul shapes and launch the fastest instead "
+                             "of the heuristic plan (persisted under "
+                             "--cache-dir/autotune so repeat runs skip the "
+                             "sweep). A run on the CPU or at float32 runs "
+                             "no packed kernel and skips it.")
     parser.add_argument("--metrics-jsonl", type=str, default=None,
                         help="Write structured per-stage/per-epoch metrics "
                              "here.")
@@ -1007,6 +1022,7 @@ def config_from_args(argv=None) -> G2VecConfig:
         fleet_heartbeat_interval=args.fleet_heartbeat_interval,
         fleet_straggler_factor=args.fleet_straggler_factor,
         cache_dir=args.cache_dir,
+        kernel_autotune=args.kernel_autotune,
         metrics_jsonl=args.metrics_jsonl,
         profile_dir=args.profile_dir,
         debug_nans=args.debug_nans,

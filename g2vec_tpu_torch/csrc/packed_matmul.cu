@@ -31,17 +31,25 @@
 // are 0.061 and 0.049 ms, about 4x and 5x the byte bounds.
 //
 // Forward. A = X (16 path rows x 16 genes), B = the W tile (16 genes x 8
-// columns).
-//   - A block owns 128 rows x 128 columns, two blocks to an SM. Its 4
-//     warps are tiles of 32 rows x all 128 columns: 2 x 16 MMA tiles and
-//     128 f32 accumulators a thread (255 registers; ptxas spills 20 bytes).
-//     One warp along the columns builds each A fragment once for all of
-//     them. Of the layouts ops/packed_matmul_probe.py times (LAYOUTS: one
+// columns). The body is a template over its layout (FwdLayout: warps along
+// the rows, warps along the columns, genes a ring stage, ring stages); this
+// file builds the shipped layout, FwdShipped, into pm_fwd_kernel and the
+// lane kernel, and csrc/packed_matmul_tiles.cu builds every candidate of
+// the tile planner (--kernel-autotune, ops/packed_matmul.py).
+//   - A block of the shipped layout owns 128 rows x 128 columns, two
+//     blocks to an SM. Its 4 warps are tiles of 32 rows x all 128 columns:
+//     2 x 16 MMA tiles and 128 f32 accumulators a thread (255 registers;
+//     ptxas spills 20 bytes). One warp along the columns builds each A
+//     fragment once for all of them. Of the layouts the planner times (one
 //     or two warps along the columns, rings of 2-4 stages of 64 or 128
-//     genes), this one is the fastest at the example's [train | val]
-//     launch (M 40,399), the only shape the trainer launches (PERF.md).
-//     Taller blocks, at two or at one to an SM, spill registers or leave
-//     an SM fewer warps, and measured slower.
+//     genes, blocks of 64 or 128 rows), this one is the fastest at the
+//     example's [train | val] launch (M 40,399; PERF.md). Taller blocks,
+//     at two or at one to an SM, spill registers or leave an SM fewer
+//     warps, and measured slower.
+//   - Every layout walks every gene in the same ascending k-steps of 16
+//     and keeps one accumulator chain per element, so every layout gives
+//     the same bits for the same row: a layout changes the grid and the
+//     schedule, never a sum.
 //   - The genes stream through a 2-stage cp.async ring of 128 genes each:
 //     the W rows in 16-byte copies into rows padded from 256 to 272 bytes
 //     (ldmatrix.trans's 8 rows fall on 8 distinct bank groups), and the
@@ -118,35 +126,52 @@
 
 namespace {
 
-// Forward: kFwdWarpsM x kFwdWarpsN warps of kFwdWarpRows rows x
-// kFwdWarpCols columns, kFwdBlocksPerSM blocks to an SM; the genes stream
-// through kFwdStages stages of kFwdGenes.
-constexpr int kFwdWarpRows = 32;
-constexpr int kFwdMTiles = kFwdWarpRows / 16;                   // MMA tiles
-constexpr int kFwdWarpsM = 4;
-constexpr int kFwdWarpsN = 1;
-constexpr int kFwdThreads = 32 * kFwdWarpsM * kFwdWarpsN;
-constexpr int kFwdRows = kFwdWarpsM * kFwdWarpRows;   // path rows per block
-constexpr int kFwdCols = 128;                  // hidden columns per block
-constexpr int kFwdWarpCols = kFwdCols / kFwdWarpsN;
-constexpr int kFwdNTiles = kFwdWarpCols / 8;
-constexpr int kFwdBlocksPerSM = 2;             // _fwd_grid counts waves of this
-constexpr int kFwdGenes = 128;
-constexpr int kFwdBytes = kFwdGenes / 8;       // packed bytes per row
-constexpr int kFwdWords = kFwdBytes / 4;       // ... in 4-byte words
-constexpr int kFwdStages = 2;
-constexpr int kFwdWStride = kFwdCols + 8;      // bf16 per staged W row
-constexpr int kFwdWBytes = kFwdGenes * kFwdWStride * 2;
-constexpr int kFwdStageBytes = kFwdWBytes + kFwdRows * kFwdBytes;
-constexpr int kFwdSmem = kFwdStages * kFwdStageBytes;
-constexpr int kFwdWChunks = kFwdGenes * kFwdCols / 8 / kFwdThreads;  // per thread
-constexpr int kFwdPWords = kFwdRows * kFwdWords / kFwdThreads;       // per thread
-static_assert(kFwdWChunks * 8 * kFwdThreads == kFwdGenes * kFwdCols &&
-              kFwdPWords * kFwdThreads == kFwdRows * kFwdWords &&
-              kFwdPWords > 0, "every thread copies whole chunks and words");
-static_assert(kFwdGenes % 32 == 0 && kFwdWarpRows % 16 == 0 &&
-              kFwdNTiles % 2 == 0,
-              "whole packed words, whole m-tiles, n-tile pairs");
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// Shared memory of one SM, and what the card reserves of it a block.
+constexpr int kSmemPerSM = 228 * 1024;
+constexpr int kSmemReservedPerBlock = 1024;
+
+// A forward layout: WarpsM x WarpsN warps of kWarpRows rows x kWarpCols
+// columns; the genes stream through Stages stages of Genes. Eight warps an
+// SM: 255 registers a thread at one warp along the columns (128 f32
+// accumulators), 128 at two; as many blocks as that and the rings' shared
+// memory leave room for (_fwd_grid in ops/packed_matmul.py counts waves of
+// kBlocksPerSM).
+template <int WarpsM, int WarpsN, int Genes, int Stages>
+struct FwdLayout {
+    static constexpr int kWarpsM = WarpsM;
+    static constexpr int kWarpsN = WarpsN;
+    static constexpr int kGenes = Genes;
+    static constexpr int kStages = Stages;
+    static constexpr int kWarpRows = 32;
+    static constexpr int kMTiles = kWarpRows / 16;              // MMA tiles
+    static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+    static constexpr int kRows = kWarpsM * kWarpRows;  // path rows per block
+    static constexpr int kCols = 128;             // hidden columns per block
+    static constexpr int kWarpCols = kCols / kWarpsN;
+    static constexpr int kNTiles = kWarpCols / 8;
+    static constexpr int kBytes = kGenes / 8;     // packed bytes per row
+    static constexpr int kWords = kBytes / 4;     // ... in 4-byte words
+    static constexpr int kWStride = kCols + 8;    // bf16 per staged W row
+    static constexpr int kWBytes = kGenes * kWStride * 2;
+    static constexpr int kStageBytes = kWBytes + kRows * kBytes;
+    static constexpr int kSmem = kStages * kStageBytes;
+    static constexpr int kWChunks = kGenes * kCols / 8 / kThreads;  // per thread
+    static constexpr int kPWords = kRows * kWords / kThreads;       // per thread
+    static constexpr int kBlocksPerSM = cmin(
+        8 / kWarpsM, kSmemPerSM / (kSmem + kSmemReservedPerBlock));
+    static_assert(kWChunks * 8 * kThreads == kGenes * kCols &&
+                  kPWords * kThreads == kRows * kWords && kPWords > 0,
+                  "every thread copies whole chunks and words");
+    static_assert(kGenes % 32 == 0 && kWarpRows % 16 == 0 &&
+                  kNTiles % 2 == 0,
+                  "whole packed words, whole m-tiles, n-tile pairs");
+    static_assert(kBlocksPerSM >= 1, "one block's ring fits an SM");
+};
+
+// The layout pm_fwd_kernel and the lane kernel are built for.
+using FwdShipped = FwdLayout<4, 1, 128, 2>;
 
 // Backward: kBwdWarpsM x kBwdWarpsN warps (genes x columns) of
 // kBwdWarpGenes x kBwdWarpCols each; a block owns one tile of genes x
@@ -236,23 +261,33 @@ __device__ __forceinline__ uint32_t bits_to_bf16x2(uint32_t lo, uint32_t hi,
 }
 
 // The forward's block (row block blockIdx.x, column block blockIdx.y) of
-// one run's P, W and out: the body of both forward kernels, defined after
-// the solo one.
+// one run's P, W and out under layout L: the body of every forward kernel,
+// defined after the solo one.
+template <class L>
 __device__ __forceinline__ void fwd_block(
     const uint8_t* __restrict__ packed, const __nv_bfloat16* __restrict__ w,
     float* __restrict__ out, int m, int g, int nb, int h);
 
-__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
+__global__ void __launch_bounds__(FwdShipped::kThreads, FwdShipped::kBlocksPerSM)
 pm_fwd_kernel(const uint8_t* __restrict__ packed,
               const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
               int m, int g, int nb, int h) {
-    fwd_block(packed, w, out, m, g, nb, h);
+    fwd_block<FwdShipped>(packed, w, out, m, g, nb, h);
 }
 
+template <class L>
 __device__ __forceinline__ void fwd_block(
     const uint8_t* __restrict__ packed, const __nv_bfloat16* __restrict__ w,
     float* __restrict__ out, int m, int g, int nb, int h) {
     extern __shared__ __align__(16) uint8_t smem[];
+    constexpr int kFwdWarpsM = L::kWarpsM, kFwdWarpRows = L::kWarpRows;
+    constexpr int kFwdMTiles = L::kMTiles, kFwdNTiles = L::kNTiles;
+    constexpr int kFwdThreads = L::kThreads, kFwdRows = L::kRows;
+    constexpr int kFwdCols = L::kCols, kFwdWarpCols = L::kWarpCols;
+    constexpr int kFwdGenes = L::kGenes, kFwdWords = L::kWords;
+    constexpr int kFwdStages = L::kStages, kFwdWStride = L::kWStride;
+    constexpr int kFwdWBytes = L::kWBytes, kFwdStageBytes = L::kStageBytes;
+    constexpr int kFwdWChunks = L::kWChunks, kFwdPWords = L::kPWords;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
@@ -386,15 +421,16 @@ __device__ __forceinline__ void fwd_block(
 // z, through the solo kernel's body. (The solo kernel takes no lane
 // offsets: at its 255 registers they cost its schedule a third of its
 // time, PERF.md.)
-__global__ void __launch_bounds__(kFwdThreads, kFwdBlocksPerSM)
+__global__ void __launch_bounds__(FwdShipped::kThreads, FwdShipped::kBlocksPerSM)
 pm_fwd_lanes_kernel(const uint8_t* __restrict__ packed,
                     const int* __restrict__ lane_ids, int64_t p_lane_stride,
                     const __nv_bfloat16* __restrict__ w,
                     float* __restrict__ out, int m, int g, int nb, int h) {
     const int z = blockIdx.z;
-    fwd_block(packed + static_cast<size_t>(lane_ids[z]) * p_lane_stride,
-              w + static_cast<size_t>(z) * g * h,
-              out + static_cast<size_t>(z) * m * h, m, g, nb, h);
+    fwd_block<FwdShipped>(
+        packed + static_cast<size_t>(lane_ids[z]) * p_lane_stride,
+        w + static_cast<size_t>(z) * g * h,
+        out + static_cast<size_t>(z) * m * h, m, g, nb, h);
 }
 
 __global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSM)
@@ -558,19 +594,44 @@ pm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
     dw[i] = acc;
 }
 
-cudaError_t set_fwd_smem() {
-    cudaError_t err = cudaFuncSetAttribute(
-        pm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(pm_fwd_lanes_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kFwdSmem);
+using FwdKernel = void (*)(const uint8_t*, const __nv_bfloat16*, float*, int,
+                           int, int, int);
+
+template <class L>
+dim3 fwd_grid(int64_t m, int64_t h, int64_t lanes) {
+    return dim3(static_cast<unsigned>((m + L::kRows - 1) / L::kRows),
+                static_cast<unsigned>((h + L::kCols - 1) / L::kCols),
+                static_cast<unsigned>(lanes));
 }
 
-dim3 fwd_grid(int64_t m, int64_t h, int64_t lanes) {
-    return dim3(static_cast<unsigned>((m + kFwdRows - 1) / kFwdRows),
-                static_cast<unsigned>((h + kFwdCols - 1) / kFwdCols),
-                static_cast<unsigned>(lanes));
+// A solo forward of layout L through `kernel` (pm_fwd_kernel, or a
+// planner candidate's instance).
+template <class L>
+int launch_fwd(FwdKernel kernel, const void* packed, const void* w, void* out,
+               int64_t m, int64_t g, int64_t nb, int64_t h, void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<fwd_grid<L>(m, h, 1), L::kThreads, L::kSmem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(packed),
+        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
+        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
+        static_cast<int>(h));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// How many blocks of `kernel` (layout L) the card keeps resident on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error.
+template <class L>
+int fwd_occupancy(FwdKernel kernel) {
+    int n = 0;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kSmem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, kernel, L::kThreads, L::kSmem) != cudaSuccess)
+        return -1;
+    return n;
 }
 
 int launch_bwd(const void* packed, const void* lane_ids, int64_t p_lane_stride,
@@ -624,24 +685,20 @@ extern "C" {
 
 int g2v_pm_fwd(const void* packed, const void* w, void* out, int64_t m,
                int64_t g, int64_t nb, int64_t h, void* stream) {
-    cudaError_t err = set_fwd_smem();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pm_fwd_kernel<<<fwd_grid(m, h, 1), kFwdThreads, kFwdSmem,
-                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(packed),
-        static_cast<const __nv_bfloat16*>(w), static_cast<float*>(out),
-        static_cast<int>(m), static_cast<int>(g), static_cast<int>(nb),
-        static_cast<int>(h));
-    return static_cast<int>(cudaGetLastError());
+    return launch_fwd<FwdShipped>(pm_fwd_kernel, packed, w, out, m, g, nb, h,
+                                  stream);
 }
 
 int g2v_pm_fwd_lanes(const void* packed, const void* lane_ids,
                      int64_t p_lane_stride, const void* w, void* out,
                      int64_t lanes, int64_t m, int64_t g, int64_t nb,
                      int64_t h, void* stream) {
-    cudaError_t err = set_fwd_smem();
+    cudaError_t err = cudaFuncSetAttribute(
+        pm_fwd_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FwdShipped::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    pm_fwd_lanes_kernel<<<fwd_grid(m, h, lanes), kFwdThreads, kFwdSmem,
+    pm_fwd_lanes_kernel<<<fwd_grid<FwdShipped>(m, h, lanes),
+                          FwdShipped::kThreads, FwdShipped::kSmem,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(packed),
         static_cast<const int*>(lane_ids), p_lane_stride,
@@ -654,12 +711,7 @@ int g2v_pm_fwd_lanes(const void* packed, const void* lane_ids,
 // How many blocks of the forward the card keeps resident on one SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor); -1 on an error.
 int g2v_pm_fwd_occupancy() {
-    int n = 0;
-    if (set_fwd_smem() != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, pm_fwd_kernel, kFwdThreads, kFwdSmem) != cudaSuccess)
-        return -1;
-    return n;
+    return fwd_occupancy<FwdShipped>(pm_fwd_kernel);
 }
 
 int g2v_pm_bwd(const void* packed, const void* gout, void* dw, void* work,

@@ -1,33 +1,30 @@
-"""Edited copies of the packed-matmul forward kernel, timed beside it.
+"""Stripped copies of the packed-matmul forward, timed beside it.
 
-The forward (``pm_fwd_kernel`` in ``csrc/packed_matmul.cu``) is built
-under one layout. This module builds copies of that source with one thing
-changed, loads each as a library of its own and launches it through the
-wrapper's own path (``packed_matmul._fwd_on_card``):
-
-- :data:`LAYOUTS`: the forward under other warp layouts and rings, made by
-  setting the .cu's ``kFwdWarpsN``, ``kFwdGenes`` and ``kFwdStages`` to
-  other values. Each computes the same function, so each is held against
-  the plain version; ``chip_smoke.py`` times them beside the shipped one.
-- :data:`STRIPPED`: the forward without one part of its work, made by
-  editing its body. Their outputs are meaningless; their times show what
-  bounds the kernel.
+The forward (``fwd_block`` in ``csrc/packed_matmul.cu``) is a template
+over its layout; ``csrc/packed_matmul_tiles.cu`` builds it for every
+candidate of the tile planner. The planner's sweep
+(``packed_matmul.time_fwd_layouts``, and ``chip_smoke.py``'s phases 4 and
+16) holds and times the layouts themselves. This module adds
+:data:`STRIPPED`: the forward without one part of its work, made by
+editing its body in a copy of the source and built as a copy of the tiles
+library (every layout stripped alike). Their outputs are meaningless;
+their times show what bounds the kernel.
 
 Run on a machine with an NVIDIA Hopper card, from the repository root:
 
     python -m g2vec_tpu_torch.ops.packed_matmul_probe
 
-At the example run's forward shape (G 5,850 x H 128) it times every
-layout at the fused ``[train | val]`` row count (40,399) and at one and
-two full waves of blocks, and every stripped copy of every layout at
-40,399 rows, in two rounds of opposite order. It prints the card's name
-and power limit first. The copies are built in parallel.
+At the example run's forward shape (the fused ``[train | val]`` 40,399
+rows, G 5,850 x H 128) it times every layout through the planner's sweep,
+and beside each the stripped copies of that layout. It prints the card's
+name and power limit first. The copies are built in parallel.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -38,14 +35,6 @@ import torch
 
 from g2vec_tpu_torch.native._build import build
 from g2vec_tpu_torch.ops import packed_matmul as pm
-
-#: The .cu constexprs a layout sets: warps along a block's 128 columns,
-#: genes a ring stage, ring stages.
-LAYOUT_KEYS = ("kFwdWarpsN", "kFwdGenes", "kFwdStages")
-#: The layouts timed side by side, the shipped one among them. Each keeps
-#: two 128-row blocks resident on an SM (at most 110.6 KB of ring each).
-LAYOUTS = [(2, 64, 4), (1, 64, 4), (1, 128, 2), (1, 128, 3), (2, 128, 2),
-           (2, 128, 3)]
 
 #: Copies of the forward without one part of its work: (pattern,
 #: replacement) edits of its body.
@@ -73,25 +62,11 @@ def source() -> str:
         return f.read()
 
 
-def layout_of(src: str) -> tuple:
-    """The layout ``src`` is written for."""
-    return tuple(int(re.search(rf"^constexpr int {k} = (\d+);", src, re.M)
-                     .group(1)) for k in LAYOUT_KEYS)
-
-
 def layout_name(layout: tuple) -> str:
-    warps_n, genes, stages = layout
-    return (f"{warps_n} warp{'s' if warps_n > 1 else ''} along the columns, "
+    warps_m, warps_n, genes, stages = layout
+    return (f"{32 * warps_m}-row blocks, {warps_n} "
+            f"warp{'s' if warps_n > 1 else ''} along the columns, "
             f"{stages} stages of {genes} genes")
-
-
-def with_layout(src: str, layout: tuple) -> str:
-    for key, value in zip(LAYOUT_KEYS, layout):
-        src, n = re.subn(rf"^constexpr int {key} = \d+;",
-                         f"constexpr int {key} = {value};", src, flags=re.M)
-        if n != 1:
-            raise RuntimeError(f"{key} is not one constexpr of the source")
-    return src
 
 
 def stripped(src: str, edits) -> str:
@@ -105,33 +80,51 @@ def stripped(src: str, edits) -> str:
     return src[:start] + body + src[end:]
 
 
-def ptxas_report(log: str) -> str:
-    """The forward's register and spill lines of a build's ptxas report."""
-    out, inside = [], False
+def layout_of_entry(line: str):
+    """The layout of the tiles library's forward instance that a ptxas
+    "Compiling entry function" line names, or None."""
+    m = re.search(r"pm_fwd_layout_kernelI\w*?FwdLayoutILi(\d+)ELi(\d+)"
+                  r"ELi(\d+)ELi(\d+)E", line)
+    return tuple(int(v) for v in m.groups()) if m else None
+
+
+def ptxas_report(log: str) -> dict:
+    """``{layout: its register and spill lines}`` of a tiles build's
+    ptxas report."""
+    out, layout = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            inside = "pm_fwd_kernel" in line
-        elif inside and ("registers" in line or "spill" in line):
-            out.append(line.split(" : ")[-1].strip())
-    return "; ".join(out)
+            layout = layout_of_entry(line)
+        elif layout and ("registers" in line or "spill" in line):
+            out.setdefault(layout, []).append(line.split(" : ")[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
-def build_all(sources: dict) -> dict:
-    """``{name: (library, ptxas report)}``, each source built in parallel."""
+def build_stripped(names) -> dict:
+    """``{name: (tiles library, ptxas report)}``: for each of ``names`` of
+    :data:`STRIPPED`, the tiles library built from a copy of the sources
+    whose forward body has that edit, all built in parallel."""
+    src = source()
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
-        for i, (name, text) in enumerate(sources.items()):
-            paths[name] = os.path.join(tmp, f"packed_matmul_copy{i}.cu")
-            with open(paths[name], "w") as f:
-                f.write(text)
+        for i, name in enumerate(names):
+            d = os.path.join(tmp, f"copy{i}")
+            os.makedirs(d)
+            with open(os.path.join(d, os.path.basename(pm.SRC)), "w") as f:
+                f.write(stripped(src, STRIPPED[name]))
+            paths[name] = shutil.copy(pm.TILES_SRC, d)
+        deps = {name: (os.path.join(os.path.dirname(p),
+                                    os.path.basename(pm.SRC)),)
+                for name, p in paths.items()}
         with ThreadPoolExecutor(min(len(paths), os.cpu_count() or 1)
                                 ) as pool:
             built = dict(zip(paths, pool.map(
-                lambda p: build(p, pm.nvcc_command()), paths.values())))
+                lambda n: build(paths[n], pm.nvcc_command(), deps=deps[n]),
+                paths)))
     libs = {}
     for name, (so, log) in built.items():
         lib = ctypes.CDLL(so)
-        pm._configure(lib)
+        pm._configure_tiles(lib)
         libs[name] = (lib, ptxas_report(log))
     return libs
 
@@ -140,22 +133,8 @@ def time_ms(fn, flush, n=N_TIMED):
     """(median, min, max) device time of ``fn`` over ``n`` launches, each
     timed with CUDA events after ``flush`` was written (the L2 starts
     cold) and behind a sleep kernel that keeps the card busy while the
-    host enqueues ``fn``."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2], times[0], times[-1]
+    host enqueues ``fn`` (``packed_matmul.median_ms``)."""
+    return pm.median_ms(fn, n, flush)
 
 
 def spread(t) -> str:
@@ -184,59 +163,33 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    src = source()
-    shipped = layout_of(src)
-    sources = {}
-    for layout in LAYOUTS:
-        text = with_layout(src, layout)
-        sources[layout] = text
-        for name, edits in STRIPPED.items():
-            sources[(layout, name)] = stripped(text, edits)
     t0 = time.perf_counter()
-    libs = build_all(sources)
-    print(f"built {len(libs)} copies in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        tiles = pool.submit(pm.build_tile_kernels)
+        copies = pool.submit(build_stripped, list(STRIPPED))
+        _, log = tiles.result()
+        libs = copies.result()
+    reports = ptxas_report(log)
+    print(f"built the tiles library and {len(libs)} stripped copies in "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    wave = pm.FWD_BLOCKS_PER_SM * n_sms * pm.FWD_BLOCK_ROWS
-    row_counts = (ROWS, wave, 2 * wave)
-    packed = random_packed(max(row_counts), GENES, 80, seed=0)
+    packed = random_packed(ROWS, GENES, 80, seed=0)
     w16 = (torch.randn((GENES, HIDDEN), device="cuda") * 0.09
            ).to(torch.bfloat16)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    want = pm.packed_matmul_fwd_plain(packed[:ROWS], w16)
-    tol = 1e-5 * want.abs() + 256 * 2.0 ** -24 * (
-        pm.unpack_bits(packed[:ROWS], GENES).float() @ w16.float().abs())
-    for layout in LAYOUTS:
-        lib, report = libs[layout]
-        resident = pm.fwd_occupancy(lib)
-        err = (pm._fwd_on_card(packed[:ROWS], w16, lib) - want).abs()
-        bad = int((err > tol).sum())
+    # Every layout bitwise the shipped one (time_fwd_layouts raises if not).
+    full = pm.time_fwd_layouts(packed, w16, pm.FWD_LAYOUTS, N_TIMED, flush)
+    for layout, t in full.items():
         print(f"{layout_name(layout)}"
-              f"{' (shipped)' if layout == shipped else ''}: ptxas {report}; "
-              f"{resident} resident blocks an SM; max_abs_err "
-              f"{float(err.max()):.3e}, violations {bad}")
-        if bad or resident != pm.FWD_BLOCKS_PER_SM:
-            raise RuntimeError(f"{layout_name(layout)} is not the forward "
-                               f"the plan counts on")
-    for rnd, order in enumerate((LAYOUTS, LAYOUTS[::-1])):
-        print(f"round {rnd + 1}:")
-        for layout in order:
-            lib = libs[layout][0]
-            cells = []
-            for m in row_counts:
-                grid = pm._fwd_grid(m, HIDDEN, n_sms)
-                t = time_ms(lambda: pm._fwd_on_card(packed[:m], w16, lib),
-                            flush)
-                cells.append(f"M={m} ({grid.waves:.2f} waves) {spread(t)}")
-            print(f"  {layout_name(layout)}: " + "; ".join(cells))
-            for name in STRIPPED:
-                lib = libs[(layout, name)][0]
-                t = time_ms(lambda: pm._fwd_on_card(packed[:ROWS], w16, lib),
-                            flush)
-                print(f"    {name}: M={ROWS} {spread(t)}")
+              f"{' (shipped)' if layout == pm.FWD_SHIPPED else ''}: ptxas "
+              f"{reports.get(layout, '?')}; M={ROWS} {spread(t)}")
+        for name in STRIPPED:
+            lib = libs[name][0]
+            t = time_ms(lambda: pm._fwd_on_card(packed, w16, lib, layout),
+                        flush)
+            print(f"    {name}: {spread(t)}")
     print(smi)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -19,9 +19,10 @@ scheduler, and stage 4's byproducts replace stage 3's path set.
 
 With ``cfg.overlap`` (the default) native work that releases the
 interpreter lock runs on the overlap scheduler's threads: the kernel
-library's nvcc build (joined before the first launch, where its error is
-raised), the C++ parse of the expression file (the foreground creates the
-CUDA context meanwhile), the streaming producer. The card's other first
+library's nvcc build and, with ``--kernel-autotune``, the tiles library's
+(each joined before its first launch, where its error is raised), the C++
+parse of the expression file (the foreground creates the CUDA context
+meanwhile), the streaming producer. The card's other first
 use (each op's first launch) is paid where it falls: a torch op holds the
 interpreter lock while it launches, so a warm-up on one thread only takes
 turns with the Python on another, and one in the foreground cost more
@@ -421,7 +422,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                                           biomarker_scores_sharded,
                                           find_lgroups, find_lgroups_sharded,
                                           freq_index, top_biomarkers)
-    from g2vec_tpu_torch.cache import (NATIVE_FAMILY, resolve_cache_tiers,
+    from g2vec_tpu_torch.cache import (NATIVE_FAMILY, autotune_cache_path,
+                                       cache_stats, resolve_cache_tiers,
                                        walk_cache_key)
     from g2vec_tpu_torch.io.writers import (write_biomarkers, write_lgroups,
                                             write_vectors,
@@ -432,7 +434,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     from g2vec_tpu_torch.ops.graph import thresholded_edges
     from g2vec_tpu_torch.ops.host_walker import (generate_path_set_native,
                                                  resolve_sampler_threads)
-    from g2vec_tpu_torch.ops.packed_matmul import build_kernels
+    from g2vec_tpu_torch.ops.packed_matmul import (build_kernels,
+                                                   build_tile_kernels)
     from g2vec_tpu_torch.ops.paths import count_gene_freq, integrate_path_sets
     from g2vec_tpu_torch.parallel.overlap import OverlapScheduler
     from g2vec_tpu_torch.train.stream import (EVAL_ROWS_CAP,
@@ -520,6 +523,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                                   for f in dataclasses.fields(cfg)})
         if cfg.overlap and on_card and cfg.compute_dtype == "bfloat16":
             overlap.submit("build_kernels", build_kernels)
+            if cfg.kernel_autotune and cfg.train_mode != "streaming":
+                # The sweep launches the tiles library's layouts.
+                overlap.submit("build_tile_kernels", build_tile_kernels)
         if cfg.overlap and on_card and walker_backend == "device":
             overlap.submit("build_walk_kernel", build_walk_kernel)
 
@@ -766,6 +772,8 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             fleet.note_phase("train")
             with timer.stage("train"), _nan_watch(cfg.debug_nans):
                 _join_kernel_build(overlap)
+                _join_kernel_build(overlap, "build_tile_kernels")
+                tuned_before = cache_stats()["autotune"]
                 result = train_cbow(
                     paths, labels, n_genes=n_genes,
                     hidden=cfg.sizeHiddenlayer,
@@ -778,7 +786,16 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     checkpoint_dir=cfg.checkpoint_dir, resume=cfg.resume,
                     checkpoint_every=cfg.checkpoint_every, check=check,
                     debug_nans=cfg.debug_nans, mesh_ctx=mesh_ctx,
-                    checkpoint_layout=cfg.checkpoint_layout)
+                    checkpoint_layout=cfg.checkpoint_layout,
+                    kernel_autotune=cfg.kernel_autotune,
+                    autotune_cache_path=autotune_cache_path(cfg.cache_dir))
+            if result.tile_plans is not None:
+                tuned = cache_stats()["autotune"]
+                timer.annotate("train", autotune={
+                    "plans": result.tile_plans,
+                    "events": {k: n - tuned_before.get(k, 0)
+                               for k, n in tuned.items()
+                               if n != tuned_before.get(k, 0)}})
             _stage_edge("train")
         if result.stopped_early:
             reporter.on_stop(result.stop_epoch, result.acc_val, result.acc_tr)

@@ -61,6 +61,7 @@ float32 the lane step is the solo step, per lane.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -95,6 +96,8 @@ class TrainResult:
     history: List[dict]         # per-epoch {epoch, acc_val, acc_tr, loss, secs}
     model: CBOW                 # the returned epoch's parameters, on the
                                 # training device (stage 5 reads them there)
+    tile_plans: Optional[dict] = None  # --kernel-autotune: the packed
+                                # kernels' plan per launch row count
 
 
 def _split_indices(n_paths: int, seed: int, val_fraction: float):
@@ -187,7 +190,9 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                checkpoint_every: int = 25,
                check: Optional[Callable[[], None]] = None,
                debug_nans: bool = False, mesh_ctx=None,
-               checkpoint_layout: str = "single") -> TrainResult:
+               checkpoint_layout: str = "single",
+               kernel_autotune: bool = False,
+               autotune_cache_path: Optional[str] = None) -> TrainResult:
     """Train the modified CBOW; returns the embedding table and history.
 
     ``paths``: [n_paths, ceil(n_genes/8)] uint8 bit-packed multi-hot rows
@@ -202,7 +207,12 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     run there. ``debug_nans`` (``--debug-nans``) raises at the first
     non-finite loss or gradient (:func:`check_finite`). ``mesh_ctx`` (a
     ``parallel.mesh.MeshContext``) is the run's mesh: one device, and
-    fused eval off.
+    fused eval off. ``kernel_autotune`` (``--kernel-autotune``) sweeps or
+    loads the packed kernels' tile plans at this run's exact launch shapes,
+    each in the directions it launches, before the first epoch, persisted
+    under ``autotune_cache_path``
+    (:func:`_autotune_packed_shapes`); a run on the CPU or at float32
+    launches no packed kernel and skips it.
     """
     dev = resolve_device(device)
     fused = mesh_ctx is None or mesh_ctx.mesh is None
@@ -235,6 +245,16 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     if compute_dtype == "float32":
         x_dense = unpack_bits(x_all, n_genes, torch.float32)
         x_tr, x_val = x_dense[:n_tr], x_dense[n_tr:]
+    tile_plans = None
+    if kernel_autotune and dev.type == "cuda" and compute_dtype == "bfloat16":
+        # The fused forward runs at [train | val] rows and the backward
+        # at the train rows; without fused eval the forward runs at each.
+        # Each shape is timed in the directions it launches.
+        n_all = x_all.shape[0]
+        tile_plans = _autotune_packed_shapes(
+            [(n_all if fused else n_tr, "fwd"), (n_tr, "bwd")]
+            + ([] if fused else [(n_all - n_tr, "fwd")]), n_genes, hidden,
+            dev, autotune_cache_path)
 
     if init is None:
         init = init_params(n_genes, hidden,
@@ -309,7 +329,7 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
                     stop_epoch=last_epoch,
                     stopped_early=(done == RUN_EARLY_STOPPED),
                     acc_val=before_val, acc_tr=before_tr, history=[],
-                    model=best)
+                    model=best, tile_plans=tile_plans)
             start_epoch = last_epoch + 1
 
     def save(epoch: int, done: int = RUN_IN_PROGRESS) -> None:
@@ -373,7 +393,50 @@ def train_cbow(paths: np.ndarray, labels: np.ndarray, *, n_genes: int,
     return TrainResult(
         w_ih=best.w_ih.detach().float().cpu().numpy(), stop_epoch=stop_epoch,
         stopped_early=stopped_early, acc_val=before_val, acc_tr=before_tr,
-        history=history, model=best)
+        history=history, model=best, tile_plans=tile_plans)
+
+
+def _autotune_packed_shapes(launches, n_genes: int, hidden: int, device,
+                            cache_path: Optional[str]) -> dict:
+    """Measure (or load) the packed kernels' plans at (n_genes, hidden) on
+    the card for each ``(row count, direction)`` of ``launches``, each row
+    count in the directions it launches; returns ``{str(m): {"fwd":
+    layout, "bwd": S, "source": ...}}`` with those directions. Ranks of
+    one run share the card: rank 0 alone sweeps or loads and writes the
+    file, and hands its plans to the others (source ``"broadcast"``), so
+    that no two ranks time kernels against each other and all launch the
+    same plan (a replicated run whose ranks split the backward
+    differently would drift apart)."""
+    from g2vec_tpu_torch.ops import packed_matmul as pm
+    from g2vec_tpu_torch.parallel import distributed
+
+    shapes = {}
+    for m, direction in launches:
+        if m > 0:
+            shapes.setdefault(int(m), set()).add(direction)
+    multi = distributed.initialized() and distributed.process_count() > 1
+    plans = None
+    if not multi or distributed.process_index() == 0:
+        plans = {}
+        for m in sorted(shapes):
+            ent = pm._autotune(m, n_genes, hidden, shapes[m], device=device,
+                               cache_path=cache_path)
+            plans[str(m)] = {**{d: ent[d] for d in pm.DIRECTIONS
+                                if d in shapes[m]}, "source": ent["source"]}
+    if not multi:
+        return plans
+    from g2vec_tpu_torch.parallel import hostcomm
+
+    payload = hostcomm.broadcast_bytes(
+        "autotune_plans",
+        None if plans is None else json.dumps(plans).encode())
+    if plans is None:
+        tag = pm._autotune_backend_tag(device)
+        plans = json.loads(payload)
+        for m, plan in plans.items():
+            pm._install_tuned(int(m), n_genes, hidden, plan, tag)
+            plan["source"] = "broadcast"
+    return plans
 
 
 def check_finite(value: torch.Tensor, what: str) -> None:

@@ -320,6 +320,108 @@ def test_trainer_on_the_card_tracks_the_cpu(cuda):
     np.testing.assert_allclose(a.w_ih, b.w_ih, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("layout", pm.FWD_LAYOUTS)
+def test_every_planner_layout_is_bitwise_the_shipped_forward(cuda, layout):
+    """Each forward candidate of the tile planner (the tiles library's
+    instance) gives the shipped kernel's bits at the ragged edges (M of 1,
+    15, 17 and 129 rows; G 999 and 1,003; H 1, 10 and 130), and the plain
+    version's result within the tolerance; it keeps the blocks resident
+    that its waves are counted in."""
+    assert pm.fwd_occupancy(layout=layout) == \
+        pm.fwd_layout_info(layout).blocks_per_sm
+    for m in (1, 15, 17, 129):
+        for g in (999, 1003):
+            for h in (1, 10, 130):
+                x, packed, w, _ = _inputs(m, g, h, 0.04, seed=m + g + h)
+                w16 = pm._pad_cols(w.bfloat16(), 8)
+                shipped = pm._fwd_on_card(packed, w16)
+                got = pm._fwd_on_card(packed, w16, layout=layout)
+                assert torch.equal(got.view(torch.int32),
+                                   shipped.view(torch.int32)), (m, g, h)
+                _assert_close(got[:, :h], pm.packed_matmul_fwd_plain(packed, w),
+                              x @ w.bfloat16().float().abs())
+
+
+@pytest.mark.parametrize("m,g,h", [(3000, 1003, 130), (129, 999, 10),
+                                   (5000, 5850, 128)])
+def test_every_planner_slice_count_is_within_tolerance(cuda, m, g, h):
+    x, packed, _, g_out = _inputs(m, g, h, 0.04, seed=m)
+    g16 = pm._pad_cols(g_out.bfloat16(), 8)
+    want = pm.packed_matmul_bwd_plain(packed, g_out, g)
+    abs_sum = x.T @ g_out.bfloat16().float().abs()
+    for s in pm.tile_candidates(m, g, h)["bwd"]:
+        _assert_close(pm.run_bwd_slices(packed, g16, g, s)[:, :h], want,
+                      abs_sum)
+
+
+def test_tuned_trainer_reloads_its_plan_and_repeats_its_bits(cuda, tmp_path):
+    """train_cbow(kernel_autotune=True) on the card sweeps at its shapes
+    and writes the plan; a second run (a fresh table) loads it without a
+    sweep and gives the first run's bits. Each tuned run is held against
+    the untuned one: the forward's layouts are all bitwise the shipped
+    one, so where the plan keeps the heuristic's backward S the bits are
+    the untuned run's, else W_ih is within 1e-4 of it (the bound
+    test_trainer_on_the_card_tracks_the_cpu holds the card to). A plan
+    installed by hand holds the same: a layout that is not the shipped
+    one at the forward's rows gives the untuned bits, and an S off the
+    heuristic's stays within 1e-4."""
+    from g2vec_tpu_torch import cache as tcache
+    from g2vec_tpu_torch.train.trainer import train_cbow
+
+    rng = np.random.default_rng(5)
+    dense = rng.random((3000, 500)) < 0.05
+    labels = (dense[:, :40].sum(1) > dense[:, 40:80].sum(1)).astype(np.int32)
+    path = tcache.autotune_cache_path(str(tmp_path))
+    common = dict(n_genes=500, hidden=128, learning_rate=0.002,
+                  max_epochs=6, seed=3, device="cuda")
+    n_all, n_tr = 3000, 2400
+    heur = pm._bwd_slices(n_tr, 500, 128,
+                          pm._sm_count(torch.cuda.current_device())).n_slices
+
+    def held(run, s):
+        if s == heur:
+            assert run.w_ih.tobytes() == base.w_ih.tobytes()
+        else:
+            np.testing.assert_allclose(run.w_ih, base.w_ih, rtol=0, atol=1e-4)
+        assert run.stop_epoch == base.stop_epoch
+
+    pm.reset_tuned()
+    base = train_cbow(np.packbits(dense, axis=1), labels, **common)
+    runs, events = [], []
+    for _ in range(2):
+        pm.reset_tuned()
+        before = dict(tcache.cache_stats()["autotune"])
+        runs.append(train_cbow(np.packbits(dense, axis=1), labels,
+                               kernel_autotune=True, autotune_cache_path=path,
+                               **common))
+        after = tcache.cache_stats()["autotune"]
+        events.append({k: after[k] - before.get(k, 0) for k in after
+                       if after[k] != before.get(k, 0)})
+        tiles = pm.describe_tiles(n_tr, 500, 128)
+        assert tiles["bwd"]["source"] == "autotuned"
+        assert tiles["fwd"]["source"] == "heuristic"
+        assert pm.describe_tiles(n_all, 500, 128)["fwd"]["source"] == \
+            "autotuned"
+    assert events[0]["sweep"] == 2 and "hit" not in events[0]
+    assert events[1] == {"hit": 2}
+    assert runs[1].w_ih.tobytes() == runs[0].w_ih.tobytes()
+    held(runs[0], runs[0].tile_plans[str(n_tr)]["bwd"])
+
+    tag = pm._autotune_backend_tag("cuda")
+    cands = pm.tile_candidates(n_tr, 500, 128)["bwd"]
+    other = cands[-1] if cands[-1] != heur else cands[0]
+    for s in (heur, other):
+        pm.reset_tuned()
+        pm._install_tuned(n_all, 500, 128, {"fwd": (2, 2, 64, 4)}, tag)
+        pm._install_tuned(n_tr, 500, 128, {"bwd": s}, tag)
+        pm.reset_launch_counts()
+        run = train_cbow(np.packbits(dense, axis=1), labels, **common)
+        assert pm.packed_matmul_fwd.layout_launches == {
+            (2, 2, 64, 4): pm.packed_matmul_fwd.launches}
+        held(run, s)
+    pm.reset_tuned()
+
+
 def _stream_groups(n_genes=300, n_edges=1500, seed=6):
     rng = np.random.default_rng(seed)
     groups = []

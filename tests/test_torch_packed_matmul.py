@@ -200,12 +200,18 @@ def test_backward_plan_constants_match_the_kernel_source():
 
 
 def test_forward_plan_constants_match_the_kernel_source():
-    """_fwd_grid counts blocks and waves from the kernel's block tile and
-    residency, and the forward is one instance: no template to dispatch."""
-    src, env = _kernel_constants()
-    assert (env["kFwdRows"], env["kFwdCols"], env["kFwdBlocksPerSM"]) == (
+    """_fwd_grid counts blocks and waves from the shipped layout's block
+    tile and residency (FwdLayout's constexprs for FwdShipped), and the
+    solo forward is one instance: no template to dispatch."""
+    src, _ = _kernel_constants()
+    shipped = tuple(int(v) for v in re.search(
+        r"using FwdShipped = FwdLayout<(\d+), (\d+), (\d+), (\d+)>;",
+        src).groups())
+    assert shipped == tpm.FWD_SHIPPED
+    env = _layout_constants(src, shipped)
+    assert (env["kRows"], env["kCols"], env["kBlocksPerSM"]) == (
         tpm.FWD_BLOCK_ROWS, tpm.FWD_BLOCK_COLS, tpm.FWD_BLOCKS_PER_SM)
-    assert env["kFwdWords"] * 4 % tpm.P_ROW_ALIGN == 0
+    assert env["kWords"] * 4 % tpm.P_ROW_ALIGN == 0
     assert not re.search(r"pm_fwd_kernel<(?!<<)", src)
 
 
@@ -231,34 +237,41 @@ def test_forward_tile_plan_at_the_example_shape():
     assert tpm._fwd_grid(33792, 128, 132) == (264, 1.0)
 
 
-def _layout_constants(src):
-    env = {}
-    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
-                                 re.M):
+def _layout_constants(src, layout):
+    """FwdLayout's ``static constexpr int`` members for ``layout``,
+    evaluated from the .cu's text."""
+    _, env = _kernel_constants()
+    env = {**env, "cmin": min,
+           **dict(zip(("WarpsM", "WarpsN", "Genes", "Stages"), layout))}
+    body = src[src.index("struct FwdLayout {"):]
+    body = body[:body.index("\n};")]
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);",
+                                 body):
         env[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, env)
     return env
 
 
-@pytest.mark.parametrize("layout", probe.LAYOUTS)
+@pytest.mark.parametrize("layout", tpm.FWD_LAYOUTS)
 def test_probe_layouts_edit_only_their_constants(layout):
-    """Each layout the forward is timed beside is the source with its
-    three constexprs changed, tiles whole copies over the block's threads
-    and fits two blocks' rings in an SM's 228 KB of shared memory."""
-    src = probe.source()
-    assert probe.layout_of(src) in probe.LAYOUTS
-    edited = probe.with_layout(src, layout)
-    assert probe.layout_of(edited) == layout
-    changed = [(a, b) for a, b in zip(src.splitlines(), edited.splitlines())
-               if a != b]
-    assert len(src.splitlines()) == len(edited.splitlines())
-    assert all(a.startswith("constexpr int kFwd") for a, _ in changed)
-    env = _layout_constants(edited)
-    assert env["kFwdWChunks"] * 8 * env["kFwdThreads"] == (
-        env["kFwdGenes"] * env["kFwdCols"])
-    assert env["kFwdPWords"] * env["kFwdThreads"] == (
-        env["kFwdRows"] * env["kFwdWords"]) and env["kFwdPWords"] > 0
-    assert env["kFwdNTiles"] % 2 == 0 and env["kFwdGenes"] % 32 == 0
-    assert env["kFwdBlocksPerSM"] * (env["kFwdSmem"] + 1024) <= 228 * 1024
+    """Each layout the forward is timed beside is an instance of the tiles
+    source, whose FwdLayout constants tile whole copies over the block's
+    threads and fit its blocks' rings in an SM's 228 KB of shared memory,
+    as the planner's fwd_layout_info counts them."""
+    with open(tpm.TILES_SRC) as f:
+        tiles = f.read()
+    listed = [tuple(int(v) for v in t) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+), (\d+)\)", tiles)]
+    assert layout in listed and listed[0] == tpm.FWD_SHIPPED
+    env = _layout_constants(probe.source(), layout)
+    assert env["kWChunks"] * 8 * env["kThreads"] == (
+        env["kGenes"] * env["kCols"])
+    assert env["kPWords"] * env["kThreads"] == (
+        env["kRows"] * env["kWords"]) and env["kPWords"] > 0
+    assert env["kNTiles"] % 2 == 0 and env["kGenes"] % 32 == 0
+    assert env["kBlocksPerSM"] * (env["kSmem"] + 1024) <= 228 * 1024
+    assert tpm.fwd_layout_info(layout) == (
+        env["kRows"], env["kCols"], env["kThreads"], env["kSmem"],
+        env["kBlocksPerSM"])
 
 
 @pytest.mark.parametrize("name", sorted(probe.STRIPPED))
