@@ -197,7 +197,12 @@ launch rank 0's plan, only rank 0 sweeping and writing. Each of these
 runs is held against phase 3's untuned run: its files byte for byte where
 its backward S is the heuristic's (every forward layout is bitwise the
 shipped one), else ``W_ih`` within 1e-4.
-Phases 12, 13, 14, 15 and 16 each fail past 150 s.
+Phases 12, 13, 14, 15 and 16 each fail past 150 s. Phase 17 runs the
+port's static-analysis suite, ``python -m g2vec_tpu_torch analyze
+--json``, in a fresh interpreter from this checkout: exit code 0, the six
+checkers, no finding and no stale baseline entry, and no torch or triton
+among the modules the interpreter imported (``-X importtime``); it fails
+past 30 s.
 
 Any failure raises and the script exits nonzero without printing a
 result. The last three lines of standard output are: one JSON object with
@@ -4355,6 +4360,49 @@ def _planner_phase(torch, pm, files, tmp, result, main_outputs,
             "cli_plans": first["tuned"]}
 
 
+ANALYZE_CHECKERS = ["lock-discipline", "torch-purity", "fault-seams",
+                    "metrics-schema", "config-doc-drift", "epoch-stamp"]
+
+
+def _analyze_phase() -> None:
+    """Phase 17: ``python -m g2vec_tpu_torch analyze --json`` in a fresh
+    interpreter from the checkout this script runs in. It must exit 0
+    with the six checkers run, no finding and no stale baseline entry,
+    import neither torch nor triton, and finish within 30 s."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "g2vec_tpu_torch",
+         "analyze", "--json"], capture_output=True, text=True, timeout=60,
+        cwd=root, env=env)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"analyze exited {proc.returncode}: "
+                           f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    heavy = sorted(m for m in imported
+                   if m.split(".")[0] in ("torch", "triton"))
+    print(f"    rc 0 in {secs:.2f} s (the suite's own {report['elapsed_s']} "
+          f"s); checkers {report['checkers']}; counts "
+          f"{json.dumps(report['counts'])}; {len(imported)} modules "
+          f"imported, torch/triton among them: {heavy}")
+    if report["checkers"] != ANALYZE_CHECKERS or not report["clean"] \
+            or report["counts"]["active"] or \
+            report["counts"]["stale_baseline"]:
+        raise RuntimeError(f"analyze did not come back clean with the six "
+                           f"checkers: {json.dumps(report)[:2000]}")
+    if heavy or not imported:
+        raise RuntimeError(f"analyze imported {heavy} (of {len(imported)} "
+                           f"modules)")
+    if secs > 30:
+        raise RuntimeError(f"phase 17 took {secs:.1f} s (bound 30 s)")
+
+
 def main() -> int:
     import torch
 
@@ -4766,6 +4814,10 @@ def main() -> int:
               "a --cache-dir; --mesh 2x1 on two ranks sharing the card")
         planner = _planner_phase(torch, pm, files, tmp, result, main_outputs,
                                  cli_train_s)
+
+        print("[17] the static-analysis suite: python -m g2vec_tpu_torch "
+              "analyze --json in a fresh interpreter from this checkout")
+        _analyze_phase()
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -8,7 +8,9 @@ children run the pipeline.
 ``--manifest``/``--seeds`` run the batch engine instead of the solo
 pipeline, and ``--scenario`` a scenario on it (stats/run.py). ``python -m g2vec_tpu_torch serve ...`` runs the serve daemon,
 the router over its replicas (``--replicas N``) or one of the client ops
-(serve/cli.py). ``--distributed`` joins a multi-process run
+(serve/cli.py). ``python -m g2vec_tpu_torch analyze`` runs the port's
+static-analysis suite (analyze/cli.py), which imports no torch.
+``--distributed`` joins a multi-process run
 (parallel/distributed.py) before the pipeline; a rank whose run fails
 exits 1 at once with its traceback.
 """
@@ -26,6 +28,13 @@ def main(argv=None) -> int:
         from g2vec_tpu_torch.serve.cli import serve_main
 
         return serve_main(argv[1:])
+    if argv and argv[0] == "analyze":
+        # The static-analysis suite (analyze/cli.py): pure AST, so it is
+        # dispatched before any config parse and imports no torch. Exit
+        # codes: 0 clean, 1 findings, 2 usage.
+        from g2vec_tpu_torch.analyze.cli import analyze_main
+
+        return analyze_main(argv[1:])
     from g2vec_tpu_torch.config import config_from_args
 
     cfg = config_from_args(argv)

@@ -121,24 +121,26 @@ idem_job_id = protocol.idem_job_id
 _JOB_ID_RE = re.compile(r"[A-Za-z0-9][A-Za-z0-9._-]{0,79}")
 
 
-def _update_fields(payload: dict, idem_key: Optional[str], variants_spec,
+def _update_fields(ureq: dict, idem_key: Optional[str], variants_spec,
                    seeds) -> Tuple[str, Optional[str], int]:
-    """An ``update`` payload's target, variant and epoch bound, with the
-    JAX daemon's checks and messages."""
+    """An ``update`` envelope's target, variant and epoch bound, with the
+    JAX daemon's checks and messages. ``ureq`` is the envelope's
+    conventional name: the config-doc-drift checker holds its keys to
+    ``protocol.UPDATE_KEYS``."""
     if not idem_key:
         raise ValueError(
             "update requires 'idem_key' — the op is "
             "idempotency-keyed by contract (resubmits after a "
             "lost ack must dedup, and failover re-derives the "
             "same id on any replica)")
-    target = payload.get("job_id")
+    target = ureq.get("job_id")
     if not isinstance(target, str) or not target:
         raise ValueError("update needs a 'job_id' string naming "
                          "the target bundle")
-    uvariant = payload.get("variant")
+    uvariant = ureq.get("variant")
     if uvariant is not None and not isinstance(uvariant, str):
         raise ValueError(f"'variant' must be a string, got {uvariant!r}")
-    epochs = payload.get("epochs", 0)
+    epochs = ureq.get("epochs", 0)
     if not isinstance(epochs, int) or isinstance(epochs, bool) \
             or epochs < 0:
         raise ValueError(f"'epochs' must be a non-negative int, "

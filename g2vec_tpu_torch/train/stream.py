@@ -225,11 +225,11 @@ class ShardRing:
         self._finished = False                  # guarded-by: _cv
         self._cancelled = False                 # guarded-by: _cv
         # Accounting (read after the run; the lock covers writes).
-        self.occupancy_hw = 0        # max shards resident
-        self.peak_bytes = 0          # max bytes resident
-        self.shards_put = 0
-        self.wait_put_s = 0.0        # blocked on a full ring
-        self.wait_get_s = 0.0        # blocked on an empty one
+        self.occupancy_hw = 0        # guarded-by: _cv — max shards resident
+        self.peak_bytes = 0          # guarded-by: _cv — max bytes resident
+        self.shards_put = 0          # guarded-by: _cv
+        self.wait_put_s = 0.0        # guarded-by: _cv — blocked on full ring
+        self.wait_get_s = 0.0        # guarded-by: _cv — blocked on empty one
 
     def put(self, shard: Shard) -> bool:
         """Enqueue; blocks while full. False: the ring was cancelled

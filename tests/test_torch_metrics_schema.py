@@ -1,14 +1,16 @@
-"""The port's metrics events against the JAX package's declared schema.
+"""The port's metrics events against the port's declared schema.
 
-``g2vec_tpu/utils/metrics_schema.py`` pins, per event kind, the fields an
-emission must carry and the ones it may carry; the JAX package's
-``metrics-schema`` checker lints only ``g2vec_tpu/`` and ``tools/``. This
-test applies the same rules to every literal ``.emit("<kind>", ...)`` in
-``g2vec_tpu_torch/`` (the router and the chaos soak included): the schema
-is read with ``ast.literal_eval``, as the checker reads it, and a splat
-(``**fields``) waives the missing-field check but not the unknown-field
-one. A site whose kind is not a string literal is a relay shim and is
-checked where the event is first emitted.
+``g2vec_tpu_torch/utils/metrics_schema.py`` (the port's copy of the JAX
+package's table, held equal to it by ``tests/test_torch_analyze.py``)
+pins, per event kind, the fields an emission must carry and the ones it
+may carry; the port's ``metrics-schema`` checker lints every literal emit
+site with it. This test applies the same rules to every literal
+``.emit("<kind>", ...)`` in ``g2vec_tpu_torch/`` (the router and the
+chaos soak included) on its own: the schema is read with
+``ast.literal_eval``, as the checker reads it, and a splat (``**fields``)
+waives the missing-field check but not the unknown-field one. A site
+whose kind is not a string literal is a relay shim and is checked where
+the event is first emitted.
 """
 import ast
 import os
@@ -18,7 +20,8 @@ import pytest
 pytestmark = pytest.mark.torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCHEMA_FILE = os.path.join(ROOT, "g2vec_tpu", "utils", "metrics_schema.py")
+SCHEMA_FILE = os.path.join(ROOT, "g2vec_tpu_torch", "utils",
+                           "metrics_schema.py")
 
 
 def _schemas():
@@ -85,7 +88,7 @@ def test_every_port_emit_matches_the_schema():
 
 
 def test_the_lint_finds_what_the_jax_checker_finds():
-    """The rules above are the checker's: on the same call sites both
+    """The rules above are the checkers': on the same call sites both
     report an unknown kind, an undeclared field and a missing required
     field, and a splat waives only the last."""
     schemas = _schemas()
@@ -110,7 +113,7 @@ def test_the_lint_finds_what_the_jax_checker_finds():
                                   "fleet_launch", "fleet_peer_death",
                                   "fleet_replan", "fleet_done", "gave_up"])
 def test_the_fleet_emits_each_event_within_the_schema(kind):
-    """The fleet's events (``g2vec_tpu/utils/metrics_schema.py``:
+    """The fleet's events (``utils/metrics_schema.py``:
     ``heartbeat``, ``straggler_warning``, ``fleet_*``) are emitted by the
     port's fleet module, each site within its declared fields."""
     schemas = _schemas()
