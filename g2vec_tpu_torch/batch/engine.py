@@ -274,6 +274,8 @@ class BatchResult:
                                       # lane_shared
     buckets: List[Dict]               # per bucket: n_paths, lanes, mode
     stage_seconds: Dict[str, float]
+    # Per stage: the spans of its parts (StageTimer.extras_dict).
+    stage_extras: Dict[str, Dict] = dataclasses.field(default_factory=dict)
 
 
 def run_batch(cfg: G2VecConfig,
@@ -826,7 +828,8 @@ def _execute_lanes(engine: ResidentEngine, cfg: G2VecConfig,
         return BatchResult(
             lanes=results_out, variants=variants, wall_seconds=wall,
             runs_per_hour=rph, walk_stats=walk_stats,
-            buckets=bucket_report, stage_seconds=timer.as_dict())
+            buckets=bucket_report, stage_seconds=timer.as_dict(),
+            stage_extras=timer.extras_dict())
     finally:
         # The engine outlives this batch: wait out and forget only its
         # tasks, so a failed batch leaves a quiet scheduler behind.
@@ -847,29 +850,32 @@ def _make_walk_task(cfg, s, d, w, n_genes, *, seed, backend, tier, ckey,
                     group, device, n_threads, join):
     """One distinct walk product as a task: the tier (memo, then the
     verified disk cache), else a walk on ``backend`` stored back into the
-    tier. ``join()`` waits for the walker kernel's background build."""
+    tier, in the span ``walk_<group>`` as the solo run's. ``join()`` waits
+    for the walker kernel's background build."""
+    from g2vec_tpu_torch.utils.timing import span
 
     def task():
         cached = tier.load(ckey)
         if cached is not None:
             return cached
-        if backend == "native":
-            from g2vec_tpu_torch.ops.host_walker import (
-                generate_path_set_native)
+        with span(f"walk_{group}"):
+            if backend == "native":
+                from g2vec_tpu_torch.ops.host_walker import (
+                    generate_path_set_native)
 
-            ps = generate_path_set_native(
-                s, d, w, n_genes, len_path=cfg.lenPath,
-                reps=cfg.numRepetition, seed=seed, n_threads=n_threads)
-        else:
-            # The card's walker: the C++ sampler's rows, byte for byte,
-            # so one cache key serves both.
-            from g2vec_tpu_torch.ops.device_walker import (
-                generate_path_set_device)
+                ps = generate_path_set_native(
+                    s, d, w, n_genes, len_path=cfg.lenPath,
+                    reps=cfg.numRepetition, seed=seed, n_threads=n_threads)
+            else:
+                # The card's walker: the C++ sampler's rows, byte for
+                # byte, so one cache key serves both.
+                from g2vec_tpu_torch.ops.device_walker import (
+                    generate_path_set_device)
 
-            join()
-            ps = generate_path_set_device(
-                s, d, w, n_genes, len_path=cfg.lenPath,
-                reps=cfg.numRepetition, seed=seed, device=device)
+                join()
+                ps = generate_path_set_device(
+                    s, d, w, n_genes, len_path=cfg.lenPath,
+                    reps=cfg.numRepetition, seed=seed, device=device)
         tier.store(ckey, ps, n_genes, meta={"group": group})
         return ps
 

@@ -68,6 +68,7 @@ from g2vec_tpu_torch.native._build import build, load
 from g2vec_tpu_torch.native.walker_bindings import check_walk_states
 from g2vec_tpu_torch.ops.host_walker import ShardPlan, edges_to_csr
 from g2vec_tpu_torch.resilience.faults import fault_point
+from g2vec_tpu_torch.utils.timing import span
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "csrc", "device_walker.cu")
@@ -686,7 +687,9 @@ def walk_packed_rows_device(src, dst, w, n_genes: int, *, len_path: int,
                             device="cuda") -> np.ndarray:
     """Walks of the global walker range ``[walker_lo, walker_hi)`` of the
     flat (rep x start) axis on ``device`` -> packed rows, byte-identical
-    to the C++ sampler's for the same walkers."""
+    to the C++ sampler's for the same walkers. The spans ``walk_kernel``
+    (launch to the kernel's end) and ``rows_copy`` (the rows' copy to
+    the host) split the call."""
     if len_path < 1:
         raise ValueError(f"len_path must be >= 1, got {len_path}")
     starts = (np.arange(n_genes, dtype=np.int32) if starts is None
@@ -697,10 +700,15 @@ def walk_packed_rows_device(src, dst, w, n_genes: int, *, len_path: int,
         raise ValueError(
             f"walker range [{walker_lo}, {walker_hi}) outside [0, {total}]")
     csr = _group_csr(src, dst, w, n_genes, csr, device)
-    packed = _walk(csr, np.tile(starts, reps)[walker_lo:walker_hi],
-                   np.arange(walker_lo, walker_hi, dtype=np.uint64),
-                   len_path, seed)
-    return packed.cpu().numpy()
+    with span("walk_kernel"):
+        packed = _walk(csr, np.tile(starts, reps)[walker_lo:walker_hi],
+                       np.arange(walker_lo, walker_hi, dtype=np.uint64),
+                       len_path, seed)
+        if packed.is_cuda:
+            # The copy below waits for the kernel anyway.
+            torch.cuda.synchronize(packed.device)
+    with span("rows_copy"):
+        return packed.cpu().numpy()
 
 
 def generate_path_set_device(src, dst, w, n_genes: int, *, len_path: int,
@@ -709,11 +717,12 @@ def generate_path_set_device(src, dst, w, n_genes: int, *, len_path: int,
                              device="cuda") -> Set[bytes]:
     """All-sources x reps walks on ``device`` -> the set of packed rows:
     :func:`~g2vec_tpu_torch.ops.host_walker.generate_path_set_native`'s
-    set, byte for byte."""
+    set, byte for byte; the set is the span ``row_set``."""
     packed = walk_packed_rows_device(src, dst, w, n_genes, len_path=len_path,
                                      reps=reps, seed=seed, starts=starts,
                                      csr=csr, device=device)
-    return {row.tobytes() for row in packed}
+    with span("row_set"):
+        return {row.tobytes() for row in packed}
 
 
 def advance_walk_states_device(states, csr, n_genes: int, avail: np.ndarray,

@@ -15,6 +15,8 @@ from typing import Optional, Set
 
 import numpy as np
 
+from g2vec_tpu_torch.utils.timing import span
+
 
 def resolve_sampler_threads(n_threads: int = 0) -> int:
     """``--sampler-threads`` -> a concrete count (0 = every core)."""
@@ -74,10 +76,12 @@ def generate_path_set_native(src: np.ndarray, dst: np.ndarray, w: np.ndarray,
                              n_genes: int, *, len_path: int, reps: int,
                              seed: int, n_threads: int = 0) -> Set[bytes]:
     """All-sources x reps walks -> the set of packed multi-hot rows
-    (generate_pathSet, ref: G2Vec.py:324-352, set-deduplicated)."""
+    (generate_pathSet, ref: G2Vec.py:324-352, set-deduplicated); the set
+    is the span ``row_set``."""
     packed = walk_packed_rows(src, dst, w, n_genes, len_path=len_path,
                               reps=reps, seed=seed, n_threads=n_threads)
-    return {row.tobytes() for row in packed}
+    with span("row_set"):
+        return {row.tobytes() for row in packed}
 
 
 @dataclass(frozen=True)

@@ -8,7 +8,9 @@ own thread goes on (with the card's first use, for one). The scheduler:
 
 - :meth:`OverlapScheduler.submit` registers a named task with optional
   dependencies (names of earlier tasks); it runs on the scheduler's own
-  executor as soon as its dependencies resolve.
+  executor as soon as its dependencies resolve, in a copy of the
+  submitter's context (so its spans land in the submitting stage,
+  ``utils/timing.py``).
 - :meth:`OverlapScheduler.result` joins a task, re-raising its exception.
 - :meth:`OverlapScheduler.prune` joins and forgets the tasks of one name
   prefix (a batch of the engine's long-lived scheduler).
@@ -24,6 +26,7 @@ pipeline reports these as ``overlap_saved_s``.
 """
 from __future__ import annotations
 
+import contextvars
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -87,7 +90,7 @@ class OverlapScheduler:
             task = _Task(name, fn, deps)
             self._tasks[name] = task
             self._order.append(task)
-        self._ex.submit(self._run, task)
+        self._ex.submit(contextvars.copy_context().run, self._run, task)
 
     def _run(self, task: _Task) -> None:
         try:

@@ -108,6 +108,7 @@ from g2vec_tpu_torch.preprocess import (edges_to_indices, find_common_genes,
                                         restrict_network, select_cohort)
 from g2vec_tpu_torch.resilience import fleet
 from g2vec_tpu_torch.resilience.faults import fault_point, install_plan
+from g2vec_tpu_torch.utils.timing import StageTimer, span
 
 
 @dataclasses.dataclass
@@ -211,19 +212,23 @@ def read_inputs(cfg: G2VecConfig, overlap=None,
     expression file runs on a scheduler thread while this thread runs
     ``while_parsing()`` and reads the other two files. ``genes_only``
     (``--edge-partition``) reads only the network's endpoint names, as a
-    set: the edges are read at stage 2, range-filtered."""
+    set: the edges are read at stage 2, range-filtered. Each read is a
+    span of the active stage."""
     def expression():
-        return load_expression(cfg.expression_file,
-                               use_native=cfg.use_native_io)
+        with span("read_expression"):
+            return load_expression(cfg.expression_file,
+                                   use_native=cfg.use_native_io)
 
     background = overlap is not None and cfg.use_native_io
     if background:
         overlap.submit("read_expression", expression)
     if while_parsing is not None:
         while_parsing()
-    clinical = load_clinical(cfg.clinical_file)
-    network = (scan_network_genes(cfg.network_file) if genes_only
-               else load_network(cfg.network_file))
+    with span("read_clinical"):
+        clinical = load_clinical(cfg.clinical_file)
+    with span("read_network"):
+        network = (scan_network_genes(cfg.network_file) if genes_only
+                   else load_network(cfg.network_file))
     data = overlap.result("read_expression") if background else expression()
     return data, clinical, network
 
@@ -349,12 +354,6 @@ def _start_profile(on_card: bool):
     return prof
 
 
-def _stage_range(name: str):
-    """One profiler range per stage (``stage:<name>``), so a trace reader
-    can cut device time by stage."""
-    return torch.profiler.record_function(f"stage:{name}")
-
-
 def _stop_profile(prof, profile_dir: str) -> None:
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
@@ -442,7 +441,6 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                                               train_cbow_streaming)
     from g2vec_tpu_torch.train.trainer import train_cbow
     from g2vec_tpu_torch.utils.metrics import MetricsWriter
-    from g2vec_tpu_torch.utils.timing import StageTimer
     from g2vec_tpu_torch.weights import params_from_jax
 
     cfg.validate()
@@ -494,8 +492,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
     walk_cache_hits: List[str] = []
     profiler = _start_profile(on_card) if cfg.profile_dir else None
     timer = StageTimer(sync=(lambda: torch.cuda.synchronize(dev))
-                       if on_card else None,
-                       mark=_stage_range if profiler is not None else None)
+                       if on_card else None)
     if cfg.distributed:
         for ev in distributed.drain_pending_events():
             metrics.emit(ev.pop("event"), **ev)
@@ -530,7 +527,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
             overlap.submit("build_walk_kernel", build_walk_kernel)
 
         def cuda_context():
-            with timer.span("load", "cuda_context"):
+            with span("cuda_context"):
                 torch.empty(1, device=dev)
 
         console(">>> 1. Load data")
@@ -675,17 +672,13 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                              paths_per_s=(n_paths / wall if wall > 0 else 0.0),
                              h2d_bytes_saved=sres.stats.h2d_bytes_saved,
                              feed_mode=sres.stats.feed_mode)
-            timer.annotate("paths", sampling_wall_s=sres.stats.sampling_wall_s,
-                           walker_backend=walker_backend,
-                           sampler_threads=sampler_threads)
-            timer.annotate("train", train_mode="streaming", **stream_stats)
         else:
             fault_point("paths")
             fleet.note_phase("paths")
             with timer.stage("paths"):
                 path_sets = []
                 for i, group in enumerate(("g", "p")):
-                    with timer.span("paths", f"pcc_{group}"):
+                    with span(f"pcc_{group}"):
                         s_k, d_k, w_k = thresholded_edges(
                             data.expr[data.label == i], src, dst,
                             threshold=cfg.pcc_threshold, device=dev)
@@ -713,7 +706,7 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     # On this thread: on a scheduler thread, with nothing
                     # left to overlap, the walks ran 3-4x slower on the
                     # card's host (PERF.md §6, PR 6).
-                    with timer.span("paths", f"walk_{group}"):
+                    with span(f"walk_{group}"):
                         if walker_backend == "device":
                             _join_kernel_build(overlap, "build_walk_kernel")
                             path_sets.append(generate_path_set_device(
@@ -738,10 +731,10 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                     if ckey is not None:
                         walk_cache.store(ckey, path_sets[i], n_genes,
                                          meta={"group": group})
-                with timer.span("paths", "integrate"):
+                with span("integrate"):
                     paths, labels = integrate_path_sets(
                         path_sets[0], path_sets[1], n_genes)
-                with timer.span("paths", "gene_freq"):
+                with span("gene_freq"):
                     gene_freq = count_gene_freq(paths, labels, data.gene)
             _stage_edge("paths")
             n_paths = paths.shape[0]
@@ -759,9 +752,6 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                          walker_backend=walker_backend,
                          sampler_threads=sampler_threads,
                          walk_cache_hits=walk_cache_hits)
-            timer.annotate("paths", walker_backend=walker_backend,
-                           sampler_threads=sampler_threads,
-                           walk_cache_hits=list(walk_cache_hits))
             stream_stats = {}
 
             console(">>> 4. Compute distributed representations using "

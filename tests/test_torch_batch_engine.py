@@ -10,6 +10,8 @@ float32 and on the bf16 plain path, and for streaming lanes. Besides:
 - the manifest errors are the JAX package's, message for message, on the
   same bad manifests, and so are the cohort functions' results (rows,
   fold ids, permuted labels) for the same seeds;
+- a profiled batch's trace holds its six stage ranges, and a walked
+  product is one walk span;
 - the walk accounting (walked, lane-shared, memo and disk hits) and a
   second ``ResidentEngine.execute`` served from the resident dataset and
   the walk memo, writing the same bytes;
@@ -120,6 +122,10 @@ def test_mixed_manifest_lanes_are_solo_runs(files, tmp_path, compute_dtype):
                               "lane_shared": 4}
     assert sum(b["lanes"] for b in res.buckets) == len(MIXED)
     assert {b["mode"] for b in res.buckets} == {"lanes", "solo"}
+    # Each walked product is one walk span, with its row set inside.
+    walks = res.stage_extras["paths"]["span_n"]
+    assert walks["walk_g"] + walks["walk_p"] == 10
+    assert walks["walk_g/row_set"] + walks["walk_p/row_set"] == 10
     _assert_lanes_are_solo_runs(cfg, res, tmp_path)
     by_name = {v.name: lane for v, lane in zip(res.variants, res.lanes)}
     assert by_name["fold1"].n_samples < by_name["full"].n_samples
@@ -159,6 +165,24 @@ def test_resident_engine_serves_a_second_batch_from_memory(files, tmp_path):
                                console=lambda s: None)
     assert (mixed.walk_stats["disk_hits"], mixed.walk_stats["walked"]) == \
         (2, 2)
+
+
+def test_a_profiled_batch_has_stage_ranges(files, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = _cfg(files, tmp_path, batch_seeds=2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = tengine.run_batch(cfg, console=lambda s: None)
+    trace = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert {n for n in names if n.startswith("stage:")} == {
+        f"stage:{s}" for s in ("load", "paths", "train", "lgroups",
+                               "biomarkers", "save")}
+    assert {"span:load/read_network", "span:paths/walk_g/row_set"} <= names
+    assert res.stage_extras["load"]["span_n"] == {
+        "read_expression": 1, "read_clinical": 1, "read_network": 1}
 
 
 def test_streaming_lanes_are_solo_streaming_runs(files, tmp_path):

@@ -10,7 +10,9 @@ both of the reference's samplers, on the CPU.
   graphs with duplicate edges, zero and negative weights and dead ends,
   at ``len_path`` 1 and up, on start subsets and walker ranges;
   ``walk_shard_device`` to the reference's ``walk_shard`` across plans;
-  ``generate_path_set_device`` to ``generate_path_set_native``.
+  ``generate_path_set_device`` to ``generate_path_set_native``; both
+  record their parts (the kernel, the rows' copy, the row set) as spans
+  nested in the caller's.
 - One case against the reference's own device walker,
   ``g2vec_tpu.ops.device_walker.walk_packed_rows_device``. Its ``_x64``
   imports ``jax.experimental.enable_x64``, which this jax no longer has;
@@ -32,6 +34,7 @@ from g2vec_tpu.ops import host_walker as jhw
 from g2vec_tpu_torch.native.walker_bindings import walk_paths_packed
 from g2vec_tpu_torch.ops import device_walker as dw
 from g2vec_tpu_torch.ops import host_walker as thw
+from g2vec_tpu_torch.utils.timing import StageTimer, span
 
 pytestmark = pytest.mark.torch
 
@@ -197,6 +200,27 @@ def test_generate_path_set_device_equals_native():
     got = dw.generate_path_set_device(src, dst, w, g, device="cpu", **kw)
     assert got == thw.generate_path_set_native(src, dst, w, g, **kw)
     assert got == jhw.generate_path_set_native(src, dst, w, g, **kw)
+
+
+def test_both_walkers_record_their_parts_as_nested_spans():
+    rng = np.random.default_rng(31)
+    g = 80
+    src, dst, w = _graph(rng, g, 420)
+    kw = dict(len_path=10, reps=3, seed=4)
+    timer = StageTimer()
+    with timer.stage("paths"):
+        with span("walk_g"):
+            dw.generate_path_set_device(src, dst, w, g, device="cpu", **kw)
+        with span("walk_p"):
+            thw.generate_path_set_native(src, dst, w, g, **kw)
+    spans = timer.extras_dict()["paths"]
+    secs = spans["span_s"]
+    assert set(secs) == {"walk_g", "walk_g/walk_kernel", "walk_g/rows_copy",
+                         "walk_g/row_set", "walk_p", "walk_p/row_set"}
+    assert spans["span_n"] == dict.fromkeys(secs, 1)
+    assert (secs["walk_g/walk_kernel"] + secs["walk_g/rows_copy"]
+            + secs["walk_g/row_set"]) <= secs["walk_g"]
+    assert secs["walk_p/row_set"] <= secs["walk_p"]
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@
 - Both parse into the same config fields as the JAX package's flags, and
   the batch engine refuses them.
 - ``--profile-dir`` writes a ``torch.profiler`` Chrome trace with one
-  range per stage, and the run's files are the bytes of a run without it.
+  range per stage and the spans of its parts inside it, and the run's
+  files are the bytes of a run without it.
 - ``--debug-nans`` raises ``FloatingPointError`` naming the loss at the
   first non-finite value of a run made to diverge (a learning rate of
   1e30), in both trainers; the same run without the flag completes.
@@ -76,6 +77,13 @@ def test_profile_dir_writes_a_trace_and_the_same_bytes(tsv, tmp_path):
               and e.get("cat") == "cpu_op"
               and train["ts"] <= e["ts"] <= train["ts"] + train["dur"]]
     assert inside
+    # The parts' spans lie inside their stages' ranges.
+    for name, stage in (("span:load/read_network", "stage:load"),
+                        ("span:paths/walk_g/row_set", "stage:paths")):
+        got = next(e for e in events if e.get("name") == name)
+        outer = next(e for e in events if e.get("name") == stage)
+        assert outer["ts"] <= got["ts"]
+        assert got["ts"] + got["dur"] <= outer["ts"] + outer["dur"]
 
 
 @pytest.mark.parametrize("mode", ["full", "streaming"])

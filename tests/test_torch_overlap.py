@@ -23,7 +23,7 @@ from g2vec_tpu_torch.data.synthetic import SyntheticSpec, write_synthetic_tsv
 from g2vec_tpu_torch.parallel.overlap import OverlapScheduler, TaskCancelled
 from g2vec_tpu_torch.pipeline import run
 from g2vec_tpu_torch.utils.metrics import MetricsWriter
-from g2vec_tpu_torch.utils.timing import StageTimer
+from g2vec_tpu_torch.utils.timing import StageTimer, span
 
 pytestmark = pytest.mark.torch
 
@@ -123,6 +123,63 @@ def test_stage_timer_syncs_before_the_clock_stops():
     assert timer.total == sum(timer.as_dict().values())
 
 
+def test_spans_nest_and_their_repeats_add_up():
+    timer = StageTimer()
+    with timer.stage("paths"):
+        for _ in range(3):
+            with span("walk_g"):
+                with span("row_set"):
+                    time.sleep(0.001)
+        with span("integrate"):
+            pass
+    with timer.stage("train"):
+        with span("walk_g"):
+            pass
+    extras = timer.extras_dict()
+    assert extras["paths"]["span_n"] == {"walk_g": 3, "walk_g/row_set": 3,
+                                         "integrate": 1}
+    secs = extras["paths"]["span_s"]
+    assert set(secs) == set(extras["paths"]["span_n"])
+    assert 0.003 <= secs["walk_g/row_set"] <= secs["walk_g"]
+    assert extras["train"]["span_n"] == {"walk_g": 1}
+
+
+def test_a_span_outside_a_stage_records_nothing():
+    timer = StageTimer()
+    with span("read_network"):
+        pass
+    with timer.stage("load"):
+        pass
+    with span("read_network"):
+        pass
+    assert timer.extras_dict() == {}
+    assert [name for name, _ in timer.stages] == ["load"]
+
+
+def test_a_scheduler_task_records_into_the_submitting_stage():
+    timer = StageTimer()
+    threads = []
+
+    def parse(name):
+        threads.append(threading.current_thread())
+        with span(name):
+            time.sleep(0.001)
+
+    with OverlapScheduler(max_workers=2) as ov:
+        ov.submit("build", lambda: parse("build"))
+        ov.result("build")
+        with timer.stage("load"):
+            ov.submit("read_expression", lambda: parse("read_expression"))
+            with span("read_network"):
+                pass
+            ov.result("read_expression")
+    assert threading.current_thread() not in threads
+    extras = timer.extras_dict()
+    assert extras.keys() == {"load"}
+    assert extras["load"]["span_n"] == {"read_expression": 1,
+                                        "read_network": 1}
+
+
 def test_metrics_writer_lines_and_bound_views(tmp_path):
     path = tmp_path / "m.jsonl"
     with MetricsWriter(str(path)) as m:
@@ -214,8 +271,13 @@ def test_metrics_jsonl_has_the_reference_events(files, tmp_path, mode):
         # ``device`` is the port's own config field.
         assert set(rec) - {"device"} <= set(want[name]), name
     assert got["done"]["stage_seconds"] == result.stage_seconds
-    assert got["done"]["stage_extras"]["load"] == {
-        "expression_parser": "native"}
+    extras = got["done"]["stage_extras"]
+    assert extras["load"]["expression_parser"] == "native"
+    reads = {"read_expression", "read_clinical", "read_network"}
+    assert extras["load"]["span_n"] == dict.fromkeys(reads, 1)
+    assert set(extras["load"]["span_s"]) == reads
+    assert set(extras) == {"full": {"load", "paths"},
+                           "streaming": {"load"}}[mode]
     assert set(got["config"]) - {"seq", "ts", "event"} == set(
         vars(G2VecConfig()))
 
