@@ -4471,13 +4471,15 @@ def main() -> int:
         print("    stage seconds: " + json.dumps(
             {k: round(v, 3) for k, v in result.stage_seconds.items()})
             + "; overlap saved: " + json.dumps(result.overlap_saved_s))
-        parser = result.stage_extras["load"]["expression_parser"]
-        if parser != "native":
-            raise RuntimeError(f"stage 1 read the expression file with the "
-                               f"{parser} parser, not the native one")
+        for kind in ("expression", "network"):
+            parser = result.stage_extras["load"][kind + "_parser"]
+            if parser != "native":
+                raise RuntimeError(f"stage 1 read the {kind} file with the "
+                                   f"{parser} parser, not the native one")
         _check_metrics(cfg.metrics_jsonl, result)
         print("    the metrics stream's done record holds these stage "
-              "seconds; the expression file was read by the native parser")
+              "seconds; the expression and network files were read by the "
+              "native parsers")
         with open(result.output_files[0], "rb") as f:
             main_outputs = [f.read()]
         for path in result.output_files[1:]:
@@ -4505,16 +4507,17 @@ def main() -> int:
             seq, _ = _run_pipeline(dataclasses.replace(
                 cfg, metrics_jsonl=None, **overrides,
                 result_name=os.path.join(tmp, "run_" + "_".join(overrides))))
-            parser = seq.stage_extras["load"]["expression_parser"]
+            parsers = {seq.stage_extras["load"][k + "_parser"]
+                       for k in ("expression", "network")}
             print(f"    in process {flags}: stage seconds "
                   + json.dumps({k: round(v, 3)
                                 for k, v in seq.stage_seconds.items()})
                   + f" (total {sum(seq.stage_seconds.values()):.3f}); "
                   f"overlap saved {json.dumps(seq.overlap_saved_s)}; "
-                  f"parser {parser}")
-            if parser != want_parser:
-                raise RuntimeError(f"{flags}: stage 1 read the expression "
-                                   f"file with the {parser} parser")
+                  f"parsers {sorted(parsers)}")
+            if parsers != {want_parser}:
+                raise RuntimeError(f"{flags}: stage 1 read the input files "
+                                   f"with the {sorted(parsers)} parsers")
             outputs = []
             for path in seq.output_files:
                 with open(path, "rb") as f:

@@ -384,9 +384,13 @@ class ResidentEngine:
         if hit is not None:
             self._datasets.move_to_end(key)
             return hit, True
-        data, src, dst = preprocess_inputs(*read_inputs(cfg))
+        data, clinical, network = read_inputs(cfg)
+        parsers = {"expression_parser": data.parser,
+                   "network_parser": network.parser}
+        data, src, dst = preprocess_inputs(data, clinical, network)
         bundle = {"data": data, "src": src, "dst": dst,
-                  "n_genes": int(data.expr.shape[1]), "n_edges": len(src)}
+                  "n_genes": int(data.expr.shape[1]), "n_edges": len(src),
+                  "parsers": parsers}
         self._datasets[key] = bundle
         while len(self._datasets) > self.DATASET_CAP:
             self._datasets.popitem(last=False)
@@ -565,6 +569,7 @@ def _execute_lanes(engine: ResidentEngine, cfg: G2VecConfig,
         fault_point("preprocess")
         with timer.stage("load"):
             bundle, was_resident = engine.dataset(cfg)
+        timer.annotate("load", **bundle["parsers"])
         data, src, dst = bundle["data"], bundle["src"], bundle["dst"]
         n_genes, n_edges = bundle["n_genes"], bundle["n_edges"]
         if was_resident:

@@ -170,9 +170,10 @@ class G2VecConfig:
                                      # index: 0 auto (~sqrt(G) past the
                                      # row floor), >0 forced, <0 disabled
                                      # (ops/ann.resolve_nlist)
-    use_native_io: bool = True       # the C++ expression reader (falls
-                                     # back to Python with a warning when
-                                     # it cannot be built or loaded)
+    use_native_io: bool = True       # the C++ expression and network
+                                     # readers (fall back to Python with
+                                     # a warning when they cannot be
+                                     # built or loaded)
     device: str = "cuda"             # cuda unless the caller asks for cpu
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 25       # full-batch: epochs between trainer
@@ -908,8 +909,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "Seeded from the run's k-means centroids "
                              "when shapes permit.")
     parser.add_argument("--no-native-io", action="store_true",
-                        help="Parse the expression file in Python, not with "
-                             "the C++ reader.")
+                        help="Parse the expression and network files in "
+                             "Python, not with the C++ readers.")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu. Without a card, a cuda "
                              "run raises instead of falling back.")

@@ -136,7 +136,7 @@ def make_synthetic(spec: SyntheticSpec
     for _ in range(spec.background_edges):
         i, j = rng.choice(len(pool), size=2, replace=False)
         edges.append((pool[int(i)], pool[int(j)]))
-    network = NetworkData(edges=edges, genes={g for e in edges for g in e})
+    network = NetworkData.from_edges(edges)
 
     membership = {"good": mg, "poor": mp, "shared": ms, "background": bg}
     return expression, clinical, network, membership

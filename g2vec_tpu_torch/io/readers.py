@@ -11,7 +11,9 @@ skipped.
   label 0 = good prognosis, 1 = poor prognosis.
 - Network (ref: G2Vec.py:455-476): header ``src\\tdest`` + one directed
   edge per row; edges keep file order and direction; the gene set is the
-  set of all endpoints.
+  set of all endpoints. :class:`NetworkData` holds the edges as two id
+  arrays into the endpoint names, which either parser interns in
+  first-seen order.
 
 Under ``--edge-partition`` the edge list never exists whole on a rank
 (``g2vec_tpu/io/readers.py:135-290``): :func:`scan_network_genes` streams
@@ -25,18 +27,23 @@ a manifest of sha256s, checked before a part is read). With
 that such a run never reads the whole list.
 
 Malformed input raises ``ValueError`` naming the file and line. The
-expression matrix is parsed by the port's C++ reader
+expression matrix and the network are parsed by the port's C++ readers
 (:mod:`g2vec_tpu_torch.native.tsv_bindings`) unless the caller asks for
-the Python parser; when that library cannot be built or loaded, the reader
-warns once and parses in Python (``g2vec_tpu/io/readers.py:69-86``).
+the Python parser (the network's hands the files it cannot show it reads
+alike to the Python parser); when that library cannot be built or loaded,
+the reader warns once and parses in Python
+(``g2vec_tpu/io/readers.py:69-86``).
 """
 from __future__ import annotations
 
+import codecs
 import dataclasses
 import json
+import locale
 import os
+import threading
 import warnings
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
@@ -63,10 +70,35 @@ class ExpressionData:
 
 @dataclasses.dataclass
 class NetworkData:
-    """Directed edge list (file order preserved) + endpoint gene set."""
+    """Directed edge list, file order preserved, endpoints interned: edge
+    ``i`` runs ``names[src[i]] -> names[dst[i]]``; ``names`` holds each
+    endpoint once, in first-seen order (source before dest in a row)."""
 
-    edges: List[Tuple[str, str]]
-    genes: set
+    names: List[str]
+    src: np.ndarray   # [n_edges] int32 ids into names
+    dst: np.ndarray   # [n_edges] int32
+    parser: str = "python"  # which parser read the file: native|python
+
+    @classmethod
+    def from_edges(cls, edges: Iterable[Tuple[str, str]]) -> "NetworkData":
+        """Intern an edge list of (source, dest) names."""
+        ids: Dict[str, int] = {}
+        ends = [ids.setdefault(g, len(ids)) for edge in edges for g in edge]
+        ends = np.array(ends, dtype=np.int32).reshape(-1, 2)
+        return cls(names=list(ids), src=np.ascontiguousarray(ends[:, 0]),
+                   dst=np.ascontiguousarray(ends[:, 1]))
+
+    @property
+    def genes(self) -> frozenset:
+        """The endpoint gene set."""
+        return frozenset(self.names)
+
+    @property
+    def edges(self) -> List[Tuple[str, str]]:
+        """The (source, dest) name pairs, in file order."""
+        names = self.names
+        return [(names[s], names[d])
+                for s, d in zip(self.src.tolist(), self.dst.tolist())]
 
 
 def _read_tsv_lines(path: str) -> List[List[str]]:
@@ -77,7 +109,21 @@ def _read_tsv_lines(path: str) -> List[List[str]]:
     return [r for r in rows if r != [""]]
 
 
-_warned_native = False
+_warned_native = False  # guarded-by: _warn_lock
+_warn_lock = threading.Lock()
+
+
+def _native_unavailable(e: Exception) -> None:
+    """Warn, once per process, that the C++ parsers' library cannot be
+    built or loaded; the caller parses in Python. The two readers may
+    call it at once (the expression's on a scheduler thread)."""
+    global _warned_native
+    with _warn_lock:
+        if _warned_native:
+            return
+        _warned_native = True
+    warnings.warn(f"native TSV reader unavailable ({e!r}); "
+                  "using the Python parser", RuntimeWarning)
 
 
 def load_expression(path: str, use_native: bool = True) -> ExpressionData:
@@ -95,11 +141,7 @@ def load_expression(path: str, use_native: bool = True) -> ExpressionData:
         try:
             sample, gene, expr = tsv_bindings.read_expression(path)
         except (RuntimeError, OSError) as e:
-            global _warned_native
-            if not _warned_native:
-                _warned_native = True
-                warnings.warn(f"native TSV reader unavailable ({e!r}); "
-                              "using the Python parser", RuntimeWarning)
+            _native_unavailable(e)
         else:
             return ExpressionData(sample=sample, gene=gene, expr=expr,
                                   parser="native")
@@ -147,25 +189,48 @@ def load_clinical(path: str) -> Dict[str, int]:
     return result
 
 
-def load_network(path: str) -> NetworkData:
-    """Read a directed gene-interaction edge list (ref: G2Vec.py:455-476 contract)."""
+def load_network(path: str, use_native: bool = True) -> NetworkData:
+    """Read a directed gene-interaction edge list (ref: G2Vec.py:455-476
+    contract).
+
+    With ``use_native`` the C++ parser reads it where it can show that
+    its answer is the Python reader's; on any other file (``native/
+    tsv_reader.cpp`` lists them), a malformed one included, the Python
+    reader reads the whole file and raises its own errors. When the
+    library cannot be built or loaded, a ``RuntimeWarning`` says so once
+    per process (:func:`load_expression`'s) and the Python parser reads
+    the file.
+    """
     if os.environ.get(FORBID_FULL_NETWORK_ENV):
         raise RuntimeError(
             f"load_network({path!r}) reached with {FORBID_FULL_NETWORK_ENV} "
             "set — an --edge-partition run tried to materialize the full "
             "edge list; use scan_network_genes + load_network_range")
+    if use_native:
+        from g2vec_tpu_torch.native import tsv_bindings
+
+        utf8 = codecs.lookup(locale.getpreferredencoding(False)).name == "utf-8"
+        try:
+            parsed = tsv_bindings.read_network(path, utf8)
+        except (RuntimeError, OSError) as e:
+            _native_unavailable(e)
+        else:
+            if parsed is not None:
+                names, src, dst = parsed
+                return NetworkData(names=names, src=src, dst=dst,
+                                   parser="native")
     rows = _read_tsv_lines(path)
     if len(rows) < 1:
         raise ValueError(f"{path}: network file needs a header row")
-    edges: List[Tuple[str, str]] = []
-    genes: set = set()
-    for ln, row in enumerate(rows[1:], start=2):
-        if len(row) < 2:
-            raise ValueError(f"{path}:{ln}: expected 'src\\tdest', got {row!r}")
-        edges.append((row[0], row[1]))
-        genes.add(row[0])
-        genes.add(row[1])
-    return NetworkData(edges=edges, genes=genes)
+
+    def edges():
+        for ln, row in enumerate(rows[1:], start=2):
+            if len(row) < 2:
+                raise ValueError(
+                    f"{path}:{ln}: expected 'src\\tdest', got {row!r}")
+            yield row[0], row[1]
+
+    return NetworkData.from_edges(edges())
 
 
 # ---------------------------------------------------------------------------

@@ -102,10 +102,10 @@ from g2vec_tpu_torch.device import resolve_device
 from g2vec_tpu_torch.io.readers import (load_clinical, load_expression,
                                         load_network, load_network_range,
                                         scan_network_genes)
-from g2vec_tpu_torch.preprocess import (edges_to_indices, find_common_genes,
-                                        make_gene2idx, match_labels,
-                                        permute_labels, restrict_data,
-                                        restrict_network, select_cohort)
+from g2vec_tpu_torch.preprocess import (find_common_genes, make_gene2idx,
+                                        match_labels, permute_labels,
+                                        restrict_data, restrict_network,
+                                        select_cohort)
 from g2vec_tpu_torch.resilience import fleet
 from g2vec_tpu_torch.resilience.faults import fault_point, install_plan
 from g2vec_tpu_torch.utils.timing import StageTimer, span
@@ -210,7 +210,9 @@ def read_inputs(cfg: G2VecConfig, overlap=None,
     """Stage 1: the expression, clinical and network files. With an
     overlap scheduler and the native reader, the C++ parse of the
     expression file runs on a scheduler thread while this thread runs
-    ``while_parsing()`` and reads the other two files. ``genes_only``
+    ``while_parsing()`` and reads the other two files (the network's C++
+    parse releases the interpreter lock, so the two parses run at once).
+    ``genes_only``
     (``--edge-partition``) reads only the network's endpoint names, as a
     set: the edges are read at stage 2, range-filtered. Each read is a
     span of the active stage."""
@@ -228,7 +230,8 @@ def read_inputs(cfg: G2VecConfig, overlap=None,
         clinical = load_clinical(cfg.clinical_file)
     with span("read_network"):
         network = (scan_network_genes(cfg.network_file) if genes_only
-                   else load_network(cfg.network_file))
+                   else load_network(cfg.network_file,
+                                     use_native=cfg.use_native_io))
     data = overlap.result("read_expression") if background else expression()
     return data, clinical, network
 
@@ -241,8 +244,7 @@ def preprocess_inputs(data, clinical, network):
     common = find_common_genes(network.genes, data.gene)
     network = restrict_network(network, common)
     data = restrict_data(data, common)
-    src, dst = edges_to_indices(network, make_gene2idx(data.gene))
-    return data, src, dst
+    return data, network.src, network.dst
 
 
 def preprocess_range(data, clinical, genes: set, network_file: str,
@@ -538,7 +540,9 @@ def run(cfg: G2VecConfig, console: Callable[[str], None] = print, *,
                 cfg, overlap if cfg.overlap else None,
                 cuda_context if cfg.overlap and on_card else None,
                 genes_only=edge_on)
-        timer.annotate("load", expression_parser=data.parser)
+        timer.annotate("load", expression_parser=data.parser,
+                       network_parser="python" if edge_on
+                       else network.parser)
         _stage_edge("load")
 
         console(">>> 2. Preprocess data")

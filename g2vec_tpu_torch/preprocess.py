@@ -7,7 +7,7 @@ rows, L-group indices, output row order — is in this order.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 
@@ -35,14 +35,20 @@ def find_common_genes(network_genes: set, data_genes: np.ndarray) -> List[str]:
 
 
 def restrict_network(network: NetworkData, common_genes: List[str]) -> NetworkData:
-    """Keep directed edges with both endpoints common (ref: G2Vec.py:393-402).
-
-    The result's gene set is the whole common set, not just genes with
-    surviving edges (ref: G2Vec.py:400-401).
+    """Keep directed edges with both endpoints common, in file order and
+    direction (ref: G2Vec.py:393-402), renumbered into ``common_genes``:
+    the result's names are the whole common list, not just genes with
+    surviving edges (ref: G2Vec.py:400-401), so its ``src`` and ``dst``
+    index the common order (ref: G2Vec.py:379-390; the graph is NOT
+    symmetrized).
     """
-    common = set(common_genes)
-    edges = [e for e in network.edges if e[0] in common and e[1] in common]
-    return NetworkData(edges=edges, genes=common)
+    index = {g: i for i, g in enumerate(common_genes)}
+    lut = np.fromiter((index.get(g, -1) for g in network.names),
+                      dtype=np.int32, count=len(network.names))
+    src, dst = lut[network.src], lut[network.dst]
+    keep = (src >= 0) & (dst >= 0)
+    return NetworkData(names=list(common_genes), src=src[keep],
+                       dst=dst[keep], parser=network.parser)
 
 
 def restrict_data(data: ExpressionData, common_genes: List[str]) -> ExpressionData:
@@ -174,17 +180,3 @@ def _rows(data: ExpressionData, rows: np.ndarray) -> ExpressionData:
 def make_gene2idx(genes: np.ndarray) -> Dict[str, int]:
     """Gene symbol -> global index (ref: G2Vec.py:414-418)."""
     return {g: i for i, g in enumerate(genes)}
-
-
-def edges_to_indices(network: NetworkData,
-                     gene2idx: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray]:
-    """Edge list -> (src_idx, dst_idx) int32 arrays, file order preserved.
-
-    Direction comes from file column order (ref: G2Vec.py:379-390); the
-    graph is NOT symmetrized.
-    """
-    if not network.edges:
-        return (np.zeros(0, dtype=np.int32), np.zeros(0, dtype=np.int32))
-    src = np.array([gene2idx[e[0]] for e in network.edges], dtype=np.int32)
-    dst = np.array([gene2idx[e[1]] for e in network.edges], dtype=np.int32)
-    return src, dst

@@ -147,6 +147,9 @@ def test_resident_engine_serves_a_second_batch_from_memory(files, tmp_path):
     assert again.walk_stats == {"memo_hits": 2, "disk_hits": 0, "walked": 0,
                                 "lane_shared": 2}
     assert sum("dataset resident" in line for line in lines) == 1
+    # The memo keeps which parsers read the files, for the hit to report.
+    for res in (first, again):
+        assert res.stage_extras["load"]["network_parser"] == "native"
     for a, b in zip(first.lanes, again.lanes):
         assert _read(a.output_files) == _read(b.output_files)
     assert (status["batches_executed"], status["lanes_executed"],
@@ -183,6 +186,7 @@ def test_a_profiled_batch_has_stage_ranges(files, tmp_path):
     assert {"span:load/read_network", "span:paths/walk_g/row_set"} <= names
     assert res.stage_extras["load"]["span_n"] == {
         "read_expression": 1, "read_clinical": 1, "read_network": 1}
+    assert res.stage_extras["load"]["network_parser"] == "native"
 
 
 def test_streaming_lanes_are_solo_streaming_runs(files, tmp_path):

@@ -273,6 +273,7 @@ def test_metrics_jsonl_has_the_reference_events(files, tmp_path, mode):
     assert got["done"]["stage_seconds"] == result.stage_seconds
     extras = got["done"]["stage_extras"]
     assert extras["load"]["expression_parser"] == "native"
+    assert extras["load"]["network_parser"] == "native"
     reads = {"read_expression", "read_clinical", "read_network"}
     assert extras["load"]["span_n"] == dict.fromkeys(reads, 1)
     assert set(extras["load"]["span_s"]) == reads

@@ -482,7 +482,7 @@ def test_checkpoint_write_fault_crashes_before_write(tmp_path):
 
 
 def test_native_load_faults_degrade_not_die(tsv_paths, tmp_path):
-    """The reader falls back to Python (one warning) and the auto walker
+    """Both readers fall back to Python (one warning) and the auto walker
     resolves to the card's walker (its plain version here); the run
     completes with the bytes of a run that pinned both."""
     from g2vec_tpu_torch.io import readers
@@ -494,7 +494,7 @@ def test_native_load_faults_degrade_not_die(tsv_paths, tmp_path):
                  console=_quiet)
     cfg = _cfg(tsv_paths, tmp_path, result_name=str(tmp_path / "b"),
                walker_backend="auto",
-               fault_plan="stage=native_load,kind=crash;"
+               fault_plan="stage=native_load,kind=crash,times=2;"
                           "stage=native_walker_load,kind=crash")
     faults.install_plan(cfg.fault_plan)
     assert resolve_walker_backend(cfg) == "device"
@@ -503,7 +503,9 @@ def test_native_load_faults_degrade_not_die(tsv_paths, tmp_path):
     with pytest.warns(RuntimeWarning, match="native TSV reader unavailable"):
         degraded = run(cfg, console=_quiet)
     assert degraded.walker_backend == "device"
-    assert degraded.stage_extras["load"]["expression_parser"] == "python"
+    for parser in ("expression_parser", "network_parser"):
+        assert degraded.stage_extras["load"][parser] == "python"
+        assert pinned.stage_extras["load"][parser] == "python"
     assert _outputs(str(tmp_path / "b")) == _outputs(str(tmp_path / "a"))
     assert pinned.walker_backend == "device"
 
